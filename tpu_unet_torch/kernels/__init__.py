@@ -1,0 +1,42 @@
+"""Hand-written CUDA kernels for the H100, one module per TPU kernel of
+``tpu_unet/kernels``, each with its plain PyTorch version beside it.
+
+The sources are ``tpu_unet_torch/csrc/*.cu``; ``_build`` compiles them with
+``nvcc`` at the first launch. Importing these modules builds nothing.
+"""
+
+from tpu_unet_torch.kernels.fused_conv import (
+    fused_conv3x3_concat_scale_relu,
+    fused_conv3x3_scale_relu,
+)
+from tpu_unet_torch.kernels.fused_double_conv import FUSED_DC_MAX_CHANNELS, fused_double_conv
+from tpu_unet_torch.kernels.pooling import max_pool2x2
+
+# Every kernel wrapper of the serving path; each carries a ``launches`` count.
+WRAPPERS = (
+    fused_conv3x3_scale_relu,
+    fused_conv3x3_concat_scale_relu,
+    fused_double_conv,
+    max_pool2x2,
+)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+__all__ = [
+    "FUSED_DC_MAX_CHANNELS",
+    "WRAPPERS",
+    "fused_conv3x3_concat_scale_relu",
+    "fused_conv3x3_scale_relu",
+    "fused_double_conv",
+    "launch_counts",
+    "max_pool2x2",
+    "reset_launch_counts",
+]

@@ -1,0 +1,149 @@
+"""Build the port's CUDA kernels from ``tpu_unet_torch/csrc`` and load them.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), named by a hash of
+the sources and flags, under ``tpu_unet_torch/_build/`` (git-ignored). ctypes
+loads it. The same idea as ``tpu_unet/native``: build from source at first
+use, cache by source hash.
+
+Nothing is built or loaded at import: the first kernel launch calls
+:func:`library`, so a machine without ``nvcc`` can import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+# -Xptxas -v writes each kernel's registers, shared memory and spills to the
+# build log beside the library.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every exported function: c_void_p for each pointer and the
+# stream, so ctypes never truncates them to 32 bits.
+_SIGNATURES = {
+    "tuk_max_pool2x2": ([_P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "tuk_conv3x3": ([_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                    ctypes.c_int),
+    "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+                        ctypes.c_int),
+    "tuk_double_conv_smem": ([_I, _I], ctypes.c_size_t),
+    "tuk_error_string": ([_I], ctypes.c_char_p),
+}
+
+# dtype codes of the C interface (csrc/common.cuh).
+DTYPE_F32 = 0
+DTYPE_BF16 = 1
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libtuk_{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: building the CUDA kernels needs the CUDA toolkit "
+        "(put nvcc on PATH or set CUDA_HOME)")
+
+
+def build() -> Path:
+    """Compile the sources unless a library for this hash exists; return it."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{proc.stderr[-6000:]}")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().tuk_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
+
+
+def validate(kernel: str, *tensors: torch.Tensor) -> int:
+    """Check what every kernel needs of its tensor arguments; return the
+    dtype code. All on one CUDA device, one dtype (fp32 or bf16), contiguous."""
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{kernel}: tensors must be on a CUDA device, got {first.device}")
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{kernel}: dtype must be float32 or bfloat16, got {first.dtype}")
+    for t in tensors:
+        if t.device != first.device or t.dtype != first.dtype:
+            raise ValueError(f"{kernel}: all tensors must share device and dtype "
+                             f"({t.device}/{t.dtype} vs {first.device}/{first.dtype})")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: tensors must be contiguous")
+    return DTYPE_BF16 if first.dtype == torch.bfloat16 else DTYPE_F32
+
+
+def f32_vector(v: torch.Tensor, n: int, like: torch.Tensor, kernel: str) -> torch.Tensor:
+    """Per-channel scale or bias as a contiguous fp32 [n] on ``like``'s device
+    (the kernels upcast it, as the Pallas wrappers do)."""
+    if v.shape != (n,):
+        raise ValueError(f"{kernel}: expected a [{n}] vector, got {tuple(v.shape)}")
+    return v.to(device=like.device, dtype=torch.float32).contiguous()
+
+
+def stream(t: torch.Tensor) -> int:
+    """The calling thread's current stream on ``t``'s device, as an int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,90 @@
+"""Fused 3x3 SAME conv + folded-BN scale/bias + ReLU on NHWC: the port of
+``tpu_unet/kernels/fused_conv.py`` (``fused_conv3x3_scale_relu`` and
+``fused_conv3x3_concat_scale_relu``) as one hand-written CUDA kernel,
+``tpu_unet_torch/csrc/fused_conv.cu``. Its header says what bounds it on the
+H100 and how the design answers.
+
+Each wrapper launches the kernel for CUDA tensors and runs its plain PyTorch
+version (``*_plain``) for CPU tensors. It never falls back: a failed build or
+launch raises. ``<wrapper>.launches`` counts the kernel launches.
+
+Numerics, as in the Pallas kernels: inputs and weights in the input dtype
+(fp32 or bf16), fp32 accumulation, scale and bias upcast to fp32, the
+epilogue in fp32, one rounding to the output dtype (the input's).
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.ops.conv import conv2d
+
+_count_lock = threading.Lock()
+
+
+def fused_conv3x3_scale_relu_plain(x, w, scale, bias, *, apply_relu: bool = True):
+    """relu(conv3x3_same(x, w) * scale + bias) in plain PyTorch, computed in
+    fp32 from the given (possibly bf16) values and rounded once at the end."""
+    y = conv2d(x.float(), w.float(), stride=1, padding=1)
+    y = y * scale.float() + bias.float()
+    if apply_relu:
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def fused_conv3x3_concat_scale_relu_plain(a, b, w, scale, bias, *, apply_relu: bool = True):
+    """The concat variant in plain PyTorch: it does build the concat."""
+    return fused_conv3x3_scale_relu_plain(torch.cat([a, b], dim=-1), w, scale, bias,
+                                          apply_relu=apply_relu)
+
+
+def _launch(name, a, b, w, scale, bias, apply_relu):
+    tensors = (a, w) if b is None else (a, b, w)
+    dtype = _build.validate(name, *tensors)
+    if a.ndim != 4 or (b is not None and (b.ndim != 4 or b.shape[:3] != a.shape[:3])):
+        raise ValueError(f"{name}: inputs must be [N,H,W,C] with equal N,H,W")
+    n, h, wd, ca = a.shape
+    cb = 0 if b is None else b.shape[3]
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, ca + cb):
+        raise ValueError(f"{name}: weight must be [3,3,{ca + cb},Cout], got {tuple(w.shape)}")
+    cout = w.shape[3]
+    s = _build.f32_vector(scale, cout, a, name)
+    t = _build.f32_vector(bias, cout, a, name)
+    out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
+    lib = _build.library()
+    with torch.cuda.device(a.device):
+        err = lib.tuk_conv3x3(a.data_ptr(), (a if b is None else b).data_ptr(), ca, cb,
+                              w.data_ptr(), s.data_ptr(), t.data_ptr(), out.data_ptr(),
+                              n, h, wd, cout, int(apply_relu), dtype, _build.stream(a))
+    _build.check(err, name)
+    return out
+
+
+def fused_conv3x3_scale_relu(x, w, scale, bias, *, apply_relu: bool = True):
+    """y = [relu](conv3x3_same(x, w) * scale + bias). x: [N,H,W,Cin],
+    w: [3,3,Cin,Cout] -> [N,H,W,Cout] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_conv3x3_scale_relu_plain(x, w, scale, bias, apply_relu=apply_relu)
+    out = _launch("fused_conv3x3_scale_relu", x, None, w, scale, bias, apply_relu)
+    with _count_lock:
+        fused_conv3x3_scale_relu.launches += 1
+    return out
+
+
+def fused_conv3x3_concat_scale_relu(a, b, w, scale, bias, *, apply_relu: bool = True):
+    """[relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) without
+    building the concat. a: [N,H,W,Ca] (skip), b: [N,H,W,Cb] (upsampled),
+    w: [3,3,Ca+Cb,Cout]."""
+    if a.device.type == "cpu":
+        return fused_conv3x3_concat_scale_relu_plain(a, b, w, scale, bias, apply_relu=apply_relu)
+    out = _launch("fused_conv3x3_concat_scale_relu", a, b, w, scale, bias, apply_relu)
+    with _count_lock:
+        fused_conv3x3_concat_scale_relu.launches += 1
+    return out
+
+
+fused_conv3x3_scale_relu.launches = 0
+fused_conv3x3_concat_scale_relu.launches = 0

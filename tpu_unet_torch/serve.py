@@ -1,0 +1,390 @@
+"""Batched HTTP inference server on the folded-BN forward (``tpu_unet/serve.py``,
+``--kernels`` path).
+
+The model stays resident on the device. Requests that arrive within
+``batch_window_ms`` of each other are grouped by preprocessed shape; each
+group runs as one batch on a zero-padded canvas whose batch size is the next
+power of two (at most ``max_batch``), so every mask equals a solo prediction.
+
+Endpoints:
+  POST /predict   body: PNG/JPEG bytes -> PNG mask at the image's resolution
+  GET  /healthz   liveness and model metadata JSON
+  GET  /metrics   request and error counts, end-to-end latency p50/p90/p99
+                  over a sliding window, dispatches and their mean batch
+
+Run: ``python -m tpu_unet_torch.serve -m ckpt.npz --port 8000 [--kernels cuda]``
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import logging
+import queue
+import signal
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+from PIL import Image
+
+from tpu_unet_torch.data.loading import preprocess
+from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
+from tpu_unet_torch.models.infer import BACKENDS
+from tpu_unet_torch.models.unet import tree_map
+from tpu_unet_torch.ops import resize_bilinear
+from tpu_unet_torch.predict import (
+    UNPORTED_FLAGS,
+    load_model,
+    logits_to_mask,
+    mask_to_image,
+    refuse_unported,
+    resolve_device,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class ServeMetrics:
+    """Sliding-window serving metrics (thread-safe). Latency is end to end
+    per request: enqueue -> mask ready (queue wait, preprocess, forward,
+    logit upscale, threshold)."""
+
+    def __init__(self, window: int = 2048):
+        self._lock = threading.Lock()
+        self._lat: deque[float] = deque(maxlen=window)
+        self._batch: deque[int] = deque(maxlen=window)
+        self.requests = 0
+        self.errors = 0
+        self.started = time.time()
+
+    def record(self, latency_s: float):
+        with self._lock:
+            self.requests += 1
+            self._lat.append(latency_s)
+
+    def record_error(self, n: int = 1):
+        with self._lock:
+            self.requests += n
+            self.errors += n
+
+    def record_dispatch(self, batch_size: int):
+        with self._lock:
+            self._batch.append(batch_size)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            lat = sorted(self._lat)
+            batches = list(self._batch)
+            out = {"requests": self.requests, "errors": self.errors,
+                   "uptime_s": round(time.time() - self.started, 1), "window": len(lat)}
+        if lat:
+            # Nearest-rank quantile: ceil(p * n) - 1.
+            def q(p):
+                return round(lat[max(0, -(-int(p * 100) * len(lat) // 100) - 1)] * 1e3, 2)
+
+            out["latency_ms"] = {"p50": q(0.50), "p90": q(0.90), "p99": q(0.99)}
+        if batches:
+            out["dispatches"] = len(batches)
+            out["dispatch_batch_mean"] = round(sum(batches) / len(batches), 2)
+        return out
+
+
+class BatchedPredictor:
+    """Folded model resident on ``device`` + micro-batching queue.
+    Thread-safe ``predict_one`` entry; ``stop`` ends the worker threads."""
+
+    def __init__(self, params, state, config: UNetConfig, mask_values, *,
+                 device: str | torch.device = "cuda", kernels: str = "cuda",
+                 scale: float = 0.5, threshold: float = 0.5, amp: bool = True,
+                 max_batch: int = 8, batch_window_ms: float = 5.0,
+                 timeout_s: float = 300.0):
+        if kernels not in BACKENDS:
+            raise ValueError(f"kernels must be one of {BACKENDS}, got {kernels!r}")
+        self.device = resolve_device(device)
+        self.config = config
+        self.kernels = kernels
+        self.mask_values = mask_values or (
+            [0, 1] if config.n_classes == 1 else list(range(config.n_classes)))
+        self.scale = scale
+        self.threshold = threshold
+        self.amp = amp
+        self.max_batch = max_batch
+        self.batch_window = batch_window_ms / 1e3
+        self.timeout_s = timeout_s
+        self.metrics = ServeMetrics()
+        self._compute_dtype = torch.bfloat16 if amp else None
+        # Fold once and keep the folded weights on the device in the compute
+        # dtype, so a forward casts nothing.
+        dtype = self._compute_dtype or torch.float32
+        self._folded = tree_map(lambda t: t.to(self.device, dtype),
+                                fold_bn(params, state, config))
+        self._queue: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._acct_lock = threading.Lock()
+        # Shape groups run on this pool: a small group's forward and fetch do
+        # not wait behind a big group's.
+        self._group_pool = ThreadPoolExecutor(max_workers=4, thread_name_prefix="serve-group")
+        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker.start()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC float32 batch on the device -> fp32 logits."""
+        return unet_infer_apply(self._folded, x, config=self.config, backend=self.kernels,
+                                compute_dtype=self._compute_dtype)
+
+    # -- client side ------------------------------------------------------
+    def predict_one(self, img: Image.Image, timeout: float | None = None) -> np.ndarray:
+        """Blocking: enqueue one image, receive its full-resolution mask."""
+        done = threading.Event()
+        slot: dict = {}
+        self._queue.put((img, slot, done, time.monotonic()))
+        if not done.wait(self.timeout_s if timeout is None else timeout):
+            # Claim the request's accounting so a late completion by the
+            # worker does not count it again.
+            if self._claim(slot):
+                self.metrics.record_error()
+            raise TimeoutError("prediction timed out")
+        if "error" in slot:
+            raise RuntimeError(slot["error"])
+        return slot["mask"]
+
+    def _claim(self, slot: dict) -> bool:
+        """The first caller (worker completion or timed-out waiter) owns the
+        request's metrics accounting."""
+        with self._acct_lock:
+            if slot.get("accounted"):
+                return False
+            slot["accounted"] = True
+            return True
+
+    # -- server side ------------------------------------------------------
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.batch_window
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            self._run_batch(batch)
+
+    def _run_batch(self, batch):
+        # Preprocess per request: one bad image fails only its own waiter.
+        pre = {}
+        for k, (img, slot, done, _) in enumerate(batch):
+            try:
+                pre[k] = preprocess(img, self.scale)
+            except Exception as e:  # noqa: BLE001 - reported to the request's waiter
+                logger.exception("preprocess failed")
+                if self._claim(slot):
+                    self.metrics.record_error()
+                slot["error"] = str(e)
+                done.set()
+        # One canvas per (H, W, C): zero-padding a smaller image onto a larger
+        # canvas would shift its pool/upsample grid and change its mask.
+        groups: dict[tuple, list[int]] = {}
+        for k, arr in pre.items():
+            groups.setdefault(arr.shape, []).append(k)
+        for shape, idxs in sorted(groups.items(), key=lambda kv: kv[0][0] * kv[0][1]):
+            self._group_pool.submit(self._run_group, shape, idxs, pre, batch)
+
+    def _run_group(self, shape, idxs, pre, batch):
+        try:
+            self.metrics.record_dispatch(len(idxs))
+            # Canvas batch = next power of two >= group size.
+            bsz = min(self.max_batch, 1 << max(0, len(idxs) - 1).bit_length())
+            canvas = np.zeros((bsz, *shape), np.float32)
+            for j, k in enumerate(idxs):
+                canvas[j] = pre[k]
+            with torch.inference_mode():
+                logits = self.forward(torch.from_numpy(canvas).to(self.device))
+                for j, k in enumerate(idxs):
+                    img, slot, done, t_enq = batch[k]
+                    full_w, full_h = img.size
+                    lg = resize_bilinear(logits[j:j + 1], full_h, full_w, align_corners=False)
+                    slot["mask"] = logits_to_mask(lg[0], self.config.n_classes, self.threshold)
+                    if self._claim(slot):  # skip requests whose waiter timed out
+                        self.metrics.record(time.monotonic() - t_enq)
+                    done.set()
+        except Exception as e:  # noqa: BLE001 - every waiter of the group must hear of it
+            logger.exception("group %s failed", shape)
+            # Only requests still in flight: a finished one keeps its mask.
+            pending = [k for k in idxs if not batch[k][2].is_set()]
+            self.metrics.record_error(sum(self._claim(batch[k][1]) for k in pending))
+            for k in pending:
+                _, slot, done, _ = batch[k]
+                slot["error"] = str(e)
+                done.set()
+
+    def warmup(self, height: int, width: int) -> float:
+        """Push one blank image of this raw size through the whole path;
+        return the seconds it took."""
+        t0 = time.monotonic()
+        self.predict_one(Image.new("RGB", (width, height)))
+        dt = time.monotonic() - t0
+        logger.info("Warmup %dx%d done in %.1f s", height, width, dt)
+        return dt
+
+    def stop(self):
+        self._stop.set()
+        self._worker.join(timeout=2)
+        self._group_pool.shutdown(wait=True)
+
+
+def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
+    """HTTP handler over one predictor. Bodies over ``max_body_bytes`` get
+    413 before any read."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            logger.debug(fmt, *args)
+
+        def _json(self, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json({"status": "ok", "n_classes": predictor.config.n_classes,
+                            "arch": predictor.config.arch, "scale": predictor.scale,
+                            "kernels": predictor.kernels, "device": str(predictor.device),
+                            "amp": predictor.amp})
+            elif self.path == "/metrics":
+                self._json(predictor.metrics.snapshot())
+            else:
+                self.send_error(404)
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self.send_error(404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0) or 0)
+            except ValueError:
+                predictor.metrics.record_error()
+                self.send_error(400, "invalid Content-Length")
+                return
+            if length > max_body_bytes:
+                self.send_error(413, f"body {length} bytes exceeds cap {max_body_bytes}")
+                return
+            try:
+                try:
+                    img = Image.open(io.BytesIO(self.rfile.read(length)))
+                except Exception:
+                    # Decode failures never reach the batch loop: count here.
+                    predictor.metrics.record_error()
+                    raise
+                mask = predictor.predict_one(img)
+                out = io.BytesIO()
+                mask_to_image(mask, predictor.mask_values).save(out, format="PNG")
+                data = out.getvalue()
+                self.send_response(200)
+                self.send_header("Content-Type", "image/png")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            except Exception as e:  # noqa: BLE001 - the client gets a 500 with the reason
+                self.send_error(500, str(e)[:200])
+
+    return Handler
+
+
+def build_predictor(model_path: str, args) -> BatchedPredictor:
+    """A predictor for a ``.npz`` checkpoint, warmed up when asked."""
+    device = resolve_device(args.device)
+    config = UNetConfig(3, args.classes, bilinear=args.bilinear)
+    params, state, config, mask_values = load_model(model_path, config, device)
+    predictor = BatchedPredictor(
+        params, state, config, mask_values,
+        device=device, kernels=args.kernels, scale=args.scale, threshold=args.mask_threshold,
+        amp=args.amp, max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+        timeout_s=args.timeout_s)
+    if args.warmup:
+        h, w = (int(v) for v in args.warmup.lower().split("x"))
+        predictor.warmup(h, w)
+        predictor.metrics = ServeMetrics()  # warmup must not skew the percentiles
+    return predictor
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="tpu-unet batched inference server (PyTorch port)")
+    p.add_argument("--model", "-m", required=True, help="The .npz checkpoint to serve")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--scale", "-s", type=float, default=0.5)
+    p.add_argument("--mask-threshold", "-t", type=float, default=0.5)
+    p.add_argument("--classes", "-c", type=int, default=1)
+    p.add_argument("--bilinear", action="store_true")
+    p.add_argument("--amp", action=argparse.BooleanOptionalAction, default=True,
+                   help="bf16 inference (default on; --no-amp for fp32)")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--batch-window-ms", type=float, default=5.0)
+    p.add_argument("--kernels", choices=BACKENDS, default="cuda",
+                   help="cuda: the hand-written kernels; torch: their plain versions")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' raises when no GPU is present")
+    p.add_argument("--timeout-s", type=float, default=300.0, help="Per-request wait bound")
+    p.add_argument("--max-body-mb", type=int, default=64,
+                   help="Reject POST bodies larger than this with 413")
+    p.add_argument("--warmup", type=str, default=None, metavar="HxW",
+                   help="Run one blank request of this raw size before serving")
+    for name in UNPORTED_FLAGS:
+        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    return p.parse_args(argv)
+
+
+def make_server(argv=None) -> tuple[ThreadingHTTPServer, BatchedPredictor]:
+    """Parse the CLI, load the model and bind the server (not yet serving).
+    ``--port 0`` binds a free port: read it from ``server.server_address``."""
+    args = get_args(argv)
+    refuse_unported(args, "tpu_unet_torch.serve")
+    predictor = build_predictor(args.model, args)
+    handler = make_handler(predictor, max_body_bytes=args.max_body_mb << 20)
+    server = ThreadingHTTPServer((args.host, args.port), handler)
+    logger.info("Serving %s on %s:%d (kernels=%s, device=%s, max_batch=%d)", args.model,
+                args.host, server.server_address[1], args.kernels, predictor.device,
+                args.max_batch)
+    return server, predictor
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+    server, predictor = make_server(argv)
+
+    def _terminate(signum, frame):
+        logger.info("SIGTERM received, shutting down")
+        # shutdown() waits for serve_forever, which runs on this thread.
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _terminate)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        predictor.stop()
+        logger.info("Server stopped")
+
+
+if __name__ == "__main__":
+    main()
