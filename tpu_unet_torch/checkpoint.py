@@ -18,6 +18,10 @@ import torch
 
 from tpu_unet_torch.models.unet import Params, State, UNetConfig, init_unet
 from tpu_unet_torch.ops.batchnorm import BNState
+from tpu_unet_torch.optim import RMSpropState
+
+# The port's NamedTuple for each of the JAX package's, by class name.
+_NAMED_TUPLES = {"BNState": BNState, "RMSpropState": RMSpropState}
 
 
 def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
@@ -60,6 +64,21 @@ def from_jax_arrays(flat: dict[str, np.ndarray],
         return {k: to_bn(v) if isinstance(v, dict) else v for k, v in tree.items()}
 
     return trees["params"], to_bn(trees["state"])
+
+
+def tree_from_numpy(tree, device: str | torch.device = "cpu"):
+    """Turn a JAX pytree with numpy leaves (params, BN state, gradients, an
+    ``RMSpropState``, ...: nested dicts and NamedTuples) into the port's tree:
+    dicts stay dicts, each array becomes a tensor on ``device``, and each
+    NamedTuple becomes the port's class of the same name."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        name = type(tree).__name__
+        if name not in _NAMED_TUPLES:
+            raise TypeError(f"tree_from_numpy: no port counterpart for {name}")
+        return _NAMED_TUPLES[name](*(tree_from_numpy(v, device) for v in tree))
+    return torch.from_numpy(np.array(tree)).to(device)
 
 
 def save_checkpoint(path: str | Path, params: Params, state: State, mask_values=None,

@@ -75,3 +75,15 @@ def make_synthetic_carvana(root: str | Path, n: int = 8, h: int = 64, w: int = 9
         Image.fromarray(img).save(img_dir / f"car_{i:04d}.png")
         Image.fromarray(mask).save(mask_dir / f"car_{i:04d}_mask.png")
     return img_dir, mask_dir
+
+
+def synth_batch(rng: np.random.Generator, n: int, h: int, w: int):
+    """In-memory batch: NHWC float32 images in [0, 1] and NHW int64 binary
+    masks, no files. The same draws as the JAX package's ``synth_batch``, so
+    one seed gives both packages one batch."""
+    imgs, masks = [], []
+    for _ in range(n):
+        img, mask = synth_sample(rng, h, w)
+        imgs.append(img.astype(np.float32) / 255.0)
+        masks.append((mask > 0).astype(np.int64))
+    return np.stack(imgs), np.stack(masks)

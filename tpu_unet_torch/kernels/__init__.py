@@ -11,13 +11,18 @@ from tpu_unet_torch.kernels.fused_conv import (
 )
 from tpu_unet_torch.kernels.fused_double_conv import FUSED_DC_MAX_CHANNELS, fused_double_conv
 from tpu_unet_torch.kernels.pooling import max_pool2x2
+from tpu_unet_torch.kernels.train_conv import conv3x3_dw, conv3x3_dx, conv3x3_fwd
 
-# Every kernel wrapper of the serving path; each carries a ``launches`` count.
+# Every kernel wrapper, serving path then train path; each carries a
+# ``launches`` count.
 WRAPPERS = (
     fused_conv3x3_scale_relu,
     fused_conv3x3_concat_scale_relu,
     fused_double_conv,
     max_pool2x2,
+    conv3x3_fwd,
+    conv3x3_dx,
+    conv3x3_dw,
 )
 
 
@@ -33,6 +38,9 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "FUSED_DC_MAX_CHANNELS",
     "WRAPPERS",
+    "conv3x3_dw",
+    "conv3x3_dx",
+    "conv3x3_fwd",
     "fused_conv3x3_concat_scale_relu",
     "fused_conv3x3_scale_relu",
     "fused_double_conv",

@@ -43,6 +43,12 @@ _SIGNATURES = {
     "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
                         ctypes.c_int),
     "tuk_double_conv_smem": ([_I, _I], ctypes.c_size_t),
+    "tuk_conv3x3_fwd_rows": ([_I, _I, _I], ctypes.c_int),
+    "tuk_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "tuk_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "tuk_conv3x3_dw_splits": ([_I, _I, _I, _I, _I, _I], ctypes.c_int),
+    "tuk_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                       ctypes.c_int),
     "tuk_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,202 @@
+"""The train-mode 3x3 conv kernels: the port of
+``tpu_unet/kernels/train_conv.py`` (``conv3x3_fwd``, ``conv3x3_dx``,
+``conv3x3_dw``) as hand-written CUDA kernels,
+``tpu_unet_torch/csrc/train_conv.cu``. Its header says what bounds them on
+the H100 and how the design answers.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+version (``*_plain``) for CPU tensors. It never falls back: a failed build or
+launch raises. ``<wrapper>.launches`` counts the wrapper's calls that
+launched; ``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` each make two
+kernel launches per call (the conv, then the fixed-order sum of its fp32
+partials).
+
+Numerics, as in the Pallas kernels: fp32 accumulation; the prologue
+relu(x*a + c) computed in fp32 and rounded to x's dtype; the cotangent
+dz = alpha*g + beta*z + gamma computed in fp32 and rounded to g's dtype; both
+zero outside the image after the affine; the batch statistics taken from z
+after its rounding to the output dtype. The plain versions compute in fp32
+(float64 for float64 inputs, for ``gradcheck``) and round at the same points.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.ops.conv import conv2d
+
+_count_lock = threading.Lock()
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the accumulation dtype: fp32, or float64 for float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _prologue_plain(x, a, c):
+    """relu(x*a + c) in the accumulation dtype, rounded to x's dtype."""
+    return torch.relu(_acc(x) * _acc(a) + _acc(c)).to(x.dtype)
+
+
+def _dz_plain(g, z, coef):
+    """alpha*g + beta*z + gamma per channel, rounded to g's dtype."""
+    coef = _acc(coef)
+    return (coef[0] * _acc(g) + coef[1] * _acc(z) + coef[2]).to(g.dtype)
+
+
+def conv3x3_fwd_plain(x, w, a=None, c=None, *, stats: bool = False):
+    """z = conv3x3_same(relu(x*a + c) or x, w) in x's dtype; with ``stats``
+    also (sum z, sum z^2) per channel as [2, Cout] in the accumulation dtype.
+    conv2d's zero padding pads the prologue's output, as SAME padding must."""
+    h = x if a is None else _prologue_plain(x, a, c)
+    z = conv2d(_acc(h), _acc(w), stride=1, padding=1).to(x.dtype)
+    if not stats:
+        return z
+    zf = _acc(z)
+    return z, torch.stack([zf.sum((0, 1, 2)), (zf * zf).sum((0, 1, 2))])
+
+
+def conv3x3_dx_plain(g, z, coef, w, *, out_dtype=None):
+    """dx = conv3x3_same(dz, flip(w)^T), dz = alpha*g + beta*z + gamma, in
+    ``out_dtype`` (g's by default)."""
+    dz = _dz_plain(g, z, coef)
+    wt = w.flip(0, 1).transpose(2, 3)
+    return conv2d(_acc(dz), _acc(wt), stride=1, padding=1).to(out_dtype or g.dtype)
+
+
+def conv3x3_dw_plain(x, g, z, coef, a=None, c=None):
+    """dw[ky,kx,ci,co] = sum over N,H,W of prologue(x)[., y+ky-1, x+kx-1, ci]
+    * dz[., y, x, co], [3,3,Cin,Cout] in the accumulation dtype."""
+    _, h, wd, _ = x.shape
+    hp = F.pad(_acc(x if a is None else _prologue_plain(x, a, c)), (0, 0, 1, 1, 1, 1))
+    dz = _acc(_dz_plain(g, z, coef))
+    taps = [torch.einsum("nhwi,nhwo->io", hp[:, ky:ky + h, kx:kx + wd], dz)
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps).reshape(3, 3, x.shape[3], g.shape[3])
+
+
+def _ptr(t):
+    """A tensor's device pointer, or None (NULL) for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def _check_nhwc(name, *tensors):
+    for t in tensors:
+        if t.ndim != 4:
+            raise ValueError(f"{name}: expected [N,H,W,C] tensors, got {tuple(t.shape)}")
+
+
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def conv3x3_fwd(x, w, a=None, c=None, *, stats: bool = False):
+    """z = conv3x3_same(relu(x*a + c), w) (no prologue when ``a`` is None).
+    x: [N,H,W,Cin], w: [3,3,Cin,Cout] -> z [N,H,W,Cout] in x's dtype, and
+    with ``stats`` the fp32 [2, Cout] (sum z, sum z^2) of the rounded z."""
+    if x.device.type == "cpu":
+        return conv3x3_fwd_plain(x, w, a, c, stats=stats)
+    name = "conv3x3_fwd"
+    dtype = _build.validate(name, x, w)
+    _check_nhwc(name, x)
+    n, h, wd, cin = x.shape
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"{name}: weight must be [3,3,{cin},Cout], got {tuple(w.shape)}")
+    if (a is None) != (c is None):
+        raise ValueError(f"{name}: the prologue needs both a and c")
+    cout = w.shape[3]
+    av = None if a is None else _build.f32_vector(a, cin, x, name)
+    cv = None if c is None else _build.f32_vector(c, cin, x, name)
+    z = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    partials = st = None
+    if stats:
+        rows = lib.tuk_conv3x3_fwd_rows(n, h, wd)
+        partials = torch.empty((rows, 2, cout), dtype=torch.float32, device=x.device)
+        st = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tuk_conv3x3_fwd(x.data_ptr(), _ptr(av), _ptr(cv), w.data_ptr(), z.data_ptr(),
+                                  _ptr(partials), _ptr(st), n, h, wd, cin, cout, dtype,
+                                  _build.stream(x))
+    _build.check(err, name)
+    _count(conv3x3_fwd)
+    return (z, st) if stats else z
+
+
+def conv3x3_dx(g, z, coef, w, *, out_dtype=None):
+    """dx = conv3x3_same(dz, flip(w)^T) with dz = coef[0]*g + coef[1]*z +
+    coef[2] built while staging. g, z: [N,H,W,C]; coef: [3, C]; w: the
+    FORWARD weights [3,3,Cin,C] -> [N,H,W,Cin] in ``out_dtype`` (g's by
+    default; fp32 from bf16 is allowed)."""
+    if g.device.type == "cpu":
+        return conv3x3_dx_plain(g, z, coef, w, out_dtype=out_dtype)
+    name = "conv3x3_dx"
+    out_dtype = out_dtype or g.dtype
+    wt = w.flip(0, 1).transpose(2, 3).contiguous()  # [3,3,C,Cin], small
+    dtype = _build.validate(name, g, z, wt)
+    _check_nhwc(name, g, z)
+    if z.shape != g.shape:
+        raise ValueError(f"{name}: g and z must have one shape, {tuple(g.shape)} vs {tuple(z.shape)}")
+    n, h, wd, ch = g.shape
+    if w.ndim != 4 or w.shape[:2] != (3, 3) or w.shape[3] != ch:
+        raise ValueError(f"{name}: weight must be [3,3,Cin,{ch}], got {tuple(w.shape)}")
+    if out_dtype not in (torch.float32, g.dtype):
+        raise ValueError(f"{name}: out_dtype must be float32 or g's dtype, got {out_dtype}")
+    if coef.shape != (3, ch):
+        raise ValueError(f"{name}: coef must be [3,{ch}], got {tuple(coef.shape)}")
+    cf = coef.to(device=g.device, dtype=torch.float32).contiguous()
+    cin = w.shape[2]
+    out = torch.empty((n, h, wd, cin), dtype=out_dtype, device=g.device)
+    out_code = _build.DTYPE_BF16 if out_dtype == torch.bfloat16 else _build.DTYPE_F32
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        err = lib.tuk_conv3x3_dx(g.data_ptr(), z.data_ptr(), cf.data_ptr(), wt.data_ptr(),
+                                 out.data_ptr(), n, h, wd, ch, cin, dtype, out_code,
+                                 _build.stream(g))
+    _build.check(err, name)
+    _count(conv3x3_dx)
+    return out
+
+
+def conv3x3_dw(x, g, z, coef, a=None, c=None):
+    """dw [3,3,Cin,Cout] fp32: sum over N,H,W of prologue(x) patches times
+    dz = coef[0]*g + coef[1]*z + coef[2] (both built while staging).
+    x: [N,H,W,Cin]; g, z: [N,H,W,Cout]; a, c: [Cin] or None."""
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(x, g, z, coef, a, c)
+    name = "conv3x3_dw"
+    dtype = _build.validate(name, x, g, z)
+    _check_nhwc(name, x, g, z)
+    n, h, wd, cin = x.shape
+    if g.shape[:3] != x.shape[:3] or z.shape != g.shape:
+        raise ValueError(f"{name}: x, g, z must share N,H,W and g, z their shape")
+    if (a is None) != (c is None):
+        raise ValueError(f"{name}: the prologue needs both a and c")
+    cout = g.shape[3]
+    if coef.shape != (3, cout):
+        raise ValueError(f"{name}: coef must be [3,{cout}], got {tuple(coef.shape)}")
+    cf = coef.to(device=x.device, dtype=torch.float32).contiguous()
+    av = None if a is None else _build.f32_vector(a, cin, x, name)
+    cv = None if c is None else _build.f32_vector(c, cin, x, name)
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = lib.tuk_conv3x3_dw_splits(n, h, wd, cin, cout, sms)
+    partials = torch.empty((max(splits, 1), 9, cin, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tuk_conv3x3_dw(x.data_ptr(), _ptr(av), _ptr(cv), g.data_ptr(), z.data_ptr(),
+                                 cf.data_ptr(), partials.data_ptr(), dw.data_ptr(), n, h, wd,
+                                 cin, cout, sms, dtype, _build.stream(x))
+    _build.check(err, name)
+    _count(conv3x3_dw)
+    return dw
+
+
+conv3x3_fwd.launches = 0
+conv3x3_dx.launches = 0
+conv3x3_dw.launches = 0

@@ -1,0 +1,57 @@
+"""Dice coefficient and loss, and IoU (``tpu_unet/losses/dice.py``).
+
+The reference's semantics: inter = 2·Σ(x·y); sets_sum = Σx + Σy, replaced by
+inter where it is 0 (two empty masks score 1); dice = (inter + ε) /
+(sets_sum + ε) with ε = 1e-6, averaged; multiclass folds N and C together;
+dice_loss = 1 − dice with the batch reduced first. Binary masks are [N,H,W]
+(or [H,W]), multiclass one-hots [N,H,W,C] (channels last).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dice_coeff(input: torch.Tensor, target: torch.Tensor, reduce_batch_first: bool = False,
+               epsilon: float = 1e-6) -> torch.Tensor:
+    """Mean Dice over the batch, or over one joint sum with
+    ``reduce_batch_first``. input/target: [H,W] or [N,H,W]."""
+    if input.shape != target.shape:
+        raise ValueError(f"dice_coeff: shapes differ, {tuple(input.shape)} vs {tuple(target.shape)}")
+    if reduce_batch_first and input.ndim != 3:
+        raise ValueError("dice_coeff: reduce_batch_first needs [N,H,W] inputs")
+    dims = (-1, -2) if input.ndim == 2 or not reduce_batch_first else (-1, -2, -3)
+    inter = 2 * (input * target).sum(dims)
+    sets_sum = input.sum(dims) + target.sum(dims)
+    sets_sum = torch.where(sets_sum == 0, inter, sets_sum)
+    return ((inter + epsilon) / (sets_sum + epsilon)).mean()
+
+
+def _fold_classes(t: torch.Tensor) -> torch.Tensor:
+    """[N,H,W,C] -> [N*C,H,W], the reference's NCHW flatten(0, 1)."""
+    n, h, w, c = t.shape
+    return t.movedim(-1, 1).reshape(n * c, h, w)
+
+
+def multiclass_dice_coeff(input: torch.Tensor, target: torch.Tensor,
+                          reduce_batch_first: bool = False,
+                          epsilon: float = 1e-6) -> torch.Tensor:
+    """Mean Dice over all classes. input/target: [N,H,W,C] one-hot."""
+    return dice_coeff(_fold_classes(input), _fold_classes(target), reduce_batch_first, epsilon)
+
+
+def dice_loss(input: torch.Tensor, target: torch.Tensor, multiclass: bool = False) -> torch.Tensor:
+    """1 − Dice, with the batch reduced first."""
+    fn = multiclass_dice_coeff if multiclass else dice_coeff
+    return 1 - fn(input, target, reduce_batch_first=True)
+
+
+def iou_coeff(input: torch.Tensor, target: torch.Tensor, epsilon: float = 1e-6) -> torch.Tensor:
+    """Mean IoU over the batch (binary [N,H,W] or one-hot [N,H,W,C]); IoU 1
+    when both masks are empty."""
+    if input.ndim == 4:
+        input, target = _fold_classes(input), _fold_classes(target)
+    inter = (input * target).sum((-1, -2))
+    union = input.sum((-1, -2)) + target.sum((-1, -2)) - inter
+    union = torch.where(union == 0, inter, union)
+    return ((inter + epsilon) / (union + epsilon)).mean()

@@ -1,12 +1,11 @@
-"""The flagship U-Net's configuration and parameter layout
+"""The flagship U-Net: configuration, parameter layout and forward
 (``tpu_unet/models/unet.py``).
 
 Parameters are the JAX package's nested dicts, with tensors in its layouts
 (HWIO conv weights), and BN running statistics are explicit ``BNState``
 state, so a JAX checkpoint maps onto them key for key
-(``tpu_unet_torch/checkpoint.py``). The train-mode forward waits for the
-training slice of the port; serving runs the folded forward in
-``models/infer.py``.
+(``tpu_unet_torch/checkpoint.py``). ``unet_apply`` is the train- and
+eval-mode forward; serving runs the folded forward in ``models/infer.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +15,16 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from tpu_unet_torch.ops import (
+    batch_norm,
+    conv2d,
+    conv_transpose2d,
+    max_pool2d,
+    pad_to_match,
+    upsample2x_align_corners,
+)
 from tpu_unet_torch.ops.batchnorm import init_bn_params, init_bn_state
+from tpu_unet_torch.ops.conv_stats import double_conv_train_fused
 
 Params = dict[str, Any]
 State = dict[str, Any]
@@ -102,14 +110,97 @@ def init_unet(config: UNetConfig, rng: np.random.Generator,
     return params, state
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict / BNState tree."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor of a nested dict / NamedTuple tree (with
+    ``rest``: to the tensors at the same place in each tree)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    return fn(tree)
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def param_count(params: Params) -> int:
     return sum(param_count(v) if isinstance(v, dict) else v.numel() for v in params.values())
+
+
+def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bool = False):
+    """(conv3x3 → BN → ReLU) × 2. ``kernels="cuda"`` in train mode runs it on
+    the train kernels (``ops/conv_stats.py``); ``first`` marks the block whose
+    input (the image) needs no gradient."""
+    if kernels == "cuda" and train:
+        return double_conv_train_fused(params, state, x, input_needs_grad=not first)
+    h = conv2d(x, params["conv1"]["w"], stride=1, padding=1)
+    h, bn1 = batch_norm(h.to(x.dtype), params["bn1"], state["bn1"], train=train)
+    h = conv2d(torch.relu(h), params["conv2"]["w"], stride=1, padding=1)
+    h, bn2 = batch_norm(h.to(x.dtype), params["bn2"], state["bn2"], train=train)
+    return torch.relu(h), {"bn1": bn1, "bn2": bn2}
+
+
+def _up_apply(params, state, x1, x2, *, bilinear: bool, train: bool, kernels=None):
+    """Decoder block: upsample x1, pad it to the skip x2, concat [x2, x1],
+    DoubleConv."""
+    if bilinear:
+        x1 = upsample2x_align_corners(x1)
+    else:
+        up = conv_transpose2d(x1, params["up"]["w"], stride=2)
+        x1 = (up.float() + params["up"]["b"].float()).to(x1.dtype)
+    x = torch.cat([x2, pad_to_match(x1, x2)], dim=-1)
+    out, conv_state = _double_conv_apply(params["conv"], state["conv"], x, train=train,
+                                         kernels=kernels)
+    return out, {"conv": conv_state}
+
+
+def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
+               train: bool = False, compute_dtype: torch.dtype | None = None,
+               remat: bool = False, axis_name: str | None = None,
+               kernels: str | None = None) -> tuple[torch.Tensor, State]:
+    """Forward pass. x: [N,H,W,n_channels] -> (fp32 logits
+    [N,H,W,n_classes], new BN state).
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's AMP: the input and
+    every parameter are cast to bf16 (explicitly, not through autocast), the
+    convs accumulate in fp32, BN statistics are fp32, the logits fp32.
+    ``kernels="cuda"`` in train mode runs every DoubleConv on the train
+    kernels, as JAX's ``kernels="pallas"``; eval mode and ``kernels=None``
+    run library convs and ``batch_norm``."""
+    if config.arch != "unet":
+        raise ValueError(f"tpu_unet_torch ports arch='unet' only, not {config.arch!r}")
+    if kernels not in (None, "cuda"):
+        raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
+    if remat:
+        raise NotImplementedError("unet_apply: remat is not ported yet")
+    if axis_name is not None:
+        raise NotImplementedError("unet_apply: axis_name (data parallelism) is not ported yet")
+    if config.s2d_level0:
+        raise NotImplementedError("unet_apply: s2d_level0 is a TPU experiment, not ported")
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        params = tree_map(lambda p: p.to(compute_dtype), params)
+    x = x.contiguous()
+
+    new_state: State = {}
+    x1, new_state["inc"] = _double_conv_apply(params["inc"], state["inc"], x, train=train,
+                                              kernels=kernels, first=True)
+    skips = [x1]
+    h = x1
+    for i in range(1, 5):
+        name = f"down{i}"
+        h, new_state[name] = _double_conv_apply(params[name], state[name], max_pool2d(h),
+                                                train=train, kernels=kernels)
+        skips.append(h)
+    for i, skip in zip(range(1, 5), skips[-2::-1]):
+        name = f"up{i}"
+        h, new_state[name] = _up_apply(params[name], state[name], h, skip,
+                                       bilinear=config.bilinear, train=train, kernels=kernels)
+    logits = conv2d(h, params["outc"]["w"], stride=1, padding=0)
+    return logits.float() + params["outc"]["b"].float(), new_state

@@ -1,8 +1,12 @@
-"""BatchNorm running statistics (``tpu_unet/ops/batchnorm.py``).
+"""BatchNorm over NHWC with explicit running statistics
+(``tpu_unet/ops/batchnorm.py``).
 
-The serving path folds BN into the conv that precedes it, so only the frozen
-``(mean, var)`` state is needed here. The train-mode BN waits for the
-training slice of the port.
+Parity target: ``torch.nn.BatchNorm2d(C)`` with eps 1e-5 and momentum 0.1,
+computed as the JAX package computes it. Train mode takes one-pass fp32
+sums, mean = Σx/n and var = max(Σx²/n − mean², 0), normalizes by that
+biased variance and puts the unbiased variance var·n/(n−1) into the running
+buffer. ``F.batch_norm`` is not used: its variance is two-pass. The serving
+path folds BN into the conv instead (``models/infer.py``).
 """
 
 from __future__ import annotations
@@ -26,3 +30,32 @@ def init_bn_params(c: int, device=None) -> dict:
 
 def init_bn_state(c: int, device=None) -> BNState:
     return BNState(mean=torch.zeros(c, device=device), var=torch.ones(c, device=device))
+
+
+def update_running(state: BNState, mean: torch.Tensor, var: torch.Tensor, n: int,
+                   momentum: float) -> BNState:
+    """The running buffers after one train-mode batch of ``n`` elements per
+    channel: momentum-weighted mean and UNBIASED variance. No gradient."""
+    mean, var = mean.detach(), var.detach()
+    unbiased = var * (n / max(n - 1, 1))
+    return BNState(mean=(1 - momentum) * state.mean + momentum * mean,
+                   var=(1 - momentum) * state.var + momentum * unbiased)
+
+
+def batch_norm(x: torch.Tensor, params: dict, state: BNState, *, train: bool,
+               momentum: float = 0.1, eps: float = 1e-5) -> tuple[torch.Tensor, BNState]:
+    """x: [N,H,W,C] -> (y in x's dtype, new state). Train mode normalizes by
+    the batch statistics and updates the running ones; eval mode uses the
+    running ones and returns ``state`` unchanged."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if train:
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        mean = xf.sum((0, 1, 2)) / n
+        var = torch.clamp((xf * xf).sum((0, 1, 2)) / n - mean * mean, min=0.0)
+        new_state = update_running(state, mean, var, n, momentum)
+    else:
+        mean, var = state.mean, state.var
+        new_state = state
+    inv = torch.rsqrt(var + eps) * params["scale"].to(xf.dtype)
+    shift = params["bias"].to(xf.dtype) - mean * inv
+    return (xf * inv + shift).to(x.dtype), new_state
