@@ -5,16 +5,20 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases, each of which exits non-zero on failure:
+Phases, each of which exits non-zero on failure, each with its time:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``tpu_unet_torch/csrc`` and print the build time.
 2. Run each of the four serving kernels and its plain PyTorch version on the
    card at the serving path's own shapes, in bf16 and fp32 (TF32 off), and
-   compare them: max abs and relative error and both times (CUDA events,
-   median).
+   compare them: max abs and relative error, the kernel's, the plain
+   version's and one library call's times (CUDA events, median), and the
+   kernel's bound (the least time the card could take for its bytes or
+   operations).
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes.
+   2c. ``im2col_conv3x3`` through its own entry point (no model path calls
+   it), then against its plain version in bf16 and fp32.
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
    class, 31.0M parameters) from a seed, with a non-trivial BN state, save it
    as a checkpoint and start the port's HTTP server on it in this process
@@ -30,6 +34,16 @@ Phases, each of which exits non-zero on failure:
    then time the 572x572 batch-16 bf16 step of both. Every ``"cuda"`` step
    must launch each train kernel as often as the network has convs for it,
    every plain step none.
+6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
+   1918x1280 PNG pairs at scale 0.5, batch 4, bf16, 2 epochs, once with
+   ``--kernels cuda`` and once with ``--kernels torch``: launch counts, loss
+   and val Dice parity, the epoch checkpoints (palette, config, optimizer
+   state) rendered by the port's ``predict --kernels cuda``, and a
+   ``--resume`` from epoch 1 that starts at epoch 2 with the saved optimizer
+   and schedule. Prints each run's wall time, images/s, host time waiting on
+   the loader, validation time and peak device memory.
+   6b. One 572x572 batch-16 bf16 step with ``remat`` against one without:
+   equal loss and gradients, both peak memories and times.
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -142,6 +156,54 @@ STEP_TOL = {
 }
 GRAD_RATIO = 2.0
 
+IM2COL_SOURCE = ("tpu_unet_torch/csrc/im2col_conv.cu", "tpu_unet/kernels/im2col_conv.py:84")
+# Phase 2c cases: (label, x shape, Cout, ReLU): level 0 of the 572x572 step
+# (batch 4, as in phase 2b), up4's concat width, the image's 3 channels, and
+# a ragged shape in both ReLU settings. The kernels line reports level0.
+IM2COL_CASES = (
+    ("level0", (TRAIN_B, 572, 572, 64), 64, False),
+    ("up4.concat", (TRAIN_B, 572, 572, 128), 64, False),
+    ("inc.conv1", (TRAIN_B, 572, 572, 3), 64, True),
+    ("ragged", (2, 13, 20, 16), 8, False),
+    ("ragged.relu", (2, 13, 20, 16), 8, True),
+)
+MAIN_IM2COL_CASE = "level0"
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the peak rate for the input type. The
+# published H100 SXM figures (dense, at 700 W): 3.35 TB/s of HBM; 989
+# TFLOP/s bf16 on the tensor cores; 67 TFLOP/s fp32 outside them, the
+# port's fp32 rate since it runs fp32 without TF32 (``ops.full_fp32``).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations")."""
+    t_ops, t_bytes = flops / PEAK_FLOP_S[dtype], nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def conv_flops(shape, cin: int, cout: int) -> float:
+    """2·9·Cin·Cout operations per output pixel of a 3x3 conv."""
+    n, h, w = shape[:3]
+    return 2.0 * 9 * n * h * w * cin * cout
+
+
+def nchw(t):
+    """A channels-last NCHW view of an NHWC tensor (no copy), as cuDNN takes it."""
+    return t.permute(0, 3, 1, 2)
+
+
+def oihw(w):
+    """HWIO weights as a channels-last OIHW tensor (a copy, made once)."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -180,9 +242,18 @@ def _conv_params(gen, cin, cout):
     return w, 1.0 + 0.1 * _randn(gen, (cout,)), 0.1 * _randn(gen, (cout,))
 
 
+def _vec_bytes(c: int) -> int:
+    return 4 * c  # an fp32 per-channel vector
+
+
 def kernel_cases(gen):
-    """(kernel name, shape label, kernel fn, plain fn, fp32 inputs) at the
-    shapes the 959x640 forward gives each kernel."""
+    """(kernel name, shape label, kernel fn, plain fn, fp32 inputs, work,
+    library) at the shapes the 959x640 forward gives each kernel. ``work``
+    maps the inputs in the case's dtype to (operations, bytes) of the
+    function; ``library`` maps them to one PyTorch call computing the same
+    function (its weights prepared outside the timing), or is None."""
+    import torch.nn.functional as F
+
     from tpu_unet_torch.kernels.fused_conv import (
         fused_conv3x3_concat_scale_relu_plain,
         fused_conv3x3_scale_relu_plain,
@@ -190,33 +261,75 @@ def kernel_cases(gen):
     from tpu_unet_torch.kernels.fused_double_conv import fused_double_conv_plain
     from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 
+    def pool_work(x):
+        return 3.0 * x.numel() / 4, nbytes(x) * 5 / 4
+
+    def pool_library(x):
+        xv = nchw(x)
+        return lambda: F.max_pool2d(xv, 2)
+
+    def dc_work(x, w1, s1, b1, w2, s2, b2):
+        cmid, cout = w1.shape[3], w2.shape[3]
+        px = x.numel() / x.shape[3]
+        return (conv_flops(x.shape, x.shape[3], cmid) + conv_flops(x.shape, cmid, cout)
+                + 3 * px * (cmid + cout),
+                nbytes(x, w1, w2, s1, b1, s2, b2) + px * cout * x.element_size())
+
+    def conv_work(*args):
+        *xs, w, s, b = args
+        px = xs[0].numel() / xs[0].shape[3]
+        return (conv_flops(xs[0].shape, w.shape[2], w.shape[3]) + 3 * px * w.shape[3],
+                nbytes(*xs, w, s, b) + px * w.shape[3] * xs[0].element_size())
+
+    def conv_library(*args):
+        """cuDNN conv with the scale folded into the weights and the bias
+        passed; no ReLU. The concat variant's input is concatenated here,
+        outside the timing."""
+        *xs, w, s, b = args
+        xl = nchw(torch.cat(xs, dim=-1) if len(xs) > 1 else xs[0])
+        wl, bl = oihw((w.float() * s).to(w.dtype)), b.to(w.dtype)
+        return lambda: F.conv2d(xl, wl, bl, padding=1)
+
     cases = [("max_pool2x2", "[1,640,959,64]", K.max_pool2x2, max_pool2x2_plain,
-              [_randn(gen, (1, 640, 959, 64))])]
+              [_randn(gen, (1, 640, 959, 64))], pool_work, pool_library)]
     for shape, cmid in (((1, 640, 959, 3), 64), ((1, 160, 239, 128), 256)):
         w1, s1, b1 = _conv_params(gen, shape[-1], cmid)
         w2, s2, b2 = _conv_params(gen, cmid, cmid)
         cases.append(("fused_double_conv", f"{list(shape)}->{cmid}->{cmid}".replace(" ", ""),
                       K.fused_double_conv, fused_double_conv_plain,
-                      [_randn(gen, shape), w1, s1, b1, w2, s2, b2]))
+                      [_randn(gen, shape), w1, s1, b1, w2, s2, b2], dc_work, None))
     for shape in ((1, 80, 119, 512), (1, 40, 59, 1024)):
         w, s, b = _conv_params(gen, shape[-1], shape[-1])
         cases.append(("fused_conv3x3_scale_relu", f"{list(shape)}->{shape[-1]}".replace(" ", ""),
                       K.fused_conv3x3_scale_relu, fused_conv3x3_scale_relu_plain,
-                      [_randn(gen, shape), w, s, b]))
+                      [_randn(gen, shape), w, s, b], conv_work, conv_library))
     shape = (1, 640, 959, 64)
     w, s, b = _conv_params(gen, 128, 64)
     cases.append(("fused_conv3x3_concat_scale_relu", "[1,640,959,64]+[1,640,959,64]->64",
                   K.fused_conv3x3_concat_scale_relu, fused_conv3x3_concat_scale_relu_plain,
-                  [_randn(gen, shape), _randn(gen, shape), w, s, b]))
+                  [_randn(gen, shape), _randn(gen, shape), w, s, b], conv_work, conv_library))
     return cases
 
 
+LIBRARY_CALLS = {
+    "max_pool2x2": "F.max_pool2d on a channels-last view",
+    "fused_double_conv": "none: two calls",
+    "fused_conv3x3_scale_relu": "F.conv2d, scale folded, bias passed, no ReLU",
+    "fused_conv3x3_concat_scale_relu": "F.conv2d on the prebuilt concat, scale folded, no ReLU",
+    "conv3x3_fwd": "F.conv2d, no prologue, no stats",
+    "conv3x3_dx": "torch.nn.grad.conv2d_input on dz, no cotangent built",
+    "conv3x3_dw": "torch.nn.grad.conv2d_weight on x and dz, no prologue or cotangent",
+    "im2col_conv3x3": "F.conv2d, scale folded, bias passed, no ReLU",
+}
+
+
 def phase_kernels() -> dict[str, dict]:
-    """Phase 2: every kernel vs its plain version at the main path's shapes."""
+    """Phase 2: every kernel vs its plain version at the main path's shapes,
+    with the library call's time and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results: dict[str, dict] = {}
     failures = []
-    for name, label, fn, plain, inputs in kernel_cases(gen):
+    for name, label, fn, plain, inputs, work, library in kernel_cases(gen):
         for dtype in (torch.bfloat16, torch.float32):
             args = [t.to(dtype) if t.ndim == 4 else t for t in inputs]
             got = fn(*args)
@@ -229,20 +342,26 @@ def phase_kernels() -> dict[str, dict]:
             ok = bool((diff <= atol + rtol * ref.float().abs()).all().item())
             if name == "max_pool2x2":
                 ok = max_abs == 0.0  # a max selects an input: exact
+            del got, ref, diff
             ms = time_ms(lambda: fn(*args))
             plain_ms = time_ms(lambda: plain(*args))
+            library_ms = time_ms(library(*args)) if library else None
+            bound_ms, bound_by = bound(*work(*args), dtype)
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
             tol = "exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|"
+            lib = f"{library_ms:.4f}" if library_ms is not None else "none"
             log(f"kernel {name} {label} {dt}: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"library_ms={lib} ({LIBRARY_CALLS[name]}) bound_ms={bound_ms:.4g} "
+                f"({bound_by}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{name} {label} {dt}")
             entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
             entry["cases"].append({"shape": label, "dtype": dt, "max_abs_err": max_abs,
-                                   "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms})
-            del got, ref, diff
+                                   "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": library_ms, "bound_ms": bound_ms,
+                                   "bound_by": bound_by})
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
@@ -262,6 +381,8 @@ def phase_train_kernels() -> dict[str, dict]:
     """Phase 2b: each train kernel vs its plain version at the step's shapes.
     dx and dw read the plain forward's z; dx of a prologue conv comes out in
     fp32, as ``ConvStatsPro`` asks for it."""
+    import torch.nn.functional as F
+
     from tpu_unet_torch.kernels.train_conv import (
         conv3x3_dw_plain,
         conv3x3_dx_plain,
@@ -288,15 +409,32 @@ def phase_train_kernels() -> dict[str, dict]:
             x, w, g = x32.to(dtype), w32.to(dtype), g32.to(dtype)
             z = conv3x3_fwd_plain(x, w, *pro)
             dx_dtype = torch.float32 if prologue else dtype
+            # The library yardsticks: cuDNN's conv and its two gradients on
+            # channels-last views, without the prologue, stats or cotangent.
+            xl, gl, wl = nchw(x), nchw(g), oihw(w)
+            px = x.numel() / cin
+            pro_ops, pro_bytes = (3 * px * cin, 2 * _vec_bytes(cin)) if prologue else (0, 0)
+            flops = conv_flops(shape, cin, cout)
+            work = {
+                "conv3x3_fwd": (flops + pro_ops + 3 * px * cout,
+                                nbytes(x, w, z) + pro_bytes + 2 * _vec_bytes(cout)),
+                "conv3x3_dx": (flops + 4 * px * cout,
+                               nbytes(g, z, coef, w) + px * cin * dx_dtype.itemsize),
+                "conv3x3_dw": (flops + pro_ops + 4 * px * cout,
+                               nbytes(x, g, z, coef) + pro_bytes + 4 * 9 * cin * cout),
+            }
             calls = (
                 ("conv3x3_fwd", lambda: K.conv3x3_fwd(x, w, *pro, stats=True),
-                 lambda: conv3x3_fwd_plain(x, w, *pro, stats=True)),
+                 lambda: conv3x3_fwd_plain(x, w, *pro, stats=True),
+                 lambda: F.conv2d(xl, wl, padding=1)),
                 ("conv3x3_dx", lambda: K.conv3x3_dx(g, z, coef, w, out_dtype=dx_dtype),
-                 lambda: conv3x3_dx_plain(g, z, coef, w, out_dtype=dx_dtype)),
+                 lambda: conv3x3_dx_plain(g, z, coef, w, out_dtype=dx_dtype),
+                 lambda: torch.nn.grad.conv2d_input(xl.shape, wl, gl, padding=1)),
                 ("conv3x3_dw", lambda: K.conv3x3_dw(x, g, z, coef, *pro),
-                 lambda: conv3x3_dw_plain(x, g, z, coef, *pro)),
+                 lambda: conv3x3_dw_plain(x, g, z, coef, *pro),
+                 lambda: torch.nn.grad.conv2d_weight(xl, wl.shape, gl, padding=1)),
             )
-            for name, fn, plain in calls:
+            for name, fn, plain, library in calls:
                 got = fn()
                 torch.cuda.synchronize()
                 ref = plain()
@@ -321,22 +459,95 @@ def phase_train_kernels() -> dict[str, dict]:
                 del got, ref
                 ms = time_ms(fn)
                 plain_ms = time_ms(plain)
+                library_ms = time_ms(library)
+                bound_ms, bound_by = bound(*work[name], dtype)
                 log(f"kernel {name} {label} {case['shape']} {dt}: max_abs_err={max_abs:.3e} "
                     f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"library_ms={library_ms:.4f} ({LIBRARY_CALLS[name]}) "
+                    f"bound_ms={bound_ms:.4g} ({bound_by}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"{name} {label} {dt}")
-                case.update(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms)
+                case.update(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
                 entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
                 entry["cases"].append(case)
-            del x, w, g, z
+            del x, w, g, z, xl, gl, wl
         del x32, w32, g32
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"chip_smoke: train kernels disagree with their plain versions: "
                          f"{failures}")
     return results
+
+
+def phase_im2col() -> tuple[int, dict]:
+    """Phase 2c: ``im2col_conv3x3``, the kernel of its own entry point (no
+    model path calls it). One call through that entry point at the main
+    case, with the counts reset just before and read just after; then the
+    kernel vs its plain version at every case, bf16 and fp32, with the
+    kernel's, the plain version's and the library call's times. The library
+    call is one cuDNN conv with the scale folded into the weights and the
+    bias passed (the ReLU is not in it). Returns (entry-point launches,
+    results)."""
+    import torch.nn.functional as F
+
+    from tpu_unet_torch.kernels.im2col_conv import im2col_conv3x3_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results: dict = {"max_abs_err": 0.0, "cases": []}
+    failures = []
+    launches = None
+    for label, shape, cout, relu in IM2COL_CASES:
+        cin = shape[-1]
+        x32 = _randn(gen, shape)
+        w32, s, b = _conv_params(gen, cin, cout)
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            x, w = x32.to(dtype), w32.to(dtype)
+            if label == MAIN_IM2COL_CASE and launches is None:
+                K.reset_launch_counts()
+                K.im2col_conv3x3(x, w, s, b, apply_relu=relu)
+                torch.cuda.synchronize()
+                launches = K.launch_counts()["im2col_conv3x3"]
+            got = K.im2col_conv3x3(x, w, s, b, apply_relu=relu)
+            torch.cuda.synchronize()
+            ref = im2col_conv3x3_plain(x, w, s, b, apply_relu=relu)
+            atol, rtol = TOL[dtype]
+            max_abs, max_rel, ok = _compare(got, ref, atol, rtol)
+            del got, ref
+            wl = oihw((w.float() * s).to(dtype))
+            bl = b.to(dtype)
+            xl = nchw(x)
+            ms = time_ms(lambda: K.im2col_conv3x3(x, w, s, b, apply_relu=relu))
+            plain_ms = time_ms(lambda: im2col_conv3x3_plain(x, w, s, b, apply_relu=relu))
+            library_ms = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1))
+            bound_ms, bound_by = bound(conv_flops(shape, cin, cout) + 3.0 * x.numel() / cin * cout,
+                                       nbytes(x, w, s, b) + x.numel() // cin * cout
+                                       * x.element_size(), dtype)
+            case = {"shape": f"{list(shape)}->{cout}".replace(" ", ""), "case": label,
+                    "dtype": dt, "relu": relu, "max_abs_err": max_abs, "max_rel_err": max_rel,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"kernel im2col_conv3x3 {label} {case['shape']} {dt} relu={relu}: "
+                f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+                f"(tol {atol:g}+{rtol:g}*|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} ({LIBRARY_CALLS['im2col_conv3x3']}) "
+                f"bound_ms={bound_ms:.4g} ({bound_by}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"im2col_conv3x3 {label} {dt}")
+            results["max_abs_err"] = max(results["max_abs_err"], max_abs)
+            results["cases"].append(case)
+            del x, w, wl, xl
+        del x32
+        torch.cuda.empty_cache()
+    log(f"im2col_conv3x3 entry-point run: {launches} launch(es)")
+    if failures:
+        raise SystemExit(f"chip_smoke: im2col_conv3x3 disagrees with its plain version: "
+                         f"{failures}")
+    if launches != 1:
+        raise SystemExit(f"chip_smoke: the im2col entry point launched {launches} times, not 1")
+    return launches, results
 
 
 def _leaves(tree, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -480,6 +691,287 @@ def phase_train() -> tuple[dict[str, int], dict]:
     if failures:
         raise SystemExit(f"chip_smoke: train checks failed: {failures}")
     return launches, timing
+
+
+# Phase 6: the train CLI at full width on synthetic Carvana-layout data at
+# the production size (1918x1280 PNGs, scale 0.5 -> 959x640), batch 4, bf16.
+# 10 images with 20% for validation: 8 train images, 2 steps an epoch, one
+# validation an epoch.
+CLI_IMAGES = 10
+CLI_ARGS = ("-s", "0.5", "-b", "4", "--amp", "--epochs", "2", "--validation", "20",
+            "--val-per-epoch", "1", "--save-optimizer")
+CLI_STEPS = 4
+# --kernels cuda vs --kernels torch runs. The first step's loss is held to
+# STEP_TOL["bf16"]["loss"] (the same weights and batch: phase 5's check).
+# Later steps start from weights that the two runs' bf16 gradients moved
+# apart, at lr 1e-5 by at most 10·lr per RMSprop step and element: their
+# losses are held to 5e-3 relative (measured <= 2.3e-5 on the H100). The
+# val Dice thresholds the eval-mode logits of a random-weight network (the
+# plain forward in both runs) whose weights differ by those updates alone;
+# two steps move that Dice by 0.10-0.12, and down4's bf16 gradients differ
+# by 14% between the paths (phase 5), which RMSprop's per-element
+# normalisation passes on to their updates. Measured: equal at the first
+# validation, 2.3e-2 apart at the second; held to 5e-2 absolute, with the
+# pixels whose class differs reported beside it.
+CLI_LOSS_TOL = 5e-3
+CLI_DICE_TOL = 5e-2
+
+
+def _timed_loop_hooks(train_mod, stats: dict):
+    """Wrap the train loop's loader feed and evaluation to time the host's
+    waits on the loader and each validation (synchronised: evaluate fetches
+    its sums). Returns the originals, to restore."""
+    real_prefetch, real_eval = train_mod.prefetch_to_device, train_mod.evaluate
+
+    def prefetch(*a, **k):
+        it = real_prefetch(*a, **k)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            stats["loader_wait_s"] += time.perf_counter() - t
+            if batch is None:
+                return
+            yield batch
+
+    def evaluate(*a, **k):
+        t = time.perf_counter()
+        out = real_eval(*a, **k)
+        stats["val_s"] += time.perf_counter() - t
+        return out
+
+    train_mod.prefetch_to_device, train_mod.evaluate = prefetch, evaluate
+    return real_prefetch, real_eval
+
+
+def _cli_run(argv: list[str], tag: str) -> tuple[dict, dict, dict]:
+    """One in-process ``train_cli.main`` run with the launch counts reset just
+    before it and read just after. Returns (history, launches, stats)."""
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch import train_cli
+
+    stats = {"loader_wait_s": 0.0, "val_s": 0.0}
+    saved = _timed_loop_hooks(train_mod, stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, _, history = train_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_mod.prefetch_to_device, train_mod.evaluate = saved
+    stats["wall_s"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+    steps = len(history["train_loss"])
+    stats["steps"] = steps
+    stats["img_s"] = steps * 4 / stats["wall_s"]
+    log(f"train_cli {tag}: {steps} steps, {len(history['val_dice'])} validations in "
+        f"{stats['wall_s']:.2f} s wall ({stats['img_s']:.3f} img/s over the whole loop), "
+        f"loader wait {stats['loader_wait_s']:.2f} s, validation {stats['val_s']:.2f} s, "
+        f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB; losses "
+        + " ".join(f"{v:.6f}" for v in history["train_loss"])
+        + f"; val Dice {' '.join(f'{v:.6f}' for v in history['val_dice'])}; lr {history['lr']}")
+    return history, launches, stats
+
+
+def _compare_val_masks(workdir: Path, config) -> None:
+    """Where the two runs' final weights disagree on the validation images:
+    the share of pixels whose thresholded class differs, and the largest
+    |logit| (of the --kernels torch weights) among them, in the eval-mode
+    bf16 forward the validation runs."""
+    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.data import CarvanaDataset, random_split_indices
+    from tpu_unet_torch.models.unet import unet_apply
+
+    ds = CarvanaDataset(workdir / "data" / "imgs", workdir / "data" / "masks", 0.5)
+    _, val_idx = random_split_indices(len(ds), 0.2, seed=0)
+    x = torch.from_numpy(np.stack([ds[i]["image"] for i in val_idx])).cuda()
+    logits = {}
+    for k in ("cuda", "torch"):
+        params, state, _, _ = load_checkpoint(workdir / f"ck_{k}" / "checkpoint_epoch2.npz",
+                                              config, "cuda")
+        with torch.no_grad():
+            logits[k] = unet_apply(params, state, x, config=config,
+                                   compute_dtype=torch.bfloat16)[0][..., 0]
+    differ = (logits["cuda"] > 0) != (logits["torch"] > 0)
+    margin = logits["torch"][differ].abs().max().item() if differ.any() else 0.0
+    log(f"val masks after epoch 2, --kernels cuda vs torch weights: {differ.float().mean().item():.4%} "
+        f"of pixels differ, largest |logit| among them {margin:.4f} (|logit| mean "
+        f"{logits['torch'].abs().mean().item():.4f}, std {logits['torch'].std().item():.4f})")
+
+
+def phase_train_cli(workdir: Path) -> tuple[dict[str, int], dict]:
+    """Phase 6: ``tpu_unet_torch.train_cli.main`` at full width, with
+    ``--kernels cuda`` and ``--kernels torch``, then a ``--resume`` run and
+    the port's ``predict`` on the epoch checkpoints. Returns the train
+    kernels' launches in the ``--kernels cuda`` run and the runs' numbers."""
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch import predict
+    from tpu_unet_torch.checkpoint import save_checkpoint
+    from tpu_unet_torch.data import make_synthetic_carvana
+    from tpu_unet_torch.models import UNetConfig, init_unet
+
+    failures = []
+    t0 = time.perf_counter()
+    img_dir, _ = make_synthetic_carvana(workdir / "data", n=CLI_IMAGES, h=1280, w=1918, seed=0)
+    config = UNetConfig(**TRAIN_CONFIG)
+    init = workdir / "init.npz"
+    save_checkpoint(init, *init_unet(config, np.random.default_rng(0)),
+                    extra={"config": config._asdict()})
+    log(f"train_cli data: {CLI_IMAGES} 1918x1280 PNG pairs and a full-width checkpoint "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    common = [*CLI_ARGS, "--data-dir", str(workdir / "data"), "--load", str(init)]
+    runs = {}
+    for kernels in ("cuda", "torch"):
+        ck = workdir / f"ck_{kernels}"
+        history, launches, stats = _cli_run(
+            common + ["--kernels", kernels, "--checkpoint-dir", str(ck),
+                      "--history-out", str(workdir / f"history_{kernels}.json")],
+            f"--kernels {kernels}")
+        runs[kernels] = (history, launches, stats)
+        steps = len(history["train_loss"])
+        for name, count in launches.items():
+            want = PER_STEP.get(name, 0) * steps if kernels == "cuda" else 0
+            if count != want:
+                failures.append(f"--kernels {kernels}: {name} launched {count} times, "
+                                f"expected {want}")
+        if steps != CLI_STEPS or len(history["val_dice"]) != 2:
+            failures.append(f"--kernels {kernels}: {steps} steps, "
+                            f"{len(history['val_dice'])} validations")
+        if not all(np.isfinite(history["train_loss"])):
+            failures.append(f"--kernels {kernels}: non-finite loss")
+        json.loads((workdir / f"history_{kernels}.json").read_text())
+
+    # (b) the two runs agree.
+    lc, lt = (np.asarray(runs[k][0]["train_loss"]) for k in ("cuda", "torch"))
+    rel = np.abs(lc - lt) / np.abs(lt)
+    dc, dtc = (np.asarray(runs[k][0]["val_dice"]) for k in ("cuda", "torch"))
+    log(f"train_cli parity, --kernels cuda vs torch: loss rel err per step "
+        + " ".join(f"{r:.3e}" for r in rel)
+        + f" (tol step 1 {STEP_TOL['bf16']['loss']:g}, later {CLI_LOSS_TOL:g}); val Dice abs "
+        f"err {' '.join(f'{d:.3e}' for d in np.abs(dc - dtc))} (tol {CLI_DICE_TOL:g})")
+    if not (rel[0] <= STEP_TOL["bf16"]["loss"] and (rel[1:] <= CLI_LOSS_TOL).all()):
+        failures.append(f"train_cli losses differ: {rel.tolist()}")
+    if not (np.abs(dc - dtc) <= CLI_DICE_TOL).all():
+        failures.append(f"train_cli val Dice differ: {dc.tolist()} vs {dtc.tolist()}")
+    _compare_val_masks(workdir, config)
+
+    # (c) the epoch checkpoints carry the palette, the config and the
+    # optimizer state, and the port's predict renders a mask from each.
+    ck = workdir / "ck_cuda"
+    for epoch in (1, 2):
+        path = ck / f"checkpoint_epoch{epoch}.npz"
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"].tolist()).decode("utf-8"))
+            n_opt = sum(k.startswith("opt/square_avg/") for k in z.files)
+            n_params = sum(k.startswith("params/") for k in z.files)
+        ok = (meta["mask_values"] == [0, 255] and meta["extra"].get("config") == config._asdict()
+              and meta["has_opt_state"] and n_opt == n_params)
+        out = workdir / f"mask_epoch{epoch}.png"
+        K.reset_launch_counts()
+        predict.main(["-m", str(path), "-i", str(sorted(img_dir.glob("*.png"))[0]), "-o", str(out),
+                      "--kernels", "cuda", "--amp"])
+        pl = K.launch_counts()
+        mask = np.asarray(Image.open(out))
+        log(f"checkpoint_epoch{epoch}.npz: mask_values {meta['mask_values']}, config "
+            f"{'stored' if 'config' in meta['extra'] else 'missing'}, optimizer state "
+            f"{n_opt} square_avg tensors; predict --kernels cuda -> {out.name} {mask.shape} "
+            f"values {np.unique(mask).tolist()}, launches {json.dumps(pl)}")
+        if not (ok and mask.shape == (1280, 1918) and set(np.unique(mask).tolist()) <= {0, 255}
+                and all(pl[k] == v for k, v in PER_FORWARD.items())):
+            failures.append(f"checkpoint_epoch{epoch}: checkpoint or predict check failed")
+
+    # (d) --resume from epoch 1 starts at epoch 2 with the saved optimizer and
+    # scheduler state (read back from what _restore_resume returns).
+    seen = {}
+    real_restore = train_mod._restore_resume
+
+    def restore(resume, params, bn_state, opt_state, scheduler, **kw):
+        out = real_restore(resume, params, bn_state, opt_state, scheduler, **kw)
+        seen.update(opt=out[2], start_epoch=out[3], scheduler=scheduler.state_dict())
+        return out
+
+    train_mod._restore_resume = restore
+    try:
+        history, _, _ = _cli_run(common + ["--kernels", "cuda", "--checkpoint-dir",
+                                           str(workdir / "ck_resume"), "--resume",
+                                           str(ck / "checkpoint_epoch1.npz")], "--resume epoch1")
+    finally:
+        train_mod._restore_resume = real_restore
+    with np.load(ck / "checkpoint_epoch1.npz") as z:
+        meta = json.loads(bytes(z["__meta__"].tolist()).decode("utf-8"))
+        saved_sched = {k: v for k, v in meta["extra"]["scheduler"].items() if k != "name"}
+        opt_equal = all(np.array_equal(t.cpu().numpy(), z["opt" + k])
+                        for k, t in _leaves(seen["opt"]).items())
+    log(f"resume: start epoch {seen['start_epoch']}, optimizer state equal to the file's: "
+        f"{opt_equal}, scheduler {seen['scheduler']} (saved {saved_sched}), "
+        f"{len(history['train_loss'])} steps run")
+    if not (seen["start_epoch"] == 2 and opt_equal and seen["scheduler"] == saved_sched
+            and len(history["train_loss"]) == CLI_STEPS // 2
+            and (workdir / "ck_resume" / "checkpoint_epoch2.npz").exists()):
+        failures.append("resume from checkpoint_epoch1.npz failed its checks")
+    if failures:
+        raise SystemExit(f"chip_smoke: train CLI checks failed: {failures}")
+    return runs["cuda"][1], {k: v[2] for k, v in runs.items()}
+
+
+def phase_remat() -> dict:
+    """Phase 6b: one 572x572 batch-16 bf16 step with remat against one
+    without, both kernels="cuda", from the same trees: loss and gradients
+    equal bit for bit (the kernels' sums are fixed-order; cuDNN, which runs
+    the transposed convs and the head, is made deterministic here). remat
+    runs every block's forward kernels again in the backward pass."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    config = UNetConfig(**TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+    opt = rmsprop_init(params)
+    imgs, msks = synth_batch(np.random.default_rng(2), *TIMING_BATCH)
+    images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    outs, numbers, failures = {}, {}, []
+    try:
+        for remat in (False, True):
+            step = make_train_step(config, amp=True, kernels="cuda", remat=remat,
+                                   return_grads=True)
+            step(params, state, opt, images, masks, 1e-4)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs[remat] = step(params, state, opt, images, masks, 1e-4)
+            end.record()
+            end.synchronize()
+            launches = K.launch_counts()
+            numbers[remat] = {"ms": start.elapsed_time(end),
+                              "peak_bytes": torch.cuda.max_memory_allocated(),
+                              "launches": launches}
+            want = dict(PER_STEP, conv3x3_fwd=PER_STEP["conv3x3_fwd"] * (2 if remat else 1))
+            if any(launches[k] != v for k, v in want.items()):
+                failures.append(f"remat={remat}: launches {launches}, expected {want}")
+            log(f"train step {list(imgs.shape)} bf16 kernels=cuda remat={remat}: "
+                f"{numbers[remat]['ms']:.2f} ms, peak memory "
+                f"{numbers[remat]['peak_bytes'] / 2**30:.3f} GiB, launches {json.dumps(launches)}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = outs[False], outs[True]
+    ga, gb = _leaves(a[5]), _leaves(b[5])
+    same = torch.equal(a[3], b[3]) and all(torch.equal(ga[k], gb[k]) for k in ga)
+    worst = max(_rel_l2(gb[k], ga[k]) for k in ga)
+    log(f"remat vs no remat: loss {a[3].item():.8f} / {b[3].item():.8f}, gradients bitwise "
+        f"equal: {same} (largest per-tensor rel L2 difference {worst:.3e})")
+    if not same:
+        failures.append(f"remat changed the loss or gradients (rel L2 up to {worst:.3e})")
+    if failures:
+        raise SystemExit(f"chip_smoke: remat checks failed: {failures}")
+    return numbers
 
 
 def calibrate_bn(params, state, config, x):
@@ -708,6 +1200,10 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     full_fp32()
+    t_start = time.perf_counter()
+
+    def phase_done(name: str, t0: float) -> None:
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -716,36 +1212,69 @@ def main(argv=None) -> int:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    phase_done("1 (build)", t0)
 
-    # Phase 2: kernels vs plain.
+    # Phase 2: kernels vs plain; 2b: train kernels; 2c: the im2col conv.
+    t0 = time.perf_counter()
     results = phase_kernels()
-    # Phase 2b: train kernels vs plain.
+    phase_done("2 (serving kernels)", t0)
+    t0 = time.perf_counter()
     results.update(phase_train_kernels())
-    # Phases 3 and 4: serve the full-width model.
+    phase_done("2b (train kernels)", t0)
+    t0 = time.perf_counter()
+    im2col_launches, results["im2col_conv3x3"] = phase_im2col()
+    phase_done("2c (im2col_conv3x3)", t0)
     workdir = ROOT / ".smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     try:
-        launches = phase_serve(workdir)
+        # Phases 3 and 4: serve the full-width model.
+        t0 = time.perf_counter()
+        launches = phase_serve(workdir / "serve")
+        torch.cuda.empty_cache()
+        phase_done("3-4 (serve)", t0)
+        # Phase 5: the full-width train step.
+        t0 = time.perf_counter()
+        step_launches, timing = phase_train()
+        log(f"train step timing: {json.dumps(timing)}")
+        torch.cuda.empty_cache()
+        phase_done("5 (train step)", t0)
+        # Phase 6: the train CLI, the slice's main path.
+        t0 = time.perf_counter()
+        cli_launches, cli_numbers = phase_train_cli(workdir / "train")
+        log(f"train CLI numbers: {json.dumps(cli_numbers)}")
+        torch.cuda.empty_cache()
+        phase_done("6 (train CLI)", t0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    torch.cuda.empty_cache()
-    # Phase 5: train the full-width model.
-    train_launches, timing = phase_train()
-    log(f"train step timing: {json.dumps(timing)}")
+    # Phase 6b: remat.
+    t0 = time.perf_counter()
+    remat = phase_remat()
+    log(f"remat numbers: {json.dumps({str(k): v for k, v in remat.items()})}")
+    phase_done("6b (remat)", t0)
+    log(f"launches: serving path {json.dumps(launches)}; train step (phase 5) "
+        f"{json.dumps(step_launches)}; train CLI --kernels cuda (phase 6) "
+        f"{json.dumps(cli_launches)}; im2col entry point {im2col_launches}")
 
     report = []
-    for name in (*PER_FORWARD, *PER_STEP):
+    for name in (*PER_FORWARD, *PER_STEP, "im2col_conv3x3"):
         if name in PER_FORWARD:
             (src, replaces), count = SOURCES[name], launches[name]
             main_case = results[name]["cases"][0]
-        else:
-            (src, replaces), count = TRAIN_SOURCES[name], train_launches[name]
+        elif name in PER_STEP:
+            (src, replaces), count = TRAIN_SOURCES[name], cli_launches[name]
             main_case = next(c for c in results[name]["cases"]
                              if c["case"] == MAIN_TRAIN_CASE and c["dtype"] == "bf16")
+        else:
+            (src, replaces), count = IM2COL_SOURCE, im2col_launches
+            main_case = next(c for c in results[name]["cases"]
+                             if c["case"] == MAIN_IM2COL_CASE and c["dtype"] == "bf16")
         report.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                        "launches": count, "max_abs_err": results[name]["max_abs_err"],
                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                       "cases": results[name]["cases"]})
+                       "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+                       "library_ms": main_case["library_ms"],
+                       "library_call": LIBRARY_CALLS[name], "cases": results[name]["cases"]})
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -276,11 +276,10 @@ def test_train_step_accum_matches_jax():
 
 def test_make_train_step_refuses_what_is_not_ported():
     cfg = UNetConfig(3, 1, False, BASE)
-    for kwargs, err in [({"remat": True}, NotImplementedError),
-                        ({"mesh": object()}, NotImplementedError),
+    for kwargs, err in [({"mesh": object()}, NotImplementedError),
                         ({"opt_shardings": {}}, NotImplementedError),
-                        ({"optimizer": "adam"}, NotImplementedError),
-                        ({"nesterov": True}, NotImplementedError),
+                        ({"optimizer": "lbfgs"}, ValueError),
+                        ({"nesterov": True}, ValueError),  # an SGD option, as in JAX
                         ({"vmem_limit_kib": 65536}, ValueError),
                         ({"kernels": "pallas"}, ValueError),
                         ({"accum_steps": 0}, ValueError)]:
@@ -288,9 +287,8 @@ def test_make_train_step_refuses_what_is_not_ported():
             make_train_step(cfg, **kwargs)
     _, _, params, state = _model(False)
     x = torch.zeros(1, 8, 8, 3)
-    for kwargs, err in [({"remat": True}, NotImplementedError),
-                        ({"axis_name": "data"}, NotImplementedError)]:
-        with pytest.raises(err):
-            unet_apply(tree_from_numpy(params), tree_from_numpy(state), x, config=cfg, **kwargs)
+    with pytest.raises(NotImplementedError):
+        unet_apply(tree_from_numpy(params), tree_from_numpy(state), x, config=cfg,
+                   axis_name="data")
     with pytest.raises(ValueError, match="arch"):
         unet_apply({}, {}, x, config=cfg._replace(arch="unetpp"))

@@ -2,30 +2,33 @@
 read and written with numpy alone.
 
 A file holds one array per parameter or BN statistic under its keypath
-(``params/inc/conv1/w``, ``state/inc/bn1/mean``, ...) plus a ``__meta__``
-JSON entry with ``mask_values`` and ``extra`` (``extra["config"]`` is the
-model's ``UNetConfig``). A checkpoint written by either package loads in the
-other unchanged.
+(``params/inc/conv1/w``, ``state/inc/bn1/mean``, ...), optionally the
+optimizer state under ``opt/`` with the keypaths JAX gives its NamedTuple
+fields (``opt/square_avg/inc/conv1/w``, ``opt/step``), plus a ``__meta__``
+JSON entry with ``mask_values``, ``extra`` (``extra["config"]`` is the
+model's ``UNetConfig``) and ``has_opt_state``. A checkpoint written by
+either package loads in the other unchanged.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpu_unet_torch.models.unet import Params, State, UNetConfig, init_unet
+from tpu_unet_torch.models.unet import Params, State, UNetConfig, init_unet, tree_map
 from tpu_unet_torch.ops.batchnorm import BNState
-from tpu_unet_torch.optim import RMSpropState
+from tpu_unet_torch.optim import AdamState, RMSpropState, SGDState
 
 # The port's NamedTuple for each of the JAX package's, by class name.
-_NAMED_TUPLES = {"BNState": BNState, "RMSpropState": RMSpropState}
+_NAMED_TUPLES = {cls.__name__: cls for cls in (BNState, RMSpropState, SGDState, AdamState)}
 
 
 def _flatten(tree, prefix: str, out: dict[str, np.ndarray]) -> None:
-    if isinstance(tree, BNState):
+    if isinstance(tree, tuple):  # a NamedTuple: its fields name the keys
         tree = tree._asdict()
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -82,12 +85,16 @@ def tree_from_numpy(tree, device: str | torch.device = "cpu"):
 
 
 def save_checkpoint(path: str | Path, params: Params, state: State, mask_values=None,
-                    extra: dict | None = None) -> None:
-    """Write params + BN state (+ ``mask_values`` palette, + ``extra``)."""
+                    extra: dict | None = None, opt_state=None) -> None:
+    """Write params + BN state (+ ``mask_values`` palette, + ``extra``, +
+    the optimizer state for a full resume)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     arrays = flatten(params, state)
-    meta = {"mask_values": mask_values, "extra": extra or {}, "has_opt_state": False}
+    if opt_state is not None:
+        _flatten(opt_state, "opt", arrays)
+    meta = {"mask_values": mask_values, "extra": extra or {},
+            "has_opt_state": opt_state is not None}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode("utf-8"), dtype=np.uint8)
     # An explicit file object: np.savez appends '.npz' to suffix-less paths.
     with open(path, "wb") as f:
@@ -101,14 +108,35 @@ def read_checkpoint_meta(path: str | Path) -> tuple[list | None, dict]:
     return meta.get("mask_values"), meta.get("extra", {})
 
 
+def _restore(z, key: str, like, device, path):
+    """The tree of ``like``'s structure read from the file's ``key/...``
+    entries, each leaf in its ``like`` leaf's dtype and shape."""
+    if isinstance(like, dict):
+        return {k: _restore(z, f"{key}/{k}", v, device, path) for k, v in like.items()}
+    if isinstance(like, tuple):
+        return type(like)(*(_restore(z, f"{key}/{f}", v, device, path)
+                            for f, v in zip(like._fields, like)))
+    if key not in z.files:
+        raise KeyError(f"checkpoint {path} has no entry {key!r}")
+    arr = z[key]
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(like.shape)}")
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=like.dtype)
+
+
 def load_checkpoint(path: str | Path, config: UNetConfig | None = None,
-                    device: str | torch.device = "cpu"
+                    device: str | torch.device = "cpu", opt_like=None
                     ) -> tuple[Params, State, list | None, dict]:
     """Read (params, state, mask_values, extra). With ``config``, every key
-    the model needs must be present with its shape, or this raises."""
+    the model needs must be present with its shape, or this raises. With
+    ``opt_like`` (an optimizer state of the run's structure) and optimizer
+    state in the file, ``extra["opt_state"]`` is that state, restored."""
     with np.load(Path(path), allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"].tolist()).decode("utf-8"))
         flat = {k: z[k] for k in z.files if k.startswith(("params/", "state/"))}
+        opt_state = None
+        if opt_like is not None and meta.get("has_opt_state"):
+            opt_state = _restore(z, "opt", opt_like, device, path)
     if config is not None:
         template = flatten(*init_unet(config, np.random.default_rng(0)))
         for key, like in template.items():
@@ -117,4 +145,32 @@ def load_checkpoint(path: str | Path, config: UNetConfig | None = None,
             if flat[key].shape != like.shape:
                 raise ValueError(f"shape mismatch for {key}: {flat[key].shape} vs {like.shape}")
     params, state = from_jax_arrays(flat, device)
-    return params, state, meta.get("mask_values"), dict(meta.get("extra", {}))
+    extra = dict(meta.get("extra", {}))
+    if opt_state is not None:
+        extra["opt_state"] = opt_state
+    return params, state, meta.get("mask_values"), extra
+
+
+def _to_host(tree):
+    return None if tree is None else tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training: ``save`` copies the trees to
+    host memory at once, then serializes and writes the file on a thread.
+    ``wait()`` joins the write in flight; ``save`` calls it before starting
+    the next one, and the trainer at exit."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+
+    def save(self, path, params, state, mask_values=None, extra=None, opt_state=None) -> None:
+        host = (_to_host(params), _to_host(state), mask_values, extra, _to_host(opt_state))
+        self.wait()
+        self._thread = threading.Thread(target=save_checkpoint, args=(path, *host), daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None

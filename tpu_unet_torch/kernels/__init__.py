@@ -1,5 +1,8 @@
 """Hand-written CUDA kernels for the H100, one module per TPU kernel of
-``tpu_unet/kernels``, each with its plain PyTorch version beside it.
+``tpu_unet/kernels``, each with its plain PyTorch version beside it: the
+serving kernels (``fused_conv``, ``fused_double_conv``, ``pooling``), the
+train kernels (``train_conv``) and ``im2col_conv``, an entry point of its
+own that no model path calls (as in the JAX package).
 
 The sources are ``tpu_unet_torch/csrc/*.cu``; ``_build`` compiles them with
 ``nvcc`` at the first launch. Importing these modules builds nothing.
@@ -10,11 +13,12 @@ from tpu_unet_torch.kernels.fused_conv import (
     fused_conv3x3_scale_relu,
 )
 from tpu_unet_torch.kernels.fused_double_conv import FUSED_DC_MAX_CHANNELS, fused_double_conv
+from tpu_unet_torch.kernels.im2col_conv import im2col_conv3x3
 from tpu_unet_torch.kernels.pooling import max_pool2x2
 from tpu_unet_torch.kernels.train_conv import conv3x3_dw, conv3x3_dx, conv3x3_fwd
 
-# Every kernel wrapper, serving path then train path; each carries a
-# ``launches`` count.
+# Every kernel wrapper, serving path, train path, then the stand-alone
+# im2col conv; each carries a ``launches`` count.
 WRAPPERS = (
     fused_conv3x3_scale_relu,
     fused_conv3x3_concat_scale_relu,
@@ -23,6 +27,7 @@ WRAPPERS = (
     conv3x3_fwd,
     conv3x3_dx,
     conv3x3_dw,
+    im2col_conv3x3,
 )
 
 
@@ -44,6 +49,7 @@ __all__ = [
     "fused_conv3x3_concat_scale_relu",
     "fused_conv3x3_scale_relu",
     "fused_double_conv",
+    "im2col_conv3x3",
     "launch_counts",
     "max_pool2x2",
     "reset_launch_counts",

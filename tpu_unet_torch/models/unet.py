@@ -10,10 +10,12 @@ eval-mode forward; serving runs the folded forward in ``models/infer.py``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from tpu_unet_torch.ops import (
     batch_norm,
@@ -160,6 +162,14 @@ def _up_apply(params, state, x1, x2, *, bilinear: bool, train: bool, kernels=Non
     return out, {"conv": conv_state}
 
 
+def _remat(fn):
+    """``fn`` recomputed in the backward pass instead of saving its
+    activations."""
+    def wrapped(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return wrapped
+
+
 def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
                train: bool = False, compute_dtype: torch.dtype | None = None,
                remat: bool = False, axis_name: str | None = None,
@@ -172,13 +182,18 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
     convs accumulate in fp32, BN statistics are fp32, the logits fp32.
     ``kernels="cuda"`` in train mode runs every DoubleConv on the train
     kernels, as JAX's ``kernels="pallas"``; eval mode and ``kernels=None``
-    run library convs and ``batch_norm``."""
+    run library convs and ``batch_norm``.
+
+    ``remat`` recomputes each block in the backward pass instead of keeping
+    its activations (``torch.utils.checkpoint``, non-reentrant), the blocks
+    JAX wraps in ``jax.checkpoint``: every DoubleConv and decoder block. The
+    forward is functional (BN running stats come back as new tensors), so a
+    recomputation cannot update them twice; it does launch a block's
+    forward kernels a second time."""
     if config.arch != "unet":
         raise ValueError(f"tpu_unet_torch ports arch='unet' only, not {config.arch!r}")
     if kernels not in (None, "cuda"):
         raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
-    if remat:
-        raise NotImplementedError("unet_apply: remat is not ported yet")
     if axis_name is not None:
         raise NotImplementedError("unet_apply: axis_name (data parallelism) is not ported yet")
     if config.s2d_level0:
@@ -188,19 +203,21 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
         params = tree_map(lambda p: p.to(compute_dtype), params)
     x = x.contiguous()
 
+    dc = functools.partial(_double_conv_apply, train=train, kernels=kernels)
+    up = functools.partial(_up_apply, bilinear=config.bilinear, train=train, kernels=kernels)
+    if remat:
+        dc, up = _remat(dc), _remat(up)
+
     new_state: State = {}
-    x1, new_state["inc"] = _double_conv_apply(params["inc"], state["inc"], x, train=train,
-                                              kernels=kernels, first=True)
+    x1, new_state["inc"] = dc(params["inc"], state["inc"], x, first=True)
     skips = [x1]
     h = x1
     for i in range(1, 5):
         name = f"down{i}"
-        h, new_state[name] = _double_conv_apply(params[name], state[name], max_pool2d(h),
-                                                train=train, kernels=kernels)
+        h, new_state[name] = dc(params[name], state[name], max_pool2d(h))
         skips.append(h)
     for i, skip in zip(range(1, 5), skips[-2::-1]):
         name = f"up{i}"
-        h, new_state[name] = _up_apply(params[name], state[name], h, skip,
-                                       bilinear=config.bilinear, train=train, kernels=kernels)
+        h, new_state[name] = up(params[name], state[name], h, skip)
     logits = conv2d(h, params["outc"]["w"], stride=1, padding=0)
     return logits.float() + params["outc"]["b"].float(), new_state

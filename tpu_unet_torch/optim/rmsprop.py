@@ -49,11 +49,14 @@ def rmsprop_update(grads: Any, state: RMSpropState, params: Any, lr, *, alpha: f
         buf = momentum * buf + g / (torch.sqrt(sq) + eps)
         return (pf - lr * buf).to(p.dtype), sq, buf
 
-    def pick(tree, i):  # the i-th of leaf's results, over the params' dict tree
-        return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
-
     new = tree_map(leaf, params, grads, state.square_avg, state.momentum_buf)
     return pick(new, 0), RMSpropState(pick(new, 1), pick(new, 2))
+
+
+def pick(tree, i):
+    """The i-th element of each result tuple of a leaf function mapped over
+    the params' dict tree."""
+    return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
 
 
 def clip_grad_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:

@@ -2,7 +2,8 @@
 ``make_train_step``).
 
 One step is forward, the reference's criterion, backward, global-norm
-clipping and RMSprop, over the port's dict-of-tensors params:
+clipping and the optimizer update (RMSprop, the reference's, or
+SGD/Adam/AdamW), over the port's dict-of-tensors params:
 
     step(params, bn_state, opt_state, images, masks, lr)
       -> (params, bn_state, opt_state, loss, grad_norm[, grads])
@@ -12,17 +13,36 @@ It returns new trees and updates nothing in place, as the JAX step does.
 (``ops/conv_stats.py``), the counterpart of JAX's ``kernels="pallas"``;
 ``kernels=None`` runs library convs and ``ops.batch_norm`` under autograd.
 ``amp`` is the JAX package's bf16 compute (no loss scaling: bf16 keeps
-fp32's exponent range). The train loop, CLI, evaluation and data loader are
-not ported yet.
+fp32's exponent range).
+
+``train_model`` is the loop over the step (``tpu_unet/train.py``): a
+seeded train/val split, the threaded loader, validation ``val_per_epoch``
+times an epoch, the LR schedule, early stopping, EMA and the checkpoint
+policy. Its CLI is ``train_cli.py``.
 """
 
 from __future__ import annotations
 
+import logging
+from pathlib import Path
+
+import numpy as np
 import torch
 
+from tpu_unet_torch import train_ema
+from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta
+from tpu_unet_torch.data import DataLoader, prefetch_to_device, random_split_indices
+from tpu_unet_torch.evaluate import evaluate
 from tpu_unet_torch.losses import bce_with_logits, cross_entropy, dice_loss
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, tree_map, unet_apply
-from tpu_unet_torch.optim import clip_grad_norm, rmsprop_update
+from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
+from tpu_unet_torch.train_checkpoints import CheckpointPolicy
+from tpu_unet_torch.train_logging import LossDrain
+from tpu_unet_torch.train_signals import StopSignal
+
+logger = logging.getLogger(__name__)
+
+dir_checkpoint = Path("./checkpoints/")
 
 
 def compute_loss(logits: torch.Tensor, masks: torch.Tensor, n_classes: int,
@@ -56,37 +76,36 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
                     optimizer: str = "rmsprop", nesterov: bool = False,
                     dice_weight: float = 1.0):
     """Build the train step. The arguments are the JAX ``make_train_step``'s;
-    what the port does not have yet is refused, not ignored: ``remat``,
-    ``mesh``, ``opt_shardings``, ``vmem_limit_kib`` (TPU-only), ``nesterov``
-    and any optimizer but the reference's RMSprop (``momentum`` None takes
-    its 0.999).
+    what the port does not have yet is refused, not ignored: ``mesh`` and
+    ``opt_shardings`` (data parallelism) and ``vmem_limit_kib`` (TPU-only).
+    ``optimizer`` names the update rule (``optim/optimizers.py``), whose
+    state the caller makes with the matching init; ``momentum`` None takes
+    the optimizer's default. ``remat`` recomputes each block in the backward
+    pass (``unet_apply``).
 
     ``return_grads`` appends the clipped gradients. ``accum_steps`` > 1 runs
     the batch as that many microbatches, microbatch j taking rows ``j::A``,
     with BN statistics per microbatch (the running stats thread through in
     order) and the gradients and loss averaged; a batch that ``accum_steps``
     does not divide runs unaccumulated."""
-    if remat:
-        raise NotImplementedError("make_train_step: remat is not ported yet")
     if mesh is not None or opt_shardings is not None:
         raise NotImplementedError("make_train_step: data parallelism (mesh, opt_shardings) "
                                   "is not ported yet")
     if vmem_limit_kib is not None:
         raise ValueError("make_train_step: vmem_limit_kib is a TPU compiler option")
-    if optimizer != "rmsprop" or nesterov:
-        raise NotImplementedError(f"make_train_step: only the reference RMSprop is ported, "
-                                  f"not {optimizer!r} (nesterov={nesterov})")
     if kernels not in (None, "cuda"):
         raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     compute_dtype = torch.bfloat16 if amp else None
-    mom = 0.999 if momentum is None else momentum
+    _, opt_update = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
+                                  nesterov=nesterov)
 
     def grads_and_loss(params, bn_state, images, masks):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         logits, new_bn = unet_apply(_unflatten(params, leaves), bn_state, images, config=config,
-                                    train=True, compute_dtype=compute_dtype, kernels=kernels)
+                                    train=True, compute_dtype=compute_dtype, remat=remat,
+                                    kernels=kernels)
         loss = compute_loss(logits, masks, config.n_classes, dice_weight=dice_weight)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), new_bn, _unflatten(params, grads)
@@ -106,9 +125,200 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
             grads = tree_map(lambda g: g * inv, gsum)
             loss = lsum * inv
         grads, gnorm = clip_grad_norm(grads, grad_clip)
-        new_params, new_opt = rmsprop_update(grads, opt_state, params, lr,
-                                             weight_decay=weight_decay, momentum=mom)
+        new_params, new_opt = opt_update(grads, opt_state, params, lr)
         out = (new_params, new_bn, new_opt, loss, gnorm)
         return out + (grads,) if return_grads else out
 
     return step
+
+
+def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels):
+    """Refuse invalid settings up front, with one clear error each."""
+    if kernels not in (None, "cuda"):
+        raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
+    if accum_steps > 1 and batch_size % accum_steps:
+        raise ValueError(f"--accum-steps {accum_steps} must divide --batch-size {batch_size}")
+    if early_stopping is not None and early_stopping < 1:
+        raise ValueError(f"--early-stopping must be >= 1, got {early_stopping}")
+
+
+def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, optimizer,
+                    lr_scheduler, learning_rate):
+    """Full-state resume: weights, BN state, optimizer state (when the file
+    has it and was written by the same optimizer; otherwise weights only,
+    with a warning), the schedule and the early-stopping bookkeeping.
+    Returns (params, bn_state, opt_state, start_epoch, early_stop extra);
+    the scheduler is updated in place."""
+    _, prev_extra = read_checkpoint_meta(resume)
+    saved_opt = prev_extra.get("optimizer", "rmsprop")
+    opt_like = opt_state
+    if saved_opt != optimizer:
+        logger.warning("Resume checkpoint was written by optimizer %r but this run uses %r: "
+                       "its optimizer state (if any) is discarded; weights, scheduler and "
+                       "epoch still restore.", saved_opt, optimizer)
+        opt_like = None
+    device = tree_leaves(params)[0].device
+    params, bn_state, _, extra = load_checkpoint(resume, config, device, opt_like=opt_like)
+    if "opt_state" in extra:
+        opt_state = extra.pop("opt_state")
+    start_epoch = int(extra.get("epoch", 0)) + 1
+    if "scheduler" in extra:
+        sched_state = dict(extra["scheduler"])
+        saved_sched = sched_state.pop("name", "plateau")
+        if saved_sched == lr_scheduler:
+            scheduler.load_state_dict(sched_state)
+        else:
+            logger.warning("Resume checkpoint used lr scheduler %r but this run uses %r: "
+                           "starting the schedule fresh at lr %g.", saved_sched, lr_scheduler,
+                           scheduler.lr)
+    else:  # a checkpoint with the lr only
+        scheduler.lr = float(extra.get("lr", learning_rate))
+    logger.info("Resumed from %s at epoch %d (lr %g)", resume, start_epoch, scheduler.lr)
+    return params, bn_state, opt_state, start_epoch, extra.get("early_stop")
+
+
+def _validation_pass(*, params, bn_state, opt_state, val_loader, config, amp, scheduler,
+                     history, ema, early_stopping, es_best, es_bad, policy, epoch,
+                     global_step):
+    """One validation: evaluate, step the schedule, early-stopping
+    bookkeeping, the EMA weights' own validation, the best checkpoint.
+    Returns (es_best, es_bad, early_stopped)."""
+    val_dice, val_iou = evaluate(params, bn_state, val_loader, config, amp)
+    lr_now = scheduler.step(val_dice)
+    history["val_dice"].append(val_dice)
+    history["lr"].append(lr_now)
+    logger.info("Validation Dice score: %f (IoU %f)", val_dice, val_iou)
+    early_stopped = False
+    if early_stopping is not None:
+        if val_dice > es_best:
+            es_best, es_bad = val_dice, 0
+        else:
+            es_bad += 1
+            if es_bad >= early_stopping:
+                early_stopped = True
+                logger.info("Early stopping: no val Dice improvement in %d validations "
+                            "(best %.4f)", early_stopping, es_best)
+    if ema is not None:
+        ema_dice, _ = evaluate(ema.params, bn_state, val_loader, config, amp)
+        history["val_dice_ema"].append(ema_dice)
+        logger.info("Validation Dice (EMA): %f", ema_dice)
+    policy.maybe_save_best(val_dice, epoch=epoch, step=global_step, lr=scheduler.lr,
+                           params=params, bn_state=bn_state, opt_state=opt_state)
+    return es_best, es_bad, early_stopped
+
+
+def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 5,
+                batch_size: int = 1, learning_rate: float = 1e-5, val_percent: float = 0.1,
+                save_checkpoint_flag: bool = True, keep_checkpoints: int | None = None,
+                save_best: bool = False, amp: bool = False, weight_decay: float = 1e-8,
+                momentum: float | None = None, gradient_clipping: float = 1.0,
+                optimizer: str = "rmsprop", nesterov: bool = False, dice_weight: float = 1.0,
+                lr_scheduler: str = "plateau", lr_step_size: int = 10, lr_gamma: float = 0.1,
+                lr_min: float = 0.0, remat: bool = False,
+                checkpoint_dir: Path = dir_checkpoint, seed: int = 0,
+                save_optimizer: bool = False, resume: str | None = None,
+                kernels: str | None = None, accum_steps: int = 1,
+                ema_decay: float | None = None, val_per_epoch: int = 5,
+                early_stopping: int | None = None):
+    """The reference's train loop on the port's step, with the JAX
+    ``train_model``'s arguments but those of what the port does not have
+    yet (data parallelism, W&B, augmentation, the device-side data paths).
+    Trains on the device the params lie on. Returns (params, bn_state,
+    history) with history's ``train_loss`` per step and ``val_dice`` and
+    ``lr`` per validation (``val_dice_ema`` with EMA)."""
+    _check_train_flags(accum_steps=accum_steps, batch_size=batch_size,
+                       early_stopping=early_stopping, kernels=kernels)
+    device = tree_leaves(params)[0].device
+    train_idx, val_idx = random_split_indices(len(dataset), val_percent, seed=seed)
+    n_train, n_val = len(train_idx), len(val_idx)
+    train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx, seed=seed)
+    val_loader = DataLoader(dataset, batch_size, shuffle=False, indices=val_idx)
+    logger.info("Starting training: epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
+                "device=%s kernels=%s", epochs, batch_size, learning_rate, n_train, n_val, amp,
+                device, kernels)
+
+    opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
+                                nesterov=nesterov)
+    opt_state = opt_init(params)
+    scheduler = get_scheduler(lr_scheduler, learning_rate, epochs=epochs, step_size=lr_step_size,
+                              gamma=lr_gamma, eta_min=lr_min)
+    start_epoch = 1
+    resume_es = None  # the early-stopping (best, bad) of the resumed run
+    if resume:
+        params, bn_state, opt_state, start_epoch, resume_es = _restore_resume(
+            resume, params, bn_state, opt_state, scheduler, config=config, optimizer=optimizer,
+            lr_scheduler=lr_scheduler, learning_rate=learning_rate)
+    train_step = make_train_step(
+        config, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
+        grad_clip=gradient_clipping, kernels=kernels, accum_steps=accum_steps,
+        optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight)
+    ema = train_ema.maybe_create(ema_decay, params,
+                                 total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
+    if ema is not None and resume:
+        ema.resume_from_sibling(resume, params)
+
+    history: dict[str, list] = {"train_loss": [], "val_dice": [], "lr": []}
+    if ema is not None:
+        history["val_dice_ema"] = []
+    global_step = 0
+    # The reference validates 5 times an epoch: division_step = n_train // (5·B).
+    division_step = n_train // (max(1, val_per_epoch) * batch_size)
+    policy = CheckpointPolicy(
+        checkpoint_dir, enabled=save_checkpoint_flag, keep=keep_checkpoints,
+        save_best=save_best, save_optimizer=save_optimizer, optimizer=optimizer,
+        lr_scheduler=lr_scheduler, config=config, dataset=dataset, ema_decay=ema_decay)
+    interrupted = early_stopped = False
+    es_best, es_bad = -float("inf"), 0
+    if resume_es:
+        es_best = float(resume_es.get("best", es_best))
+        es_bad = int(resume_es.get("bad", es_bad))
+    last_epoch = start_epoch - 1
+    drain = LossDrain(history)
+
+    with StopSignal() as stop:
+        for epoch in range(start_epoch, epochs + 1):
+            for batch in prefetch_to_device(train_loader, buffer_size=2, device=device):
+                if stop.requested:
+                    interrupted = True  # act at this batch boundary
+                    break
+                params, bn_state, opt_state, loss, _ = train_step(
+                    params, bn_state, opt_state, batch["image"], batch["mask"], scheduler.lr)
+                if ema is not None:
+                    ema.update(params)
+                global_step += 1
+                drain.append(loss)
+                if division_step > 0 and global_step % division_step == 0:
+                    drain.drain()
+                    es_best, es_bad, stopped = _validation_pass(
+                        params=params, bn_state=bn_state, opt_state=opt_state,
+                        val_loader=val_loader, config=config, amp=amp, scheduler=scheduler,
+                        history=history, ema=ema, early_stopping=early_stopping,
+                        es_best=es_best, es_bad=es_bad, policy=policy, epoch=epoch,
+                        global_step=global_step)
+                    early_stopped = early_stopped or stopped
+                if early_stopped:
+                    break
+            drain.drain()
+            if interrupted:
+                path = policy.save_interrupted(
+                    epoch=epoch, step=global_step, scheduler=scheduler, es_best=es_best,
+                    es_bad=es_bad, params=params, bn_state=bn_state, opt_state=opt_state,
+                    ema_params=ema.params if ema is not None else None)
+                logger.info("Training interrupted: resumable checkpoint saved to %s "
+                            "(continue with --resume %s)", path, path)
+                break
+            epoch_losses = history["train_loss"][-len(train_loader):]
+            logger.info("Epoch %d finished, mean loss %f", epoch,
+                        float(np.mean(epoch_losses)) if epoch_losses else float("nan"))
+            # Epoch schedules advance here (torch's scheduler.step() call
+            # point); the checkpoint below carries the advanced state.
+            scheduler.epoch_end()
+            policy.save_epoch(epoch, params=params, bn_state=bn_state, opt_state=opt_state,
+                              scheduler=scheduler, es_best=es_best, es_bad=es_bad,
+                              ema_params=ema.params if ema is not None else None)
+            last_epoch = epoch
+            if early_stopped:
+                logger.info("Stopped early during epoch %d.", epoch)
+                break
+    policy.finish(last_epoch, start_epoch, epochs)
+    return params, bn_state, history
