@@ -10,13 +10,16 @@ Phases, each of which exits non-zero on failure, each with its time:
 1. Print the card's name and power limit; build the CUDA kernels from
    ``tpu_unet_torch/csrc`` and print the build time.
 2. Run each of the four serving kernels and its plain PyTorch version on the
-   card at the serving path's own shapes, in bf16 and fp32 (TF32 off), and
+   card at the serving path's own shapes (``fused_conv3x3_scale_relu`` at
+   all seven of the served forward's), in bf16 and fp32 (TF32 off), and
    compare them: max abs and relative error, the kernel's, the plain
    version's and one library call's times (CUDA events, median), and the
    kernel's bound (the least time the card could take for its bytes or
-   operations).
+   operations). bf16 ``fused_conv3x3_scale_relu`` and ``conv3x3_fwd`` run on
+   the tensor cores (``csrc/tc_conv.cu``), fp32 on the CUDA cores.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
-   conv3x3_dx, conv3x3_dw) at the train step's shapes.
+   conv3x3_dx, conv3x3_dw) at the train step's shapes; a second bf16
+   conv3x3_fwd call must repeat the first bit for bit.
    2c. ``im2col_conv3x3`` through its own entry point (no model path calls
    it), then against its plain version in bf16 and fp32.
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
@@ -26,14 +29,17 @@ Phases, each of which exits non-zero on failure, each with its time:
 4. POST synthetic 1918x1280 Carvana-like images (scale 0.5 -> 959x640), some
    at once so a micro-batch forms, and check each PNG mask against the plain
    forward (``--kernels torch``) on the card; check that every kernel was
-   launched by the served forwards; print ``/metrics``.
+   launched by the served forwards (the 8 single convs of each on the tensor
+   cores); print ``/metrics``.
 5. Train the same full-width model from seed 0 with the port's
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
    with ``kernels="cuda"`` against ``kernels=None`` (library convs under
    autograd), comparing loss, gradients, grad norm and BN running stats;
    then time the 572x572 batch-16 bf16 step of both. Every ``"cuda"`` step
    must launch each train kernel as often as the network has convs for it,
-   every plain step none.
+   every plain step none; every bf16 conv3x3_fwd call on the tensor cores,
+   no fp32 one. Then a ``torch.profiler`` split of one 572x572 batch-16
+   bf16 ``kernels="cuda"`` step by kernel.
 6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
    1918x1280 PNG pairs at scale 0.5, batch 4, bf16, 2 epochs, once with
    ``--kernels cuda`` and once with ``--kernels torch``: launch counts, loss
@@ -83,8 +89,10 @@ PER_FORWARD = {
     "fused_double_conv": 3,
     "max_pool2x2": 4,
 }
+# Of those, the bf16 calls that must run on the tensor cores (csrc/tc_conv.cu).
+TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8}
 SOURCES = {
-    "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/fused_conv.cu",
+    "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                  "tpu_unet/kernels/fused_conv.py:75"),
     "fused_conv3x3_concat_scale_relu": ("tpu_unet_torch/csrc/fused_conv.cu",
                                         "tpu_unet/kernels/fused_conv.py:192"),
@@ -105,7 +113,7 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 MASK_AGREEMENT = 0.995
 
 TRAIN_SOURCES = {
-    "conv3x3_fwd": ("tpu_unet_torch/csrc/train_conv.cu", "tpu_unet/kernels/train_conv.py:128"),
+    "conv3x3_fwd": ("tpu_unet_torch/csrc/tc_conv.cu", "tpu_unet/kernels/train_conv.py:128"),
     "conv3x3_dx": ("tpu_unet_torch/csrc/train_conv.cu", "tpu_unet/kernels/train_conv.py:289"),
     "conv3x3_dw": ("tpu_unet_torch/csrc/train_conv.cu", "tpu_unet/kernels/train_conv.py:441"),
 }
@@ -115,6 +123,34 @@ TRAIN_SOURCES = {
 # launches per call (the conv, then the fixed-order sum of its partials);
 # the count is of calls.
 PER_STEP = {"conv3x3_fwd": 18, "conv3x3_dx": 17, "conv3x3_dw": 18}
+# Of those, the calls of a bf16 step that must run on the tensor cores; an
+# fp32 step runs none there.
+TC_PER_STEP = {"conv3x3_fwd.tc": 18}
+# Which implementation runs each kernel in each dtype.
+_CC = "CUDA cores, fp32 FMA"
+_TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
+IMPL = {
+    "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
+    "fused_conv3x3_concat_scale_relu": {"bf16": f"{_CC} (csrc/fused_conv.cu)",
+                                        "fp32": f"{_CC} (csrc/fused_conv.cu)"},
+    "fused_double_conv": {"bf16": f"{_CC} (csrc/fused_double_conv.cu)",
+                          "fp32": f"{_CC} (csrc/fused_double_conv.cu)"},
+    "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
+    "conv3x3_fwd": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dx": {"bf16": f"{_CC} (csrc/train_conv.cu)", "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dw": {"bf16": f"{_CC} (csrc/train_conv.cu)", "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "im2col_conv3x3": {"bf16": f"{_CC} (csrc/im2col_conv.cu)",
+                       "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
+}
+
+
+def expected_launches(name: str, kernels, amp: bool, steps: int = 1) -> int:
+    """Launches of counter ``name`` in ``steps`` train steps."""
+    if kernels != "cuda":
+        return 0
+    if name in TC_PER_STEP:
+        return TC_PER_STEP[name] * steps if amp else 0
+    return PER_STEP.get(name, 0) * steps
 # Phase 2b cases: (label, x shape, Cout, prologue) at the 572x572 step's
 # shapes (batch 4 instead of 16, to bound chip time) and one odd-width
 # case of the 959x640 plan. The main case reported in the kernels line is
@@ -298,9 +334,14 @@ def kernel_cases(gen):
         cases.append(("fused_double_conv", f"{list(shape)}->{cmid}->{cmid}".replace(" ", ""),
                       K.fused_double_conv, fused_double_conv_plain,
                       [_randn(gen, shape), w1, s1, b1, w2, s2, b2], dc_work, None))
-    for shape in ((1, 80, 119, 512), (1, 40, 59, 1024)):
-        w, s, b = _conv_params(gen, shape[-1], shape[-1])
-        cases.append(("fused_conv3x3_scale_relu", f"{list(shape)}->{shape[-1]}".replace(" ", ""),
+    # The served forward's eight single convs, the main case (down3.conv2,
+    # up1.conv2) first: down3.conv1, down4.conv1/2, up2/3/4.conv2.
+    for shape, cout in (((1, 80, 119, 512), 512), ((1, 40, 59, 1024), 1024),
+                        ((1, 80, 119, 256), 512), ((1, 40, 59, 512), 1024),
+                        ((1, 160, 239, 256), 256), ((1, 320, 479, 128), 128),
+                        ((1, 640, 959, 64), 64)):
+        w, s, b = _conv_params(gen, shape[-1], cout)
+        cases.append(("fused_conv3x3_scale_relu", f"{list(shape)}->{cout}".replace(" ", ""),
                       K.fused_conv3x3_scale_relu, fused_conv3x3_scale_relu_plain,
                       [_randn(gen, shape), w, s, b], conv_work, conv_library))
     shape = (1, 640, 959, 64)
@@ -350,7 +391,7 @@ def phase_kernels() -> dict[str, dict]:
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
             tol = "exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|"
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
-            log(f"kernel {name} {label} {dt}: max_abs_err={max_abs:.3e} "
+            log(f"kernel {name} {label} {dt} [{IMPL[name][dt]}]: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib} ({LIBRARY_CALLS[name]}) bound_ms={bound_ms:.4g} "
                 f"({bound_by}) {'ok' if ok else 'FAIL'}")
@@ -358,10 +399,10 @@ def phase_kernels() -> dict[str, dict]:
                 failures.append(f"{name} {label} {dt}")
             entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
             entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
-            entry["cases"].append({"shape": label, "dtype": dt, "max_abs_err": max_abs,
-                                   "max_rel_err": max_rel, "ms": ms, "plain_ms": plain_ms,
-                                   "library_ms": library_ms, "bound_ms": bound_ms,
-                                   "bound_by": bound_by})
+            entry["cases"].append({"shape": label, "dtype": dt, "impl": IMPL[name][dt],
+                                   "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
+                                   "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by})
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
@@ -445,9 +486,14 @@ def phase_train_kernels() -> dict[str, dict]:
                     max_abs, max_rel, ok = _compare(got[0], ref[0], atol, rtol)
                     s_abs, s_rel, _ = _compare(got[1], ref[1])
                     ok = ok and s_rel <= STATS_TOL[dtype]
-                    case.update(stats_max_abs_err=s_abs, stats_err_over_max=s_rel)
+                    again = fn()  # z and its stats come from fixed-order sums: bitwise repeatable
+                    same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+                    ok = ok and same
+                    del again
+                    case.update(stats_max_abs_err=s_abs, stats_err_over_max=s_rel,
+                                bitwise_repeat=same)
                     tol = (f"z {atol:g}+{rtol:g}*|plain|, stats {STATS_TOL[dtype]:g}*max|plain| "
-                           f"(stats err {s_abs:.3e}, {s_rel:.3e} of max)")
+                           f"(stats err {s_abs:.3e}, {s_rel:.3e} of max), bitwise repeat {same}")
                 elif name == "conv3x3_dx":
                     atol, rtol = TOL[dx_dtype]
                     max_abs, max_rel, ok = _compare(got, ref, atol, rtol)
@@ -461,14 +507,16 @@ def phase_train_kernels() -> dict[str, dict]:
                 plain_ms = time_ms(plain)
                 library_ms = time_ms(library)
                 bound_ms, bound_by = bound(*work[name], dtype)
-                log(f"kernel {name} {label} {case['shape']} {dt}: max_abs_err={max_abs:.3e} "
+                log(f"kernel {name} {label} {case['shape']} {dt} [{IMPL[name][dt]}]: "
+                    f"max_abs_err={max_abs:.3e} "
                     f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                     f"library_ms={library_ms:.4f} ({LIBRARY_CALLS[name]}) "
                     f"bound_ms={bound_ms:.4g} ({bound_by}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"{name} {label} {dt}")
-                case.update(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                case.update(impl=IMPL[name][dt], max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
                 entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
                 entry["cases"].append(case)
@@ -590,9 +638,10 @@ def phase_train() -> tuple[dict[str, int], dict]:
     if n_params != TRAIN_PARAMS:
         failures.append(f"{n_params} parameters, expected {TRAIN_PARAMS}")
 
-    def run(step, kernels, images, masks, trees=(params, state, opt)):
+    def run(step, kernels, amp, images, masks, trees=(params, state, opt)):
         """One step from the seed's trees; (outputs, device ms). Checks the
-        step's launches: PER_STEP with kernels="cuda", none without."""
+        step's launches: PER_STEP with kernels="cuda" (TC_PER_STEP of them
+        on the tensor cores in bf16), none without."""
         before = K.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -602,7 +651,7 @@ def phase_train() -> tuple[dict[str, int], dict]:
         end.synchronize()
         after = K.launch_counts()
         for name in after:
-            want = PER_STEP.get(name, 0) if kernels == "cuda" else 0
+            want = expected_launches(name, kernels, amp)
             if after[name] - before[name] != want:
                 failures.append(f"kernels={kernels}: {name} launched "
                                 f"{after[name] - before[name]} times in a step, expected {want}")
@@ -619,7 +668,7 @@ def phase_train() -> tuple[dict[str, int], dict]:
     shape = list(imgs.shape)
     images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
     p64 = tree_map(lambda t: t.double(), params)
-    ref, _ = run(make_train_step(config, return_grads=True), None, images.double(), masks,
+    ref, _ = run(make_train_step(config, return_grads=True), None, False, images.double(), masks,
                  trees=(p64, state, rmsprop_init(p64)))
     g64 = _leaves(ref[5])
     log(f"train step {shape} float64 kernels=None: loss {ref[3].item():.6f} "
@@ -629,7 +678,7 @@ def phase_train() -> tuple[dict[str, int], dict]:
         outs = {}
         for kernels in ("cuda", None):
             step = make_train_step(config, amp=amp, kernels=kernels, return_grads=True)
-            outs[kernels], ms = run(step, kernels, images, masks)
+            outs[kernels], ms = run(step, kernels, amp, images, masks)
             log(f"train step {shape} {dt} kernels={kernels}: loss {outs[kernels][3].item():.6f} "
                 f"grad norm {outs[kernels][4].item():.6f} ({ms:.1f} ms incl. first-call set-up)")
         c, p = outs["cuda"], outs[None]
@@ -675,9 +724,9 @@ def phase_train() -> tuple[dict[str, int], dict]:
     timing: dict[str, list] = {"cuda": [], "plain": []}
     for kernels in (None, "cuda", "cuda", None):
         for _ in range(2):  # warm-up
-            run(steps[kernels], kernels, images, masks)
+            run(steps[kernels], kernels, True, images, masks)
         torch.cuda.reset_peak_memory_stats()
-        times = [run(steps[kernels], kernels, images, masks)[1] for _ in range(3)]
+        times = [run(steps[kernels], kernels, True, images, masks)[1] for _ in range(3)]
         peak = torch.cuda.max_memory_allocated()
         ms = statistics.median(times)
         tag = "cuda" if kernels == "cuda" else "plain"
@@ -688,9 +737,61 @@ def phase_train() -> tuple[dict[str, int], dict]:
             f"{peak / 2**30:.3f} GiB")
     launches = K.launch_counts()
     log(f"launches in phase 5: {json.dumps(launches)}")
+    timing["profile"] = profile_step(steps["cuda"], (params, state, opt), images, masks)
     if failures:
         raise SystemExit(f"chip_smoke: train checks failed: {failures}")
     return launches, timing
+
+
+# Kernel-name groups of the step profile, first match wins.
+PROFILE_GROUPS = (
+    ("tc_conv (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
+    ("tconv_kernel (conv3x3_dx)", "tconv_kernel"),
+    ("dw_kernel (conv3x3_dw)", "dw_kernel"),
+    ("reduce_rows", "reduce_rows"),
+    ("cuDNN / cutlass (ConvTranspose, 1x1)", ("cudnn", "cutlass", "sm90_", "sm80_", "xmma")),
+    ("reductions", "reduce"),
+    ("elementwise / copies", ("elementwise", "vectorized", "copy", "fill")),
+)
+
+
+def profile_step(step, trees, images, masks) -> dict:
+    """Device time of one step by kernel group (``torch.profiler``, after the
+    caller's warm-ups), the step's wall time between synchronisations and
+    the device's idle share of it (1 - summed kernel time / wall; streams
+    other than the default one are not used by the step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*trees, images, masks, 1e-4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, float] = {}
+    top = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        top.append((us, ev.key, ev.count))
+        name = ev.key.lower()
+        group = next((g for g, pats in PROFILE_GROUPS
+                      if any(pt.lower() in name for pt in ((pats,) if isinstance(pats, str) else pats))),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    out = {"wall_ms": wall_ms, "kernel_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "groups_ms": groups}
+    log(f"profile, one {list(images.shape)} bf16 kernels=cuda step: wall {wall_ms:.2f} ms, "
+        f"kernels {busy:.2f} ms, device idle {out['idle_share']:.1%}; "
+        + "; ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})"
+                    for g, ms in sorted(groups.items(), key=lambda t: -t[1])))
+    log("profile, top kernels: " + "; ".join(
+        f"{k[:60]} x{n} {us / 1e3:.2f} ms" for us, k, n in sorted(top, reverse=True)[:8]))
+    return out
 
 
 # Phase 6: the train CLI at full width on synthetic Carvana-layout data at
@@ -832,7 +933,7 @@ def phase_train_cli(workdir: Path) -> tuple[dict[str, int], dict]:
         runs[kernels] = (history, launches, stats)
         steps = len(history["train_loss"])
         for name, count in launches.items():
-            want = PER_STEP.get(name, 0) * steps if kernels == "cuda" else 0
+            want = expected_launches(name, kernels, True, steps)
             if count != want:
                 failures.append(f"--kernels {kernels}: {name} launched {count} times, "
                                 f"expected {want}")
@@ -879,7 +980,7 @@ def phase_train_cli(workdir: Path) -> tuple[dict[str, int], dict]:
             f"{n_opt} square_avg tensors; predict --kernels cuda -> {out.name} {mask.shape} "
             f"values {np.unique(mask).tolist()}, launches {json.dumps(pl)}")
         if not (ok and mask.shape == (1280, 1918) and set(np.unique(mask).tolist()) <= {0, 255}
-                and all(pl[k] == v for k, v in PER_FORWARD.items())):
+                and all(pl[k] == v for k, v in {**PER_FORWARD, **TC_PER_FORWARD}.items())):
             failures.append(f"checkpoint_epoch{epoch}: checkpoint or predict check failed")
 
     # (d) --resume from epoch 1 starts at epoch 2 with the saved optimizer and
@@ -953,7 +1054,8 @@ def phase_remat() -> dict:
             numbers[remat] = {"ms": start.elapsed_time(end),
                               "peak_bytes": torch.cuda.max_memory_allocated(),
                               "launches": launches}
-            want = dict(PER_STEP, conv3x3_fwd=PER_STEP["conv3x3_fwd"] * (2 if remat else 1))
+            want = {k: expected_launches(k, "cuda", True) * (2 if remat and "fwd" in k else 1)
+                    for k in launches}
             if any(launches[k] != v for k, v in want.items()):
                 failures.append(f"remat={remat}: launches {launches}, expected {want}")
             log(f"train step {list(imgs.shape)} bf16 kernels=cuda remat={remat}: "
@@ -1095,7 +1197,7 @@ def phase_serve(workdir: Path) -> dict[str, int]:
     dispatches = metrics.get("dispatches", 0)
     if metrics.get("dispatch_batch_mean", 0) <= 1:
         failures.append("no micro-batch formed")
-    for name, per in PER_FORWARD.items():
+    for name, per in {**PER_FORWARD, **TC_PER_FORWARD}.items():
         if launches[name] != per * dispatches:
             failures.append(f"{name}: {launches[name]} launches, expected {per} x {dispatches}")
 
@@ -1268,8 +1370,10 @@ def main(argv=None) -> int:
             (src, replaces), count = IM2COL_SOURCE, im2col_launches
             main_case = next(c for c in results[name]["cases"]
                              if c["case"] == MAIN_IM2COL_CASE and c["dtype"] == "bf16")
+        tc = launches.get(f"{name}.tc") if name in PER_FORWARD else cli_launches.get(f"{name}.tc")
         report.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": count, "max_abs_err": results[name]["max_abs_err"],
+                       "launches": count, "tc_launches": tc, "impl": IMPL[name],
+                       "max_abs_err": results[name]["max_abs_err"],
                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
                        "library_ms": main_case["library_ms"],

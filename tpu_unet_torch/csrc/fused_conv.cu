@@ -1,24 +1,26 @@
 // Fused 3x3 SAME conv + per-channel scale/bias (folded BatchNorm) + optional
 // ReLU on NHWC, with an optional second input that is read as if it were
-// channel-concatenated after the first.
+// channel-concatenated after the first. Runs on the CUDA cores in fp32 FMA.
 //
-// Replaces the TPU kernels tpu_unet/kernels/fused_conv.py
-//   fused_conv3x3_scale_relu         (one source: cb == 0)
-//   fused_conv3x3_concat_scale_relu  (skip a + upsampled b, concat never built)
+// Routes (kernels/fused_conv.py):
+//   fused_conv3x3_concat_scale_relu (tpu_unet/kernels/fused_conv.py:192;
+//     skip a + upsampled b, concat never built): cb > 0, fp32 and bf16;
+//   fused_conv3x3_scale_relu (tpu_unet/kernels/fused_conv.py:75): cb == 0,
+//     fp32 only. Its bf16 calls run on the tensor cores (csrc/tc_conv.cu).
 //
 // What bounds it on the H100: arithmetic. A U-Net level does 2*9*Cin*Cout
 // FLOPs per pixel against (Cin + Cout) activations moved, hundreds of FLOPs
-// per byte, so the kernel is compute-bound. This first version runs on the
-// CUDA cores in fp32 FMA (67 TFLOP/s peak at 700 W), not the tensor cores:
-// it is the simple, exact baseline (products of bf16 inputs are exact in
-// fp32, so bf16 and fp32 results differ from the plain version only by
-// summation order). Its design keeps the FMA units fed from registers: each
-// thread holds a 4-pixel x 8-channel accumulator tile, and each staged
-// (channel, kernel row) costs 6 + 24 shared-memory reads for 96 FMAs. The
-// Pallas kernel's whole-Cin weight block (several MB at Cin=1024) does not fit
-// the 227 KB of shared memory, so the reduction axis streams in chunks of kKC
-// input channels (24 KB per chunk). Tensor cores (mma/wgmma) and cp.async or
-// TMA pipelining are the next steps.
+// per byte, so the kernel is compute-bound. It runs on the CUDA cores in
+// fp32 FMA (67 TFLOP/s peak at 700 W): the port runs fp32 without TF32, and
+// products of bf16 inputs are exact in fp32, so bf16 and fp32 results differ
+// from the plain version only by summation order. Its design keeps the FMA
+// units fed from registers: each thread holds a 4-pixel x 8-channel
+// accumulator tile, and each staged (channel, kernel row) costs 6 + 24
+// shared-memory reads for 96 FMAs. The Pallas kernel's whole-Cin weight block
+// (several MB at Cin=1024) does not fit the 227 KB of shared memory, so the
+// reduction axis streams in chunks of kKC input channels (24 KB per chunk).
+// The concat variant's tensor-core version is the next step (the loader
+// policy of tc_conv.cu, reading a and b).
 //
 // Tile: 8 x 16 output pixels x 64 output channels per block, 256 threads.
 // Grid: (tiles of the image, output-channel blocks, batch). Ragged tiles at

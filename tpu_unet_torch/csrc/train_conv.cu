@@ -1,20 +1,25 @@
-// The train-mode 3x3 conv kernels: forward with BN prologue and batch-stat
-// epilogue, and the two backward convolutions with the BN-backward cotangent
-// built while staging.
+// The train-mode 3x3 conv kernels on the CUDA cores (fp32 FMA): forward
+// with BN prologue and batch-stat epilogue, and the two backward
+// convolutions with the BN-backward cotangent built while staging.
 //
-// Replaces the TPU kernels tpu_unet/kernels/train_conv.py
+// Routes (kernels/train_conv.py), replacing tpu_unet/kernels/train_conv.py:
 //   conv3x3_fwd  z = conv3x3_same(relu(x*a + c), w), optional (sum z, sum z^2)
+//                (:128): fp32 only; its bf16 calls run on the tensor cores
+//                (csrc/tc_conv.cu), which also call reduce_rows below;
 //   conv3x3_dx   dx = conv3x3_same(dz, flip(w)^T), dz = alpha*g + beta*z + gamma
+//                (:289): fp32 and bf16;
 //   conv3x3_dw   dw[ky,kx,ci,co] = sum over N*H*W of prologue(x) * dz
+//                (:441): fp32 and bf16.
 //
 // What bounds them on the H100: arithmetic. Every one is a 9*Cin*Cout
 // contraction per pixel against a few values moved, so they are compute-
-// bound. This first version runs on the CUDA cores in fp32 FMA (67 TFLOP/s
-// peak at 700 W), not the tensor cores: products of bf16 values are exact in
-// fp32, so a kernel differs from its plain version only by summation order.
-// What the design keeps out of device memory is what the Pallas kernels keep
-// out: the normalized activation relu(x*a + c) and the cotangent dz exist
-// only in shared memory, built from the raw tensors while they are staged.
+// bound. They run on the CUDA cores in fp32 FMA (67 TFLOP/s peak at 700 W):
+// products of bf16 values are exact in fp32, so a kernel differs from its
+// plain version only by summation order. What the design keeps out of device
+// memory is what the Pallas kernels keep out: the normalized activation
+// relu(x*a + c) and the cotangent dz exist only in shared memory, built from
+// the raw tensors while they are staged. dx and dw on the tensor cores, with
+// the mainloop of tc_conv.cu and a DzIn loader policy, are the next steps.
 //
 // fwd and dx share the direct-conv core of common.cuh (8 x 16 output pixels
 // x 64 output channels per block, the reduction streamed 8 input channels at

@@ -31,13 +31,24 @@ WRAPPERS = (
 )
 
 
+# The wrappers with a tensor-core route (bf16) beside their CUDA-core one;
+# each also carries a ``tc_launches`` count.
+TC_WRAPPERS = (fused_conv3x3_scale_relu, conv3x3_fwd)
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in TC_WRAPPERS:
+        fn.tc_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Launches per wrapper, and under ``<wrapper>.tc`` those of the
+    tensor-core route (included in the wrapper's own count)."""
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    counts.update({f"{fn.__name__}.tc": fn.tc_launches for fn in TC_WRAPPERS})
+    return counts
 
 
 __all__ = [

@@ -49,6 +49,10 @@ _SIGNATURES = {
     "tuk_conv3x3_dw_splits": ([_I, _I, _I, _I, _I, _I], ctypes.c_int),
     "tuk_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
                        ctypes.c_int),
+    "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             ctypes.c_int),
+    "tuk_tc_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           ctypes.c_int),
     "tuk_im2col_max_cin": ([], ctypes.c_int),
     "tuk_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),

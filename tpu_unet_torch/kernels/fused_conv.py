@@ -1,12 +1,15 @@
 """Fused 3x3 SAME conv + folded-BN scale/bias + ReLU on NHWC: the port of
 ``tpu_unet/kernels/fused_conv.py`` (``fused_conv3x3_scale_relu`` and
-``fused_conv3x3_concat_scale_relu``) as one hand-written CUDA kernel,
-``tpu_unet_torch/csrc/fused_conv.cu``. Its header says what bounds it on the
-H100 and how the design answers.
+``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. The
+single conv in bf16 runs on the tensor cores (``csrc/tc_conv.cu``, through
+``kernels/tc_conv.py``); the single conv in fp32 and the concat variant run
+on the CUDA cores (``csrc/fused_conv.cu``). Each source's header says what
+bounds it on the H100 and how the design answers.
 
-Each wrapper launches the kernel for CUDA tensors and runs its plain PyTorch
+Each wrapper launches a kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
-launch raises. ``<wrapper>.launches`` counts the kernel launches.
+launch raises. ``<wrapper>.launches`` counts the kernel launches, and
+``fused_conv3x3_scale_relu.tc_launches`` those on the tensor cores.
 
 Numerics, as in the Pallas kernels: inputs and weights in the input dtype
 (fp32 or bf16), fp32 accumulation, scale and bias upcast to fp32, the
@@ -19,7 +22,7 @@ import threading
 
 import torch
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, tc_conv
 from tpu_unet_torch.ops.conv import conv2d
 
 _count_lock = threading.Lock()
@@ -53,6 +56,8 @@ def _launch(name, a, b, w, scale, bias, apply_relu):
     cout = w.shape[3]
     s = _build.f32_vector(scale, cout, a, name)
     t = _build.f32_vector(bias, cout, a, name)
+    if b is None and dtype == _build.DTYPE_BF16:
+        return tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
     out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):
@@ -71,6 +76,7 @@ def fused_conv3x3_scale_relu(x, w, scale, bias, *, apply_relu: bool = True):
     out = _launch("fused_conv3x3_scale_relu", x, None, w, scale, bias, apply_relu)
     with _count_lock:
         fused_conv3x3_scale_relu.launches += 1
+        fused_conv3x3_scale_relu.tc_launches += x.dtype == torch.bfloat16
     return out
 
 
@@ -87,4 +93,5 @@ def fused_conv3x3_concat_scale_relu(a, b, w, scale, bias, *, apply_relu: bool = 
 
 
 fused_conv3x3_scale_relu.launches = 0
+fused_conv3x3_scale_relu.tc_launches = 0
 fused_conv3x3_concat_scale_relu.launches = 0

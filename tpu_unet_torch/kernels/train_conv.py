@@ -1,15 +1,17 @@
 """The train-mode 3x3 conv kernels: the port of
 ``tpu_unet/kernels/train_conv.py`` (``conv3x3_fwd``, ``conv3x3_dx``,
-``conv3x3_dw``) as hand-written CUDA kernels,
-``tpu_unet_torch/csrc/train_conv.cu``. Its header says what bounds them on
+``conv3x3_dw``) as hand-written CUDA kernels. ``conv3x3_fwd`` in bf16 runs
+on the tensor cores (``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``);
+in fp32, and ``conv3x3_dx`` and ``conv3x3_dw`` in both dtypes, on the CUDA
+cores (``csrc/train_conv.cu``). Each source's header says what bounds it on
 the H100 and how the design answers.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
 launch raises. ``<wrapper>.launches`` counts the wrapper's calls that
-launched; ``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` each make two
-kernel launches per call (the conv, then the fixed-order sum of its fp32
-partials).
+launched, and ``conv3x3_fwd.tc_launches`` those on the tensor cores;
+``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` each make two kernel
+launches per call (the conv, then the fixed-order sum of its fp32 partials).
 
 Numerics, as in the Pallas kernels: fp32 accumulation; the prologue
 relu(x*a + c) computed in fp32 and rounded to x's dtype; the cotangent
@@ -26,7 +28,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, tc_conv
 from tpu_unet_torch.ops.conv import conv2d
 
 _count_lock = threading.Lock()
@@ -90,9 +92,11 @@ def _check_nhwc(name, *tensors):
             raise ValueError(f"{name}: expected [N,H,W,C] tensors, got {tuple(t.shape)}")
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, tc: bool = False) -> None:
     with _count_lock:
         wrapper.launches += 1
+        if tc:
+            wrapper.tc_launches += 1
 
 
 def conv3x3_fwd(x, w, a=None, c=None, *, stats: bool = False):
@@ -112,6 +116,10 @@ def conv3x3_fwd(x, w, a=None, c=None, *, stats: bool = False):
     cout = w.shape[3]
     av = None if a is None else _build.f32_vector(a, cin, x, name)
     cv = None if c is None else _build.f32_vector(c, cin, x, name)
+    if dtype == _build.DTYPE_BF16:
+        out = tc_conv.conv3x3_fwd(x, w, av, cv, stats)
+        _count(conv3x3_fwd, tc=True)
+        return out
     z = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     lib = _build.library()
     partials = st = None
@@ -198,5 +206,6 @@ def conv3x3_dw(x, g, z, coef, a=None, c=None):
 
 
 conv3x3_fwd.launches = 0
+conv3x3_fwd.tc_launches = 0
 conv3x3_dx.launches = 0
 conv3x3_dw.launches = 0
