@@ -19,7 +19,9 @@ Phases, each of which exits non-zero on failure, each with its time:
    the tensor cores (``csrc/tc_conv.cu``), fp32 on the CUDA cores.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes; a second bf16
-   conv3x3_fwd call must repeat the first bit for bit.
+   conv3x3_fwd call must repeat the first bit for bit. The main bf16
+   conv3x3_fwd case's time is split (``fwd_split``): without and with its
+   prologue and stats, against the library call.
    2c. ``im2col_conv3x3`` through its own entry point (no model path calls
    it), then against its plain version in bf16 and fp32.
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
@@ -409,6 +411,72 @@ def phase_kernels() -> dict[str, dict]:
     return results
 
 
+def b2b_ms(fn, reps: int = 20) -> float:
+    """Mean CUDA-event time of ``reps`` calls back to back, after two warm-up
+    calls: the host's work for one call hides behind the card's for the one
+    before, which ``time_ms`` (one call between events) does not hide."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> dict[str, float]:
+    """Device time per call of each kernel that ``fn`` launches, by kernel
+    name (``torch.profiler`` over ``reps`` calls after two warm-ups)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        name = ev.key.split("<")[0].split("(")[0].split("::")[-1].strip()[:48]
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def fwd_split(x, w, pro) -> dict[str, dict]:
+    """Where the time of the main bf16 ``conv3x3_fwd`` case goes: the
+    wrapper without and with its prologue and stats, and the library call,
+    each timed as one call (as the kernels line times it), as the mean of
+    calls back to back, and on the device by kernel."""
+    import torch.nn.functional as F
+
+    xl, wl = nchw(x), oihw(w)
+    variants = {
+        "raw": lambda: K.conv3x3_fwd(x, w),
+        "raw+stats": lambda: K.conv3x3_fwd(x, w, stats=True),
+        "pro": lambda: K.conv3x3_fwd(x, w, *pro),
+        "pro+stats": lambda: K.conv3x3_fwd(x, w, *pro, stats=True),
+        "library": lambda: F.conv2d(xl, wl, padding=1),
+    }
+    out = {}
+    for label, fn in variants.items():
+        dev = device_ms(fn)
+        out[label] = {"one_call_ms": time_ms(fn), "back_to_back_ms": b2b_ms(fn), "device_ms": dev}
+        log(f"split conv3x3_fwd {list(x.shape)}->{w.shape[3]} bf16 {label}: one call "
+            f"{out[label]['one_call_ms']:.4f} ms, back to back {out[label]['back_to_back_ms']:.4f}"
+            f" ms, device " + "; ".join(f"{k} {v:.4f}" for k, v in dev.items()))
+    return out
+
+
 def _compare(got, ref, atol=0.0, rtol=0.0):
     """(max abs error, max abs error over max |ref|, all within atol +
     rtol * |ref|)."""
@@ -520,6 +588,8 @@ def phase_train_kernels() -> dict[str, dict]:
                 entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
                 entry["max_abs_err"] = max(entry["max_abs_err"], max_abs)
                 entry["cases"].append(case)
+            if label == MAIN_TRAIN_CASE and dtype == torch.bfloat16:
+                results["conv3x3_fwd"]["split"] = fwd_split(x, w, pro)
             del x, w, g, z, xl, gl, wl
         del x32, w32, g32
         torch.cuda.empty_cache()

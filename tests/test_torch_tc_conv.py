@@ -19,6 +19,7 @@ by one bf16 ulp, 2^-8 relative), the same TOL as chip_smoke.py holds the
 kernel to. Stats within 1e-4 (fp32) / 1e-3 (bf16) of their largest value.
 """
 
+import contextlib
 import math
 import re
 
@@ -45,6 +46,9 @@ PLAN_SHAPES = [
     (2, 13, 20, 64), (2, 13, 20, 128), (1, 35, 35, 64), (16, 35, 35, 1024),
     (1, 40, 59, 1024), (1, 80, 119, 512), (1, 640, 959, 64), (1, 640, 959, 128),
     (4, 572, 572, 64), (1, 1, 1, 8), (3, 7, 300, 24),
+    # tall and narrow: the tallest tile of the image's width does not fit
+    # the staging buffer, so the plan must take a shorter one
+    (1, 128, 1, 1024), (1, 200, 2, 64), (1, 100, 3, 64),
 ]
 
 
@@ -159,6 +163,17 @@ def test_emulated_fused_conv_matches_the_plain_version(rng, cin, relu, dtype):
     _close(y, fused_conv3x3_scale_relu_plain(x, w, scale, bias, apply_relu=relu), dtype)
 
 
+@pytest.mark.parametrize("h,w,cout", [(100, 3, 64), (128, 1, 128)])
+def test_emulated_fwd_matches_the_plain_version_on_a_narrow_image(rng, h, w, cout):
+    """Tiles shorter than the image's height, as tc_plan picks them there."""
+    x, wt, a, c = _inputs(rng, 1, h, w, 16, cout, torch.bfloat16, True)
+    assert tc_plan(1, h, w, cout).tiles_h > 1
+    z, s = _emulate(x, wt, a, c, stats=True)
+    pz, ps = conv3x3_fwd_plain(x, wt, a, c, stats=True)
+    _close(z, pz, torch.bfloat16)
+    _close_to_scale(s, ps, STATS_TOL[torch.bfloat16])
+
+
 def test_emulated_kernels_match_pallas(rng):
     """The emulation against the Pallas kernels in interpret mode, bf16, at a
     shape whose plan has ragged tiles (35 x 35 at Cout 128)."""
@@ -220,3 +235,90 @@ def test_cpu_bf16_calls_count_no_tensor_core_launch():
     counts = K.launch_counts()
     assert {"fused_conv3x3_scale_relu.tc", "conv3x3_fwd.tc"} <= set(counts)
     assert all(v == 0 for v in counts.values()), counts
+
+
+class _Card:
+    """Meta tensors stand in for CUDA ones, so the wrappers take their launch
+    routes on the CPU: the tensor-core launchers and the C library are
+    replaced by recorders that launch nothing."""
+
+    def __init__(self, monkeypatch):
+        self.tc = []     # tensor-core launcher calls
+        self.lib = []    # C library calls
+        self.fail = False
+        card = self
+
+        class Lib:
+            def __getattr__(self, name):
+                def call(*args):
+                    card.lib.append(name)
+                    return 0
+                return call
+
+        def launcher(name):
+            def launch(x, w, *args):
+                if card.fail:
+                    raise RuntimeError(f"{name}: launch failed")
+                card.tc.append(name)
+                z = torch.empty(x.shape[:3] + (w.shape[3],), dtype=x.dtype, device=x.device)
+                if name == "conv3x3_fwd" and args[-1]:  # stats
+                    return z, torch.empty(2, w.shape[3], device=x.device)
+                return z
+            return launch
+
+        def validate(kernel, *tensors):
+            return _build.DTYPE_BF16 if tensors[0].dtype == torch.bfloat16 else _build.DTYPE_F32
+
+        monkeypatch.setattr(_build, "validate", validate)
+        monkeypatch.setattr(_build, "library", Lib)
+        monkeypatch.setattr(_build, "stream", lambda t: 0)
+        monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(tc_conv, "fused_conv3x3", launcher("fused_conv3x3_scale_relu"))
+        monkeypatch.setattr(tc_conv, "conv3x3_fwd", launcher("conv3x3_fwd"))
+
+
+@pytest.fixture
+def card(monkeypatch):
+    K.reset_launch_counts()
+    yield _Card(monkeypatch)
+    K.reset_launch_counts()
+
+
+def _meta_calls(dtype):
+    """One call of each wrapper with a tensor-core route, and of the concat
+    conv (CUDA cores in both dtypes), on meta tensors."""
+    x = torch.empty(1, 5, 6, 8, device="meta", dtype=dtype)
+    w = torch.empty(3, 3, 8, 8, device="meta", dtype=dtype)
+    w2 = torch.empty(3, 3, 16, 8, device="meta", dtype=dtype)
+    one, zero = torch.ones(8), torch.zeros(8)
+    K.fused_conv3x3_scale_relu(x, w, one, zero)
+    K.fused_conv3x3_concat_scale_relu(x, x, w2, one, zero)
+    K.conv3x3_fwd(x, w, stats=True)
+    K.conv3x3_fwd(x, w, one, zero)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
+    """Each ``.tc`` count moves once per call of its tensor-core launcher and
+    never otherwise; every launch, on either route, moves the wrapper's own."""
+    _meta_calls(dtype)
+    counts = K.launch_counts()
+    assert counts["fused_conv3x3_scale_relu"] == counts["fused_conv3x3_concat_scale_relu"] == 1
+    assert counts["conv3x3_fwd"] == 2
+    for name in ("fused_conv3x3_scale_relu", "conv3x3_fwd"):
+        assert counts[f"{name}.tc"] == card.tc.count(name), (counts, card.tc)
+    if dtype == torch.bfloat16:
+        assert card.tc.count("conv3x3_fwd") == 2 and card.lib == ["tuk_conv3x3"]
+    else:
+        assert card.tc == [] and "tuk_conv3x3_fwd" in card.lib
+
+
+def test_a_failed_tensor_core_launch_counts_nothing(card):
+    card.fail = True
+    x = torch.empty(1, 5, 6, 8, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(3, 3, 8, 8, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.fused_conv3x3_scale_relu(x, w, torch.ones(8), torch.zeros(8))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.conv3x3_fwd(x, w, stats=True)
+    assert all(v == 0 for v in K.launch_counts().values())

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Compare the bf16 tensor-core convs (``tpu_unet_torch/csrc/tc_conv.cu``) of
+two trees of this repository on one CUDA card: the split of the level-0
+``conv3x3_fwd`` (``chip_smoke.fwd_split``), and the back-to-back and device
+times of every phase-2b ``conv3x3_fwd`` case and every served
+``fused_conv3x3_scale_relu`` shape.
+
+    python3 tools/tc_conv_ab.py PARENT_DIR [CHANGE_DIR]
+
+PARENT_DIR holds the other tree, e.g. ``git archive HEAD`` unpacked into the
+git-ignored ``.checkout/parent``; CHANGE_DIR defaults to this repository.
+Both are built at once first; then each tree runs in a process of its own,
+in the order parent, change, change, parent, so that drift of the card
+shows. This repository's ``chip_smoke.py`` times every tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+BUILD = "from tpu_unet_torch.kernels import _build; _build.library()"
+
+
+def measure(tree: Path) -> None:
+    """Print one tree's numbers; its ``tpu_unet_torch`` is imported."""
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    c = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(c)
+    import torch
+
+    K = c.K
+    c.full_fp32()
+    c.log(f"tree {tree}: {K.__file__}")
+
+    def line(label, fn):
+        dev = "; ".join(f"{k} {v:.4f}" for k, v in c.device_ms(fn).items())
+        c.log(f"{label}: back to back {c.b2b_ms(fn):.4f} ms, device {dev}")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for label, shape, cout, prologue in c.TRAIN_CASES:
+        cin = shape[-1]
+        x = c._randn(gen, shape).bfloat16()
+        w = c._randn(gen, (3, 3, cin, cout), (9 * cin) ** -0.5).bfloat16()
+        pro = ()
+        if prologue:
+            cc = 0.2 * c._randn(gen, (cin,))
+            cc[0] = 0.7
+            pro = (1.0 + 0.2 * c._randn(gen, (cin,)), cc)
+        if label == c.MAIN_TRAIN_CASE:
+            c.fwd_split(x, w, pro)
+        line(f"conv3x3_fwd {label} {list(shape)}->{cout} bf16 stats",
+             lambda: K.conv3x3_fwd(x, w, *pro, stats=True))
+    for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
+        if name == "fused_conv3x3_scale_relu":
+            args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
+            line(f"{name} {label} bf16", lambda: fn(*args))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("change", type=Path, nargs="?", default=ROOT)
+    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        measure(args.parent.resolve())
+        return 0
+    trees = [args.parent.resolve(), args.change.resolve()]
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=t) for t in trees]
+    if any(b.wait() != 0 for b in builds):
+        raise SystemExit("tc_conv_ab: a build failed")
+    for tree in (trees[0], trees[1], trees[1], trees[0]):
+        subprocess.run([sys.executable, __file__, str(tree), "--measure"], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

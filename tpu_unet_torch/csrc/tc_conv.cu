@@ -54,14 +54,18 @@
 //   it in place as relu(x*a + c) rounded to bf16 (__fmul_rn then __fadd_rn,
 //   as the plain version), skipping positions outside the image or past
 //   Cin, which stay the zeros of the fill: relu(c) never leaks into the
-//   SAME padding.
+//   SAME padding. Tiles whose halo lies inside the image skip that test per
+//   pixel. (Rewriting the next chunk in pieces beside the MMAs of the
+//   current one measured slower on the H100, most at the deep shapes.)
 // * Epilogue policies: AffineEpi (scale * acc + bias, optional ReLU) or the
 //   bare rounding; the bf16 tile goes through shared memory so that global
-//   stores are 16-byte and coalesced. With stats, each block sums the ROUNDED
-//   values per channel in a fixed order (lane shuffles, then the warps of one
-//   column in order) into one partial row per (image, tile); reduce_rows
-//   (train_conv.cu) adds the rows in a fixed order. Results are bitwise
-//   deterministic: nothing is atomic.
+//   stores are 16-byte and coalesced. With stats, each thread sums the
+//   ROUNDED values of the 8 channels it stores, read back from that tile,
+//   then lane shuffles and the warps in order make one partial row per
+//   (image, tile); reduce_rows (train_conv.cu) adds the rows in a fixed
+//   order. Summing in the store loop, not from the accumulators, keeps 32
+//   registers out of the epilogue (the 256 x 64 block sits at 255).
+//   Results are bitwise deterministic: nothing is atomic.
 // * Cin and Cout must be multiples of 8 (the tensor maps' 16-byte strides):
 //   the wrapper zero-pads Cin = 3 to 8 channels, as the Pallas kernel does.
 
@@ -71,11 +75,12 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace tuk {
 
-// Fixed-order sum of fp32 rows (train_conv.cu).
-cudaError_t reduce_rows(const float* in, float* out, int rows, long long cols,
-                        cudaStream_t stream);
+// Fixed-order sum of fp32 rows (train_conv.cu); `in` is scratch.
+cudaError_t reduce_rows(float* in, float* out, int rows, long long cols, cudaStream_t stream);
 
 namespace tc {
 
@@ -84,6 +89,7 @@ using bf16 = __nv_bfloat16;
 constexpr int KC = 32;        // input channels per staged chunk (64 bytes a pixel)
 constexpr int STAGES = 4;     // k-steps in the weight ring
 constexpr int kAlign = 1024;  // slot alignment: the swizzle patterns repeat every 1024 bytes
+constexpr int kMaxDevices = 64;
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -99,7 +105,7 @@ struct Config {
   static constexpr int NI = BN / WN / 8;   // n8 fragments per warp
   static constexpr int IN_SLOT = round_up(MAX_STAGED * KC * 2, kAlign);  // bytes
   static constexpr int W_SLOT = KC * BN * 2;                             // bytes
-  static constexpr int RED = WM * 2 * BN * 4;                            // stats scratch
+  static constexpr int RED = WM * WN * 2 * BN * 4;                       // stats scratch
   static constexpr size_t SMEM =
       kAlign + 2 * IN_SLOT + STAGES * W_SLOT + RED + (2 + STAGES) * 8;
   static_assert(MI >= 1 && NI % 2 == 0 && BN % 64 == 0, "fragment shape");
@@ -226,6 +232,8 @@ struct ProLoad {
     static_assert(C::THREADS % kVec == 0, "a thread keeps its 8 channels");
     const int ch = threadIdx.x % kVec;
     const int k = k0 + ch * 8;
+    // Most tiles' halo lies in the image: they skip the per-pixel test.
+    const bool inside = t.h0 >= 1 && t.h0 + t.th < t.H && t.w0 >= 1 && t.w0 + t.tw < t.W;
     if (k < cin) {
       const float4 a0 = *reinterpret_cast<const float4*>(a + k);
       const float4 a1 = *reinterpret_cast<const float4*>(a + k + 4);
@@ -234,7 +242,7 @@ struct ProLoad {
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
       for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
-        if (!t.staged_in_image(q)) continue;
+        if (!inside && !t.staged_in_image(q)) continue;
         uint4* p = reinterpret_cast<uint4*>(slot + in_off(q, ch));
         uint4 raw = *p;
         __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
@@ -294,7 +302,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   unsigned char* in_s = smem;                    // 2 input slots
   unsigned char* w_s = in_s + 2 * C::IN_SLOT;    // STAGES weight slots
   float* red_s = reinterpret_cast<float*>(w_s + STAGES * C::W_SLOT);
-  uint64_t* in_bar = reinterpret_cast<uint64_t*>(red_s + C::WM * 2 * BN);
+  uint64_t* in_bar = reinterpret_cast<uint64_t*>(red_s + C::WM * C::WN * 2 * BN);
   uint64_t* w_bar = in_bar + 2;
 
   const Tile t{(int)blockIdx.z, (int)(blockIdx.x / tiles_w) * th,
@@ -403,15 +411,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   // Epilogue: lane holds rows p = wm*kWarpM + mi*16 + lane/4 (+8) and
   // channels j = wn*kWarpN + ni*8 + (lane%4)*2 (+1) of the [BM][BN] tile.
   bf16* out_s = reinterpret_cast<bf16*>(smem);
-  float s1[NI][2], s2[NI][2];
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) s1[ni][0] = s1[ni][1] = s2[ni][0] = s2[ni][1] = 0.f;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int p = wm * kWarpM + mi * 16 + lane / 4 + hf * 8;
-      const bool valid = p < tile_px && t.h0 + p / tw < H && t.w0 + p % tw < W;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int j = wn * kWarpN + ni * 8 + (lane % 4) * 2;
@@ -421,68 +425,70 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
           y0 = epi(acc[mi][ni][hf * 2], co);
           y1 = epi(acc[mi][ni][hf * 2 + 1], co + 1);
         }
-        const __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);
-        *reinterpret_cast<__nv_bfloat162*>(out_s + p * kORow + j) = v;
-        if (kStats && valid) {
-          const float2 f = __bfloat1622float2(v);
-          s1[ni][0] += f.x;
-          s1[ni][1] += f.y;
-          s2[ni][0] += f.x * f.x;
-          s2[ni][1] += f.y * f.y;
+        *reinterpret_cast<__nv_bfloat162*>(out_s + p * kORow + j) = __floats2bfloat162_rn(y0, y1);
+      }
+    }
+  __syncthreads();
+
+  // Coalesced 16-byte stores of the valid part of the tile. A thread keeps
+  // one 8-channel group of every pixel it stores; with stats it also sums
+  // those channels' rounded values over its pixels, in order.
+  constexpr int kVecOut = BN / 8;
+  static_assert(C::THREADS % kVecOut == 0 && 32 % kVecOut == 0, "a thread keeps its group");
+  const int v = threadIdx.x % kVecOut;
+  const int co = co0 + v * 8;
+  float s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s1[e] = s2[e] = 0.f;
+  for (int p = threadIdx.x / kVecOut; p < tile_px; p += C::THREADS / kVecOut) {
+    const int gh = t.h0 + p / tw;
+    const int gw = t.w0 + p % tw;
+    if (gh < H && gw < W && co < cout) {
+      const uint4 val = *reinterpret_cast<const uint4*>(out_s + p * kORow + v * 8);
+      *reinterpret_cast<uint4*>(out + (((size_t)t.n * H + gh) * W + gw) * cout + co) = val;
+      if (kStats) {
+        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h2[e]);
+          s1[2 * e] += f.x;
+          s1[2 * e + 1] += f.y;
+          s2[2 * e] += f.x * f.x;
+          s2[2 * e + 1] += f.y * f.y;
         }
       }
     }
-
-  if (kStats) {
-    // Lanes of one channel pair sit 4 apart: add the warp's 8 of them, then
-    // the WM warps of one column, in a fixed order.
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int m = 4; m < 32; m *= 2) {
-          s1[ni][e] += __shfl_xor_sync(0xffffffffu, s1[ni][e], m);
-          s2[ni][e] += __shfl_xor_sync(0xffffffffu, s2[ni][e], m);
-        }
-    if (lane < 4) {
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = wn * kWarpN + ni * 8 + lane * 2 + e;
-          red_s[(wm * 2 + 0) * BN + j] = s1[ni][e];
-          red_s[(wm * 2 + 1) * BN + j] = s2[ni][e];
-        }
-    }
   }
-  __syncthreads();
 
   if (kStats) {
+    // The threads of one channel group sit kVecOut lanes apart: add a
+    // warp's with lane shuffles, then the warps in order.
+#pragma unroll
+    for (int m = kVecOut; m < 32; m *= 2)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], m);
+        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], m);
+      }
+    if (lane < kVecOut) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        red_s[(warp * 2 + 0) * BN + v * 8 + e] = s1[e];
+        red_s[(warp * 2 + 1) * BN + v * 8 + e] = s2[e];
+      }
+    }
+    __syncthreads();
+    const size_t row = (size_t)t.n * gridDim.x + blockIdx.x;
     for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
       const int st = i / BN;
       const int j = i % BN;
       if (co0 + j < cout) {
-        float v = 0.f;
+        float sum = 0.f;
 #pragma unroll
-        for (int q = 0; q < C::WM; ++q) v += red_s[(q * 2 + st) * BN + j];
-        const size_t row = (size_t)t.n * gridDim.x + blockIdx.x;
-        partials[(row * 2 + st) * cout + co0 + j] = v;
+        for (int q = 0; q < C::THREADS / 32; ++q) sum += red_s[(q * 2 + st) * BN + j];
+        partials[(row * 2 + st) * cout + co0 + j] = sum;
       }
     }
-  }
-
-  // Coalesced 16-byte stores of the valid part of the tile.
-  constexpr int kVecOut = BN / 8;
-  for (int i = threadIdx.x; i < tile_px * kVecOut; i += C::THREADS) {
-    const int p = i / kVecOut;
-    const int v = i % kVecOut;
-    const int gh = t.h0 + p / tw;
-    const int gw = t.w0 + p % tw;
-    const int co = co0 + v * 8;
-    if (gh < H && gw < W && co < cout)
-      *reinterpret_cast<uint4*>(out + (((size_t)t.n * H + gh) * W + gw) * cout + co) =
-          *reinterpret_cast<const uint4*>(out_s + p * kORow + v * 8);
   }
 }
 
@@ -546,8 +552,17 @@ cudaError_t launch(const void* x, const void* w, const Load& ld, const Epi& epi,
   err = make_map(&tmw, w, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   auto kernel = tc_conv_kernel<C, Load, Epi, kStats>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  // The shared-memory opt-in, once per device: a CUDA API call on every launch
+  // would add to the host time before it.
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !opted_in[dev].load()) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) opted_in[dev].store(true);
+  }
   const int tiles_w = (wd + tw - 1) / tw;
   const int tiles_h = (h + th - 1) / th;
   const dim3 grid(tiles_w * tiles_h, (cout + C::BN - 1) / C::BN, n);
@@ -592,7 +607,8 @@ extern "C" int tuk_tc_fused_conv3x3(const void* x, const void* w, const float* s
 // z[N,H,W,cout] = conv3x3_same(pro(x), w) in bf16, pro(x) = relu(x*a + c)
 // rounded to bf16 when a is not null, else x. a/c: fp32 [cin]. With partials
 // (fp32 [n * tiles][2][cout], tiles from the plan), stats (fp32 [2][cout])
-// receives (sum z, sum z^2) of the rounded z, a second launch.
+// receives (sum z, sum z^2) of the rounded z (reduce_rows, one or two more
+// launches; partials is scratch).
 extern "C" int tuk_tc_conv3x3_fwd(const void* x, const float* a, const float* c, const void* w,
                                   void* z, float* partials, float* stats, int n, int h, int wd,
                                   int cin, int cout, int cfg, int th, int tw, void* stream) {

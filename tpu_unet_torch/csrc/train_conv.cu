@@ -33,8 +33,8 @@
 // the output dtype before its statistics are taken.
 //
 // Blocks run in any order, and the batch statistics and dw are sums over
-// N*H*W. Each block writes fp32 partial sums; a second launch (reduce_rows)
-// adds them in a fixed order, so every result is deterministic.
+// N*H*W. Each block writes fp32 partial sums; reduce_rows (one or two more
+// launches) adds them in a fixed order, so every result is deterministic.
 //   * fwd stats: one [2][Cout] partial row per (image, 8x16 tile).
 //   * dw: the N*H*W reduction is split across blocks (grid.z) so that the
 //     shallow levels, whose dw has only 9*64*64 entries, still fill the card;
@@ -198,30 +198,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[c] = sum over r of in[r * cols + c], in a fixed order: thread (tx, ty)
-// adds rows ty, ty + 32, ... of column c, then row 0 of the block adds the 32.
+// Fixed-order sums of fp32 rows. Block (bx, g) adds rows g * group ...
+// min(rows, (g + 1) * group) - 1 (row r at in + r * in_stride) of columns
+// bx * 32 ...: thread (tx, ty) adds rows ty, ty + 32, ... of the group, then
+// row 0 of the block adds the 32 sums in order and writes them to
+// out + g * out_stride. out may be in itself: a block reads only its own
+// rows and columns, and writes after it has read them.
 __global__ void __launch_bounds__(1024)
-    reduce_rows_kernel(const float* __restrict__ in, float* __restrict__ out, int rows,
-                       long long cols) {
+    reduce_rows_kernel(const float* in, float* out, int rows, long long cols, long long in_stride,
+                       int group, long long out_stride) {
   __shared__ float part[32][33];
   const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
+  const int r0 = blockIdx.y * group;
+  const int r1 = min(rows, r0 + group);
   float v = 0.f;
   if (c < cols)
-    for (int r = threadIdx.y; r < rows; r += 32) v += in[(size_t)r * cols + c];
+#pragma unroll 8
+    for (int r = r0 + threadIdx.y; r < r1; r += 32) v += in[(size_t)r * in_stride + c];
   part[threadIdx.y][threadIdx.x] = v;
   __syncthreads();
   if (threadIdx.y == 0 && c < cols) {
     float s = 0.f;
     for (int q = 0; q < 32; ++q) s += part[q][threadIdx.x];
-    out[c] = s;
+    out[blockIdx.y * out_stride + c] = s;
   }
 }
 
-cudaError_t reduce_rows(const float* in, float* out, int rows, long long cols,
-                        cudaStream_t stream) {
+// out[c] = sum over r of in[r * cols + c], in an order fixed by rows and
+// cols. Few columns (the batch statistics: 2 * cout) would give a handful of
+// blocks, each reading thousands of rows: then a first launch sums groups
+// of >= 256 rows into each group's first row, in place, with enough groups
+// for about 4 blocks an SM, and a second launch adds the groups' rows.
+// Wide ones (dw) take one launch. `in` is scratch: its contents are lost.
+cudaError_t reduce_rows(float* in, float* out, int rows, long long cols, cudaStream_t stream) {
   const dim3 block(32, 32);
-  const dim3 grid((unsigned)((cols + 31) / 32));
-  reduce_rows_kernel<<<grid, block, 0, stream>>>(in, out, rows, cols);
+  const unsigned col_blocks = (unsigned)((cols + 31) / 32);
+  const long long want = 4LL * 132 / col_blocks;  // row groups for ~4 blocks an SM
+  int groups = (int)(want < (rows + 255) / 256 ? want : (rows + 255) / 256);
+  if (groups <= 1) {
+    reduce_rows_kernel<<<dim3(col_blocks, 1), block, 0, stream>>>(in, out, rows, cols, cols, rows,
+                                                                   0);
+    return cudaGetLastError();
+  }
+  const int group = (rows + groups - 1) / groups;
+  groups = (rows + group - 1) / group;
+  const long long stride = (long long)group * cols;
+  reduce_rows_kernel<<<dim3(col_blocks, groups), block, 0, stream>>>(in, in, rows, cols, cols,
+                                                                      group, stride);
+  reduce_rows_kernel<<<dim3(col_blocks, 1), block, 0, stream>>>(in, out, groups, cols, stride,
+                                                                 groups, 0);
   return cudaGetLastError();
 }
 
@@ -237,17 +262,17 @@ cudaError_t launch_tconv(const Loader& ld, int cin, const void* w, void* out, fl
   return cudaGetLastError();
 }
 
-template <typename T>
+// fp32 only: the bf16 forward runs on the tensor cores (csrc/tc_conv.cu).
 cudaError_t launch_fwd(const void* x, const float* a, const float* c, const void* w, void* z,
                        float* partials, float* stats, int n, int h, int wd, int cin, int cout,
                        cudaStream_t stream) {
   cudaError_t err;
   if (a != nullptr)
-    err = launch_tconv<T, T>(ProIn<T>{static_cast<const T*>(x), a, c, cin}, cin, w, z, partials,
-                             n, h, wd, cout, stream);
+    err = launch_tconv<float, float>(ProIn<float>{static_cast<const float*>(x), a, c, cin}, cin,
+                                     w, z, partials, n, h, wd, cout, stream);
   else
-    err = launch_tconv<T, T>(RawIn<T>{static_cast<const T*>(x), cin}, cin, w, z, partials, n, h,
-                             wd, cout, stream);
+    err = launch_tconv<float, float>(RawIn<float>{static_cast<const float*>(x), cin}, cin, w, z,
+                                     partials, n, h, wd, cout, stream);
   if (err != cudaSuccess || partials == nullptr) return err;
   return reduce_rows(partials, stats, n * tiles_of(h, wd), 2LL * cout, stream);
 }
@@ -410,15 +435,15 @@ extern "C" int tuk_conv3x3_fwd_rows(int n, int h, int wd) { return n * tuk::tile
 // rounded to x's dtype when a is not null, else x. x: [N,H,W,cin],
 // w: [3,3,cin,cout] HWIO, a/c: fp32 [cin]. With partials (fp32
 // [tuk_conv3x3_fwd_rows][2][cout] scratch), stats (fp32 [2][cout]) receives
-// (sum z, sum z^2) over the image, a second launch. dtype: 0 fp32, 1 bf16.
+// (sum z, sum z^2) over the image, a second launch. dtype must be 0 (fp32):
+// bf16 (1) returns cudaErrorInvalidValue, its route is tuk_tc_conv3x3_fwd.
 extern "C" int tuk_conv3x3_fwd(const void* x, const float* a, const float* c, const void* w,
                                void* z, float* partials, float* stats, int n, int h, int wd,
                                int cin, int cout, int dtype, void* stream) {
+  if (dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tuk::kBF16)
-    return tuk::launch_fwd<__nv_bfloat16>(x, a, c, w, z, partials, stats, n, h, wd, cin, cout, s);
-  return tuk::launch_fwd<float>(x, a, c, w, z, partials, stats, n, h, wd, cin, cout, s);
+  return tuk::launch_fwd(x, a, c, w, z, partials, stats, n, h, wd, cin, cout,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // out[N,H,W,cin] = conv3x3_same(dz, wT), dz = coef[0]*g + coef[1]*z + coef[2]

@@ -44,7 +44,17 @@ def fused_conv3x3_concat_scale_relu_plain(a, b, w, scale, bias, *, apply_relu: b
                                           apply_relu=apply_relu)
 
 
-def _launch(name, a, b, w, scale, bias, apply_relu):
+def _count(wrapper, tc: bool = False) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+        if tc:
+            wrapper.tc_launches += 1
+
+
+def _launch(wrapper, a, b, w, scale, bias, apply_relu):
+    """Launch the kernel of ``wrapper`` and count the launch on the route
+    that made it."""
+    name = wrapper.__name__
     tensors = (a, w) if b is None else (a, b, w)
     dtype = _build.validate(name, *tensors)
     if a.ndim != 4 or (b is not None and (b.ndim != 4 or b.shape[:3] != a.shape[:3])):
@@ -57,7 +67,9 @@ def _launch(name, a, b, w, scale, bias, apply_relu):
     s = _build.f32_vector(scale, cout, a, name)
     t = _build.f32_vector(bias, cout, a, name)
     if b is None and dtype == _build.DTYPE_BF16:
-        return tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
+        out = tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
+        _count(wrapper, tc=True)
+        return out
     out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):
@@ -65,6 +77,7 @@ def _launch(name, a, b, w, scale, bias, apply_relu):
                               w.data_ptr(), s.data_ptr(), t.data_ptr(), out.data_ptr(),
                               n, h, wd, cout, int(apply_relu), dtype, _build.stream(a))
     _build.check(err, name)
+    _count(wrapper)
     return out
 
 
@@ -73,11 +86,7 @@ def fused_conv3x3_scale_relu(x, w, scale, bias, *, apply_relu: bool = True):
     w: [3,3,Cin,Cout] -> [N,H,W,Cout] in x's dtype."""
     if x.device.type == "cpu":
         return fused_conv3x3_scale_relu_plain(x, w, scale, bias, apply_relu=apply_relu)
-    out = _launch("fused_conv3x3_scale_relu", x, None, w, scale, bias, apply_relu)
-    with _count_lock:
-        fused_conv3x3_scale_relu.launches += 1
-        fused_conv3x3_scale_relu.tc_launches += x.dtype == torch.bfloat16
-    return out
+    return _launch(fused_conv3x3_scale_relu, x, None, w, scale, bias, apply_relu)
 
 
 def fused_conv3x3_concat_scale_relu(a, b, w, scale, bias, *, apply_relu: bool = True):
@@ -86,10 +95,7 @@ def fused_conv3x3_concat_scale_relu(a, b, w, scale, bias, *, apply_relu: bool = 
     w: [3,3,Ca+Cb,Cout]."""
     if a.device.type == "cpu":
         return fused_conv3x3_concat_scale_relu_plain(a, b, w, scale, bias, apply_relu=apply_relu)
-    out = _launch("fused_conv3x3_concat_scale_relu", a, b, w, scale, bias, apply_relu)
-    with _count_lock:
-        fused_conv3x3_concat_scale_relu.launches += 1
-    return out
+    return _launch(fused_conv3x3_concat_scale_relu, a, b, w, scale, bias, apply_relu)
 
 
 fused_conv3x3_scale_relu.launches = 0

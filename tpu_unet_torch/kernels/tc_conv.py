@@ -14,6 +14,7 @@ bf16 CUDA tensors; the launchers never run on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import NamedTuple
@@ -70,8 +71,9 @@ class TcPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
     """The tile for an [n, h, w, *] -> cout conv. Cout <= 64 takes 256 pixels
-    x 64 channels a block, wider outputs 128 x 128. Among the rectangles
-    that fit the staging buffer, the least cost per
+    x 64 channels a block, wider outputs 128 x 128. For each width, the
+    tallest rectangle whose staged tile fits the staging buffer (any shape
+    has one: a 1-pixel-wide column fits); among those, the least cost per
     image: tiles x (bm MMA rows, masked ones included, + staged pixels x
     16 / bn). A staged pixel (64 bytes a chunk from L2) costs about 16 / bn of
     an MMA row's 9 x 32 x bn multiply-adds, so the halo decides only between
@@ -82,10 +84,10 @@ def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
     bm, bn, max_staged = CONFIGS[cfg]
     best = None
     for tw in range(1, min(w, bm) + 1):
-        th = min(bm // tw, h)
-        staged = (th + 2) * (tw + 2)
-        if staged > max_staged:
+        th = min(bm // tw, h, max_staged // (tw + 2) - 2)
+        if th < 1:
             continue
+        staged = (th + 2) * (tw + 2)
         tiles = math.ceil(h / th) * math.ceil(w / tw)
         key = (tiles * (bm + staged * 16 / bn), -tw)
         if best is None or key < best[0]:
@@ -120,6 +122,13 @@ def _padded(x, w, cout8, vecs=()):
             *(None if v is None else _aligned(_pad_last(v, cin8).contiguous()) for v in vecs))
 
 
+def _on_device(t: torch.Tensor):
+    """A context that makes ``t``'s device current, or none when it is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def _check_bf16(name, *tensors):
     _build.validate(name, *tensors)
     if tensors[0].dtype != torch.bfloat16:
@@ -140,7 +149,7 @@ def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
     plan = tc_plan(n, h, wd, cout8)
     out = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = lib.tuk_tc_fused_conv3x3(xp.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
                                        out.data_ptr(), n, h, wd, xp.shape[3], cout8,
                                        int(apply_relu), plan.cfg, plan.th, plan.tw,
@@ -168,7 +177,7 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
         st = torch.empty((2, cout8), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = lib.tuk_tc_conv3x3_fwd(xp.data_ptr(), ptr(ap), ptr(cp), wp.data_ptr(),
                                      z.data_ptr(), ptr(partials), ptr(st), n, h, wd, xp.shape[3],
                                      cout8, plan.cfg, plan.th, plan.tw, _build.stream(x))
