@@ -18,8 +18,9 @@ Phases, each of which exits non-zero on failure, each with its time:
    operations). bf16 ``fused_conv3x3_scale_relu`` and ``conv3x3_fwd`` run on
    the tensor cores (``csrc/tc_conv.cu``), fp32 on the CUDA cores.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
-   conv3x3_dx, conv3x3_dw) at the train step's shapes; a second bf16
-   conv3x3_fwd call must repeat the first bit for bit. The main bf16
+   conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
+   tensor cores in bf16 (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a
+   second call of each must repeat the first bit for bit. The main bf16
    conv3x3_fwd case's time is split (``fwd_split``): without and with its
    prologue and stats, against the library call.
    2c. ``im2col_conv3x3`` through its own entry point (no model path calls
@@ -39,7 +40,7 @@ Phases, each of which exits non-zero on failure, each with its time:
    autograd), comparing loss, gradients, grad norm and BN running stats;
    then time the 572x572 batch-16 bf16 step of both. Every ``"cuda"`` step
    must launch each train kernel as often as the network has convs for it,
-   every plain step none; every bf16 conv3x3_fwd call on the tensor cores,
+   every plain step none; every bf16 call of the three on the tensor cores,
    no fp32 one. Then a ``torch.profiler`` split of one 572x572 batch-16
    bf16 ``kernels="cuda"`` step by kernel.
 6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
@@ -116,8 +117,8 @@ MASK_AGREEMENT = 0.995
 
 TRAIN_SOURCES = {
     "conv3x3_fwd": ("tpu_unet_torch/csrc/tc_conv.cu", "tpu_unet/kernels/train_conv.py:128"),
-    "conv3x3_dx": ("tpu_unet_torch/csrc/train_conv.cu", "tpu_unet/kernels/train_conv.py:289"),
-    "conv3x3_dw": ("tpu_unet_torch/csrc/train_conv.cu", "tpu_unet/kernels/train_conv.py:441"),
+    "conv3x3_dx": ("tpu_unet_torch/csrc/tc_conv.cu", "tpu_unet/kernels/train_conv.py:289"),
+    "conv3x3_dw": ("tpu_unet_torch/csrc/tc_conv.cu", "tpu_unet/kernels/train_conv.py:441"),
 }
 # Per-step wrapper calls of each train kernel with kernels="cuda": 9
 # DoubleConvs of 2 convs each; inc's conv1 computes no dx (the image needs
@@ -127,7 +128,7 @@ TRAIN_SOURCES = {
 PER_STEP = {"conv3x3_fwd": 18, "conv3x3_dx": 17, "conv3x3_dw": 18}
 # Of those, the calls of a bf16 step that must run on the tensor cores; an
 # fp32 step runs none there.
-TC_PER_STEP = {"conv3x3_fwd.tc": 18}
+TC_PER_STEP = {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18}
 # Which implementation runs each kernel in each dtype.
 _CC = "CUDA cores, fp32 FMA"
 _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
@@ -139,8 +140,8 @@ IMPL = {
                           "fp32": f"{_CC} (csrc/fused_double_conv.cu)"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
-    "conv3x3_dx": {"bf16": f"{_CC} (csrc/train_conv.cu)", "fp32": f"{_CC} (csrc/train_conv.cu)"},
-    "conv3x3_dw": {"bf16": f"{_CC} (csrc/train_conv.cu)", "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dx": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dw": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
     "im2col_conv3x3": {"bf16": f"{_CC} (csrc/im2col_conv.cu)",
                        "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
 }
@@ -549,19 +550,21 @@ def phase_train_kernels() -> dict[str, dict]:
                 ref = plain()
                 case = {"shape": f"{list(shape)}->{cout}".replace(" ", ""), "case": label,
                         "dtype": dt, "prologue": prologue}
+                # Every output comes from fixed-order sums: bitwise repeatable.
+                again = fn()
+                same = all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)))
+                del again
+                case["bitwise_repeat"] = same
                 if name == "conv3x3_fwd":
                     atol, rtol = TOL[dtype]
                     max_abs, max_rel, ok = _compare(got[0], ref[0], atol, rtol)
                     s_abs, s_rel, _ = _compare(got[1], ref[1])
                     ok = ok and s_rel <= STATS_TOL[dtype]
-                    again = fn()  # z and its stats come from fixed-order sums: bitwise repeatable
-                    same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-                    ok = ok and same
-                    del again
-                    case.update(stats_max_abs_err=s_abs, stats_err_over_max=s_rel,
-                                bitwise_repeat=same)
+                    case.update(stats_max_abs_err=s_abs, stats_err_over_max=s_rel)
                     tol = (f"z {atol:g}+{rtol:g}*|plain|, stats {STATS_TOL[dtype]:g}*max|plain| "
-                           f"(stats err {s_abs:.3e}, {s_rel:.3e} of max), bitwise repeat {same}")
+                           f"(stats err {s_abs:.3e}, {s_rel:.3e} of max)")
                 elif name == "conv3x3_dx":
                     atol, rtol = TOL[dx_dtype]
                     max_abs, max_rel, ok = _compare(got, ref, atol, rtol)
@@ -570,6 +573,8 @@ def phase_train_kernels() -> dict[str, dict]:
                     max_abs, max_rel, _ = _compare(got, ref)
                     ok = max_rel <= DW_TOL[dtype]
                     tol = f"{DW_TOL[dtype]:g}*max|plain|"
+                ok = ok and same
+                tol += f", bitwise repeat {same}"
                 del got, ref
                 ms = time_ms(fn)
                 plain_ms = time_ms(plain)
@@ -813,11 +818,13 @@ def phase_train() -> tuple[dict[str, int], dict]:
     return launches, timing
 
 
-# Kernel-name groups of the step profile, first match wins.
+# Kernel-name groups of the step profile, first match wins. The three
+# tensor-core kernels of a bf16 step: dx is tc_conv_kernel with the DzLoad
+# loader (a template argument in the profiler's name), the fwd the others.
 PROFILE_GROUPS = (
-    ("tc_conv (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
-    ("tconv_kernel (conv3x3_dx)", "tconv_kernel"),
-    ("dw_kernel (conv3x3_dw)", "dw_kernel"),
+    ("tc_conv_kernel<DzLoad> (conv3x3_dx, tensor cores)", "dzload"),
+    ("tc_dw_kernel (conv3x3_dw, tensor cores)", "tc_dw_kernel"),
+    ("tc_conv_kernel (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
     ("reduce_rows", "reduce_rows"),
     ("cuDNN / cutlass (ConvTranspose, 1x1)", ("cudnn", "cutlass", "sm90_", "sm80_", "xmma")),
     ("reductions", "reduce"),

@@ -255,26 +255,43 @@ class _Card:
                     return 0
                 return call
 
+        def record(name):
+            if card.fail:
+                raise RuntimeError(f"{name}: launch failed")
+            card.tc.append(name)
+
         def launcher(name):
             def launch(x, w, *args):
-                if card.fail:
-                    raise RuntimeError(f"{name}: launch failed")
-                card.tc.append(name)
+                record(name)
                 z = torch.empty(x.shape[:3] + (w.shape[3],), dtype=x.dtype, device=x.device)
                 if name == "conv3x3_fwd" and args[-1]:  # stats
                     return z, torch.empty(2, w.shape[3], device=x.device)
                 return z
             return launch
 
+        def launch_dx(g, z, coef, wt, out_dtype):
+            record("conv3x3_dx")
+            return torch.empty(g.shape[:3] + (wt.shape[3],), dtype=out_dtype, device=g.device)
+
+        def launch_dw(x, g, z, coef, a, c):
+            record("conv3x3_dw")
+            return torch.empty(3, 3, x.shape[3], g.shape[3], device=x.device)
+
         def validate(kernel, *tensors):
             return _build.DTYPE_BF16 if tensors[0].dtype == torch.bfloat16 else _build.DTYPE_F32
+
+        class Props:
+            multi_processor_count = 132
 
         monkeypatch.setattr(_build, "validate", validate)
         monkeypatch.setattr(_build, "library", Lib)
         monkeypatch.setattr(_build, "stream", lambda t: 0)
         monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
         monkeypatch.setattr(tc_conv, "fused_conv3x3", launcher("fused_conv3x3_scale_relu"))
         monkeypatch.setattr(tc_conv, "conv3x3_fwd", launcher("conv3x3_fwd"))
+        monkeypatch.setattr(tc_conv, "conv3x3_dx", launch_dx)
+        monkeypatch.setattr(tc_conv, "conv3x3_dw", launch_dw)
 
 
 @pytest.fixture

@@ -2,8 +2,8 @@
 """Compare the bf16 tensor-core convs (``tpu_unet_torch/csrc/tc_conv.cu``) of
 two trees of this repository on one CUDA card: the split of the level-0
 ``conv3x3_fwd`` (``chip_smoke.fwd_split``), and the back-to-back and device
-times of every phase-2b ``conv3x3_fwd`` case and every served
-``fused_conv3x3_scale_relu`` shape.
+times of every phase-2b ``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``
+case and every served ``fused_conv3x3_scale_relu`` shape.
 
     python3 tools/tc_conv_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -54,8 +54,15 @@ def measure(tree: Path) -> None:
             pro = (1.0 + 0.2 * c._randn(gen, (cin,)), cc)
         if label == c.MAIN_TRAIN_CASE:
             c.fwd_split(x, w, pro)
-        line(f"conv3x3_fwd {label} {list(shape)}->{cout} bf16 stats",
-             lambda: K.conv3x3_fwd(x, w, *pro, stats=True))
+        tag = f"{label} {list(shape)}->{cout} bf16"
+        line(f"conv3x3_fwd {tag} stats", lambda: K.conv3x3_fwd(x, w, *pro, stats=True))
+        z = K.conv3x3_fwd(x, w, *pro)
+        g = c._randn(gen, shape[:3] + (cout,)).bfloat16()
+        coef = torch.stack([torch.ones(cout, device="cuda"), 0.3 * c._randn(gen, (cout,)),
+                            0.2 * c._randn(gen, (cout,))])
+        dx_dtype = torch.float32 if prologue else torch.bfloat16  # as phase 2b
+        line(f"conv3x3_dx {tag}", lambda: K.conv3x3_dx(g, z, coef, w, out_dtype=dx_dtype))
+        line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x, g, z, coef, *pro))
     for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
         if name == "fused_conv3x3_scale_relu":
             args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]

@@ -1,15 +1,46 @@
-// 3x3 SAME convolution on NHWC bf16 activations and HWIO bf16 weights as an
-// implicit GEMM on the Hopper tensor cores, with two loader/epilogue policies:
+// 3x3 SAME convolutions on NHWC bf16 activations on the Hopper tensor cores:
+// one implicit-GEMM mainloop over output pixels (tc_conv_kernel) with loader
+// and epilogue policies, and one over the pixels of a weight gradient
+// (tc_dw_kernel, below the first):
 //
 //   tuk_tc_fused_conv3x3  y = [relu](conv3x3_same(x, w) * scale + bias)
 //     replaces tpu_unet/kernels/fused_conv.py:75 fused_conv3x3_scale_relu
 //     (its pallas_call at :115), bf16 route;
 //   tuk_tc_conv3x3_fwd    z = conv3x3_same(pro(x), w), optional (sum z, sum z^2)
 //     replaces tpu_unet/kernels/train_conv.py:128 conv3x3_fwd (pallas_call at
-//     :204), bf16 route. pro(x) = relu(x*a + c) rounded to bf16, or x.
+//     :204), bf16 route. pro(x) = relu(x*a + c) rounded to bf16, or x;
+//   tuk_tc_conv3x3_dx     dx = conv3x3_same(dz, flip(w)^T), bf16 or fp32 out,
+//     dz = alpha*g + beta*z + gamma (the BN-backward cotangent) built in
+//     shared memory: replaces tpu_unet/kernels/train_conv.py:289 conv3x3_dx
+//     (pallas_call at :329), bf16 route;
+//   tuk_tc_conv3x3_dw     dw[ky,kx,ci,co] = sum over pixels of pro(x) * dz,
+//     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
+//     (pallas_call at :508), bf16 route.
 //
 // fp32 calls stay on the CUDA-core kernels of fused_conv.cu / train_conv.cu
 // (the port runs fp32 without TF32).
+//
+// dx is the forward's GEMM with Cin' = C and Cout' = Cin over the flipped,
+// transposed weights, with the DzLoad policy: each chunk stages g's box in
+// the input ring and z's box in ONE aux slot (a second ring of two would
+// push the 256 x 64 configuration past two blocks an SM); chunk k + 1's z
+// box is issued right after chunk k's rewrite has read the slot, 9 k-steps
+// before it is needed. SMEM a block: 96,312 bytes (256 x 64, Cfg1) and
+// 93,240 (128 x 128, Cfg0) with the slot, two blocks an SM. A two-slot z
+// ring issued with g's box measured no faster on the H100 where both keep
+// two blocks an SM (128 x 128), so the one slot does not stall the ring;
+// at 256 x 64 it left one block an SM and was 1.5x slower. Its fp32 output
+// (ConvStatsPro's backward asks for it) is stored straight from the
+// accumulators, a quad of lanes writing whole 32-byte sectors, so it needs
+// no fp32 tile in shared memory.
+//
+// dw is described at tc_dw_kernel. What bounds it is the same as for the
+// convolutions (2*9*Cin*Cout FLOPs a pixel). Its first version, blocks of
+// one kernel row (3 taps) of 4 warps, two an SM, rewrote each staged tile
+// (the prologue and dz, on the CUDA cores) once per kernel row and ran 1.8x
+// (level 0) to 2.8x ([16,35,35,512] -> 1024) slower on the H100 than the
+// 9-tap block of 12 warps kept here. Unrolling its k-step loop by two
+// measured 1-2% slower.
 //
 // What bounds it on the H100 in bf16: at the deep levels (Cin, Cout >= 256)
 // a pixel does 2*9*Cin*Cout FLOPs against (Cin + Cout) * 2 bytes moved, far
@@ -210,24 +241,76 @@ struct Tile {
   }
 };
 
+// ---- the two in-place rewrites of staged bf16 values ------------------------
+//
+// Each rewrites one 16-byte chunk (8 channels) of a staged position, in fp32
+// with separately rounded operations in the plain version's order, rounded
+// to bf16 once.
+
+// v = relu(v * a + c).
+__device__ __forceinline__ void pro_chunk(uint4* p, const float (&av)[8], const float (&cv)[8]) {
+  uint4 raw = *p;
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(v[e]);
+    v[e] = __floats2bfloat162_rn(relu_f(__fadd_rn(__fmul_rn(f.x, av[2 * e]), cv[2 * e])),
+                                 relu_f(__fadd_rn(__fmul_rn(f.y, av[2 * e + 1]), cv[2 * e + 1])));
+  }
+  *p = raw;
+}
+
+// g = alpha * g + beta * z + gamma (the BN-backward cotangent dz).
+__device__ __forceinline__ void dz_chunk(uint4* g, const uint4* z, const float (&al)[8],
+                                         const float (&be)[8], const float (&ga)[8]) {
+  uint4 graw = *g;
+  const uint4 zraw = *z;
+  __nv_bfloat162* gv = reinterpret_cast<__nv_bfloat162*>(&graw);
+  const __nv_bfloat162* zv = reinterpret_cast<const __nv_bfloat162*>(&zraw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 fg = __bfloat1622float2(gv[e]);
+    const float2 fz = __bfloat1622float2(zv[e]);
+    gv[e] = __floats2bfloat162_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(al[2 * e], fg.x), __fmul_rn(be[2 * e], fz.x)), ga[2 * e]),
+        __fadd_rn(__fadd_rn(__fmul_rn(al[2 * e + 1], fg.y), __fmul_rn(be[2 * e + 1], fz.y)),
+                  ga[2 * e + 1]));
+  }
+  *g = graw;
+}
+
+// Eight consecutive fp32 values (16-byte aligned).
+__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
 // ---- loader policies: what the staged chunk holds --------------------------
+//
+// kAux: the policy stages a second box of the same shape (z) in a slot of
+// its own, which transform() reads.
 
 // The raw input, as loaded.
 struct RawLoad {
   static constexpr bool kTransform = false;
+  static constexpr bool kAux = false;
   template <class C>
-  __device__ __forceinline__ void transform(unsigned char*, const Tile&, int, int) const {}
+  __device__ __forceinline__ void transform(unsigned char*, const unsigned char*, const Tile&,
+                                            int, int) const {}
 };
 
 // relu(x*a + c) rounded to bf16, rewritten in place over the loaded chunk.
 // Positions outside the image or past Cin keep the zeros of the fill.
 struct ProLoad {
   static constexpr bool kTransform = true;
+  static constexpr bool kAux = false;
   const float* a;
   const float* c;
   template <class C>
-  __device__ __forceinline__ void transform(unsigned char* slot, const Tile& t, int k0,
-                                            int cin) const {
+  __device__ __forceinline__ void transform(unsigned char* slot, const unsigned char*,
+                                            const Tile& t, int k0, int cin) const {
     constexpr int kVec = KC / 8;  // 16-byte chunks per staged pixel
     static_assert(C::THREADS % kVec == 0, "a thread keeps its 8 channels");
     const int ch = threadIdx.x % kVec;
@@ -235,28 +318,46 @@ struct ProLoad {
     // Most tiles' halo lies in the image: they skip the per-pixel test.
     const bool inside = t.h0 >= 1 && t.h0 + t.th < t.H && t.w0 >= 1 && t.w0 + t.tw < t.W;
     if (k < cin) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a + k);
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k + 4);
-      const float4 c0 = *reinterpret_cast<const float4*>(c + k);
-      const float4 c1 = *reinterpret_cast<const float4*>(c + k + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      float av[8], cv[8];
+      load8(av, a + k);
+      load8(cv, c + k);
       for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
         if (!inside && !t.staged_in_image(q)) continue;
-        uint4* p = reinterpret_cast<uint4*>(slot + in_off(q, ch));
-        uint4 raw = *p;
-        __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(v[e]);
-          v[e] = __floats2bfloat162_rn(
-              relu_f(__fadd_rn(__fmul_rn(f.x, av[2 * e]), cv[2 * e])),
-              relu_f(__fadd_rn(__fmul_rn(f.y, av[2 * e + 1]), cv[2 * e + 1])));
-        }
-        *p = raw;
+        pro_chunk(reinterpret_cast<uint4*>(slot + in_off(q, ch)), av, cv);
       }
     }
     fence_proxy_async();  // the slot is TMA-written again two chunks later
+  }
+};
+
+// dz = alpha*g + beta*z + gamma rounded to bf16 (coef: fp32 [3][C]),
+// rewritten in place over the loaded g chunk from the z chunk of the aux
+// slot. Positions outside the image or past C keep the zeros of the fill:
+// gamma != 0 never leaks into the SAME padding.
+struct DzLoad {
+  static constexpr bool kTransform = true;
+  static constexpr bool kAux = true;
+  const float* coef;
+  template <class C>
+  __device__ __forceinline__ void transform(unsigned char* slot, const unsigned char* zs,
+                                            const Tile& t, int k0, int c) const {
+    constexpr int kVec = KC / 8;
+    static_assert(C::THREADS % kVec == 0, "a thread keeps its 8 channels");
+    const int ch = threadIdx.x % kVec;
+    const int k = k0 + ch * 8;
+    const bool inside = t.h0 >= 1 && t.h0 + t.th < t.H && t.w0 >= 1 && t.w0 + t.tw < t.W;
+    if (k < c) {
+      float al[8], be[8], ga[8];
+      load8(al, coef + k);
+      load8(be, coef + c + k);
+      load8(ga, coef + 2 * c + k);
+      for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
+        if (!inside && !t.staged_in_image(q)) continue;
+        dz_chunk(reinterpret_cast<uint4*>(slot + in_off(q, ch)),
+                 reinterpret_cast<const uint4*>(zs + in_off(q, ch)), al, be, ga);
+      }
+    }
+    fence_proxy_async();  // both slots are TMA-written again
   }
 };
 
@@ -277,6 +378,18 @@ struct AffineEpi {
   }
 };
 
+// Dynamic shared memory of tc_conv_kernel<C, Load, ...>: the aux slot and
+// its barrier when the loader stages one.
+template <class C, class Load>
+constexpr size_t smem_bytes() {
+  return C::SMEM + (Load::kAux ? C::IN_SLOT + 8 : 0);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
+}
+
 // ---- the kernel -------------------------------------------------------------
 //
 // Grid: (tiles_h * tiles_w, ceil(cout / BN), N). Block (t, cb, n) computes
@@ -284,12 +397,16 @@ struct AffineEpi {
 // cb * BN ... With partials, it writes the (sum, sum of squares) of its
 // rounded outputs per channel to partials[((n * tiles + t) * 2 + s) * cout + co].
 // tmx: x as [N][H][W][cin] (dims cin, W, H, N), box (KC, tw + 2, th + 2, 1);
+// tmz: the aux input (z), the same dims and box (unused without kAux);
 // tmw: w as [9][cin][cout] (dims cout, cin, 9), box (64, KC, 1).
-template <class C, class Load, class Epi, bool kStats>
+// out: bf16, or fp32 with kF32Out (stored from the accumulators).
+template <class C, class Load, class Epi, bool kStats, bool kF32Out>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
-    tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-                   Load ld, Epi epi, bf16* __restrict__ out, float* __restrict__ partials, int H,
-                   int W, int cin, int cout, int th, int tw, int tiles_w) {
+    tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmz,
+                   const __grid_constant__ CUtensorMap tmw, Load ld, Epi epi,
+                   void* __restrict__ out_ptr, float* __restrict__ partials, int H, int W, int cin,
+                   int cout, int th, int tw, int tiles_w) {
+  static_assert(!(kStats && kF32Out), "stats are taken from the bf16 tile");
   constexpr int BN = C::BN;
   constexpr int MI = C::MI;
   constexpr int NI = C::NI;
@@ -297,13 +414,15 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   constexpr int kWarpN = C::BN / C::WN;
   constexpr int kORow = BN + 8;  // halves per output-tile row
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
+  unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* in_s = smem;                    // 2 input slots
   unsigned char* w_s = in_s + 2 * C::IN_SLOT;    // STAGES weight slots
-  float* red_s = reinterpret_cast<float*>(w_s + STAGES * C::W_SLOT);
+  unsigned char* aux_s = w_s + STAGES * C::W_SLOT;  // 1 aux slot with kAux
+  float* red_s = reinterpret_cast<float*>(aux_s + (Load::kAux ? C::IN_SLOT : 0));
   uint64_t* in_bar = reinterpret_cast<uint64_t*>(red_s + C::WM * C::WN * 2 * BN);
   uint64_t* w_bar = in_bar + 2;
+  uint64_t* aux_bar = w_bar + STAGES;
+  bf16* out = static_cast<bf16*>(out_ptr);
 
   const Tile t{(int)blockIdx.z, (int)(blockIdx.x / tiles_w) * th,
                (int)(blockIdx.x % tiles_w) * tw, th, tw, H, W};
@@ -354,6 +473,15 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       tma_load_3d(w_s + (g % STAGES) * C::W_SLOT + hh * KC * 128, &tmw, bar, co0 + hh * 64,
                   chunk * KC, tap);
   };
+  // The aux box of a chunk goes into the one aux slot: chunk k + 1's is
+  // issued once chunk k's transform has read the slot, 9 k-steps before it
+  // is needed.
+  auto issue_aux = [&](int chunk) {
+    if (threadIdx.x != 0) return;
+    fence_proxy_async();
+    mbar_expect_tx(aux_bar, (uint32_t)(t.staged() * KC * 2));
+    tma_load_4d(aux_s, &tmz, aux_bar, chunk * KC, t.w0 - 1, t.h0 - 1, t.n);
+  };
 
   float acc[MI][NI][4];
 #pragma unroll
@@ -364,10 +492,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 + STAGES; ++i) mbar_init(in_bar + i);
+    for (int i = 0; i < 2 + STAGES + (Load::kAux ? 1 : 0); ++i) mbar_init(in_bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if (Load::kAux) issue_aux(0);
 #pragma unroll
   for (int g = 0; g < STAGES - 1; ++g)
     if (g < nsteps) issue(g);
@@ -378,11 +507,13 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     const int tap = s - chunk * 9;
     unsigned char* slot = in_s + (chunk & 1) * C::IN_SLOT;
     if (tap == 0) mbar_wait(in_bar + (chunk & 1), (chunk >> 1) & 1);
+    if (Load::kAux && tap == 0) mbar_wait(aux_bar, chunk & 1);
     mbar_wait(w_bar + s % STAGES, (s / STAGES) & 1);
     __syncthreads();  // every thread is past step s - 1: its weight slot is free
     if (Load::kTransform && tap == 0) {
-      ld.template transform<C>(slot, t, chunk * KC, cin);
+      ld.template transform<C>(slot, aux_s, t, chunk * KC, cin);
       __syncthreads();
+      if (Load::kAux && chunk + 1 < nchunks) issue_aux(chunk + 1);
     }
     if (s + STAGES - 1 < nsteps) issue(s + STAGES - 1);
 
@@ -406,10 +537,33 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
           mma_bf16(acc[mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]);
     }
   }
-  __syncthreads();  // the rings are free: the output tile [BM][BN + 8] reuses them
 
   // Epilogue: lane holds rows p = wm*kWarpM + mi*16 + lane/4 (+8) and
   // channels j = wn*kWarpN + ni*8 + (lane%4)*2 (+1) of the [BM][BN] tile.
+  if constexpr (kF32Out) {
+    // fp32 out: each quad of lanes stores 8 channels (32 bytes) of a pixel
+    // straight from the accumulators, whole 32-byte sectors.
+    float* outf = static_cast<float*>(out_ptr);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int p = wm * kWarpM + mi * 16 + lane / 4 + hf * 8;
+        const int gh = t.h0 + p / tw;
+        const int gw = t.w0 + p % tw;
+        if (p >= tile_px || gh >= H || gw >= W) continue;
+        float* row = outf + (((size_t)t.n * H + gh) * W + gw) * cout;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int co = co0 + wn * kWarpN + ni * 8 + (lane % 4) * 2;
+          if (co < cout)
+            *reinterpret_cast<float2*>(row + co) =
+                make_float2(epi(acc[mi][ni][hf * 2], co), epi(acc[mi][ni][hf * 2 + 1], co + 1));
+        }
+      }
+    return;
+  }
+  __syncthreads();  // the rings are free: the output tile [BM][BN + 8] reuses them
   bf16* out_s = reinterpret_cast<bf16*>(smem);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -492,6 +646,232 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   }
 }
 
+// ---- dw: the weight gradient, a GEMM reducing over pixels -------------------
+//
+// Per tap (ky, kx): dw[tap][ci][co] = sum over pixels p of
+// pro(x)[p + (ky - 1, kx - 1)][ci] * dz[p][co], i.e. M = ci, N = co, K = the
+// split's pixels. A block owns DW_CI input x DW_CO output channels and all
+// 9 taps: 12 warps, 4 for each kernel row ky, each 32 ci x 32 co x the 3
+// taps of its row (96 fp32 accumulators a thread). For each pixel tile (th x
+// tw of one image, at most DW_MAX_PX pixels) it stages, by TMA with the
+// 128-byte swizzle:
+//   x: the tile plus a 1-pixel halo, 64 channels (128 bytes) a pixel, the
+//      BN prologue rewritten in place (A, read with ldmatrix.x4.trans: each
+//      lane gives one pixel of the shifted window, 16 bytes of 8 ci);
+//   g and z: the tile's pixels, 64 channels; dz = alpha*g + beta*z + gamma
+//      is rewritten in place over g (B, ldmatrix.x4.trans as the forward
+//      reads its weights). A k16 step loads its dz fragment once for the 3
+//      taps of the warp's row.
+// The rewrites run on the CUDA cores, so a tile is rewritten once for all 9
+// taps (blocks of one kernel row, 4 warps, rewrote it three times and
+// measured 1.8x to 2.8x slower on the H100). Rings: x and g two tiles deep
+// (the next tile's boxes are in flight during a tile's MMAs), z one slot
+// (the next tile's z box is issued once this tile's dz is built). Rows of dz
+// past th * tw (K padded to 16) are zeroed once and never written; pixels
+// outside the image keep the fill's zeros.
+constexpr int DW_CI = 64;          // input channels of a block
+constexpr int DW_CO = 64;          // output channels of a block
+constexpr int DW_THREADS = 384;    // 3 (ky) x 2 (ci) x 2 (co) warps
+constexpr int DW_MAX_PX = 256;     // pixels of a tile: its K rows
+constexpr int DW_MAX_STAGED = 400; // pixels of the tile plus its halo
+constexpr int DW_X_SLOT = round_up(DW_MAX_STAGED * DW_CI * 2, kAlign);
+constexpr int DW_D_SLOT = DW_MAX_PX * DW_CO * 2;
+constexpr int DW_VEC = 5 * 64 * 4;  // a, c, alpha, beta, gamma of the block's channels
+constexpr size_t DW_SMEM = kAlign + 2 * DW_X_SLOT + 3 * DW_D_SLOT + DW_VEC + 3 * 8;
+static_assert(DW_D_SLOT % kAlign == 0, "slots keep the swizzle's 1024-byte alignment");
+
+// Grid: (ci blocks * co blocks, splits). Block (b, s) adds tiles s *
+// tiles_per_split ... of the N * tiles_h * tiles_w tiles (image-major) into
+// out[s][tap][ci][co] (fp32 [splits][9][cin][cout]).
+// tmx: x (dims cin, W, H, N), box (64, tw + 2, th + 2, 1); tmg, tmz: g and z
+// (dims cout, W, H, N), box (64, tw, th, 1).
+template <bool kPro>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    tc_dw_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmg,
+                 const __grid_constant__ CUtensorMap tmz, const float* __restrict__ a,
+                 const float* __restrict__ c, const float* __restrict__ coef,
+                 float* __restrict__ out, int H, int W, int cin, int cout, int th, int tw,
+                 int tiles_w, int tiles_per_img, int total_tiles, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* x_s = smem;                    // 2 x slots
+  unsigned char* d_s = x_s + 2 * DW_X_SLOT;     // 2 g slots, rewritten as dz
+  unsigned char* z_s = d_s + 2 * DW_D_SLOT;     // 1 z slot
+  float* vec_s = reinterpret_cast<float*>(z_s + DW_D_SLOT);  // [5][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(vec_s + 5 * 64);  // x + g of slot 0, 1; z
+
+  const int ci_blocks = (cin + DW_CI - 1) / DW_CI;
+  const int ci0 = (blockIdx.x % ci_blocks) * DW_CI;
+  const int co0 = (blockIdx.x / ci_blocks) * DW_CO;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int ntiles = min(total_tiles, t_begin + tiles_per_split) - t_begin;
+  const int px = th * tw;
+  const int ksteps = (px + 15) / 16;
+  const int sw = tw + 2;
+  const int staged = (th + 2) * sw;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp % 2;
+  const int wn = (warp / 2) % 2;
+  const int ky = warp / 4;
+
+  auto tile_of = [&](int i) {
+    const int tt = t_begin + i;
+    const int n = tt / tiles_per_img;
+    const int r = tt - n * tiles_per_img;
+    return Tile{n, (r / tiles_w) * th, (r % tiles_w) * tw, th, tw, H, W};
+  };
+  // Thread 0 issues the boxes of tile i: x and g into slot i % 2, z alone.
+  auto issue_xg = [&](int i) {
+    const Tile t = tile_of(i);
+    uint64_t* b = bar + (i & 1);
+    fence_proxy_async();
+    mbar_expect_tx(b, (uint32_t)((staged + px) * DW_CI * 2));
+    tma_load_4d(x_s + (i & 1) * DW_X_SLOT, &tmx, b, ci0, t.w0 - 1, t.h0 - 1, t.n);
+    tma_load_4d(d_s + (i & 1) * DW_D_SLOT, &tmg, b, co0, t.w0, t.h0, t.n);
+  };
+  auto issue_z = [&](int i) {
+    const Tile t = tile_of(i);
+    fence_proxy_async();
+    mbar_expect_tx(bar + 2, (uint32_t)(px * DW_CO * 2));
+    tma_load_4d(z_s, &tmz, bar + 2, co0, t.w0, t.h0, t.n);
+  };
+
+  // dz rows px ... 16 * ksteps - 1 of both g slots: zero, never loaded.
+  const int pad = (16 * ksteps - px) * 8;  // 16-byte chunks a slot
+  for (int i = threadIdx.x; i < 2 * pad; i += DW_THREADS)
+    reinterpret_cast<uint4*>(d_s + (i / pad) * DW_D_SLOT + px * 128)[i % pad] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  // The block's per-channel vectors, zero past cin / cout: a, c (prologue),
+  // then alpha, beta, gamma (dz).
+  for (int i = threadIdx.x; i < 5 * 64; i += DW_THREADS) {
+    const int v = i / 64, k = i % 64;
+    const int ci = ci0 + k, co = co0 + k;
+    float val = 0.f;
+    if (v < 2) {
+      if (kPro && ci < cin) val = (v == 0 ? a : c)[ci];
+    } else if (co < cout) {
+      val = coef[(v - 2) * cout + co];
+    }
+    vec_s[i] = val;
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && ntiles > 0) {
+    issue_xg(0);
+    issue_z(0);
+    if (ntiles > 1) issue_xg(1);
+  }
+
+  // The rewrites: a thread keeps one 16-byte chunk (8 channels) of a pixel.
+  const int ch = threadIdx.x % 8;
+  const bool x_ch = ci0 + ch * 8 < cin;
+  const bool d_ch = co0 + ch * 8 < cout;
+
+  // ldmatrix lanes. A (x, trans): matrix lane / 8 holds ci half (lane / 8) % 2
+  // and k half lane / 16; the lane's row is pixel (lane / 16) * 8 + lane % 8
+  // of the k16 step. B (dz, trans): k half (lane / 8) % 2, co half lane / 16.
+  const int a_row = (lane / 16) * 8 + lane % 8;
+  const int a_chunk = wm * 4 + (lane / 8) % 2;  // + 2 * mi
+  const int b_row = ((lane / 8) % 2) * 8 + lane % 8;
+  const int b_chunk = wn * 4 + lane / 16;       // + 2 * j
+
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[kx][mi][ni][e] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < ntiles; ++i) {
+    const Tile t = tile_of(i);
+    unsigned char* xs = x_s + (i & 1) * DW_X_SLOT;
+    unsigned char* ds = d_s + (i & 1) * DW_D_SLOT;
+    mbar_wait(bar + (i & 1), (i >> 1) & 1);
+    mbar_wait(bar + 2, i & 1);
+    if (kPro && x_ch) {
+      // Most tiles' halo lies in the image: they skip the per-pixel test.
+      const bool inside = t.h0 >= 1 && t.h0 + th < H && t.w0 >= 1 && t.w0 + tw < W;
+      float av[8], cv[8];
+      load8(av, vec_s + ch * 8);
+      load8(cv, vec_s + 64 + ch * 8);
+      for (int q = threadIdx.x / 8; q < staged; q += DW_THREADS / 8) {
+        if (!inside && !t.staged_in_image(q)) continue;
+        pro_chunk(reinterpret_cast<uint4*>(xs + w_off(q, ch)), av, cv);
+      }
+    }
+    if (d_ch) {
+      const bool inside = t.h0 + th <= H && t.w0 + tw <= W;
+      float al[8], be[8], ga[8];
+      load8(al, vec_s + 128 + ch * 8);
+      load8(be, vec_s + 192 + ch * 8);
+      load8(ga, vec_s + 256 + ch * 8);
+      for (int p = threadIdx.x / 8; p < px; p += DW_THREADS / 8) {
+        if (!inside && (t.h0 + p / tw >= H || t.w0 + p % tw >= W)) continue;
+        dz_chunk(reinterpret_cast<uint4*>(ds + w_off(p, ch)),
+                 reinterpret_cast<const uint4*>(z_s + w_off(p, ch)), al, be, ga);
+      }
+    }
+    fence_proxy_async();  // the slots are TMA-written again
+    __syncthreads();
+    if (threadIdx.x == 0 && i + 1 < ntiles) issue_z(i + 1);
+
+    const uint32_t xa = smem_addr(xs);
+    const uint32_t da = smem_addr(ds);
+#pragma unroll 1
+    for (int ks = 0; ks < ksteps; ++ks) {
+      // The pixel of this lane's A row; rows past the tile read pixel 0
+      // against dz rows of zeros.
+      const int p = ks * 16 + a_row;
+      const int q = (p < px ? (p / tw) * sw + p % tw : 0) + ky * sw;
+      uint32_t bfr[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) ldmatrix_x4_trans(bfr[j], da + w_off(ks * 16 + b_row, b_chunk + 2 * j));
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) ldmatrix_x4_trans(af[mi], xa + w_off(q + kx, a_chunk + 2 * mi));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_bf16(acc[kx][mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]);
+      }
+    }
+    __syncthreads();  // slot i % 2 is read
+    if (threadIdx.x == 0 && i + 2 < ntiles) issue_xg(i + 2);
+  }
+
+  // Lane holds ci = ci0 + wm*32 + mi*16 + lane/4 (+8), co = co0 + wn*32 +
+  // ni*8 + (lane%4)*2 (+1): whole 32-byte sectors per quad.
+  float* dst = out + (size_t)blockIdx.y * 9 * cin * cout;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ci = ci0 + wm * 32 + mi * 16 + lane / 4 + hf * 8;
+        if (ci >= cin) continue;
+        float* row = dst + ((size_t)(ky * 3 + kx) * cin + ci) * cout;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int co = co0 + wn * 32 + ni * 8 + (lane % 4) * 2;
+          if (co < cout)
+            *reinterpret_cast<float2*>(row + co) =
+                make_float2(acc[kx][mi][ni][hf * 2], acc[kx][mi][ni][hf * 2 + 1]);
+        }
+      }
+}
+
 // ---- host side --------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -532,59 +912,105 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint6
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <class C, class Load, class Epi, bool kStats>
-cudaError_t launch(const void* x, const void* w, const Load& ld, const Epi& epi, void* out,
-                   float* partials, int n, int h, int wd, int cin, int cout, int th, int tw,
-                   cudaStream_t stream) {
+// A 4-D map over an NHWC bf16 tensor (dims c, W, H, N) with box (bc, bw, bh, 1).
+cudaError_t make_nhwc_map(CUtensorMap* map, const void* base, int n, int h, int wd, int c, int bc,
+                          int bw, int bh, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)wd * c * 2,
+                                 (cuuint64_t)h * wd * c * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return make_map(map, base, 4, dims, strides, box, swizzle);
+}
+
+// The shared-memory opt-in of `kernel`, once per device (`done` is the
+// kernel's own flags): a CUDA API call on every launch would add to the host
+// time before it.
+cudaError_t opt_in_smem(const void* kernel, size_t bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev].store(true);
+  return err;
+}
+
+// aux: the loader's second input (z, with kAux), the shape of x.
+template <class C, class Load, class Epi, bool kStats, bool kF32Out>
+cudaError_t launch(const void* x, const void* aux, const void* w, const Load& ld, const Epi& epi,
+                   void* out, float* partials, int n, int h, int wd, int cin, int cout, int th,
+                   int tw, cudaStream_t stream) {
   if (cin % 8 != 0 || cout % 8 != 0 || th < 1 || tw < 1 || th * tw > C::BM ||
-      (th + 2) * (tw + 2) > C::MAX_STAGED || th + 2 > 256 || tw + 2 > 256)
+      (th + 2) * (tw + 2) > C::MAX_STAGED || th + 2 > 256 || tw + 2 > 256 ||
+      (Load::kAux && aux == nullptr))
     return cudaErrorInvalidValue;
-  CUtensorMap tmx, tmw;
-  const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t xstrides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)wd * cin * 2,
-                                  (cuuint64_t)h * wd * cin * 2};
-  const cuuint32_t xbox[4] = {(cuuint32_t)KC, (cuuint32_t)(tw + 2), (cuuint32_t)(th + 2), 1};
-  cudaError_t err = make_map(&tmx, x, 4, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_64B);
+  CUtensorMap tmx, tmz, tmw;
+  cudaError_t err =
+      make_nhwc_map(&tmx, x, n, h, wd, cin, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  err = make_nhwc_map(&tmz, Load::kAux ? aux : x, n, h, wd, cin, KC, tw + 2, th + 2,
+                      CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return err;
   const cuuint64_t wdims[3] = {(cuuint64_t)cout, (cuuint64_t)cin, 9};
   const cuuint64_t wstrides[2] = {(cuuint64_t)cout * 2, (cuuint64_t)cin * cout * 2};
   const cuuint32_t wbox[3] = {64, (cuuint32_t)KC, 1};
   err = make_map(&tmw, w, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  auto kernel = tc_conv_kernel<C, Load, Epi, kStats>;
-  // The shared-memory opt-in, once per device: a CUDA API call on every launch
-  // would add to the host time before it.
+  auto kernel = tc_conv_kernel<C, Load, Epi, kStats, kF32Out>;
+  constexpr size_t smem = smem_bytes<C, Load>();
   static std::atomic<bool> opted_in[kMaxDevices];
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  err = opt_in_smem(reinterpret_cast<const void*>(kernel), smem, opted_in);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !opted_in[dev].load()) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) opted_in[dev].store(true);
-  }
   const int tiles_w = (wd + tw - 1) / tw;
   const int tiles_h = (h + th - 1) / th;
   const dim3 grid(tiles_w * tiles_h, (cout + C::BN - 1) / C::BN, n);
-  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tmx, tmw, ld, epi, static_cast<bf16*>(out),
-                                                partials, h, wd, cin, cout, th, tw, tiles_w);
+  kernel<<<grid, C::THREADS, smem, stream>>>(tmx, tmz, tmw, ld, epi, out, partials, h, wd, cin,
+                                             cout, th, tw, tiles_w);
   return cudaGetLastError();
 }
 
-template <class Load, class Epi, bool kStats>
-cudaError_t launch_cfg(int cfg, const void* x, const void* w, const Load& ld, const Epi& epi,
-                       void* out, float* partials, int n, int h, int wd, int cin, int cout, int th,
-                       int tw, cudaStream_t stream) {
-#define TUK_TC_CASE(ID)                                                                      \
-  case ID:                                                                                   \
-    return launch<Cfg##ID, Load, Epi, kStats>(x, w, ld, epi, out, partials, n, h, wd, cin, \
-                                               cout, th, tw, stream);
+template <class Load, class Epi, bool kStats, bool kF32Out = false>
+cudaError_t launch_cfg(int cfg, const void* x, const void* aux, const void* w, const Load& ld,
+                       const Epi& epi, void* out, float* partials, int n, int h, int wd, int cin,
+                       int cout, int th, int tw, cudaStream_t stream) {
+#define TUK_TC_CASE(ID)                                                                       \
+  case ID:                                                                                    \
+    return launch<Cfg##ID, Load, Epi, kStats, kF32Out>(x, aux, w, ld, epi, out, partials, n, \
+                                                        h, wd, cin, cout, th, tw, stream);
   switch (cfg) {
     TUK_TC_CASE(0)
     TUK_TC_CASE(1)
   }
 #undef TUK_TC_CASE
   return cudaErrorInvalidValue;
+}
+
+template <bool kPro>
+cudaError_t launch_dw(const void* x, const float* a, const float* c, const void* g, const void* z,
+                      const float* coef, float* out, int n, int h, int wd, int cin, int cout,
+                      int th, int tw, int tiles_per_split, int splits, cudaStream_t stream) {
+  if (cin % 8 != 0 || cout % 8 != 0 || th < 1 || tw < 1 || th * tw > DW_MAX_PX ||
+      (th + 2) * (tw + 2) > DW_MAX_STAGED || tiles_per_split < 1 || splits < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmg, tmz;
+  cudaError_t err =
+      make_nhwc_map(&tmx, x, n, h, wd, cin, DW_CI, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = make_nhwc_map(&tmg, g, n, h, wd, cout, DW_CO, tw, th, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = make_nhwc_map(&tmz, z, n, h, wd, cout, DW_CO, tw, th, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kernel = tc_dw_kernel<kPro>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  err = opt_in_smem(reinterpret_cast<const void*>(kernel), DW_SMEM, opted_in);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (wd + tw - 1) / tw;
+  const int tiles_per_img = ((h + th - 1) / th) * tiles_w;
+  const int blocks = ((cin + DW_CI - 1) / DW_CI) * ((cout + DW_CO - 1) / DW_CO);
+  kernel<<<dim3(blocks, splits), DW_THREADS, DW_SMEM, stream>>>(
+      tmx, tmg, tmz, a, c, coef, out, h, wd, cin, cout, th, tw, tiles_w, tiles_per_img,
+      n * tiles_per_img, tiles_per_split);
+  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -600,8 +1026,8 @@ extern "C" int tuk_tc_fused_conv3x3(const void* x, const void* w, const float* s
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
   using namespace tuk::tc;
   return (int)launch_cfg<RawLoad, AffineEpi, false>(
-      cfg, x, w, RawLoad{}, AffineEpi{scale, bias, relu}, out, nullptr, n, h, wd, cin, cout, th,
-      tw, static_cast<cudaStream_t>(stream));
+      cfg, x, nullptr, w, RawLoad{}, AffineEpi{scale, bias, relu}, out, nullptr, n, h, wd, cin,
+      cout, th, tw, static_cast<cudaStream_t>(stream));
 }
 
 // z[N,H,W,cout] = conv3x3_same(pro(x), w) in bf16, pro(x) = relu(x*a + c)
@@ -618,17 +1044,66 @@ extern "C" int tuk_tc_conv3x3_fwd(const void* x, const float* a, const float* c,
   cudaError_t err;
   if (a != nullptr) {
     const ProLoad ld{a, c};
-    err = partials ? launch_cfg<ProLoad, RoundEpi, true>(cfg, x, w, ld, RoundEpi{}, z, partials,
-                                                         n, h, wd, cin, cout, th, tw, s)
-                   : launch_cfg<ProLoad, RoundEpi, false>(cfg, x, w, ld, RoundEpi{}, z, nullptr,
-                                                          n, h, wd, cin, cout, th, tw, s);
-  } else {
-    err = partials ? launch_cfg<RawLoad, RoundEpi, true>(cfg, x, w, RawLoad{}, RoundEpi{}, z,
+    err = partials ? launch_cfg<ProLoad, RoundEpi, true>(cfg, x, nullptr, w, ld, RoundEpi{}, z,
                                                          partials, n, h, wd, cin, cout, th, tw, s)
-                   : launch_cfg<RawLoad, RoundEpi, false>(cfg, x, w, RawLoad{}, RoundEpi{}, z,
+                   : launch_cfg<ProLoad, RoundEpi, false>(cfg, x, nullptr, w, ld, RoundEpi{}, z,
                                                           nullptr, n, h, wd, cin, cout, th, tw, s);
+  } else {
+    err = partials
+              ? launch_cfg<RawLoad, RoundEpi, true>(cfg, x, nullptr, w, RawLoad{}, RoundEpi{}, z,
+                                                    partials, n, h, wd, cin, cout, th, tw, s)
+              : launch_cfg<RawLoad, RoundEpi, false>(cfg, x, nullptr, w, RawLoad{}, RoundEpi{}, z,
+                                                     nullptr, n, h, wd, cin, cout, th, tw, s);
   }
   if (err != cudaSuccess || partials == nullptr) return (int)err;
   const int rows = n * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
   return (int)tuk::reduce_rows(partials, stats, rows, 2LL * cout, s);
+}
+
+// out[N,H,W,cin] = conv3x3_same(dz, wt), dz = coef[0]*g + coef[1]*z + coef[2]
+// per channel, rounded to bf16, built in shared memory and never written
+// out. g, z: bf16 [N,H,W,c]; wt: bf16 [3,3,c,cin] (the forward weights
+// flipped and transposed); coef: fp32 [3][c]. out: bf16, or fp32 when
+// out_f32. c and cin multiples of 8; (cfg, th, tw): the tile plan of the
+// output width cin (kernels/tc_conv.py tc_plan).
+extern "C" int tuk_tc_conv3x3_dx(const void* g, const void* z, const float* coef, const void* wt,
+                                 void* out, int n, int h, int wd, int c, int cin, int out_f32,
+                                 int cfg, int th, int tw, void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cin == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DzLoad ld{coef};
+  if (out_f32)
+    return (int)launch_cfg<DzLoad, RoundEpi, false, true>(cfg, g, z, wt, ld, RoundEpi{}, out,
+                                                          nullptr, n, h, wd, c, cin, th, tw, s);
+  return (int)launch_cfg<DzLoad, RoundEpi, false>(cfg, g, z, wt, ld, RoundEpi{}, out, nullptr, n,
+                                                  h, wd, c, cin, th, tw, s);
+}
+
+// dw[3,3,cin,cout] fp32 = sum over N,H,W of pro(x)[n, y+ky-1, x+kx-1, ci] *
+// dz[n, y, x, co]: pro as in tuk_tc_conv3x3_fwd (zero outside the image), dz
+// as in tuk_tc_conv3x3_dx. x: bf16 [N,H,W,cin]; g, z: bf16 [N,H,W,cout];
+// a/c: fp32 [cin] or null; coef: fp32 [3][cout]. (th, tw, tiles_per_split,
+// splits): the plan (kernels/tc_conv.py dw_plan). With splits > 1, partials
+// (fp32 [splits][9][cin][cout], scratch) receives one sum per split and
+// reduce_rows adds them in a fixed order; with one split the kernel writes
+// dw itself.
+extern "C" int tuk_tc_conv3x3_dw(const void* x, const float* a, const float* c, const void* g,
+                                 const void* z, const float* coef, float* partials, float* dw,
+                                 int n, int h, int wd, int cin, int cout, int th, int tw,
+                                 int tiles_per_split, int splits, void* stream) {
+  if (cin == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0 || h == 0 || wd == 0)
+    return (int)cudaMemsetAsync(dw, 0, sizeof(float) * 9 * (size_t)cin * cout, s);
+  if (splits > 1 && partials == nullptr) return (int)cudaErrorInvalidValue;
+  float* out = splits > 1 ? partials : dw;
+  const cudaError_t err =
+      a != nullptr ? launch_dw<true>(x, a, c, g, z, coef, out, n, h, wd, cin, cout, th, tw,
+                                     tiles_per_split, splits, s)
+                   : launch_dw<false>(x, a, c, g, z, coef, out, n, h, wd, cin, cout, th, tw,
+                                      tiles_per_split, splits, s);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)tuk::reduce_rows(partials, dw, splits, 9LL * cin * cout, s);
 }

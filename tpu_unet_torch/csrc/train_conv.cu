@@ -1,25 +1,25 @@
-// The train-mode 3x3 conv kernels on the CUDA cores (fp32 FMA): forward
-// with BN prologue and batch-stat epilogue, and the two backward
-// convolutions with the BN-backward cotangent built while staging.
+// The train-mode 3x3 conv kernels on the CUDA cores (fp32 FMA), the fp32
+// route: forward with BN prologue and batch-stat epilogue, and the two
+// backward convolutions with the BN-backward cotangent built while staging.
 //
 // Routes (kernels/train_conv.py), replacing tpu_unet/kernels/train_conv.py:
 //   conv3x3_fwd  z = conv3x3_same(relu(x*a + c), w), optional (sum z, sum z^2)
-//                (:128): fp32 only; its bf16 calls run on the tensor cores
-//                (csrc/tc_conv.cu), which also call reduce_rows below;
+//                (:128);
 //   conv3x3_dx   dx = conv3x3_same(dz, flip(w)^T), dz = alpha*g + beta*z + gamma
-//                (:289): fp32 and bf16;
+//                (:289);
 //   conv3x3_dw   dw[ky,kx,ci,co] = sum over N*H*W of prologue(x) * dz
-//                (:441): fp32 and bf16.
+//                (:441).
+// All three take fp32 only and refuse bf16 (cudaErrorInvalidValue): their
+// bf16 calls run on the tensor cores (csrc/tc_conv.cu), which also call
+// reduce_rows below.
 //
 // What bounds them on the H100: arithmetic. Every one is a 9*Cin*Cout
 // contraction per pixel against a few values moved, so they are compute-
-// bound. They run on the CUDA cores in fp32 FMA (67 TFLOP/s peak at 700 W):
-// products of bf16 values are exact in fp32, so a kernel differs from its
-// plain version only by summation order. What the design keeps out of device
-// memory is what the Pallas kernels keep out: the normalized activation
-// relu(x*a + c) and the cotangent dz exist only in shared memory, built from
-// the raw tensors while they are staged. dx and dw on the tensor cores, with
-// the mainloop of tc_conv.cu and a DzIn loader policy, are the next steps.
+// bound. They run on the CUDA cores in fp32 FMA (67 TFLOP/s peak at 700 W),
+// a kernel differing from its plain version only by summation order. What
+// the design keeps out of device memory is what the Pallas kernels keep
+// out: the normalized activation relu(x*a + c) and the cotangent dz exist
+// only in shared memory, built from the raw tensors while they are staged.
 //
 // fwd and dx share the direct-conv core of common.cuh (8 x 16 output pixels
 // x 64 output channels per block, the reduction streamed 8 input channels at
@@ -447,26 +447,18 @@ extern "C" int tuk_conv3x3_fwd(const void* x, const float* a, const float* c, co
 }
 
 // out[N,H,W,cin] = conv3x3_same(dz, wT), dz = coef[0]*g + coef[1]*z + coef[2]
-// per channel, rounded to g's dtype, never written out. g, z: [N,H,W,c];
-// wT: [3,3,c,cin] (the forward weights flipped and transposed); coef: fp32
-// [3][c]. dtype is g's, z's and wT's; out_dtype the output's (fp32 output
-// from bf16 inputs is allowed).
+// per channel, never written out. g, z: [N,H,W,c]; wT: [3,3,c,cin] (the
+// forward weights flipped and transposed); coef: fp32 [3][c]. dtype is g's,
+// z's and wT's, out_dtype the output's: both must be 0 (fp32); bf16 (1)
+// returns cudaErrorInvalidValue, its route is tuk_tc_conv3x3_dx.
 extern "C" int tuk_conv3x3_dx(const void* g, const void* z, const float* coef, const void* wt,
                               void* out, int n, int h, int wd, int c, int cin, int dtype,
                               int out_dtype, void* stream) {
+  if (dtype != tuk::kF32 || out_dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || wd == 0 || cin == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tuk::kBF16) {
-    const tuk::DzIn<__nv_bfloat16> ld{static_cast<const __nv_bfloat16*>(g),
-                                      static_cast<const __nv_bfloat16*>(z), coef, c};
-    if (out_dtype == tuk::kBF16)
-      return tuk::launch_tconv<__nv_bfloat16, __nv_bfloat16>(ld, c, wt, out, nullptr, n, h, wd,
-                                                             cin, s);
-    return tuk::launch_tconv<__nv_bfloat16, float>(ld, c, wt, out, nullptr, n, h, wd, cin, s);
-  }
-  if (out_dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   const tuk::DzIn<float> ld{static_cast<const float*>(g), static_cast<const float*>(z), coef, c};
-  return tuk::launch_tconv<float, float>(ld, c, wt, out, nullptr, n, h, wd, cin, s);
+  return tuk::launch_tconv<float, float>(ld, c, wt, out, nullptr, n, h, wd, cin,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // Splits of the N*H*W reduction tuk_conv3x3_dw makes: its partials scratch is
@@ -477,24 +469,17 @@ extern "C" int tuk_conv3x3_dw_splits(int n, int h, int wd, int cin, int cout, in
 
 // dw[3,3,cin,cout] fp32 = sum over N,H,W of pro(x)[n, y+ky-1, x+kx-1, ci] *
 // dz[n, y, x, co], pro as in tuk_conv3x3_fwd (zero outside the image) and dz
-// as in tuk_conv3x3_dx. x: [N,H,W,cin]; g, z: [N,H,W,cout]; all one dtype.
+// as in tuk_conv3x3_dx. x: [N,H,W,cin]; g, z: [N,H,W,cout]; all fp32 (dtype
+// 0): bf16 (1) returns cudaErrorInvalidValue, its route is tuk_tc_conv3x3_dw.
 extern "C" int tuk_conv3x3_dw(const void* x, const float* a, const float* c, const void* g,
                               const void* z, const float* coef, float* partials, float* dw, int n,
                               int h, int wd, int cin, int cout, int num_sms, int dtype,
                               void* stream) {
+  if (dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   if (cin == 0 || cout == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0 || h == 0 || wd == 0)
     return (int)cudaMemsetAsync(dw, 0, sizeof(float) * 9 * (size_t)cin * cout, s);
-  if (dtype == tuk::kBF16) {
-    using T = __nv_bfloat16;
-    const T* xp = static_cast<const T*>(x);
-    if (a != nullptr)
-      return tuk::launch_dw<T>(tuk::ProIn<T>{xp, a, c, cin}, g, z, coef, partials, dw, n, h, wd,
-                               cin, cout, num_sms, s);
-    return tuk::launch_dw<T>(tuk::RawIn<T>{xp, cin}, g, z, coef, partials, dw, n, h, wd, cin,
-                             cout, num_sms, s);
-  }
   const float* xp = static_cast<const float*>(x);
   if (a != nullptr)
     return tuk::launch_dw<float>(tuk::ProIn<float>{xp, a, c, cin}, g, z, coef, partials, dw, n,

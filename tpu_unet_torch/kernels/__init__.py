@@ -33,7 +33,7 @@ WRAPPERS = (
 
 # The wrappers with a tensor-core route (bf16) beside their CUDA-core one;
 # each also carries a ``tc_launches`` count.
-TC_WRAPPERS = (fused_conv3x3_scale_relu, conv3x3_fwd)
+TC_WRAPPERS = (fused_conv3x3_scale_relu, conv3x3_fwd, conv3x3_dx, conv3x3_dw)
 
 
 def reset_launch_counts() -> None:

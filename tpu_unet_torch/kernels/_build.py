@@ -53,6 +53,10 @@ _SIGNATURES = {
                              ctypes.c_int),
     "tuk_tc_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),
+    "tuk_tc_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                          ctypes.c_int),
+    "tuk_tc_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P], ctypes.c_int),
     "tuk_im2col_max_cin": ([], ctypes.c_int),
     "tuk_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),
@@ -94,19 +98,37 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources unless a library for this hash exists; return it."""
+    """Compile the sources unless a library for this hash exists; return it.
+    One nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-6000:]}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, cmds, procs = [], [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        cmds.append(cmd)
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    results = [(cmd, *p.communicate(), p.returncode) for cmd, p in zip(cmds, procs)]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if all(rc == 0 for *_, rc in results):
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        results.append((cmd, proc.stdout, proc.stderr, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(
+        " ".join(cmd) + "\n" + so + se for cmd, so, se, _ in results))
+    failed = [(cmd, se, rc) for cmd, _, se, rc in results if rc != 0]
+    if failed:
+        cmd, stderr, rc = failed[0]
+        raise RuntimeError(f"nvcc failed with exit code {rc} ({cmd[-1]}):\n{stderr[-6000:]}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return out
 

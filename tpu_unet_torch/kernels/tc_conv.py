@@ -1,12 +1,34 @@
-"""The bf16 tensor-core route of ``fused_conv3x3_scale_relu`` and
-``conv3x3_fwd``: one implicit-GEMM kernel, ``tpu_unet_torch/csrc/tc_conv.cu``
-(mma.sync on the tensor cores, TMA loads), with a loader policy (raw
-input, or the BN prologue relu(x*a + c)) and an epilogue policy (folded-BN
-scale/bias + ReLU, or the bare conv with its (sum z, sum z^2) partials).
+"""The bf16 tensor-core route of ``fused_conv3x3_scale_relu``,
+``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``, in
+``tpu_unet_torch/csrc/tc_conv.cu`` (mma.sync on the tensor cores, TMA
+loads):
 
-:func:`tc_plan` is the one tile plan: the launchers size the stats partials
-from it and pass its tile to the kernel, which indexes the partials by it.
-The CPU tests check that it covers every output pixel once.
+- one implicit-GEMM kernel over output pixels with a loader policy (raw
+  input; the BN prologue relu(x*a + c); or, for dx, the BN-backward
+  cotangent dz = alpha*g + beta*z + gamma built from g's and z's staged
+  boxes, z in one slot whose next box is issued once a chunk's dz is built)
+  and an epilogue policy (folded-BN scale/bias + ReLU; the bare conv with
+  its (sum z, sum z^2) partials; dx's bf16 or fp32 output). It replaces
+  ``tpu_unet/kernels/fused_conv.py:75``, ``train_conv.py:128`` and
+  ``train_conv.py:289`` (dx);
+- one kernel for dw (``tpu_unet/kernels/train_conv.py:441``), a GEMM over
+  pixels (M = Cin, N = Cout per tap): a block owns 64 x 64 channels and all
+  9 taps, 12 warps of 32 x 32 channels x the 3 taps of one kernel row (96
+  fp32 accumulators a thread), and walks its split's pixel tiles, each
+  rewritten (prologue, dz) once for the 9 taps.
+
+All are bounded by their 2*9*Cin*Cout multiply-adds a pixel (operations)
+at the deep levels and by bytes and operations about equally at level 0;
+they run at 245-275 TFLOP/s on an H100 (PERF.md). Measured and dropped
+(``csrc/tc_conv.cu``'s header has the details): dw blocks of one kernel
+row, which rewrote each tile three times; a two-slot z ring for dx; a
+wgmma variant of the forward.
+
+:func:`tc_plan` is the one tile plan of the first kernel: the launchers size
+the stats partials from it and pass its tile to the kernel, which indexes
+the partials by it. :func:`dw_plan` is dw's: its tile and its splits of the
+pixels, which size the fp32 partials that ``reduce_rows`` adds in a fixed
+order. The CPU tests check that each covers every pixel once.
 
 The wrappers of ``fused_conv`` and ``train_conv`` call the launchers here for
 bf16 CUDA tensors; the launchers never run on the CPU.
@@ -31,6 +53,12 @@ CONFIGS = {
     0: (128, 128, 288),  # Cout > 64
     1: (256, 64, 400),   # Cout <= 64
 }
+# The dw kernel's block: input x output channels (and all 9 taps), the most
+# pixels of a tile (its K rows) and of the tile plus its halo; one block an
+# SM.
+DW_CI = DW_CO = 64
+DW_MAX_PX = 256
+DW_MAX_STAGED = 400
 
 
 class TcPlan(NamedTuple):
@@ -97,6 +125,69 @@ def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
                   math.ceil(cout / bn), n)
 
 
+class DwPlan(NamedTuple):
+    """dw: the pixels are cut into th x tw tiles (image-major, row-major in an
+    image); split s adds tiles s * tiles_per_split ... into a partial of its
+    own. Grid: (ci_blocks * co_blocks, splits)."""
+
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    n: int
+    ci_blocks: int
+    co_blocks: int
+    splits: int
+    tiles_per_split: int
+
+    @property
+    def total_tiles(self) -> int:
+        return self.n * self.tiles_h * self.tiles_w
+
+    def split_tiles(self, s: int) -> range:
+        """The tile indices split s walks, in order."""
+        start = s * self.tiles_per_split
+        return range(start, min(self.total_tiles, start + self.tiles_per_split))
+
+    def tile_origin(self, t: int) -> tuple[int, int, int]:
+        """(image, h0, w0) of tile t, as the kernel computes it."""
+        n, r = divmod(t, self.tiles_h * self.tiles_w)
+        return n, (r // self.tiles_w) * self.th, (r % self.tiles_w) * self.tw
+
+
+@functools.lru_cache(maxsize=256)
+def dw_plan(n: int, h: int, w: int, cin: int, cout: int, num_sms: int) -> DwPlan:
+    """The tile and the splits of an [n, h, w, cin] x [n, h, w, cout] dw.
+    Tile: for each width, the tallest rectangle of at most DW_MAX_PX pixels
+    whose staged halo fits; among those the least cost per image: tiles x (3
+    x K rows padded to 16, for the MMAs and the g and z boxes, + staged
+    pixels, for the x box). Splits: the count, up to two waves of blocks
+    (one an SM), whose last wave is fullest (the fewest blocks' time per
+    split's share of the work), the fewest among equals: each split beyond
+    the first adds a [9, cin, cout] fp32 partial for reduce_rows. Cached, as
+    tc_plan."""
+    best = None
+    for tw in range(1, min(w, DW_MAX_PX) + 1):
+        th = min(DW_MAX_PX // tw, h, DW_MAX_STAGED // (tw + 2) - 2)
+        if th < 1:
+            continue
+        kpad = -(-th * tw // 16) * 16
+        tiles = math.ceil(h / th) * math.ceil(w / tw)
+        key = (tiles * (3 * kpad + (th + 2) * (tw + 2)), -tw)
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    _, th, tw = best
+    tiles_h, tiles_w = math.ceil(h / th), math.ceil(w / tw)
+    ci_blocks, co_blocks = math.ceil(cin / DW_CI), math.ceil(cout / DW_CO)
+    total = n * tiles_h * tiles_w
+    blocks = ci_blocks * co_blocks
+    most = max(1, min(total, math.ceil(2 * num_sms / blocks)))
+    splits = min(range(1, most + 1), key=lambda s: (math.ceil(blocks * s / num_sms) / s, s))
+    per = max(1, math.ceil(total / splits))
+    return DwPlan(th, tw, tiles_h, tiles_w, n, ci_blocks, co_blocks,
+                  max(1, math.ceil(total / per)), per)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its data is 16-byte aligned (the kernel's copies are
     16 bytes), else an aligned copy."""
@@ -110,10 +201,15 @@ def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, size - t.shape[-1]))
 
 
+def _ceil8(v: int) -> int:
+    return -(-v // 8) * 8
+
+
 def _padded(x, w, cout8, vecs=()):
-    """x, w and per-input-channel vectors zero-padded to Cin % 8 == 0 (zero
-    channels add zero, as in the Pallas kernel's Cin = 3 case), w to Cout % 8."""
-    cin8 = -(-x.shape[3] // 8) * 8
+    """x, w and per-input-channel tensors (zero-padded along their last
+    dimension) to Cin % 8 == 0 (zero channels add zero, as in the Pallas
+    kernel's Cin = 3 case), w to Cout % 8."""
+    cin8 = _ceil8(x.shape[3])
     if cin8 == x.shape[3] and cout8 == w.shape[3]:  # the model's convs: nothing to pad
         return (_aligned(x), _aligned(w), *(None if v is None else _aligned(v) for v in vecs))
     w = _pad_last(w.transpose(2, 3), cin8).transpose(2, 3)  # pad Cin
@@ -142,7 +238,7 @@ def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
     _check_bf16(name, x, w)
     n, h, wd, _ = x.shape
     cout = w.shape[3]
-    cout8 = -(-cout // 8) * 8
+    cout8 = _ceil8(cout)
     xp, wp = _padded(x, w, cout8)
     s = _aligned(_pad_last(scale, cout8).contiguous())
     b = _aligned(_pad_last(bias, cout8).contiguous())
@@ -166,7 +262,7 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
     _check_bf16(name, x, w)
     n, h, wd, _ = x.shape
     cout = w.shape[3]
-    cout8 = -(-cout // 8) * 8
+    cout8 = _ceil8(cout)
     xp, wp, ap, cp = _padded(x, w, cout8, (a, c))
     plan = tc_plan(n, h, wd, cout8)
     z = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
@@ -186,3 +282,64 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
         z = z[..., :cout].contiguous()
         st = None if st is None else st[:, :cout].contiguous()
     return (z, st) if stats else z
+
+
+def conv3x3_dx(g, z, coef, wt, out_dtype) -> torch.Tensor:
+    """dx = conv3x3_same(dz, wt) on the tensor cores, dz = coef[0]*g +
+    coef[1]*z + coef[2] built in shared memory. g, z: bf16 [N,H,W,C]; coef:
+    fp32 [3, C]; wt: bf16 [3,3,C,Cin] (the forward weights flipped and
+    transposed) -> [N,H,W,Cin] in ``out_dtype`` (bf16 or fp32)."""
+    name = "conv3x3_dx"
+    _check_bf16(name, g, z, wt)
+    n, h, wd, _ = g.shape
+    cin = wt.shape[3]
+    cin8 = _ceil8(cin)
+    # dx is the forward over dz with C input channels: zero channels of g, z
+    # and coef give dz = 0 there.
+    gp, wtp, zp, cf = _padded(g, wt, cin8, (z, coef))
+    plan = tc_plan(n, h, wd, cin8)
+    out = torch.empty((n, h, wd, cin8), dtype=out_dtype, device=g.device)
+    lib = _build.library()
+    with _on_device(g):
+        err = lib.tuk_tc_conv3x3_dx(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(), wtp.data_ptr(),
+                                    out.data_ptr(), n, h, wd, gp.shape[3], cin8,
+                                    int(out_dtype == torch.float32), plan.cfg, plan.th, plan.tw,
+                                    _build.stream(g))
+    _build.check(err, name)
+    return out if cin8 == cin else out[..., :cin].contiguous()
+
+
+def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
+    """dw [3,3,Cin,Cout] fp32 on the tensor cores: the sum over N,H,W of
+    prologue(x) patches times dz = coef[0]*g + coef[1]*z + coef[2], both built
+    in shared memory. x: bf16 [N,H,W,Cin]; g, z: bf16 [N,H,W,Cout]; coef:
+    fp32 [3, Cout]; a, c: fp32 [Cin] or None."""
+    name = "conv3x3_dw"
+    _check_bf16(name, x, g, z)
+    n, h, wd, cin = x.shape
+    cout = g.shape[3]
+    cin8, cout8 = _ceil8(cin), _ceil8(cout)
+    if n * h * wd == 0:
+        return torch.zeros((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    if cin8 != cin:  # zero channels add zero, as in the Pallas kernel's Cin = 3
+        x = _pad_last(x, cin8).contiguous()
+        a, c = (None if v is None else _pad_last(v, cin8).contiguous() for v in (a, c))
+    if cout8 != cout:
+        g, z = _pad_last(g, cout8).contiguous(), _pad_last(z, cout8).contiguous()
+        coef = _pad_last(coef, cout8).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = dw_plan(n, h, wd, cin8, cout8, sms)
+    dw = torch.empty((3, 3, cin8, cout8), dtype=torch.float32, device=x.device)
+    partials = None
+    if plan.splits > 1:
+        partials = torch.empty((plan.splits, 9, cin8, cout8), dtype=torch.float32,
+                               device=x.device)
+    ptr = lambda t: None if t is None else _aligned(t).data_ptr()  # noqa: E731
+    lib = _build.library()
+    with _on_device(x):
+        err = lib.tuk_tc_conv3x3_dw(ptr(x), ptr(a), ptr(c), ptr(g), ptr(z), ptr(coef),
+                                    None if partials is None else partials.data_ptr(),
+                                    dw.data_ptr(), n, h, wd, cin8, cout8, plan.th, plan.tw,
+                                    plan.tiles_per_split, plan.splits, _build.stream(x))
+    _build.check(err, name)
+    return dw if (cin8, cout8) == (cin, cout) else dw[:, :, :cin, :cout].contiguous()

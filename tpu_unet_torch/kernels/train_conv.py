@@ -1,17 +1,22 @@
 """The train-mode 3x3 conv kernels: the port of
 ``tpu_unet/kernels/train_conv.py`` (``conv3x3_fwd``, ``conv3x3_dx``,
-``conv3x3_dw``) as hand-written CUDA kernels. ``conv3x3_fwd`` in bf16 runs
-on the tensor cores (``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``);
-in fp32, and ``conv3x3_dx`` and ``conv3x3_dw`` in both dtypes, on the CUDA
-cores (``csrc/train_conv.cu``). Each source's header says what bounds it on
-the H100 and how the design answers.
+``conv3x3_dw``, replacing the Pallas kernels at ``:128``, ``:289`` and
+``:441``) as hand-written CUDA kernels. In bf16 all three run on the tensor
+cores (``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``: dx with the
+forward's mainloop and a dz loader, dw with a 9-tap GEMM over pixels); in
+fp32 on the CUDA cores (``csrc/train_conv.cu``). All are bounded by their
+2*9*Cin*Cout operations a pixel, not by bytes, except at level 0 where the
+two about match. Each source's header says how the design answers and what
+was tried and dropped.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
-launch raises. ``<wrapper>.launches`` counts the wrapper's calls that
-launched, and ``conv3x3_fwd.tc_launches`` those on the tensor cores;
-``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` each make two kernel
-launches per call (the conv, then the fixed-order sum of its fp32 partials).
+launch raises, and a bf16 CUDA tensor goes to the tensor-core launcher or
+nowhere. ``<wrapper>.launches`` counts the wrapper's calls that launched,
+and ``<wrapper>.tc_launches`` those on the tensor cores (counted after the
+launcher returns); ``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` may
+make two or three kernel launches per call (the conv, then the fixed-order
+sum of its fp32 partials).
 
 Numerics, as in the Pallas kernels: fp32 accumulation; the prologue
 relu(x*a + c) computed in fp32 and rounded to x's dtype; the cotangent
@@ -158,6 +163,10 @@ def conv3x3_dx(g, z, coef, w, *, out_dtype=None):
     if coef.shape != (3, ch):
         raise ValueError(f"{name}: coef must be [3,{ch}], got {tuple(coef.shape)}")
     cf = coef.to(device=g.device, dtype=torch.float32).contiguous()
+    if dtype == _build.DTYPE_BF16:
+        out = tc_conv.conv3x3_dx(g, z, cf, wt, out_dtype)
+        _count(conv3x3_dx, tc=True)
+        return out
     cin = w.shape[2]
     out = torch.empty((n, h, wd, cin), dtype=out_dtype, device=g.device)
     out_code = _build.DTYPE_BF16 if out_dtype == torch.bfloat16 else _build.DTYPE_F32
@@ -191,6 +200,10 @@ def conv3x3_dw(x, g, z, coef, a=None, c=None):
     cf = coef.to(device=x.device, dtype=torch.float32).contiguous()
     av = None if a is None else _build.f32_vector(a, cin, x, name)
     cv = None if c is None else _build.f32_vector(c, cin, x, name)
+    if dtype == _build.DTYPE_BF16:
+        dw = tc_conv.conv3x3_dw(x, g, z, cf, av, cv)
+        _count(conv3x3_dw, tc=True)
+        return dw
     lib = _build.library()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits = lib.tuk_conv3x3_dw_splits(n, h, wd, cin, cout, sms)
@@ -208,4 +221,6 @@ def conv3x3_dw(x, g, z, coef, a=None, c=None):
 conv3x3_fwd.launches = 0
 conv3x3_fwd.tc_launches = 0
 conv3x3_dx.launches = 0
+conv3x3_dx.tc_launches = 0
 conv3x3_dw.launches = 0
+conv3x3_dw.tc_launches = 0
