@@ -11,12 +11,14 @@ Phases, each of which exits non-zero on failure, each with its time:
    ``tpu_unet_torch/csrc`` and print the build time.
 2. Run each of the four serving kernels and its plain PyTorch version on the
    card at the serving path's own shapes (``fused_conv3x3_scale_relu`` at
-   all seven of the served forward's), in bf16 and fp32 (TF32 off), and
+   all seven of the served forward's, ``fused_conv3x3_concat_scale_relu``
+   at all four and one ragged case), in bf16 and fp32 (TF32 off), and
    compare them: max abs and relative error, the kernel's, the plain
    version's and one library call's times (CUDA events, median), and the
    kernel's bound (the least time the card could take for its bytes or
-   operations). bf16 ``fused_conv3x3_scale_relu`` and ``conv3x3_fwd`` run on
-   the tensor cores (``csrc/tc_conv.cu``), fp32 on the CUDA cores.
+   operations). Both folded-BN convs run on the tensor cores in bf16
+   (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a second bf16 call of
+   the concat conv must repeat the first bit for bit.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
    tensor cores in bf16 (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a
@@ -24,7 +26,9 @@ Phases, each of which exits non-zero on failure, each with its time:
    conv3x3_fwd case's time is split (``fwd_split``): without and with its
    prologue and stats, against the library call.
    2c. ``im2col_conv3x3`` through its own entry point (no model path calls
-   it), then against its plain version in bf16 and fp32.
+   it; in bf16 its one launch must be on the tensor cores), then against
+   its plain version in bf16 (bf16 and fp32 output) and fp32; a second bf16
+   call must repeat the first bit for bit.
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
    class, 31.0M parameters) from a seed, with a non-trivial BN state, save it
    as a checkpoint and start the port's HTTP server on it in this process
@@ -32,8 +36,9 @@ Phases, each of which exits non-zero on failure, each with its time:
 4. POST synthetic 1918x1280 Carvana-like images (scale 0.5 -> 959x640), some
    at once so a micro-batch forms, and check each PNG mask against the plain
    forward (``--kernels torch``) on the card; check that every kernel was
-   launched by the served forwards (the 8 single convs of each on the tensor
-   cores); print ``/metrics``.
+   launched by the served forwards (the 8 single and 4 concat convs of each
+   on the tensor cores); print ``/metrics``; time the bf16 and fp32
+   forwards, kernels against plain.
 5. Train the same full-width model from seed 0 with the port's
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
    with ``kernels="cuda"`` against ``kernels=None`` (library convs under
@@ -93,11 +98,11 @@ PER_FORWARD = {
     "max_pool2x2": 4,
 }
 # Of those, the bf16 calls that must run on the tensor cores (csrc/tc_conv.cu).
-TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8}
+TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8, "fused_conv3x3_concat_scale_relu.tc": 4}
 SOURCES = {
     "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                  "tpu_unet/kernels/fused_conv.py:75"),
-    "fused_conv3x3_concat_scale_relu": ("tpu_unet_torch/csrc/fused_conv.cu",
+    "fused_conv3x3_concat_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                         "tpu_unet/kernels/fused_conv.py:192"),
     "fused_double_conv": ("tpu_unet_torch/csrc/fused_double_conv.cu",
                           "tpu_unet/kernels/fused_double_conv.py:94"),
@@ -134,16 +139,14 @@ _CC = "CUDA cores, fp32 FMA"
 _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
 IMPL = {
     "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
-    "fused_conv3x3_concat_scale_relu": {"bf16": f"{_CC} (csrc/fused_conv.cu)",
-                                        "fp32": f"{_CC} (csrc/fused_conv.cu)"},
+    "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
     "fused_double_conv": {"bf16": f"{_CC} (csrc/fused_double_conv.cu)",
                           "fp32": f"{_CC} (csrc/fused_double_conv.cu)"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
     "conv3x3_dx": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
     "conv3x3_dw": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
-    "im2col_conv3x3": {"bf16": f"{_CC} (csrc/im2col_conv.cu)",
-                       "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
+    "im2col_conv3x3": {"bf16": _TC, "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
 }
 
 
@@ -195,7 +198,7 @@ STEP_TOL = {
 }
 GRAD_RATIO = 2.0
 
-IM2COL_SOURCE = ("tpu_unet_torch/csrc/im2col_conv.cu", "tpu_unet/kernels/im2col_conv.py:84")
+IM2COL_SOURCE = ("tpu_unet_torch/csrc/tc_conv.cu", "tpu_unet/kernels/im2col_conv.py:84")
 # Phase 2c cases: (label, x shape, Cout, ReLU): level 0 of the 572x572 step
 # (batch 4, as in phase 2b), up4's concat width, the image's 3 channels, and
 # a ragged shape in both ReLU settings. The kernels line reports level0.
@@ -347,12 +350,22 @@ def kernel_cases(gen):
         cases.append(("fused_conv3x3_scale_relu", f"{list(shape)}->{cout}".replace(" ", ""),
                       K.fused_conv3x3_scale_relu, fused_conv3x3_scale_relu_plain,
                       [_randn(gen, shape), w, s, b], conv_work, conv_library))
-    shape = (1, 640, 959, 64)
-    w, s, b = _conv_params(gen, 128, 64)
-    cases.append(("fused_conv3x3_concat_scale_relu", "[1,640,959,64]+[1,640,959,64]->64",
-                  K.fused_conv3x3_concat_scale_relu, fused_conv3x3_concat_scale_relu_plain,
-                  [_randn(gen, shape), _randn(gen, shape), w, s, b], conv_work, conv_library))
+    # The four decoder blocks' conv1 (skip + upsampled), level 0 first; then
+    # a ragged case whose skip ends in a partial 32-channel chunk (Ca = 40).
+    for shape, cb, cout in (((1, 640, 959, 64), 64, 64), ((1, 80, 119, 512), 512, 512),
+                            ((1, 160, 239, 256), 256, 256), ((1, 320, 479, 128), 128, 128),
+                            ((2, 13, 20, 40), 24, 72)):
+        w, s, b = _conv_params(gen, shape[-1] + cb, cout)
+        cases.append(("fused_conv3x3_concat_scale_relu",
+                      f"{list(shape)}+[..{cb}]->{cout}".replace(" ", ""),
+                      K.fused_conv3x3_concat_scale_relu, fused_conv3x3_concat_scale_relu_plain,
+                      [_randn(gen, shape), _randn(gen, shape[:3] + (cb,)), w, s, b], conv_work,
+                      conv_library))
     return cases
+
+
+# Kernels whose bf16 result phase 2 also holds to a second call, bit for bit.
+REPEAT_BF16 = ("fused_conv3x3_concat_scale_relu",)
 
 
 LIBRARY_CALLS = {
@@ -386,13 +399,18 @@ def phase_kernels() -> dict[str, dict]:
             ok = bool((diff <= atol + rtol * ref.float().abs()).all().item())
             if name == "max_pool2x2":
                 ok = max_abs == 0.0  # a max selects an input: exact
+            repeat = ""
+            if name in REPEAT_BF16 and dtype == torch.bfloat16:
+                same = torch.equal(got, fn(*args))
+                ok = ok and same
+                repeat = f", bitwise repeat {same}"
             del got, ref, diff
             ms = time_ms(lambda: fn(*args))
             plain_ms = time_ms(lambda: plain(*args))
             library_ms = time_ms(library(*args)) if library else None
             bound_ms, bound_by = bound(*work(*args), dtype)
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
-            tol = "exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|"
+            tol = ("exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|") + repeat
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
             log(f"kernel {name} {label} {dt} [{IMPL[name][dt]}]: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -604,15 +622,17 @@ def phase_train_kernels() -> dict[str, dict]:
     return results
 
 
-def phase_im2col() -> tuple[int, dict]:
+def phase_im2col() -> tuple[dict[str, int], dict]:
     """Phase 2c: ``im2col_conv3x3``, the kernel of its own entry point (no
-    model path calls it). One call through that entry point at the main
-    case, with the counts reset just before and read just after; then the
-    kernel vs its plain version at every case, bf16 and fp32, with the
-    kernel's, the plain version's and the library call's times. The library
+    model path calls it). One bf16 call through that entry point at the main
+    case, with the counts reset just before and read just after: one launch,
+    on the tensor cores. Then the kernel vs its plain version at every case:
+    bf16 x with bf16 and with fp32 output (tensor cores), fp32 x (CUDA
+    cores), with the kernel's, the plain version's and the library call's
+    times; a second bf16 call must repeat the first bit for bit. The library
     call is one cuDNN conv with the scale folded into the weights and the
-    bias passed (the ReLU is not in it). Returns (entry-point launches,
-    results)."""
+    bias passed (the ReLU is not in it). Returns (the entry-point run's
+    counts, results)."""
     import torch.nn.functional as F
 
     from tpu_unet_torch.kernels.im2col_conv import im2col_conv3x3_plain
@@ -620,57 +640,74 @@ def phase_im2col() -> tuple[int, dict]:
     gen = torch.Generator(device="cuda").manual_seed(2)
     results: dict = {"max_abs_err": 0.0, "cases": []}
     failures = []
-    launches = None
+    counts = None
     for label, shape, cout, relu in IM2COL_CASES:
         cin = shape[-1]
         x32 = _randn(gen, shape)
         w32, s, b = _conv_params(gen, cin, cout)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, out_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.bfloat16, torch.float32),
+                                 (torch.float32, torch.float32)):
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            out_dt = "bf16" if out_dtype == torch.bfloat16 else "fp32"
             x, w = x32.to(dtype), w32.to(dtype)
-            if label == MAIN_IM2COL_CASE and launches is None:
+
+            def fn():
+                return K.im2col_conv3x3(x, w, s, b, apply_relu=relu, out_dtype=out_dtype)
+
+            def plain():
+                return im2col_conv3x3_plain(x, w, s, b, apply_relu=relu, out_dtype=out_dtype)
+
+            if label == MAIN_IM2COL_CASE and counts is None:
                 K.reset_launch_counts()
-                K.im2col_conv3x3(x, w, s, b, apply_relu=relu)
+                fn()
                 torch.cuda.synchronize()
-                launches = K.launch_counts()["im2col_conv3x3"]
-            got = K.im2col_conv3x3(x, w, s, b, apply_relu=relu)
+                counts = {k: v for k, v in K.launch_counts().items() if k.startswith("im2col")}
+            got = fn()
             torch.cuda.synchronize()
-            ref = im2col_conv3x3_plain(x, w, s, b, apply_relu=relu)
-            atol, rtol = TOL[dtype]
+            ref = plain()
+            atol, rtol = TOL[out_dtype]
             max_abs, max_rel, ok = _compare(got, ref, atol, rtol)
+            tol = f"{atol:g}+{rtol:g}*|plain|"
+            if dtype == torch.bfloat16:
+                same = torch.equal(got, fn())
+                ok = ok and same
+                tol += f", bitwise repeat {same}"
             del got, ref
             wl = oihw((w.float() * s).to(dtype))
             bl = b.to(dtype)
             xl = nchw(x)
-            ms = time_ms(lambda: K.im2col_conv3x3(x, w, s, b, apply_relu=relu))
-            plain_ms = time_ms(lambda: im2col_conv3x3_plain(x, w, s, b, apply_relu=relu))
+            ms = time_ms(fn)
+            plain_ms = time_ms(plain)
             library_ms = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1))
             bound_ms, bound_by = bound(conv_flops(shape, cin, cout) + 3.0 * x.numel() / cin * cout,
                                        nbytes(x, w, s, b) + x.numel() // cin * cout
-                                       * x.element_size(), dtype)
+                                       * out_dtype.itemsize, dtype)
             case = {"shape": f"{list(shape)}->{cout}".replace(" ", ""), "case": label,
-                    "dtype": dt, "relu": relu, "max_abs_err": max_abs, "max_rel_err": max_rel,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
-            log(f"kernel im2col_conv3x3 {label} {case['shape']} {dt} relu={relu}: "
-                f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-                f"(tol {atol:g}+{rtol:g}*|plain|) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    "dtype": dt, "out_dtype": out_dt, "impl": IMPL["im2col_conv3x3"][dt],
+                    "relu": relu, "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            log(f"kernel im2col_conv3x3 {label} {case['shape']} {dt} out {out_dt} relu={relu} "
+                f"[{case['impl']}]: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+                f"(tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={library_ms:.4f} ({LIBRARY_CALLS['im2col_conv3x3']}) "
                 f"bound_ms={bound_ms:.4g} ({bound_by}) {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"im2col_conv3x3 {label} {dt}")
+                failures.append(f"im2col_conv3x3 {label} {dt} out {out_dt}")
             results["max_abs_err"] = max(results["max_abs_err"], max_abs)
             results["cases"].append(case)
             del x, w, wl, xl
         del x32
         torch.cuda.empty_cache()
-    log(f"im2col_conv3x3 entry-point run: {launches} launch(es)")
+    log(f"im2col_conv3x3 entry-point run (bf16): {json.dumps(counts)}")
     if failures:
         raise SystemExit(f"chip_smoke: im2col_conv3x3 disagrees with its plain version: "
                          f"{failures}")
-    if launches != 1:
-        raise SystemExit(f"chip_smoke: the im2col entry point launched {launches} times, not 1")
-    return launches, results
+    if counts != {"im2col_conv3x3": 1, "im2col_conv3x3.tc": 1}:
+        raise SystemExit(f"chip_smoke: the im2col entry point launched {counts}, not one "
+                         f"tensor-core launch")
+    return counts, results
 
 
 def _leaves(tree, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -1401,7 +1438,7 @@ def main(argv=None) -> int:
     results.update(phase_train_kernels())
     phase_done("2b (train kernels)", t0)
     t0 = time.perf_counter()
-    im2col_launches, results["im2col_conv3x3"] = phase_im2col()
+    im2col_counts, results["im2col_conv3x3"] = phase_im2col()
     phase_done("2c (im2col_conv3x3)", t0)
     workdir = ROOT / ".smoke"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1432,22 +1469,23 @@ def main(argv=None) -> int:
     phase_done("6b (remat)", t0)
     log(f"launches: serving path {json.dumps(launches)}; train step (phase 5) "
         f"{json.dumps(step_launches)}; train CLI --kernels cuda (phase 6) "
-        f"{json.dumps(cli_launches)}; im2col entry point {im2col_launches}")
+        f"{json.dumps(cli_launches)}; im2col entry point {json.dumps(im2col_counts)}")
 
     report = []
     for name in (*PER_FORWARD, *PER_STEP, "im2col_conv3x3"):
         if name in PER_FORWARD:
-            (src, replaces), count = SOURCES[name], launches[name]
+            (src, replaces), counts = SOURCES[name], launches
             main_case = results[name]["cases"][0]
         elif name in PER_STEP:
-            (src, replaces), count = TRAIN_SOURCES[name], cli_launches[name]
+            (src, replaces), counts = TRAIN_SOURCES[name], cli_launches
             main_case = next(c for c in results[name]["cases"]
                              if c["case"] == MAIN_TRAIN_CASE and c["dtype"] == "bf16")
         else:
-            (src, replaces), count = IM2COL_SOURCE, im2col_launches
+            (src, replaces), counts = IM2COL_SOURCE, im2col_counts
             main_case = next(c for c in results[name]["cases"]
-                             if c["case"] == MAIN_IM2COL_CASE and c["dtype"] == "bf16")
-        tc = launches.get(f"{name}.tc") if name in PER_FORWARD else cli_launches.get(f"{name}.tc")
+                             if c["case"] == MAIN_IM2COL_CASE and c["dtype"] == "bf16"
+                             and c["out_dtype"] == "bf16")
+        count, tc = counts[name], counts.get(f"{name}.tc")
         report.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                        "launches": count, "tc_launches": tc, "impl": IMPL[name],
                        "max_abs_err": results[name]["max_abs_err"],

@@ -98,3 +98,26 @@ def test_load_checkpoint_validates_against_config(tmp_path):
         np.savez(f, **trimmed)
     with pytest.raises(KeyError, match="state/up4/conv/bn2/var"):
         load_checkpoint(bad, UNetConfig(3, 1, base_channels=8))
+
+
+@pytest.mark.parametrize("stored,want", [(None, "shared"), ("per_step", "per_step"),
+                                         ("shared", "shared")])
+def test_load_model_defaults_a_missing_recur_bn_to_shared(tmp_path, stored, want):
+    """A stored config without ``recur_bn`` predates the per-step layout, so
+    predict, evaluate and serve (all through ``load_model``) read it as the
+    shared layout; a config that names the layout keeps it."""
+    from tpu_unet_torch.predict import load_model
+
+    config = UNetConfig(3, 1, base_channels=8)
+    stored_config = config._asdict()
+    del stored_config["recur_bn"]
+    if stored is not None:
+        stored_config["recur_bn"] = stored
+    path = tmp_path / "model.npz"
+    save_checkpoint(path, *init_unet(config, np.random.default_rng(0)), [0, 1],
+                    {"config": stored_config})
+    _, extra = read_checkpoint_meta(path)
+    assert ("recur_bn" in extra["config"]) == (stored is not None)
+    _, _, loaded, mask_values = load_model(path, UNetConfig(3, 1, base_channels=8), "cpu")
+    assert loaded.recur_bn == want
+    assert loaded._replace(recur_bn=config.recur_bn) == config and mask_values == [0, 1]

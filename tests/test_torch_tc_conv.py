@@ -80,22 +80,41 @@ def test_tc_plan_fills_its_tiles(h, w, cout, least):
     assert h * w / (p.tiles * p.bm) >= least, p
 
 
-def _emulate(x, w, a=None, c=None, scale=None, bias=None, relu=False, stats=False):
+def _emulate(x, w, a=None, c=None, scale=None, bias=None, relu=False, stats=False, x2=None,
+             out_dtype=None):
     """What tc_conv.cu computes, in plain PyTorch at fp32 on the given
-    (possibly bf16) values, rounding where the kernel rounds."""
+    (possibly bf16) values, rounding where the kernel rounds (to
+    ``out_dtype``, x's by default). With ``x2`` the input is the channel
+    concat of x and x2, read as the kernel reads it: x's chunks of 32
+    channels, then x2's, x2's chunk j against the weight rows Ca + 32 j
+    (each source zero-padded to 8 channels, as the wrapper pads it), so
+    x's last chunk, when partial, meets x2's first rows with zeros."""
     dt = x.dtype
-    n, h, wd, cin = x.shape
+    n, h, wd, _ = x.shape
     cout = w.shape[3]
     p = tc_plan(n, h, wd, cout)
     kc = p.kc
-    kin = math.ceil(math.ceil(cin / 8) * 8 / kc) * kc  # zero-padded channels, whole chunks
-    xf = torch.nn.functional.pad(x.float(), (0, kin - cin))
-    wf = torch.nn.functional.pad(w.float(), (0, 0, 0, kin - cin)).reshape(9, kin, cout)
-    if a is not None:
-        af = torch.nn.functional.pad(a.float(), (0, kin - cin))
-        cf = torch.nn.functional.pad(c.float(), (0, kin - cin))
-        xf = torch.relu(xf * af + cf).to(dt).float()  # in-image positions only:
-    xh = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))  # the halo stays zero
+    srcs = [x] if x2 is None else [x, x2]
+    widths = [t.shape[3] for t in srcs]
+    pad8 = [math.ceil(cw / 8) * 8 for cw in widths]
+    # The weight map's rows: each source's rows zero-padded to 8, then zero
+    # rows past the end (the map's fill) for the last chunk.
+    wf = torch.cat([torch.nn.functional.pad(part.float(), (0, 0, 0, c8 - cw))
+                    for part, cw, c8 in zip(torch.split(w, widths, dim=2), widths, pad8)], dim=2)
+    chunks, off = [], 0  # (source, its first channel, first weight row)
+    for i, c8 in enumerate(pad8):
+        chunks += [(i, k0, off + k0) for k0 in range(0, c8, kc)]
+        off += c8
+    wf = torch.nn.functional.pad(wf, (0, 0, 0, chunks[-1][2] + kc - off)).reshape(9, -1, cout)
+    staged = []
+    for t, cw in zip(srcs, widths):
+        kin = math.ceil(math.ceil(cw / 8) * 8 / kc) * kc  # zero-padded, whole chunks
+        tf = torch.nn.functional.pad(t.float(), (0, kin - cw))
+        if a is not None:  # single source: in-image positions only
+            af = torch.nn.functional.pad(a.float(), (0, kin - cw))
+            cf = torch.nn.functional.pad(c.float(), (0, kin - cw))
+            tf = torch.relu(tf * af + cf).to(dt).float()
+        staged.append(torch.nn.functional.pad(tf, (0, 0, 1, 1, 1, 1)))  # the halo stays zero
     out = torch.zeros(n, h, wd, cout)
     rows = []
     for b in range(n):
@@ -103,16 +122,16 @@ def _emulate(x, w, a=None, c=None, scale=None, bias=None, relu=False, stats=Fals
             h0, w0 = p.tile_origin(t)
             th, tw = min(p.th, h - h0), min(p.tw, wd - w0)
             acc = torch.zeros(th * tw, cout)
-            for k0 in range(0, kin, kc):  # chunk-major ...
-                for tap in range(9):      # ... 9 shifted windows of the staged tile
+            for src, k0, r0 in chunks:  # chunk-major ...
+                for tap in range(9):    # ... 9 shifted windows of the staged tile
                     ky, kx = divmod(tap, 3)
-                    win = xh[b, h0 + ky:h0 + ky + th, w0 + kx:w0 + kx + tw, k0:k0 + kc]
-                    acc += win.reshape(-1, kc) @ wf[tap, k0:k0 + kc]
+                    win = staged[src][b, h0 + ky:h0 + ky + th, w0 + kx:w0 + kx + tw, k0:k0 + kc]
+                    acc += win.reshape(-1, kc) @ wf[tap, r0:r0 + kc]
             y = acc if scale is None else acc * scale.float() + bias.float()
-            y = (torch.relu(y) if relu else y).to(dt).float()
+            y = (torch.relu(y) if relu else y).to(out_dtype or dt).float()
             out[b, h0:h0 + th, w0:w0 + tw] = y.reshape(th, tw, cout)
             rows.append(torch.stack([y.sum(0), (y * y).sum(0)]))
-    z = out.to(dt)
+    z = out.to(out_dtype or dt)
     if not stats:
         return z
     return z, torch.stack(rows).sum(0)  # the fixed-order sum of the partial rows
@@ -193,7 +212,8 @@ def test_emulated_kernels_match_pallas(rng):
 
 def test_tc_c_interface_matches_the_ctypes_signatures():
     src = (_build.CSRC_DIR / "tc_conv.cu").read_text()
-    for name in ("tuk_tc_fused_conv3x3", "tuk_tc_conv3x3_fwd"):
+    for name in ("tuk_tc_fused_conv3x3", "tuk_tc_concat_conv3x3", "tuk_tc_im2col_conv3x3",
+                 "tuk_tc_conv3x3_fwd"):
         head = f'extern "C" int {name}('
         assert head in src, name
         params = src.split(head, 1)[1].split(")", 1)[0]
@@ -231,9 +251,11 @@ def test_cpu_bf16_calls_count_no_tensor_core_launch():
     x = torch.randn(1, 5, 6, 8).to(torch.bfloat16)
     w = torch.randn(3, 3, 8, 8).to(torch.bfloat16)
     K.fused_conv3x3_scale_relu(x, w, torch.ones(8), torch.zeros(8))
+    K.fused_conv3x3_concat_scale_relu(x, x, torch.cat([w, w], 2), torch.ones(8), torch.zeros(8))
     K.conv3x3_fwd(x, w, stats=True)
+    K.im2col_conv3x3(x, w, torch.ones(8), torch.zeros(8), out_dtype=torch.float32)
     counts = K.launch_counts()
-    assert {"fused_conv3x3_scale_relu.tc", "conv3x3_fwd.tc"} <= set(counts)
+    assert {f"{fn.__name__}.tc" for fn in K.TC_WRAPPERS} <= set(counts)
     assert all(v == 0 for v in counts.values()), counts
 
 
@@ -252,7 +274,7 @@ class _Card:
             def __getattr__(self, name):
                 def call(*args):
                     card.lib.append(name)
-                    return 0
+                    return 256 if name == "tuk_im2col_max_cin" else 0
                 return call
 
         def record(name):
@@ -268,6 +290,14 @@ class _Card:
                     return z, torch.empty(2, w.shape[3], device=x.device)
                 return z
             return launch
+
+        def launch_concat(a, b, w, *args):
+            record("fused_conv3x3_concat_scale_relu")
+            return torch.empty(a.shape[:3] + (w.shape[3],), dtype=a.dtype, device=a.device)
+
+        def launch_im2col(x, w, scale, bias, relu, out_dtype):
+            record("im2col_conv3x3")
+            return torch.empty(x.shape[:3] + (w.shape[3],), dtype=out_dtype, device=x.device)
 
         def launch_dx(g, z, coef, wt, out_dtype):
             record("conv3x3_dx")
@@ -289,6 +319,8 @@ class _Card:
         monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
         monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
         monkeypatch.setattr(tc_conv, "fused_conv3x3", launcher("fused_conv3x3_scale_relu"))
+        monkeypatch.setattr(tc_conv, "fused_conv3x3_concat", launch_concat)
+        monkeypatch.setattr(tc_conv, "im2col_conv3x3", launch_im2col)
         monkeypatch.setattr(tc_conv, "conv3x3_fwd", launcher("conv3x3_fwd"))
         monkeypatch.setattr(tc_conv, "conv3x3_dx", launch_dx)
         monkeypatch.setattr(tc_conv, "conv3x3_dw", launch_dw)
@@ -302,8 +334,9 @@ def card(monkeypatch):
 
 
 def _meta_calls(dtype):
-    """One call of each wrapper with a tensor-core route, and of the concat
-    conv (CUDA cores in both dtypes), on meta tensors."""
+    """One call of the fused and the concat conv and two each of
+    conv3x3_fwd and of im2col_conv3x3 (both output dtypes), on meta
+    tensors."""
     x = torch.empty(1, 5, 6, 8, device="meta", dtype=dtype)
     w = torch.empty(3, 3, 8, 8, device="meta", dtype=dtype)
     w2 = torch.empty(3, 3, 16, 8, device="meta", dtype=dtype)
@@ -312,6 +345,8 @@ def _meta_calls(dtype):
     K.fused_conv3x3_concat_scale_relu(x, x, w2, one, zero)
     K.conv3x3_fwd(x, w, stats=True)
     K.conv3x3_fwd(x, w, one, zero)
+    for out_dtype in (None, torch.float32):
+        assert K.im2col_conv3x3(x, w, one, zero, out_dtype=out_dtype).dtype == (out_dtype or dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
@@ -321,13 +356,16 @@ def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     _meta_calls(dtype)
     counts = K.launch_counts()
     assert counts["fused_conv3x3_scale_relu"] == counts["fused_conv3x3_concat_scale_relu"] == 1
-    assert counts["conv3x3_fwd"] == 2
-    for name in ("fused_conv3x3_scale_relu", "conv3x3_fwd"):
+    assert counts["conv3x3_fwd"] == counts["im2col_conv3x3"] == 2
+    for name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu", "conv3x3_fwd",
+                 "im2col_conv3x3"):
         assert counts[f"{name}.tc"] == card.tc.count(name), (counts, card.tc)
     if dtype == torch.bfloat16:
-        assert card.tc.count("conv3x3_fwd") == 2 and card.lib == ["tuk_conv3x3"]
+        assert card.tc.count("conv3x3_fwd") == card.tc.count("im2col_conv3x3") == 2
+        assert card.tc.count("fused_conv3x3_concat_scale_relu") == 1 and card.lib == []
     else:
-        assert card.tc == [] and "tuk_conv3x3_fwd" in card.lib
+        assert card.tc == [] and card.lib.count("tuk_conv3x3") == 2
+        assert "tuk_conv3x3_fwd" in card.lib and card.lib.count("tuk_im2col_conv3x3") == 2
 
 
 def test_a_failed_tensor_core_launch_counts_nothing(card):
@@ -338,4 +376,10 @@ def test_a_failed_tensor_core_launch_counts_nothing(card):
         K.fused_conv3x3_scale_relu(x, w, torch.ones(8), torch.zeros(8))
     with pytest.raises(RuntimeError, match="launch failed"):
         K.conv3x3_fwd(x, w, stats=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.fused_conv3x3_concat_scale_relu(x, x, torch.cat([w, w], 2), torch.ones(8),
+                                          torch.zeros(8))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.im2col_conv3x3(x, w, torch.ones(8), torch.zeros(8))
+    assert card.lib == []  # no retreat to the CUDA-core kernels
     assert all(v == 0 for v in K.launch_counts().values())

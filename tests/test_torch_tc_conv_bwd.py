@@ -27,6 +27,8 @@ its largest value, as ``tests/test_torch_train_kernels.py`` holds the plain
 versions there.
 """
 
+import contextlib
+import gc
 import math
 import re
 
@@ -344,3 +346,58 @@ def test_a_failed_bwd_tensor_core_launch_counts_nothing(card):
         K.conv3x3_dw(x, g, g, torch.zeros(3, 16))
     assert card.lib == []  # no retreat to the CUDA-core kernels
     assert all(v == 0 for v in K.launch_counts().values())
+
+
+def _unaligned(t):
+    """A contiguous view of a copy of ``t`` with a storage offset of one
+    element: its data starts 2 (bf16) or 4 (fp32) bytes past a 16-byte
+    boundary, so the launchers must copy it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.parametrize("prologue", [False, True], ids=["raw", "pro"])
+def test_dw_launcher_gets_live_distinct_operands(monkeypatch, rng, prologue):
+    """conv3x3_dw's aligned copies of unaligned operands stay alive until its
+    C function returns: every pointer that function receives is the data of
+    a tensor still alive at the call, equal to its operand, and no two
+    operands share a pointer (a freed copy's block can go to the next one:
+    g and z always have one shape)."""
+    x, _, g, z, coef, a, c = _inputs(rng, 1, 5, 6, 8, 16, prologue)
+    ops = {"x": x, "a": a, "c": c, "g": g, "z": z, "coef": coef}
+    ops = {k: None if v is None else _unaligned(v) for k, v in ops.items()}
+    calls = []
+
+    class Lib:
+        def tuk_tc_conv3x3_dw(self, *args):
+            live = {}
+            for t in gc.get_objects():
+                if issubclass(type(t), torch.Tensor) and t.device.type == "cpu":
+                    live.setdefault(t.data_ptr(), []).append(t)
+            ptrs = dict(zip(ops, args[:6]))
+            for name, op in ops.items():
+                if op is None:
+                    assert ptrs[name] is None, name
+                    continue
+                assert ptrs[name] % 16 == 0, name
+                assert any(t.dtype == op.dtype and t.numel() == op.numel()
+                           and torch.equal(t.reshape(-1), op.reshape(-1))
+                           for t in live.get(ptrs[name], ())), f"{name}: not a live copy"
+            given = [p for p in ptrs.values() if p is not None]
+            assert len(set(given)) == len(given), ptrs
+            calls.append(ptrs)
+            return 0
+
+    class Props:
+        multi_processor_count = SMS
+
+    monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_BF16)
+    monkeypatch.setattr(_build, "library", Lib)
+    monkeypatch.setattr(_build, "stream", lambda t: 0)
+    monkeypatch.setattr(tc_conv, "_on_device", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
+    dw = tc_conv.conv3x3_dw(ops["x"], ops["g"], ops["z"], ops["coef"], ops["a"], ops["c"])
+    assert len(calls) == 1 and dw.shape == (3, 3, 8, 16)

@@ -1,26 +1,30 @@
 // Fused 3x3 SAME conv + per-channel scale/bias (folded BatchNorm) + optional
 // ReLU on NHWC, with an optional second input that is read as if it were
-// channel-concatenated after the first. Runs on the CUDA cores in fp32 FMA.
+// channel-concatenated after the first. Runs on the CUDA cores in fp32 FMA,
+// for fp32 tensors only.
 //
 // Routes (kernels/fused_conv.py):
 //   fused_conv3x3_concat_scale_relu (tpu_unet/kernels/fused_conv.py:192;
-//     skip a + upsampled b, concat never built): cb > 0, fp32 and bf16;
-//   fused_conv3x3_scale_relu (tpu_unet/kernels/fused_conv.py:75): cb == 0,
-//     fp32 only. Its bf16 calls run on the tensor cores (csrc/tc_conv.cu).
+//     skip a + upsampled b, concat never built): cb > 0;
+//   fused_conv3x3_scale_relu (tpu_unet/kernels/fused_conv.py:75): cb == 0.
+// Both in bf16 run on the tensor cores (csrc/tc_conv.cu), and bf16 is
+// refused here.
 //
 // What bounds it on the H100: arithmetic. A U-Net level does 2*9*Cin*Cout
 // FLOPs per pixel against (Cin + Cout) activations moved, hundreds of FLOPs
 // per byte, so the kernel is compute-bound. It runs on the CUDA cores in
-// fp32 FMA (67 TFLOP/s peak at 700 W): the port runs fp32 without TF32, and
-// products of bf16 inputs are exact in fp32, so bf16 and fp32 results differ
-// from the plain version only by summation order. Its design keeps the FMA
-// units fed from registers: each thread holds a 4-pixel x 8-channel
-// accumulator tile, and each staged (channel, kernel row) costs 6 + 24
-// shared-memory reads for 96 FMAs. The Pallas kernel's whole-Cin weight block
-// (several MB at Cin=1024) does not fit the 227 KB of shared memory, so the
-// reduction axis streams in chunks of kKC input channels (24 KB per chunk).
-// The concat variant's tensor-core version is the next step (the loader
-// policy of tc_conv.cu, reading a and b).
+// fp32 FMA (67 TFLOP/s peak at 700 W): the port runs fp32 without TF32, so
+// fp32 results differ from the plain version only by summation order. Its
+// design keeps the FMA units fed from registers: each thread holds a
+// 4-pixel x 8-channel accumulator tile, and each staged (channel, kernel
+// row) costs 6 + 24 shared-memory reads for 96 FMAs. The Pallas kernel's
+// whole-Cin weight block (several MB at Cin=1024) does not fit the 227 KB of
+// shared memory, so the reduction axis streams in chunks of kKC input
+// channels (24 KB per chunk). Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 2): 3.9-5.1 ms at the four served concat shapes
+// (about 9e10 FLOP each, 18-23 TFLOP/s), 1.4-2.0x cuDNN's fp32 conv on a
+// prebuilt concat. The fp32 routes are the last item of the tensor-core
+// work (TF32 or 3xTF32 would change the numerics the port holds fp32 to).
 //
 // Tile: 8 x 16 output pixels x 64 output channels per block, 256 threads.
 // Grid: (tiles of the image, output-channel blocks, batch). Ragged tiles at
@@ -101,14 +105,14 @@ cudaError_t launch_conv(const void* a, const void* b, int ca, int cb, const void
 
 // out[N,H,W,cout] = [relu](conv3x3_same(concat(a, b), w) * scale + bias).
 // a: [N,H,W,ca], b: [N,H,W,cb] (cb may be 0; b is then not read),
-// w: [3,3,ca+cb,cout] HWIO, scale/bias: fp32 [cout]. dtype: 0 fp32, 1 bf16.
-// Returns cudaGetLastError() after the launch.
+// w: [3,3,ca+cb,cout] HWIO, scale/bias: fp32 [cout]. dtype: 0 fp32 (bf16,
+// 1, runs on the tensor cores in tc_conv.cu and is refused here). Returns
+// cudaGetLastError() after the launch.
 extern "C" int tuk_conv3x3(const void* a, const void* b, int ca, int cb, const void* w,
                            const float* scale, const float* bias, void* out, int n, int h, int wd,
                            int cout, int relu, int dtype, void* stream) {
+  if (dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tuk::kBF16)
-    return tuk::launch_conv<__nv_bfloat16>(a, b, ca, cb, w, scale, bias, out, n, h, wd, cout, relu, s);
-  return tuk::launch_conv<float>(a, b, ca, cb, w, scale, bias, out, n, h, wd, cout, relu, s);
+  return tuk::launch_conv<float>(a, b, ca, cb, w, scale, bias, out, n, h, wd, cout, relu,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,8 @@
 // 3x3 SAME conv + per-channel scale/bias + optional ReLU on NHWC, written as
-// one contraction of depth K = 9*Cin over an implicit patch matrix.
+// one contraction of depth K = 9*Cin over an implicit patch matrix, for
+// fp32 x (bf16 or fp32 output). bf16 x runs on the tensor cores
+// (tuk_tc_im2col_conv3x3 in tc_conv.cu, the implicit GEMM whose staged tile
+// plus halo takes the patch matrix's place) and is refused here.
 //
 // Replaces the TPU kernel tpu_unet/kernels/im2col_conv.py
 //   im2col_conv3x3  y = [relu](conv3x3_same(x, w) * scale + bias)
@@ -8,19 +11,21 @@
 //
 // What bounds it on the H100: at the narrow levels it is meant for (Cin <=
 // 128) a pixel does 2*9*Cin*Cout FLOPs against (Cin + Cout) values moved, a
-// few hundred FLOPs per byte, near the bf16 ridge of the tensor cores and far
-// above the fp32 one. This first version runs on the CUDA cores in fp32 FMA
-// (67 TFLOP/s peak at 700 W), so it is compute-bound. The TPU version was
-// bound by its patch traffic: it wrote the whole [rows, 9*Cin] patch slab to
-// VMEM and read it back. Here the patch never exists outside shared memory,
-// and only kKC of its K columns at a time: a block stages its input tile plus
-// a 1-pixel halo once (all Cin channels, fp32, [180][Cin|1]), then for each
-// K-chunk builds the [kKC][128-pixel] patch slice from that tile, stages the
-// matching [kKC][64] slice of the flattened weights, and accumulates 4 pixels
-// x 8 output channels a thread in registers. Device memory sees each input
-// pixel of the tile once per output-channel block, each weight once per
-// block, each output once. Tensor cores (mma.sync, then wgmma fed by TMA) on
-// this same K loop are the next step.
+// few hundred FLOPs per byte, far above the fp32 ridge. It runs on the CUDA
+// cores in fp32 FMA (67 TFLOP/s peak at 700 W; the port runs fp32 without
+// TF32), so it is compute-bound. The TPU version was bound by its patch
+// traffic: it wrote the whole [rows, 9*Cin] patch slab to VMEM and read it
+// back. Here the patch never exists outside shared memory, and only kKC of
+// its K columns at a time: a block stages its input tile plus a 1-pixel halo
+// once (all Cin channels, fp32, [180][Cin|1]), then for each K-chunk builds
+// the [kKC][128-pixel] patch slice from that tile, stages the matching
+// [kKC][64] slice of the flattened weights, and accumulates 4 pixels x 8
+// output channels a thread in registers. Device memory sees each input pixel
+// of the tile once per output-channel block, each weight once per block,
+// each output once. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 2c): 5.39 ms at [4,572,572,64]->64 and 17.45 ms at
+// [4,572,572,128]->64 (18 and 11 TFLOP/s), 1.6x and 3.1x cuDNN's fp32
+// conv.
 //
 // Tile: 8 x 16 output pixels x 64 output channels per block, 256 threads.
 // Grid: (tiles of the image, output-channel blocks, batch). Ragged tiles at
@@ -176,17 +181,14 @@ extern "C" int tuk_im2col_max_cin() { return tuk::kImMaxCin; }
 
 // out[N,H,W,cout] = [relu](conv3x3_same(x, w) * scale + bias). x: [N,H,W,cin];
 // wflat: [9*cin, cout], row (3*dy + dx)*cin + c (HWIO weights reshaped), in
-// x's dtype; scale/bias: fp32 [cout]. dtype is x's, out_dtype the output's
-// (0 fp32, 1 bf16, any pair). Returns cudaGetLastError() after the launch.
+// x's dtype; scale/bias: fp32 [cout]. dtype is x's, 0 (fp32: bf16 x runs on
+// the tensor cores in tc_conv.cu and is refused here); out_dtype the
+// output's, 0 fp32 or 1 bf16. Returns cudaGetLastError() after the launch.
 extern "C" int tuk_im2col_conv3x3(const void* x, const void* wflat, const float* scale,
                                   const float* bias, void* out, int n, int h, int wd, int cin,
                                   int cout, int relu, int dtype, int out_dtype, void* stream) {
-  if (cin < 1 || cin > tuk::kImMaxCin) return (int)cudaErrorInvalidValue;
+  if (dtype != tuk::kF32 || cin < 1 || cin > tuk::kImMaxCin) return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tuk::kBF16)
-    return tuk::launch_im2col_out<__nv_bfloat16>(x, wflat, scale, bias, out, n, h, wd, cin, cout,
-                                                 relu, out_dtype, s);
   return tuk::launch_im2col_out<float>(x, wflat, scale, bias, out, n, h, wd, cin, cout, relu,
-                                       out_dtype, s);
+                                       out_dtype, static_cast<cudaStream_t>(stream));
 }

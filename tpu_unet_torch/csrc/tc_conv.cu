@@ -6,6 +6,12 @@
 //   tuk_tc_fused_conv3x3  y = [relu](conv3x3_same(x, w) * scale + bias)
 //     replaces tpu_unet/kernels/fused_conv.py:75 fused_conv3x3_scale_relu
 //     (its pallas_call at :115), bf16 route;
+//   tuk_tc_concat_conv3x3 the same over concat([a, b], -1), never built:
+//     replaces tpu_unet/kernels/fused_conv.py:192
+//     fused_conv3x3_concat_scale_relu (pallas_call at :242), bf16 route;
+//   tuk_tc_im2col_conv3x3 the same as one K = 9 * Cin contraction, bf16 or
+//     fp32 out: replaces tpu_unet/kernels/im2col_conv.py:84 im2col_conv3x3
+//     (pallas_call at :118), bf16 route;
 //   tuk_tc_conv3x3_fwd    z = conv3x3_same(pro(x), w), optional (sum z, sum z^2)
 //     replaces tpu_unet/kernels/train_conv.py:128 conv3x3_fwd (pallas_call at
 //     :204), bf16 route. pro(x) = relu(x*a + c) rounded to bf16, or x;
@@ -17,8 +23,37 @@
 //     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
 //     (pallas_call at :508), bf16 route.
 //
-// fp32 calls stay on the CUDA-core kernels of fused_conv.cu / train_conv.cu
-// (the port runs fp32 without TF32).
+// fp32 calls stay on the CUDA-core kernels of fused_conv.cu, im2col_conv.cu
+// and train_conv.cu (the port runs fp32 without TF32).
+//
+// The concat conv is the forward's mainloop with a second input tensor map
+// (the ConcatLoad policy): the first ceil(Ca / 32) K chunks come from the
+// skip's map, the rest from the upsampled tensor's, whose chunk j meets
+// weight rows Ca + 32 j of the one [9][Ca + Cb][Cout] map. Only the load
+// issue picks the map and the row, at compile time, so the single-source
+// instantiations keep their code (a run-time choice there cost the level-0
+// conv3x3_fwd and down4's dx 3-4% of device time on the H100); the
+// mainloop, swizzles, tile plan and epilogue are the single conv's.
+// A partial last chunk of the skip (Ca % 32 != 0) reads the fill's zeros
+// past Ca against the upsampled tensor's first weight rows, which then add
+// nothing; the upsampled tensor's last chunk reads the zero rows past Ca +
+// Cb. Bound: ~9e10 FLOP at each of the four served decoder shapes, far
+// above the ridge (operations). Its CUDA-core version ran at 2% of that and
+// 11x behind cuDNN on a prebuilt concat; here the concat costs one more
+// tensor map. im2col's K = 9 * Cin contraction over w flattened to [9 *
+// Cin][Cout] is that weight map as it is: the staged tile plus halo and
+// its 9 shifted windows take the place of the patch matrix, whose VMEM
+// traffic bounded the TPU kernel, and which is never built. Its K order is
+// chunk-major with the taps inside (the Pallas kernel's is tap-major):
+// another fp32 summation order of the same exact products. Its fp32 output
+// is stored from the accumulators, as dx's is. Predicted one call on the
+// H100: concat 0.35-0.6 ms a served shape, im2col 0.4-0.6 ms at
+// [4,572,572,64]->64 and 0.7-0.9 ms at [4,572,572,128]->64; measured (H100
+// 80GB HBM3, 700 W, chip_smoke.py phases 2 and 2c, tools/tc_conv_ab.py):
+// concat 0.34-0.40 ms one call, 0.25-0.34 ms on the device (was 4.1-4.6 on
+// the CUDA cores; cuDNN 0.18-0.36 on the prebuilt concat), im2col 0.49 and
+// 0.71 ms, 0.36 and 0.55 on the device (was 5.43 and 18.79; cuDNN 0.50 and
+// 0.70).
 //
 // dx is the forward's GEMM with Cin' = C and Cout' = Cin over the flipped,
 // transposed weights, with the DzLoad policy: each chunk stages g's box in
@@ -290,15 +325,23 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
 // ---- loader policies: what the staged chunk holds --------------------------
 //
 // kAux: the policy stages a second box of the same shape (z) in a slot of
-// its own, which transform() reads.
+// its own, which transform() reads. kConcat: the input is the channel
+// concat of two tensors, each with a map of its own (only the load issue
+// differs; the single-source policies keep their code as it was).
 
 // The raw input, as loaded.
 struct RawLoad {
   static constexpr bool kTransform = false;
   static constexpr bool kAux = false;
+  static constexpr bool kConcat = false;
   template <class C>
   __device__ __forceinline__ void transform(unsigned char*, const unsigned char*, const Tile&,
                                             int, int) const {}
+};
+
+// concat([x, b], -1), raw, never built: x's chunks, then b's.
+struct ConcatLoad : RawLoad {
+  static constexpr bool kConcat = true;
 };
 
 // relu(x*a + c) rounded to bf16, rewritten in place over the loaded chunk.
@@ -306,6 +349,7 @@ struct RawLoad {
 struct ProLoad {
   static constexpr bool kTransform = true;
   static constexpr bool kAux = false;
+  static constexpr bool kConcat = false;
   const float* a;
   const float* c;
   template <class C>
@@ -337,6 +381,7 @@ struct ProLoad {
 struct DzLoad {
   static constexpr bool kTransform = true;
   static constexpr bool kAux = true;
+  static constexpr bool kConcat = false;
   const float* coef;
   template <class C>
   __device__ __forceinline__ void transform(unsigned char* slot, const unsigned char* zs,
@@ -396,16 +441,19 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 // output pixels h0 + p / tw, w0 + p % tw (p < th * tw) of image n, channels
 // cb * BN ... With partials, it writes the (sum, sum of squares) of its
 // rounded outputs per channel to partials[((n * tiles + t) * 2 + s) * cout + co].
-// tmx: x as [N][H][W][cin] (dims cin, W, H, N), box (KC, tw + 2, th + 2, 1);
-// tmz: the aux input (z), the same dims and box (unused without kAux);
+// The input is x (ca == cin), or with Load::kConcat the channel concat of x
+// (ca channels) and b (cin - ca), which is never built.
+// tmx: x as [N][H][W][ca] (dims ca, W, H, N), box (KC, tw + 2, th + 2, 1);
+// tmb: b as [N][H][W][cin - ca], the same box (unused without kConcat);
+// tmz: the aux input (z), x's dims and box (unused without kAux);
 // tmw: w as [9][cin][cout] (dims cout, cin, 9), box (64, KC, 1).
 // out: bf16, or fp32 with kF32Out (stored from the accumulators).
 template <class C, class Load, class Epi, bool kStats, bool kF32Out>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
-    tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmz,
-                   const __grid_constant__ CUtensorMap tmw, Load ld, Epi epi,
-                   void* __restrict__ out_ptr, float* __restrict__ partials, int H, int W, int cin,
-                   int cout, int th, int tw, int tiles_w) {
+    tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmb,
+                   const __grid_constant__ CUtensorMap tmz, const __grid_constant__ CUtensorMap tmw,
+                   Load ld, Epi epi, void* __restrict__ out_ptr, float* __restrict__ partials,
+                   int H, int W, int ca, int cin, int cout, int th, int tw, int tiles_w) {
   static_assert(!(kStats && kF32Out), "stats are taken from the bf16 tile");
   constexpr int BN = C::BN;
   constexpr int MI = C::MI;
@@ -432,7 +480,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   const int lane = threadIdx.x % 32;
   const int wm = warp % C::WM;
   const int wn = warp / C::WM;
-  const int nchunks = (cin + KC - 1) / KC;
+  const int a_chunks = (ca + KC - 1) / KC;  // x's, with kConcat
+  const int nchunks = Load::kConcat ? a_chunks + (cin - ca + KC - 1) / KC : (cin + KC - 1) / KC;
   const int nsteps = 9 * nchunks;
 
   // This lane's ldmatrix row in each m16 fragment: the staged pixel that tap
@@ -454,24 +503,36 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   }
 
   // One thread issues the loads of k-step g: at a chunk's first tap its
-  // input box, always its weight boxes.
+  // input box, always its weight boxes. A concat's chunks past x's come
+  // from b: chunk a_chunks + j is b's channels 32 j ..., weight rows ca +
+  // 32 j .... x's last chunk, when ca % 32 != 0, reads zeros past ca (the
+  // fill), against b's first weight rows: they add nothing.
   auto issue = [&](int g) {
     if (threadIdx.x != 0) return;
     const int chunk = g / 9;
     const int tap = g - chunk * 9;
+    const CUtensorMap* src = &tmx;
+    int k = chunk * KC;  // the chunk's first channel in its source
+    int row = k;         // and its first weight row
+    if constexpr (Load::kConcat) {
+      if (chunk >= a_chunks) {
+        src = &tmb;
+        k = (chunk - a_chunks) * KC;
+        row = ca + k;
+      }
+    }
     fence_proxy_async();
     if (tap == 0) {
       uint64_t* bar = in_bar + (chunk & 1);
       mbar_expect_tx(bar, (uint32_t)(t.staged() * KC * 2));
-      tma_load_4d(in_s + (chunk & 1) * C::IN_SLOT, &tmx, bar, chunk * KC, t.w0 - 1, t.h0 - 1,
-                  t.n);
+      tma_load_4d(in_s + (chunk & 1) * C::IN_SLOT, src, bar, k, t.w0 - 1, t.h0 - 1, t.n);
     }
     uint64_t* bar = w_bar + g % STAGES;
     mbar_expect_tx(bar, (uint32_t)C::W_SLOT);
 #pragma unroll
     for (int hh = 0; hh < BN / 64; ++hh)
-      tma_load_3d(w_s + (g % STAGES) * C::W_SLOT + hh * KC * 128, &tmw, bar, co0 + hh * 64,
-                  chunk * KC, tap);
+      tma_load_3d(w_s + (g % STAGES) * C::W_SLOT + hh * KC * 128, &tmw, bar, co0 + hh * 64, row,
+                  tap);
   };
   // The aux box of a chunk goes into the one aux slot: chunk k + 1's is
   // issued once chunk k's transform has read the slot, 9 k-steps before it
@@ -935,22 +996,33 @@ cudaError_t opt_in_smem(const void* kernel, size_t bytes, std::atomic<bool>* don
   return err;
 }
 
-// aux: the loader's second input (z, with kAux), the shape of x.
+// The input: x with ca == cin, or with Load::kConcat the concat of x (ca
+// channels) and b (cin - ca channels). aux: the loader's second input (z,
+// with kAux), the shape of x.
 template <class C, class Load, class Epi, bool kStats, bool kF32Out>
-cudaError_t launch(const void* x, const void* aux, const void* w, const Load& ld, const Epi& epi,
-                   void* out, float* partials, int n, int h, int wd, int cin, int cout, int th,
-                   int tw, cudaStream_t stream) {
-  if (cin % 8 != 0 || cout % 8 != 0 || th < 1 || tw < 1 || th * tw > C::BM ||
+cudaError_t launch(const void* x, const void* b, int ca, const void* aux, const void* w,
+                   const Load& ld, const Epi& epi, void* out, float* partials, int n, int h,
+                   int wd, int cin, int cout, int th, int tw, cudaStream_t stream) {
+  if (cin % 8 != 0 || ca % 8 != 0 || ca < 1 ||
+      (Load::kConcat ? ca >= cin || b == nullptr : ca != cin) || cout % 8 != 0 || th < 1 ||
+      tw < 1 || th * tw > C::BM ||
       (th + 2) * (tw + 2) > C::MAX_STAGED || th + 2 > 256 || tw + 2 > 256 ||
       (Load::kAux && aux == nullptr))
     return cudaErrorInvalidValue;
-  CUtensorMap tmx, tmz, tmw;
+  CUtensorMap tmx, tmb, tmz, tmw;
   cudaError_t err =
-      make_nhwc_map(&tmx, x, n, h, wd, cin, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
+      make_nhwc_map(&tmx, x, n, h, wd, ca, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return err;
-  err = make_nhwc_map(&tmz, Load::kAux ? aux : x, n, h, wd, cin, KC, tw + 2, th + 2,
-                      CU_TENSOR_MAP_SWIZZLE_64B);
-  if (err != cudaSuccess) return err;
+  tmb = tmz = tmx;  // unused copies, unless encoded below
+  if (Load::kConcat) {
+    err = make_nhwc_map(&tmb, b, n, h, wd, cin - ca, KC, tw + 2, th + 2,
+                        CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err != cudaSuccess) return err;
+  }
+  if (Load::kAux) {
+    err = make_nhwc_map(&tmz, aux, n, h, wd, cin, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (err != cudaSuccess) return err;
+  }
   const cuuint64_t wdims[3] = {(cuuint64_t)cout, (cuuint64_t)cin, 9};
   const cuuint64_t wstrides[2] = {(cuuint64_t)cout * 2, (cuuint64_t)cin * cout * 2};
   const cuuint32_t wbox[3] = {64, (cuuint32_t)KC, 1};
@@ -964,19 +1036,21 @@ cudaError_t launch(const void* x, const void* aux, const void* w, const Load& ld
   const int tiles_w = (wd + tw - 1) / tw;
   const int tiles_h = (h + th - 1) / th;
   const dim3 grid(tiles_w * tiles_h, (cout + C::BN - 1) / C::BN, n);
-  kernel<<<grid, C::THREADS, smem, stream>>>(tmx, tmz, tmw, ld, epi, out, partials, h, wd, cin,
-                                             cout, th, tw, tiles_w);
+  kernel<<<grid, C::THREADS, smem, stream>>>(tmx, tmb, tmz, tmw, ld, epi, out, partials, h, wd,
+                                             ca, cin, cout, th, tw, tiles_w);
   return cudaGetLastError();
 }
 
 template <class Load, class Epi, bool kStats, bool kF32Out = false>
-cudaError_t launch_cfg(int cfg, const void* x, const void* aux, const void* w, const Load& ld,
-                       const Epi& epi, void* out, float* partials, int n, int h, int wd, int cin,
-                       int cout, int th, int tw, cudaStream_t stream) {
-#define TUK_TC_CASE(ID)                                                                       \
-  case ID:                                                                                    \
-    return launch<Cfg##ID, Load, Epi, kStats, kF32Out>(x, aux, w, ld, epi, out, partials, n, \
-                                                        h, wd, cin, cout, th, tw, stream);
+cudaError_t launch_cfg(int cfg, const void* x, const void* b, int ca, const void* aux,
+                       const void* w, const Load& ld, const Epi& epi, void* out, float* partials,
+                       int n, int h, int wd, int cin, int cout, int th, int tw,
+                       cudaStream_t stream) {
+#define TUK_TC_CASE(ID)                                                                     \
+  case ID:                                                                                  \
+    return launch<Cfg##ID, Load, Epi, kStats, kF32Out>(x, b, ca, aux, w, ld, epi, out,     \
+                                                        partials, n, h, wd, cin, cout, th, \
+                                                        tw, stream);
   switch (cfg) {
     TUK_TC_CASE(0)
     TUK_TC_CASE(1)
@@ -1026,8 +1100,44 @@ extern "C" int tuk_tc_fused_conv3x3(const void* x, const void* w, const float* s
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
   using namespace tuk::tc;
   return (int)launch_cfg<RawLoad, AffineEpi, false>(
-      cfg, x, nullptr, w, RawLoad{}, AffineEpi{scale, bias, relu}, out, nullptr, n, h, wd, cin,
-      cout, th, tw, static_cast<cudaStream_t>(stream));
+      cfg, x, nullptr, cin, nullptr, w, RawLoad{}, AffineEpi{scale, bias, relu}, out, nullptr, n,
+      h, wd, cin, cout, th, tw, static_cast<cudaStream_t>(stream));
+}
+
+// y = [relu](conv3x3_same(concat([a, b], -1), w) * scale + bias), bf16 in
+// and out, the concat never built. a: [N,H,W,ca] (the skip), b: [N,H,W,cb]
+// (the upsampled tensor), w: [3,3,ca+cb,cout]; ca, cb, cout multiples of 8.
+// Otherwise as tuk_tc_fused_conv3x3.
+extern "C" int tuk_tc_concat_conv3x3(const void* a, const void* b, const void* w,
+                                     const float* scale, const float* bias, void* out, int n,
+                                     int h, int wd, int ca, int cb, int cout, int relu, int cfg,
+                                     int th, int tw, void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  return (int)launch_cfg<ConcatLoad, AffineEpi, false>(
+      cfg, a, b, ca, nullptr, w, ConcatLoad{}, AffineEpi{scale, bias, relu}, out, nullptr, n, h,
+      wd, ca + cb, cout, th, tw, static_cast<cudaStream_t>(stream));
+}
+
+// im2col_conv3x3's function, y = [relu](conv3x3_same(x, w) * scale + bias),
+// the K = 9 * cin contraction over w flattened to [9 * cin][cout] (which is
+// the HWIO layout). bf16 x and w; out bf16, or fp32 when out_f32 (stored from
+// the accumulators, rounded once). Otherwise as tuk_tc_fused_conv3x3.
+extern "C" int tuk_tc_im2col_conv3x3(const void* x, const void* w, const float* scale,
+                                     const float* bias, void* out, int n, int h, int wd, int cin,
+                                     int cout, int relu, int out_f32, int cfg, int th, int tw,
+                                     void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AffineEpi epi{scale, bias, relu};
+  if (out_f32)
+    return (int)launch_cfg<RawLoad, AffineEpi, false, true>(
+        cfg, x, nullptr, cin, nullptr, w, RawLoad{}, epi, out, nullptr, n, h, wd, cin, cout, th,
+        tw, s);
+  return (int)launch_cfg<RawLoad, AffineEpi, false>(cfg, x, nullptr, cin, nullptr, w, RawLoad{},
+                                                    epi, out, nullptr, n, h, wd, cin, cout, th,
+                                                    tw, s);
 }
 
 // z[N,H,W,cout] = conv3x3_same(pro(x), w) in bf16, pro(x) = relu(x*a + c)
@@ -1044,16 +1154,19 @@ extern "C" int tuk_tc_conv3x3_fwd(const void* x, const float* a, const float* c,
   cudaError_t err;
   if (a != nullptr) {
     const ProLoad ld{a, c};
-    err = partials ? launch_cfg<ProLoad, RoundEpi, true>(cfg, x, nullptr, w, ld, RoundEpi{}, z,
-                                                         partials, n, h, wd, cin, cout, th, tw, s)
-                   : launch_cfg<ProLoad, RoundEpi, false>(cfg, x, nullptr, w, ld, RoundEpi{}, z,
-                                                          nullptr, n, h, wd, cin, cout, th, tw, s);
+    err = partials ? launch_cfg<ProLoad, RoundEpi, true>(cfg, x, nullptr, cin, nullptr, w, ld,
+                                                         RoundEpi{}, z, partials, n, h, wd, cin,
+                                                         cout, th, tw, s)
+                   : launch_cfg<ProLoad, RoundEpi, false>(cfg, x, nullptr, cin, nullptr, w, ld,
+                                                          RoundEpi{}, z, nullptr, n, h, wd, cin,
+                                                          cout, th, tw, s);
   } else {
-    err = partials
-              ? launch_cfg<RawLoad, RoundEpi, true>(cfg, x, nullptr, w, RawLoad{}, RoundEpi{}, z,
-                                                    partials, n, h, wd, cin, cout, th, tw, s)
-              : launch_cfg<RawLoad, RoundEpi, false>(cfg, x, nullptr, w, RawLoad{}, RoundEpi{}, z,
-                                                     nullptr, n, h, wd, cin, cout, th, tw, s);
+    err = partials ? launch_cfg<RawLoad, RoundEpi, true>(cfg, x, nullptr, cin, nullptr, w,
+                                                         RawLoad{}, RoundEpi{}, z, partials, n,
+                                                         h, wd, cin, cout, th, tw, s)
+                   : launch_cfg<RawLoad, RoundEpi, false>(cfg, x, nullptr, cin, nullptr, w,
+                                                          RawLoad{}, RoundEpi{}, z, nullptr, n,
+                                                          h, wd, cin, cout, th, tw, s);
   }
   if (err != cudaSuccess || partials == nullptr) return (int)err;
   const int rows = n * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
@@ -1074,10 +1187,11 @@ extern "C" int tuk_tc_conv3x3_dx(const void* g, const void* z, const float* coef
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const DzLoad ld{coef};
   if (out_f32)
-    return (int)launch_cfg<DzLoad, RoundEpi, false, true>(cfg, g, z, wt, ld, RoundEpi{}, out,
-                                                          nullptr, n, h, wd, c, cin, th, tw, s);
-  return (int)launch_cfg<DzLoad, RoundEpi, false>(cfg, g, z, wt, ld, RoundEpi{}, out, nullptr, n,
-                                                  h, wd, c, cin, th, tw, s);
+    return (int)launch_cfg<DzLoad, RoundEpi, false, true>(cfg, g, nullptr, c, z, wt, ld,
+                                                          RoundEpi{}, out, nullptr, n, h, wd, c,
+                                                          cin, th, tw, s);
+  return (int)launch_cfg<DzLoad, RoundEpi, false>(cfg, g, nullptr, c, z, wt, ld, RoundEpi{}, out,
+                                                  nullptr, n, h, wd, c, cin, th, tw, s);
 }
 
 // dw[3,3,cin,cout] fp32 = sum over N,H,W of pro(x)[n, y+ky-1, x+kx-1, ci] *

@@ -33,7 +33,14 @@ WRAPPERS = (
 
 # The wrappers with a tensor-core route (bf16) beside their CUDA-core one;
 # each also carries a ``tc_launches`` count.
-TC_WRAPPERS = (fused_conv3x3_scale_relu, conv3x3_fwd, conv3x3_dx, conv3x3_dw)
+TC_WRAPPERS = (
+    fused_conv3x3_scale_relu,
+    fused_conv3x3_concat_scale_relu,
+    conv3x3_fwd,
+    conv3x3_dx,
+    conv3x3_dw,
+    im2col_conv3x3,
+)
 
 
 def reset_launch_counts() -> None:

@@ -51,6 +51,10 @@ _SIGNATURES = {
                        ctypes.c_int),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              ctypes.c_int),
+    "tuk_tc_concat_conv3x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P], ctypes.c_int),
+    "tuk_tc_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P], ctypes.c_int),
     "tuk_tc_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),
     "tuk_tc_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

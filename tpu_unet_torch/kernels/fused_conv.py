@@ -1,15 +1,16 @@
 """Fused 3x3 SAME conv + folded-BN scale/bias + ReLU on NHWC: the port of
 ``tpu_unet/kernels/fused_conv.py`` (``fused_conv3x3_scale_relu`` and
-``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. The
-single conv in bf16 runs on the tensor cores (``csrc/tc_conv.cu``, through
-``kernels/tc_conv.py``); the single conv in fp32 and the concat variant run
-on the CUDA cores (``csrc/fused_conv.cu``). Each source's header says what
-bounds it on the H100 and how the design answers.
+``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. Both in
+bf16 run on the tensor cores (``csrc/tc_conv.cu``, through
+``kernels/tc_conv.py``; the concat's K chunks come from the skip, then from
+the upsampled tensor); both in fp32 run on the CUDA cores
+(``csrc/fused_conv.cu``). Each source's header says what bounds it on the
+H100 and how the design answers.
 
 Each wrapper launches a kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
 launch raises. ``<wrapper>.launches`` counts the kernel launches, and
-``fused_conv3x3_scale_relu.tc_launches`` those on the tensor cores.
+``<wrapper>.tc_launches`` those on the tensor cores.
 
 Numerics, as in the Pallas kernels: inputs and weights in the input dtype
 (fp32 or bf16), fp32 accumulation, scale and bias upcast to fp32, the
@@ -66,8 +67,9 @@ def _launch(wrapper, a, b, w, scale, bias, apply_relu):
     cout = w.shape[3]
     s = _build.f32_vector(scale, cout, a, name)
     t = _build.f32_vector(bias, cout, a, name)
-    if b is None and dtype == _build.DTYPE_BF16:
-        out = tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
+    if dtype == _build.DTYPE_BF16:
+        out = (tc_conv.fused_conv3x3(a, w, s, t, apply_relu) if b is None
+               else tc_conv.fused_conv3x3_concat(a, b, w, s, t, apply_relu))
         _count(wrapper, tc=True)
         return out
     out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
@@ -101,3 +103,4 @@ def fused_conv3x3_concat_scale_relu(a, b, w, scale, bias, *, apply_relu: bool = 
 fused_conv3x3_scale_relu.launches = 0
 fused_conv3x3_scale_relu.tc_launches = 0
 fused_conv3x3_concat_scale_relu.launches = 0
+fused_conv3x3_concat_scale_relu.tc_launches = 0

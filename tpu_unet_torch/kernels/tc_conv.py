@@ -1,16 +1,19 @@
 """The bf16 tensor-core route of ``fused_conv3x3_scale_relu``,
-``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``, in
-``tpu_unet_torch/csrc/tc_conv.cu`` (mma.sync on the tensor cores, TMA
-loads):
+``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
+``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``
+(mma.sync on the tensor cores, TMA loads):
 
-- one implicit-GEMM kernel over output pixels with a loader policy (raw
-  input; the BN prologue relu(x*a + c); or, for dx, the BN-backward
-  cotangent dz = alpha*g + beta*z + gamma built from g's and z's staged
-  boxes, z in one slot whose next box is issued once a chunk's dz is built)
-  and an epilogue policy (folded-BN scale/bias + ReLU; the bare conv with
-  its (sum z, sum z^2) partials; dx's bf16 or fp32 output). It replaces
-  ``tpu_unet/kernels/fused_conv.py:75``, ``train_conv.py:128`` and
-  ``train_conv.py:289`` (dx);
+- one implicit-GEMM kernel over output pixels whose K chunks come from one
+  input or, for the concat conv, from the skip's tensor map and then the
+  upsampled tensor's (weight rows Ca + 32 j for the second's chunk j: the
+  concat is never built), with a loader policy (raw input; the BN prologue
+  relu(x*a + c); or, for dx, the BN-backward cotangent dz = alpha*g +
+  beta*z + gamma built from g's and z's staged boxes, z in one slot whose
+  next box is issued once a chunk's dz is built) and an epilogue policy
+  (folded-BN scale/bias + ReLU, bf16 or, for im2col, fp32 out; the bare
+  conv with its (sum z, sum z^2) partials; dx's bf16 or fp32 output). It
+  replaces ``tpu_unet/kernels/fused_conv.py:75`` and ``:192``,
+  ``train_conv.py:128`` and ``:289`` (dx) and ``im2col_conv.py:84``;
 - one kernel for dw (``tpu_unet/kernels/train_conv.py:441``), a GEMM over
   pixels (M = Cin, N = Cout per tap): a block owns 64 x 64 channels and all
   9 taps, 12 warps of 32 x 32 channels x the 3 taps of one kernel row (96
@@ -19,7 +22,7 @@ loads):
 
 All are bounded by their 2*9*Cin*Cout multiply-adds a pixel (operations)
 at the deep levels and by bytes and operations about equally at level 0;
-they run at 245-275 TFLOP/s on an H100 (PERF.md). Measured and dropped
+they run at 245-365 TFLOP/s on an H100 (PERF.md). Measured and dropped
 (``csrc/tc_conv.cu``'s header has the details): dw blocks of one kernel
 row, which rewrote each tile three times; a two-slot z ring for dx; a
 wgmma variant of the forward.
@@ -30,8 +33,8 @@ the partials by it. :func:`dw_plan` is dw's: its tile and its splits of the
 pixels, which size the fp32 partials that ``reduce_rows`` adds in a fixed
 order. The CPU tests check that each covers every pixel once.
 
-The wrappers of ``fused_conv`` and ``train_conv`` call the launchers here for
-bf16 CUDA tensors; the launchers never run on the CPU.
+The wrappers of ``fused_conv``, ``train_conv`` and ``im2col_conv`` call the
+launchers here for bf16 CUDA tensors; the launchers never run on the CPU.
 """
 
 from __future__ import annotations
@@ -205,17 +208,27 @@ def _ceil8(v: int) -> int:
     return -(-v // 8) * 8
 
 
+def _padded_sources(xs, w, cout8):
+    """The sources ``xs`` (read as their channel concat, in order) each
+    zero-padded to a multiple of 8 channels, with w's input rows padded to
+    match (zero channels add zero, as in the Pallas kernel's Cin = 3 case),
+    and w's Cout to ``cout8``. All aligned."""
+    widths = [x.shape[3] for x in xs]
+    if all(c % 8 == 0 for c in widths) and cout8 == w.shape[3]:  # the model's convs
+        return [_aligned(x) for x in xs], _aligned(w)
+    parts = torch.split(w, widths, dim=2)
+    w = torch.cat([_pad_last(part.transpose(2, 3), _ceil8(c)).transpose(2, 3)
+                   for part, c in zip(parts, widths)], dim=2)
+    w = _pad_last(w, cout8).contiguous()
+    return [_aligned(_pad_last(x, _ceil8(x.shape[3])).contiguous()) for x in xs], _aligned(w)
+
+
 def _padded(x, w, cout8, vecs=()):
     """x, w and per-input-channel tensors (zero-padded along their last
-    dimension) to Cin % 8 == 0 (zero channels add zero, as in the Pallas
-    kernel's Cin = 3 case), w to Cout % 8."""
-    cin8 = _ceil8(x.shape[3])
-    if cin8 == x.shape[3] and cout8 == w.shape[3]:  # the model's convs: nothing to pad
-        return (_aligned(x), _aligned(w), *(None if v is None else _aligned(v) for v in vecs))
-    w = _pad_last(w.transpose(2, 3), cin8).transpose(2, 3)  # pad Cin
-    w = _pad_last(w, cout8).contiguous()
-    return (_aligned(_pad_last(x, cin8).contiguous()), _aligned(w),
-            *(None if v is None else _aligned(_pad_last(v, cin8).contiguous()) for v in vecs))
+    dimension) to Cin % 8 == 0, w to Cout % 8 (``_padded_sources``)."""
+    (xp,), wp = _padded_sources([x], w, cout8)
+    return (xp, wp, *(None if v is None else _aligned(_pad_last(v, xp.shape[3]).contiguous())
+                      for v in vecs))
 
 
 def _on_device(t: torch.Tensor):
@@ -231,27 +244,82 @@ def _check_bf16(name, *tensors):
         raise ValueError(f"{name}: the tensor-core route takes bfloat16, got {tensors[0].dtype}")
 
 
+class _Affine(NamedTuple):
+    """The operands of a folded-BN conv, padded and aligned, its plan and its
+    output (Cout padded to 8)."""
+
+    xs: list
+    w: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+    plan: TcPlan
+    out: torch.Tensor
+
+
+def _affine(name, xs, w, scale, bias, out_dtype) -> _Affine:
+    _check_bf16(name, *xs, w)
+    n, h, wd, _ = xs[0].shape
+    cout8 = _ceil8(w.shape[3])
+    xs, wp = _padded_sources(xs, w, cout8)
+    return _Affine(xs, wp, _aligned(_pad_last(scale, cout8).contiguous()),
+                   _aligned(_pad_last(bias, cout8).contiguous()), tc_plan(n, h, wd, cout8),
+                   torch.empty((n, h, wd, cout8), dtype=out_dtype, device=w.device))
+
+
+def _unpadded(out, cout):
+    return out if out.shape[3] == cout else out[..., :cout].contiguous()
+
+
 def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
     """[relu](conv3x3_same(x, w) * scale + bias) in bf16 on the tensor cores.
     x: [N,H,W,Cin] bf16, w: [3,3,Cin,Cout] bf16, scale/bias fp32 [Cout]."""
     name = "fused_conv3x3_scale_relu"
-    _check_bf16(name, x, w)
-    n, h, wd, _ = x.shape
-    cout = w.shape[3]
-    cout8 = _ceil8(cout)
-    xp, wp = _padded(x, w, cout8)
-    s = _aligned(_pad_last(scale, cout8).contiguous())
-    b = _aligned(_pad_last(bias, cout8).contiguous())
-    plan = tc_plan(n, h, wd, cout8)
-    out = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
-    lib = _build.library()
+    op = _affine(name, [x], w, scale, bias, x.dtype)
+    n, h, wd, cin = op.xs[0].shape
     with _on_device(x):
-        err = lib.tuk_tc_fused_conv3x3(xp.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), n, h, wd, xp.shape[3], cout8,
-                                       int(apply_relu), plan.cfg, plan.th, plan.tw,
-                                       _build.stream(x))
+        err = _build.library().tuk_tc_fused_conv3x3(
+            op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+            op.out.data_ptr(), n, h, wd, cin, op.out.shape[3], int(apply_relu), op.plan.cfg,
+            op.plan.th, op.plan.tw, _build.stream(x))
     _build.check(err, name)
-    return out if cout8 == cout else out[..., :cout].contiguous()
+    return _unpadded(op.out, w.shape[3])
+
+
+def fused_conv3x3_concat(a, b, w, scale, bias, apply_relu: bool) -> torch.Tensor:
+    """[relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) in bf16 on
+    the tensor cores, the concat never built: the kernel's K chunks are a's,
+    then b's (weight rows Ca + 32 j). a: [N,H,W,Ca], b: [N,H,W,Cb] bf16, w:
+    [3,3,Ca+Cb,Cout] bf16, scale/bias fp32 [Cout]."""
+    name = "fused_conv3x3_concat_scale_relu"
+    op = _affine(name, [a, b], w, scale, bias, a.dtype)
+    (ap, bp), (n, h, wd, _) = op.xs, a.shape
+    with _on_device(a):
+        err = _build.library().tuk_tc_concat_conv3x3(
+            ap.data_ptr(), bp.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(),
+            op.bias.data_ptr(), op.out.data_ptr(), n, h, wd, ap.shape[3], bp.shape[3],
+            op.out.shape[3], int(apply_relu), op.plan.cfg, op.plan.th, op.plan.tw,
+            _build.stream(a))
+    _build.check(err, name)
+    return _unpadded(op.out, w.shape[3])
+
+
+def im2col_conv3x3(x, w, scale, bias, apply_relu: bool, out_dtype) -> torch.Tensor:
+    """``im2col_conv3x3``'s function in bf16 on the tensor cores: the K =
+    9·Cin contraction over w flattened to [9·Cin, Cout] (the HWIO layout),
+    as the implicit GEMM of ``fused_conv3x3`` (K chunk-major, taps inside a
+    chunk). x: [N,H,W,Cin] bf16, w: [3,3,Cin,Cout] bf16 -> ``out_dtype``
+    (bf16, or fp32 stored from the accumulators)."""
+    name = "im2col_conv3x3"
+    op = _affine(name, [x], w, scale, bias, out_dtype)
+    n, h, wd, cin = op.xs[0].shape
+    with _on_device(x):
+        err = _build.library().tuk_tc_im2col_conv3x3(
+            op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+            op.out.data_ptr(), n, h, wd, cin, op.out.shape[3], int(apply_relu),
+            int(out_dtype == torch.float32), op.plan.cfg, op.plan.th, op.plan.tw,
+            _build.stream(x))
+    _build.check(err, name)
+    return _unpadded(op.out, w.shape[3])
 
 
 def conv3x3_fwd(x, w, a, c, stats: bool):
@@ -334,10 +402,12 @@ def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
     if plan.splits > 1:
         partials = torch.empty((plan.splits, 9, cin8, cout8), dtype=torch.float32,
                                device=x.device)
-    ptr = lambda t: None if t is None else _aligned(t).data_ptr()  # noqa: E731
+    # The aligned operands are held here until the launch returns: a copy
+    # freed earlier could hand its block to the next one.
+    ops = [None if t is None else _aligned(t) for t in (x, a, c, g, z, coef)]
     lib = _build.library()
     with _on_device(x):
-        err = lib.tuk_tc_conv3x3_dw(ptr(x), ptr(a), ptr(c), ptr(g), ptr(z), ptr(coef),
+        err = lib.tuk_tc_conv3x3_dw(*(None if t is None else t.data_ptr() for t in ops),
                                     None if partials is None else partials.data_ptr(),
                                     dw.data_ptr(), n, h, wd, cin8, cout8, plan.th, plan.tw,
                                     plan.tiles_per_split, plan.splits, _build.stream(x))

@@ -97,7 +97,9 @@ def mask_to_image(mask: np.ndarray, mask_values) -> Image.Image:
 
 def load_model(path: str | Path, config: UNetConfig, device: torch.device):
     """(params, state, config, mask_values) from a ``.npz`` checkpoint; its
-    stored config, when present, wins over ``config``."""
+    stored config, when present, wins over ``config``. A stored config
+    without ``recur_bn`` predates the per-step layout, so its arrays are in
+    the shared layout: it loads as ``recur_bn="shared"``."""
     from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta
 
     if not str(path).endswith(".npz"):
@@ -105,7 +107,7 @@ def load_model(path: str | Path, config: UNetConfig, device: torch.device):
                          "(.pth import and .jaxexp artifacts are not ported yet)")
     _, extra = read_checkpoint_meta(path)
     if "config" in extra:
-        config = UNetConfig(**extra["config"])
+        config = UNetConfig(**{"recur_bn": "shared", **extra["config"]})
     params, state, mask_values, _ = load_checkpoint(path, config, device)
     if mask_values is None:
         mask_values = [0, 1] if config.n_classes == 1 else list(range(config.n_classes))
