@@ -12,13 +12,19 @@ Phases, each of which exits non-zero on failure, each with its time:
 2. Run each of the four serving kernels and its plain PyTorch version on the
    card at the serving path's own shapes (``fused_conv3x3_scale_relu`` at
    all seven of the served forward's, ``fused_conv3x3_concat_scale_relu``
-   at all four and one ragged case), in bf16 and fp32 (TF32 off), and
-   compare them: max abs and relative error, the kernel's, the plain
-   version's and one library call's times (CUDA events, median), and the
-   kernel's bound (the least time the card could take for its bytes or
-   operations). Both folded-BN convs run on the tensor cores in bf16
-   (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a second bf16 call of
-   the concat conv must repeat the first bit for bit.
+   at all four and one ragged case, ``fused_double_conv`` at all three,
+   with its pooled output), in bf16 and fp32 (TF32 off), and compare them:
+   max abs and relative error, the kernel's, the plain version's and one
+   library call's times (CUDA events, median), and the kernel's bound (the
+   least time the card could take for its bytes or operations). The
+   folded-BN convs run on the tensor cores in bf16 (``csrc/tc_conv.cu``;
+   the double conv ``csrc/tc_double_conv.cu``, its pool from the same
+   epilogue), on the CUDA cores in fp32; a second bf16 call of the concat
+   and the double conv must repeat the first bit for bit, and the double
+   conv's pooled output must equal ``max_pool2x2_plain`` of its own output.
+   Beside the double conv's bf16 time: two compositions, two tensor-core
+   ``fused_conv3x3_scale_relu`` calls (mid through device memory) and two
+   cuDNN convs with a ReLU between.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
    tensor cores in bf16 (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a
@@ -36,8 +42,9 @@ Phases, each of which exits non-zero on failure, each with its time:
 4. POST synthetic 1918x1280 Carvana-like images (scale 0.5 -> 959x640), some
    at once so a micro-batch forms, and check each PNG mask against the plain
    forward (``--kernels torch``) on the card; check that every kernel was
-   launched by the served forwards (the 8 single and 4 concat convs of each
-   on the tensor cores); print ``/metrics``; time the bf16 and fp32
+   launched by the served forwards (the 8 single, 4 concat and 3 double
+   convs of each on the tensor cores, the double convs writing 3 of the 4
+   pools, one ``max_pool2x2``); print ``/metrics``; time the bf16 and fp32
    forwards, kernels against plain.
 5. Train the same full-width model from seed 0 with the port's
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
@@ -66,6 +73,7 @@ line before them is the per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import shutil
@@ -83,28 +91,32 @@ from PIL import Image
 
 from tpu_unet_torch import kernels as K
 from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 from tpu_unet_torch.ops import full_fp32
 
 ROOT = Path(__file__).resolve().parent
 
-# Per-forward launches of each kernel in the flagship U-Net's --kernels path
-# (tpu_unet_torch/models/infer.py): down3/down4 and the up blocks' conv2
-# run the single conv, the up blocks' conv1 the concat conv, inc/down1/down2
-# the double conv, and the four encoder pools the pool.
+# Per-forward launches of each kernel in the flagship U-Net's bf16 --kernels
+# path (tpu_unet_torch/models/infer.py): down3/down4 and the up blocks'
+# conv2 run the single conv, the up blocks' conv1 the concat conv,
+# inc/down1/down2 the double conv, which also writes the pool after each;
+# the pool after down3 is the one max_pool2x2.
 PER_FORWARD = {
     "fused_conv3x3_scale_relu": 8,
     "fused_conv3x3_concat_scale_relu": 4,
     "fused_double_conv": 3,
-    "max_pool2x2": 4,
+    "max_pool2x2": 1,
 }
-# Of those, the bf16 calls that must run on the tensor cores (csrc/tc_conv.cu).
-TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8, "fused_conv3x3_concat_scale_relu.tc": 4}
+# Of those, the bf16 calls that must run on the tensor cores (csrc/tc_conv.cu,
+# csrc/tc_double_conv.cu), and the double convs that wrote their pool.
+TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8, "fused_conv3x3_concat_scale_relu.tc": 4,
+                  "fused_double_conv.tc": 3, "fused_double_conv.pool": 3}
 SOURCES = {
     "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                  "tpu_unet/kernels/fused_conv.py:75"),
     "fused_conv3x3_concat_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                         "tpu_unet/kernels/fused_conv.py:192"),
-    "fused_double_conv": ("tpu_unet_torch/csrc/fused_double_conv.cu",
+    "fused_double_conv": ("tpu_unet_torch/csrc/tc_double_conv.cu",
                           "tpu_unet/kernels/fused_double_conv.py:94"),
     "max_pool2x2": ("tpu_unet_torch/csrc/pooling.cu", "tpu_unet/kernels/pooling.py:33"),
 }
@@ -140,8 +152,10 @@ _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
 IMPL = {
     "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
     "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
-    "fused_double_conv": {"bf16": f"{_CC} (csrc/fused_double_conv.cu)",
-                          "fp32": f"{_CC} (csrc/fused_double_conv.cu)"},
+    "fused_double_conv": {
+        "bf16": "tensor cores, mma.sync + TMA, mid in shared memory, pool in the epilogue "
+                "(tpu_unet_torch/csrc/tc_double_conv.cu)",
+        "fp32": f"{_CC} (csrc/fused_double_conv.cu), pool csrc/pooling.cu"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
     "conv3x3_dx": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
@@ -301,7 +315,6 @@ def kernel_cases(gen):
         fused_conv3x3_scale_relu_plain,
     )
     from tpu_unet_torch.kernels.fused_double_conv import fused_double_conv_plain
-    from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 
     def pool_work(x):
         return 3.0 * x.numel() / 4, nbytes(x) * 5 / 4
@@ -311,11 +324,14 @@ def kernel_cases(gen):
         return lambda: F.max_pool2d(xv, 2)
 
     def dc_work(x, w1, s1, b1, w2, s2, b2):
+        """Both convs and epilogues, and the pool of y (3 maxima per pooled
+        value); bytes: the inputs, y and the pooled output."""
+        n, h, wd, cin = x.shape
         cmid, cout = w1.shape[3], w2.shape[3]
-        px = x.numel() / x.shape[3]
-        return (conv_flops(x.shape, x.shape[3], cmid) + conv_flops(x.shape, cmid, cout)
-                + 3 * px * (cmid + cout),
-                nbytes(x, w1, w2, s1, b1, s2, b2) + px * cout * x.element_size())
+        px, pooled = n * h * wd, n * (h // 2) * (wd // 2) * cout
+        return (conv_flops(x.shape, cin, cmid) + conv_flops(x.shape, cmid, cout)
+                + 3 * px * (cmid + cout) + 3 * pooled,
+                nbytes(x, w1, w2, s1, b1, s2, b2) + (px * cout + pooled) * x.element_size())
 
     def conv_work(*args):
         *xs, w, s, b = args
@@ -334,11 +350,15 @@ def kernel_cases(gen):
 
     cases = [("max_pool2x2", "[1,640,959,64]", K.max_pool2x2, max_pool2x2_plain,
               [_randn(gen, (1, 640, 959, 64))], pool_work, pool_library)]
-    for shape, cmid in (((1, 640, 959, 3), 64), ((1, 160, 239, 128), 256)):
+    # The served forward's three double convs (inc, down1, down2), each with
+    # the pool of its output, as the forward calls them.
+    for shape, cmid in (((1, 640, 959, 3), 64), ((1, 320, 479, 64), 128),
+                        ((1, 160, 239, 128), 256)):
         w1, s1, b1 = _conv_params(gen, shape[-1], cmid)
         w2, s2, b2 = _conv_params(gen, cmid, cmid)
         cases.append(("fused_double_conv", f"{list(shape)}->{cmid}->{cmid}".replace(" ", ""),
-                      K.fused_double_conv, fused_double_conv_plain,
+                      functools.partial(K.fused_double_conv, pool=True),
+                      functools.partial(fused_double_conv_plain, pool=True),
                       [_randn(gen, shape), w1, s1, b1, w2, s2, b2], dc_work, None))
     # The served forward's eight single convs, the main case (down3.conv2,
     # up1.conv2) first: down3.conv1, down4.conv1/2, up2/3/4.conv2.
@@ -365,12 +385,33 @@ def kernel_cases(gen):
 
 
 # Kernels whose bf16 result phase 2 also holds to a second call, bit for bit.
-REPEAT_BF16 = ("fused_conv3x3_concat_scale_relu",)
+REPEAT_BF16 = ("fused_conv3x3_concat_scale_relu", "fused_double_conv")
+
+
+def dc_pairs(x, w1, s1, b1, w2, s2, b2) -> dict[str, float]:
+    """Two compositions of the double conv's function, timed as one call
+    each (``time_ms``): two tensor-core ``fused_conv3x3_scale_relu`` calls
+    with mid through device memory, and two cuDNN convs (scales folded into
+    the weights, biases passed) with a ReLU between and after. Neither pools."""
+    import torch.nn.functional as F
+
+    xl = nchw(x)
+    wl1, wl2 = (oihw((w.float() * s).to(w.dtype)) for w, s in ((w1, s1), (w2, s2)))
+    bl1, bl2 = b1.to(x.dtype), b2.to(x.dtype)
+
+    def tc_pair():
+        return K.fused_conv3x3_scale_relu(K.fused_conv3x3_scale_relu(x, w1, s1, b1), w2, s2, b2)
+
+    def cudnn_pair():
+        return torch.relu(F.conv2d(torch.relu(F.conv2d(xl, wl1, bl1, padding=1)), wl2, bl2,
+                                   padding=1))
+
+    return {"tc_pair_ms": time_ms(tc_pair), "cudnn_pair_ms": time_ms(cudnn_pair)}
 
 
 LIBRARY_CALLS = {
     "max_pool2x2": "F.max_pool2d on a channels-last view",
-    "fused_double_conv": "none: two calls",
+    "fused_double_conv": "none: two convs and a pool (compositions logged beside bf16)",
     "fused_conv3x3_scale_relu": "F.conv2d, scale folded, bias passed, no ReLU",
     "fused_conv3x3_concat_scale_relu": "F.conv2d on the prebuilt concat, scale folded, no ReLU",
     "conv3x3_fwd": "F.conv2d, no prologue, no stats",
@@ -392,6 +433,11 @@ def phase_kernels() -> dict[str, dict]:
             got = fn(*args)
             torch.cuda.synchronize()
             ref = plain(*args)
+            pooled, pool_note, pool_ok = None, "", True
+            if isinstance(got, tuple):  # (y, pooled): the pool of the kernel's own y, exactly
+                (got, pooled), ref = got, ref[0]
+                pool_ok = torch.equal(pooled, max_pool2x2_plain(got))
+                pool_note = f", pooled == max_pool2x2_plain(y) {pool_ok}"
             diff = (got.float() - ref.float()).abs()
             max_abs = diff.max().item()
             max_rel = max_abs / max(ref.float().abs().max().item(), 1e-30)
@@ -399,12 +445,18 @@ def phase_kernels() -> dict[str, dict]:
             ok = bool((diff <= atol + rtol * ref.float().abs()).all().item())
             if name == "max_pool2x2":
                 ok = max_abs == 0.0  # a max selects an input: exact
+            ok = ok and pool_ok
             repeat = ""
             if name in REPEAT_BF16 and dtype == torch.bfloat16:
-                same = torch.equal(got, fn(*args))
+                again = fn(*args)
+                if pooled is not None:  # the double conv: y and its pool
+                    same = torch.equal(got, again[0]) and torch.equal(pooled, again[1])
+                else:
+                    same = torch.equal(got, again)
                 ok = ok and same
                 repeat = f", bitwise repeat {same}"
-            del got, ref, diff
+                del again
+            del got, ref, diff, pooled
             ms = time_ms(lambda: fn(*args))
             plain_ms = time_ms(lambda: plain(*args))
             library_ms = time_ms(library(*args)) if library else None
@@ -412,10 +464,15 @@ def phase_kernels() -> dict[str, dict]:
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
             tol = ("exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|") + repeat
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+            pairs = {}
+            if name == "fused_double_conv" and dtype == torch.bfloat16:
+                pairs = dc_pairs(*args)
+                lib += (f"; compositions: tc pair {pairs['tc_pair_ms']:.4f} ms, cuDNN pair "
+                        f"{pairs['cudnn_pair_ms']:.4f} ms")
             log(f"kernel {name} {label} {dt} [{IMPL[name][dt]}]: max_abs_err={max_abs:.3e} "
-                f"max_rel_err={max_rel:.3e} (tol {tol}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib} ({LIBRARY_CALLS[name]}) bound_ms={bound_ms:.4g} "
-                f"({bound_by}) {'ok' if ok else 'FAIL'}")
+                f"max_rel_err={max_rel:.3e} (tol {tol}{pool_note}) ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib} ({LIBRARY_CALLS[name]}) "
+                f"bound_ms={bound_ms:.4g} ({bound_by}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{name} {label} {dt}")
             entry = results.setdefault(name, {"max_abs_err": 0.0, "cases": []})
@@ -423,7 +480,7 @@ def phase_kernels() -> dict[str, dict]:
             entry["cases"].append({"shape": label, "dtype": dt, "impl": IMPL[name][dt],
                                    "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
                                    "plain_ms": plain_ms, "library_ms": library_ms,
-                                   "bound_ms": bound_ms, "bound_by": bound_by})
+                                   "bound_ms": bound_ms, "bound_by": bound_by, **pairs})
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
@@ -1487,7 +1544,8 @@ def main(argv=None) -> int:
                              and c["out_dtype"] == "bf16")
         count, tc = counts[name], counts.get(f"{name}.tc")
         report.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": count, "tc_launches": tc, "impl": IMPL[name],
+                       "launches": count, "tc_launches": tc,
+                       "pool_launches": counts.get(f"{name}.pool"), "impl": IMPL[name],
                        "max_abs_err": results[name]["max_abs_err"],
                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

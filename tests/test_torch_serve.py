@@ -169,6 +169,75 @@ def test_predict_cli_png_equals_jax(ckpt, tmp_path):
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
+class _Forwards:
+    """Records which forward a predict or serve call runs: the eval-mode
+    ``unet_apply`` or the folded ``unet_infer_apply``."""
+
+    def __init__(self, monkeypatch, *modules):
+        from tpu_unet_torch.models import infer, unet
+
+        real = {"unet_apply": unet.unet_apply, "unet_infer_apply": infer.unet_infer_apply}
+        self.calls = []
+        for mod in modules:
+            for name, fn in real.items():
+                monkeypatch.setattr(mod, name, self._recording(name, fn), raising=False)
+
+    def _recording(self, name, real):
+        def call(*args, **kwargs):
+            self.calls.append(name)
+            return real(*args, **kwargs)
+        return call
+
+
+def test_predict_cli_default_is_the_eval_forward_and_equals_jax(ckpt, tmp_path, monkeypatch):
+    """Without --kernels the port's predict runs the unfolded eval-mode
+    forward, as the reference's predict_img does, and writes its PNG."""
+    import tpu_unet_torch.predict as t_predict
+
+    img_path = tmp_path / "in.png"
+    _img(32, 43, 47).save(img_path)
+    j_out, t_out = tmp_path / "jax.png", tmp_path / "port.png"
+    j_predict_main(["-m", str(ckpt), "-i", str(img_path), "-o", str(j_out), "-s", "1.0"])
+    seen = _Forwards(monkeypatch, t_predict)
+    t_predict_main(["-m", str(ckpt), "-i", str(img_path), "-o", str(t_out), "-s", "1.0",
+                    "--device", "cpu"])
+    assert seen.calls == ["unet_apply"]
+    ref, out = Image.open(j_out), Image.open(t_out)
+    assert out.mode == ref.mode and out.size == ref.size
+    assert 0 < np.asarray(ref).mean() < 1
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    seen.calls.clear()
+    t_predict_main(["-m", str(ckpt), "-i", str(img_path), "-o", str(t_out), "-s", "1.0",
+                    "--device", "cpu", "--kernels", "torch"])
+    assert seen.calls == ["unet_infer_apply"]
+
+
+def test_serve_default_is_the_eval_forward_and_equals_jax(ckpt, monkeypatch):
+    """Without --kernels the port's server runs the eval-mode forward, as the
+    reference's does (its BatchedPredictor with kernels=None)."""
+    import tpu_unet_torch.serve as t_serve
+    from tpu_unet.checkpoint import load_checkpoint as j_load
+
+    seen = _Forwards(monkeypatch, t_serve)
+    server, pred = make_server(["-m", str(ckpt), "--port", "0", "--device", "cpu", "--no-amp",
+                                "-s", "1.0"])
+    like_p, like_s = j_init(jax.random.PRNGKey(0), JCFG)
+    jp, js, mv, _ = j_load(ckpt, like_p, like_s)
+    jpred = JPredictor(jp, js, JCFG, mv, scale=1.0, amp=False)
+    try:
+        assert pred.kernels is None
+        for seed, (h, w) in enumerate([(37, 48), (30, 41)]):
+            img = _img(40 + seed, h, w)
+            ref = jpred.predict_one(img)
+            assert 0 < ref.mean() < 1
+            np.testing.assert_array_equal(pred.predict_one(img), ref)
+        assert set(seen.calls) == {"unet_apply"}
+    finally:
+        jpred.stop()
+        server.server_close()
+        pred.stop()
+
+
 def test_predict_cli_refuses_unported_flags_and_missing_gpu(ckpt, tmp_path):
     img_path = tmp_path / "in.png"
     _img(31).save(img_path)

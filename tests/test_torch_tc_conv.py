@@ -222,7 +222,9 @@ def test_tc_c_interface_matches_the_ctypes_signatures():
 
 def test_python_mirrors_of_the_kernel_constants_match_the_source():
     src = (_build.CSRC_DIR / "tc_conv.cu").read_text()
-    assert int(re.search(r"constexpr int KC = (\d+);", src).group(1)) == KC
+    common = (_build.CSRC_DIR / "tc_common.cuh").read_text()  # KC, shared with the double conv
+    assert '#include "tc_common.cuh"' in src
+    assert int(re.search(r"constexpr int KC = (\d+);", common).group(1)) == KC
     found = {int(m.group(1)): tuple(int(v) for v in m.group(2).split(","))
              for m in re.finditer(r"using Cfg(\d+) = Config<([\d, ]+)>;", src)}
     assert set(found) == set(CONFIGS)
@@ -307,6 +309,11 @@ class _Card:
             record("conv3x3_dw")
             return torch.empty(3, 3, x.shape[3], g.shape[3], device=x.device)
 
+        def launch_dc(x, w1, s1, b1, w2, s2, b2, pool):
+            record("fused_double_conv")
+            y = torch.empty(x.shape[:3] + (w2.shape[3],), dtype=x.dtype, device=x.device)
+            return y, (y[:, : y.shape[1] // 2, : y.shape[2] // 2].clone() if pool else None)
+
         def validate(kernel, *tensors):
             return _build.DTYPE_BF16 if tensors[0].dtype == torch.bfloat16 else _build.DTYPE_F32
 
@@ -324,6 +331,7 @@ class _Card:
         monkeypatch.setattr(tc_conv, "conv3x3_fwd", launcher("conv3x3_fwd"))
         monkeypatch.setattr(tc_conv, "conv3x3_dx", launch_dx)
         monkeypatch.setattr(tc_conv, "conv3x3_dw", launch_dw)
+        monkeypatch.setattr(tc_conv, "double_conv", launch_dc)
 
 
 @pytest.fixture

@@ -4,8 +4,9 @@ two trees of this repository on one CUDA card: the split of the level-0
 ``conv3x3_fwd`` (``chip_smoke.fwd_split``), and the back-to-back and device
 times of every phase-2b ``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``
 case, every served ``fused_conv3x3_scale_relu`` and
-``fused_conv3x3_concat_scale_relu`` shape, and the two 572x572
-``im2col_conv3x3`` cases of phase 2c.
+``fused_conv3x3_concat_scale_relu`` shape, the three served
+``fused_double_conv`` shapes (without the pooled output, which the parent's
+wrapper may lack), and the two 572x572 ``im2col_conv3x3`` cases of phase 2c.
 
     python3 tools/tc_conv_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -66,9 +67,11 @@ def measure(tree: Path) -> None:
         line(f"conv3x3_dx {tag}", lambda: K.conv3x3_dx(g, z, coef, w, out_dtype=dx_dtype))
         line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x, g, z, coef, *pro))
     for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
+        args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
         if name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
-            args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
             line(f"{name} {label} bf16", lambda: fn(*args))
+        elif name == "fused_double_conv":
+            line(f"{name} {label} bf16", lambda: K.fused_double_conv(*args))
     for label, shape, cout, relu in c.IM2COL_CASES:
         if shape[1] == 572 and shape[-1] >= 64:
             x = c._randn(gen, shape).bfloat16()

@@ -3,10 +3,11 @@
 // with both convs SAME-padded and mid never written to device memory.
 //
 // Replaces the TPU kernel tpu_unet/kernels/fused_double_conv.py
-// fused_double_conv.
+// fused_double_conv, fp32 route; bf16 runs on the tensor cores
+// (tc_double_conv.cu), and tuk_double_conv refuses it.
 //
 // What bounds it on the H100: arithmetic, as for fused_conv.cu (CUDA-core fp32
-// FMA in this first version), plus shared-memory capacity. What the fusion
+// FMA), plus shared-memory capacity. What the fusion
 // saves is the write and re-read of mid (H*W*Cmid elements), which matters at
 // the wide, shallow levels where it runs (Cin/Cmid <= 256). Design:
 //   * A block owns an 8 x 16 output tile and ALL output channels, so mid is
@@ -167,25 +168,21 @@ cudaError_t launch_double_conv(const void* x, int cin, const void* w1, const flo
 
 }  // namespace tuk
 
-// Dynamic shared memory the kernel needs for this Cmid and dtype, so the
+// Dynamic shared memory the kernel needs for this Cmid (fp32), so the
 // wrapper can refuse a Cmid that does not fit before launching.
-extern "C" size_t tuk_double_conv_smem(int cmid, int dtype) {
-  return dtype == tuk::kBF16 ? tuk::double_conv_smem<__nv_bfloat16>(cmid)
-                             : tuk::double_conv_smem<float>(cmid);
-}
+extern "C" size_t tuk_double_conv_smem(int cmid) { return tuk::double_conv_smem<float>(cmid); }
 
 // out[N,H,W,cout] = relu(conv3x3(relu(conv3x3(x, w1) * s1 + b1), w2) * s2 + b2).
 // x: [N,H,W,cin], w1: [3,3,cin,cmid], w2: [3,3,cmid,cout] HWIO; s*/b*: fp32.
-// dtype: 0 fp32, 1 bf16 (x, weights, mid and out). Returns the CUDA error.
+// dtype: 0 fp32 (x, weights, mid and out); bf16 (1) is refused with
+// cudaErrorInvalidValue: it runs on the tensor cores (tuk_tc_double_conv).
+// Returns the CUDA error.
 extern "C" int tuk_double_conv(const void* x, int cin, const void* w1, const float* s1,
                                const float* b1, int cmid, const void* w2, const float* s2,
                                const float* b2, int cout, void* out, int n, int h, int wd,
                                int dtype, void* stream) {
+  if (dtype != tuk::kF32) return (int)cudaErrorInvalidValue;
   if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tuk::kBF16)
-    return tuk::launch_double_conv<__nv_bfloat16>(x, cin, w1, s1, b1, cmid, w2, s2, b2, cout, out,
-                                                  n, h, wd, s);
   return tuk::launch_double_conv<float>(x, cin, w1, s1, b1, cmid, w2, s2, b2, cout, out, n, h, wd,
-                                        s);
+                                        static_cast<cudaStream_t>(stream));
 }

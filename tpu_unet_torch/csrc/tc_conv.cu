@@ -135,13 +135,7 @@
 // * Cin and Cout must be multiples of 8 (the tensor maps' 16-byte strides):
 //   the wrapper zero-pads Cin = 3 to 8 channels, as the Pallas kernel does.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "tc_common.cuh"
 
 namespace tuk {
 
@@ -150,12 +144,7 @@ cudaError_t reduce_rows(float* in, float* out, int rows, long long cols, cudaStr
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int KC = 32;        // input channels per staged chunk (64 bytes a pixel)
-constexpr int STAGES = 4;     // k-steps in the weight ring
-constexpr int kAlign = 1024;  // slot alignment: the swizzle patterns repeat every 1024 bytes
-constexpr int kMaxDevices = 64;
+constexpr int STAGES = 4;  // k-steps in the weight ring
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -186,81 +175,6 @@ struct Config {
 // an SM at level 0, and faster at the deep shapes.
 using Cfg0 = Config<128, 128, 2, 2, 288, 2>;
 using Cfg1 = Config<256, 64, 4, 1, 400, 2>;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// mbarriers and TMA loads (sm_90).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
-}
-// Orders this thread's earlier generic-proxy shared-memory accesses before
-// later async-proxy ones (the TMA writes into a reused slot).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// Byte offset of 16-byte chunk c of staged pixel q in an input slot (64-byte
-// swizzle), and of chunk c of weight row r in a 64-channel half (128-byte).
-__device__ __forceinline__ int in_off(int q, int c) { return q * 64 + ((c ^ ((q >> 1) & 3)) << 4); }
-__device__ __forceinline__ int w_off(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-// ReLU that keeps NaN, as torch.relu does.
-__device__ __forceinline__ float relu_f(float y) { return y < 0.f ? 0.f : y; }
 
 // Where a block's tile lies, and what it stages.
 struct Tile {
@@ -428,11 +342,6 @@ struct AffineEpi {
 template <class C, class Load>
 constexpr size_t smem_bytes() {
   return C::SMEM + (Load::kAux ? C::IN_SLOT + 8 : 0);
-}
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
 }
 
 // ---- the kernel -------------------------------------------------------------

@@ -36,6 +36,7 @@ WRAPPERS = (
 TC_WRAPPERS = (
     fused_conv3x3_scale_relu,
     fused_conv3x3_concat_scale_relu,
+    fused_double_conv,
     conv3x3_fwd,
     conv3x3_dx,
     conv3x3_dw,
@@ -48,13 +49,17 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in TC_WRAPPERS:
         fn.tc_launches = 0
+    fused_double_conv.pool_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per wrapper, and under ``<wrapper>.tc`` those of the
-    tensor-core route (included in the wrapper's own count)."""
+    """Launches per wrapper, under ``<wrapper>.tc`` those of the tensor-core
+    route (included in the wrapper's own count), and under
+    ``fused_double_conv.pool`` the double-conv launches that also wrote the
+    2x2 max pool of their output (not counted under ``max_pool2x2``)."""
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     counts.update({f"{fn.__name__}.tc": fn.tc_launches for fn in TC_WRAPPERS})
+    counts["fused_double_conv.pool"] = fused_double_conv.pool_launches
     return counts
 
 

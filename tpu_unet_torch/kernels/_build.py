@@ -42,7 +42,7 @@ _SIGNATURES = {
                     ctypes.c_int),
     "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
                         ctypes.c_int),
-    "tuk_double_conv_smem": ([_I, _I], ctypes.c_size_t),
+    "tuk_double_conv_smem": ([_I], ctypes.c_size_t),
     "tuk_conv3x3_fwd_rows": ([_I, _I, _I], ctypes.c_int),
     "tuk_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tuk_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
@@ -59,6 +59,8 @@ _SIGNATURES = {
                            ctypes.c_int),
     "tuk_tc_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                           ctypes.c_int),
+    "tuk_tc_double_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P], ctypes.c_int),
     "tuk_tc_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P], ctypes.c_int),
     "tuk_im2col_max_cin": ([], ctypes.c_int),

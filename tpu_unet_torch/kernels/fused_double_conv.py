@@ -1,11 +1,22 @@
 """A whole folded-BN DoubleConv in one kernel: the port of
-``tpu_unet/kernels/fused_double_conv.py::fused_double_conv`` as a
-hand-written CUDA kernel, ``tpu_unet_torch/csrc/fused_double_conv.cu``. Its
-header says what bounds it on the H100 and how the design answers.
+``tpu_unet/kernels/fused_double_conv.py::fused_double_conv`` as hand-written
+CUDA kernels. bf16 runs on the tensor cores (``csrc/tc_double_conv.cu``,
+through ``kernels/tc_conv.py``: conv1 over the tile plus its halo into a mid
+tile kept in shared memory, then conv2 from it, the 2x2 max pool optionally
+folded into the epilogue); fp32 on the CUDA cores
+(``csrc/fused_double_conv.cu``). Each source's header says what bounds it on
+the H100 and how the design answers.
 
-``fused_double_conv`` launches the kernel for CUDA tensors and runs
+``fused_double_conv`` launches a kernel for CUDA tensors and runs
 ``fused_double_conv_plain`` for CPU tensors. It never falls back: a failed
-build or launch raises. ``fused_double_conv.launches`` counts the launches.
+build or launch raises. ``fused_double_conv.launches`` counts the launches,
+``.tc_launches`` those on the tensor cores and ``.pool_launches`` those that
+also wrote the pooled output.
+
+With ``pool=True`` it returns ``(y, max_pool2x2(y))``: in bf16 on a CUDA
+device the kernel's epilogue computes the pool from the output tile it holds
+(bit-identical: a max selects an input); in fp32 the pool is the
+``max_pool2x2`` kernel's launch on y; on the CPU, both plain versions.
 
 Numerics, as in the Pallas kernel: fp32 accumulation and epilogues, the mid
 activation rounded to the input dtype (it is held in shared memory in that
@@ -18,30 +29,42 @@ import threading
 
 import torch
 
-from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import _build, tc_conv
 from tpu_unet_torch.kernels.fused_conv import fused_conv3x3_scale_relu_plain
+from tpu_unet_torch.kernels.pooling import max_pool2x2, max_pool2x2_plain
 
 # Channel ceiling of the fused path, as in the JAX package: unet_infer_apply
 # routes a DoubleConv here when max(Cin, Cmid) <= this. On the H100 the bound
-# is shared memory: the mid tile [Cmid, 10, 18] in fp32 at Cmid = 256 takes
-# 180 KB of the 227 KB a block may use.
+# is shared memory: the fp32 mid tile [Cmid, 10, 18] at Cmid = 256 takes 180
+# KB of the 227 KB a block may use (bf16 on 6 x 30 tiles: 225 KB with the
+# rings).
 FUSED_DC_MAX_CHANNELS = 256
 
 _count_lock = threading.Lock()
 
 
-def fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2):
+def fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2, *, pool: bool = False):
     """relu(conv2(relu(conv1(x)·s1+b1))·s2+b2) in plain PyTorch, mid rounded
-    to x's dtype between the convs."""
+    to x's dtype between the convs; with ``pool`` also ``max_pool2x2_plain``
+    of it."""
     mid = fused_conv3x3_scale_relu_plain(x, w1, scale1, bias1)
-    return fused_conv3x3_scale_relu_plain(mid, w2, scale2, bias2)
+    y = fused_conv3x3_scale_relu_plain(mid, w2, scale2, bias2)
+    return (y, max_pool2x2_plain(y)) if pool else y
 
 
-def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2):
+def _count(tc: bool, pool: bool) -> None:
+    with _count_lock:
+        fused_double_conv.launches += 1
+        fused_double_conv.tc_launches += tc
+        fused_double_conv.pool_launches += pool
+
+
+def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2, *, pool: bool = False):
     """x: [N,H,W,Cin], w1: [3,3,Cin,Cmid], w2: [3,3,Cmid,Cout] ->
-    [N,H,W,Cout] in x's dtype; both convs 3x3 SAME with folded BN + ReLU."""
+    [N,H,W,Cout] in x's dtype; both convs 3x3 SAME with folded BN + ReLU.
+    With ``pool``: (y, its 2x2 / stride-2 max pool [N,H//2,W//2,Cout])."""
     if x.device.type == "cpu":
-        return fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2)
+        return fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2, pool=pool)
     name = "fused_double_conv"
     dtype = _build.validate(name, x, w1, w2)
     if x.ndim != 4:
@@ -53,26 +76,31 @@ def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2):
     if w2.ndim != 4 or tuple(w2.shape[:3]) != (3, 3, cmid):
         raise ValueError(f"{name}: w2 must be [3,3,{cmid},Cout], got {tuple(w2.shape)}")
     cout = w2.shape[3]
+    s1 = _build.f32_vector(scale1, cmid, x, name)
+    b1 = _build.f32_vector(bias1, cmid, x, name)
+    s2 = _build.f32_vector(scale2, cout, x, name)
+    b2 = _build.f32_vector(bias2, cout, x, name)
+    if dtype == _build.DTYPE_BF16:
+        out, pooled = tc_conv.double_conv(x, w1, s1, b1, w2, s2, b2, pool)
+        _count(tc=True, pool=pool)
+        return (out, pooled) if pool else out
     lib = _build.library()
-    smem = lib.tuk_double_conv_smem(cmid, dtype)
+    smem = lib.tuk_double_conv_smem(cmid)
     limit = getattr(torch.cuda.get_device_properties(x.device),
                     "shared_memory_per_block_optin", None)
     if limit is not None and smem > limit:
         raise ValueError(f"{name}: Cmid={cmid} needs {smem} bytes of shared memory per "
                          f"block; this device allows {limit}")
-    s1 = _build.f32_vector(scale1, cmid, x, name)
-    b1 = _build.f32_vector(bias1, cmid, x, name)
-    s2 = _build.f32_vector(scale2, cout, x, name)
-    b2 = _build.f32_vector(bias2, cout, x, name)
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.tuk_double_conv(x.data_ptr(), cin, w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
                                   cmid, w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), cout,
                                   out.data_ptr(), n, h, wd, dtype, _build.stream(x))
     _build.check(err, name)
-    with _count_lock:
-        fused_double_conv.launches += 1
-    return out
+    _count(tc=False, pool=False)
+    return (out, max_pool2x2(out)) if pool else out
 
 
 fused_double_conv.launches = 0
+fused_double_conv.tc_launches = 0
+fused_double_conv.pool_launches = 0

@@ -1,7 +1,8 @@
 """The bf16 tensor-core route of ``fused_conv3x3_scale_relu``,
 ``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
-``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``
-(mma.sync on the tensor cores, TMA loads):
+``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``,
+and of ``fused_double_conv``, in ``csrc/tc_double_conv.cu`` (mma.sync on the
+tensor cores, TMA loads):
 
 - one implicit-GEMM kernel over output pixels whose K chunks come from one
   input or, for the concat conv, from the skip's tensor map and then the
@@ -18,7 +19,13 @@
   pixels (M = Cin, N = Cout per tap): a block owns 64 x 64 channels and all
   9 taps, 12 warps of 32 x 32 channels x the 3 taps of one kernel row (96
   fp32 accumulators a thread), and walks its split's pixel tiles, each
-  rewritten (prologue, dz) once for the 9 taps.
+  rewritten (prologue, dz) once for the 9 taps;
+- the bf16 ``fused_double_conv`` (``csrc/tc_double_conv.cu``, replacing
+  ``tpu_unet/kernels/fused_double_conv.py:94``): conv1 over the tile plus a
+  1-pixel halo into a bf16 mid tile kept in shared memory (zero outside the
+  image), conv2 from it on the same mainloop, and optionally the 2x2 max
+  pool of the output tile in the epilogue (``tpu_unet/kernels/pooling.py:33``
+  for the encoder's first three pools).
 
 All are bounded by their 2*9*Cin*Cout multiply-adds a pixel (operations)
 at the deep levels and by bytes and operations about equally at level 0;
@@ -31,10 +38,13 @@ wgmma variant of the forward.
 the stats partials from it and pass its tile to the kernel, which indexes
 the partials by it. :func:`dw_plan` is dw's: its tile and its splits of the
 pixels, which size the fp32 partials that ``reduce_rows`` adds in a fixed
-order. The CPU tests check that each covers every pixel once.
+order. :func:`dc_plan` is the double conv's tile, whose mid tile and rings
+must fit one block's shared memory. The CPU tests check that each covers
+every pixel once.
 
-The wrappers of ``fused_conv``, ``train_conv`` and ``im2col_conv`` call the
-launchers here for bf16 CUDA tensors; the launchers never run on the CPU.
+The wrappers of ``fused_conv``, ``fused_double_conv``, ``train_conv`` and
+``im2col_conv`` call the launchers here for bf16 CUDA tensors; the launchers
+never run on the CPU.
 """
 
 from __future__ import annotations
@@ -62,6 +72,17 @@ CONFIGS = {
 DW_CI = DW_CO = 64
 DW_MAX_PX = 256
 DW_MAX_STAGED = 400
+
+
+# Mirrors of csrc/tc_double_conv.cu (a CPU test checks that they agree): a
+# block's warps, the most m16 fragments a warp holds, the weight ring's
+# k-steps and the bytes of a slot, the shared memory a block may use on the
+# H100.
+DC_WARPS = 8
+DC_MI_MAX = 4
+DC_STAGES = 6
+DC_W_SLOT = 2 * KC * 128
+DC_MAX_SMEM = 232448
 
 
 class TcPlan(NamedTuple):
@@ -189,6 +210,84 @@ def dw_plan(n: int, h: int, w: int, cin: int, cout: int, num_sms: int) -> DwPlan
     per = max(1, math.ceil(total / splits))
     return DwPlan(th, tw, tiles_h, tiles_w, n, ci_blocks, co_blocks,
                   max(1, math.ceil(total / per)), per)
+
+
+def _up_align(v: int) -> int:
+    return -(-v // 1024) * 1024
+
+
+def dc_smem(th: int, tw: int, cmid: int, cout: int) -> int:
+    """Dynamic shared memory of one double-conv block, as the kernel's
+    ``layout()``: the 1024-byte alignment slack, Cmid / 32 mid slots of the
+    (th+2) x (tw+2) region, the two input slots of the (th+4) x (tw+4) box
+    or the bf16 output tile, whichever is larger, the weight ring and the
+    mbarriers."""
+    mid_slot = _up_align((th + 2) * (tw + 2) * KC * 2)
+    in_slot = _up_align((th + 4) * (tw + 4) * KC * 2)
+    out_tile = _up_align(th * tw * ((128 if cout > 64 else 64) + 8) * 2)
+    return (1024 + cmid // KC * mid_slot + max(2 * in_slot, out_tile) + DC_STAGES * DC_W_SLOT
+            + (2 + DC_STAGES) * 8)
+
+
+def _dc_frags(m: int, warps: int) -> int:
+    """The most m16 fragments a warp holds for m rows over ``warps`` warps."""
+    return -(-(-(-m // 16)) // warps)
+
+
+class DcPlan(NamedTuple):
+    """The double conv's tile: a block computes a th x tw output tile (both
+    even) of one image, all Cout channels. Grid: (tiles, 1, n)."""
+
+    th: int
+    tw: int
+    tiles_h: int
+    tiles_w: int
+    n: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_h * self.tiles_w
+
+    def tile_origin(self, t: int) -> tuple[int, int]:
+        """(h0, w0) of tile t, as the kernel computes it from blockIdx.x."""
+        return (t // self.tiles_w) * self.th, (t % self.tiles_w) * self.tw
+
+
+@functools.lru_cache(maxsize=256)
+def dc_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int, num_sms: int) -> DcPlan:
+    """The tile of an [n, h, w, cin] -> cmid -> cout double conv (cin a
+    multiple of 8, cmid of 32, cout of 8). Candidates: even th x tw whose
+    staged box fits TMA (<= 256 a side), whose rows fit the warps' fragments
+    (conv1's (th+2)(tw+2) mid pixels and conv2's th*tw over 8 warps, or over
+    4 for each 64-column half of a 128-column pass) and whose block fits the
+    shared memory. Cost: the waves of blocks on ``num_sms`` SMs (one block
+    an SM) x a block's k-steps, each weighted by the fragments every warp
+    computes in its phase (the busiest warp's, the kernel's MI1 and MI2;
+    half of them in a chunk of x whose channels fit one k16 half) plus one
+    for the step's loads and barrier. The mid halo's recompute
+    and the tile's edge waste both show in it. Cached, as tc_plan."""
+    n1, c2 = -(-cmid // 128), cmid // KC
+    passes2 = -(-cout // 128)
+    # x's chunks as k16 halves that hold channels: the kernel skips the rest
+    halves1 = [1.0 if cin - k0 > 16 else 0.5 for k0 in range(0, cin, KC)]
+    best = None
+    for th in range(2, min(252, h + h % 2) + 1, 2):
+        for tw in range(2, min(252, w + w % 2) + 1, 2):
+            f1 = _dc_frags((th + 2) * (tw + 2), DC_WARPS // 2 if cmid > 64 else DC_WARPS)
+            f2 = _dc_frags(th * tw, DC_WARPS // 2 if cout > 64 else DC_WARPS)
+            if f1 > DC_MI_MAX or f2 > DC_MI_MAX:
+                continue
+            smem = dc_smem(th, tw, cmid, cout)
+            if smem > DC_MAX_SMEM:
+                continue
+            tiles = math.ceil(h / th) * math.ceil(w / tw)
+            steps = n1 * 9 * sum(f1 * kks + 1 for kks in halves1) + passes2 * c2 * 9 * (f2 + 1)
+            key = (math.ceil(n * tiles / num_sms) * steps, tiles, -tw)
+            if best is None or key < best[0]:
+                best = (key, th, tw, smem)
+    _, th, tw, smem = best
+    return DcPlan(th, tw, math.ceil(h / th), math.ceil(w / tw), n, smem)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -413,3 +512,43 @@ def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
                                     plan.tiles_per_split, plan.splits, _build.stream(x))
     _build.check(err, name)
     return dw if (cin8, cout8) == (cin, cout) else dw[:, :, :cin, :cout].contiguous()
+
+
+def _pad_io(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """HWIO weights zero-padded to ``rows`` input and ``cols`` output channels."""
+    if w.shape[2:] == (rows, cols):
+        return w
+    return torch.nn.functional.pad(w, (0, cols - w.shape[3], 0, rows - w.shape[2]))
+
+
+def double_conv(x, w1, s1, b1, w2, s2, b2, pool: bool):
+    """relu(conv3x3_same(relu(conv3x3_same(x, w1)·s1 + b1), w2)·s2 + b2) in
+    bf16 on the tensor cores, mid (rounded to bf16) kept in shared memory;
+    with ``pool`` also its 2x2 / stride-2 max pool (floor mode) from the same
+    epilogue. Returns (y, pooled or None). x: [N,H,W,Cin] bf16, w1:
+    [3,3,Cin,Cmid], w2: [3,3,Cmid,Cout] bf16, s*/b*: fp32. Cin is
+    zero-padded to 8, Cmid to 32 (zero w1 columns, scale and bias give mid
+    channels of relu(0) = 0, against zero w2 rows), Cout to 8."""
+    name = "fused_double_conv"
+    _check_bf16(name, x, w1, w2)
+    n, h, wd, cin = x.shape
+    cmid, cout = w1.shape[3], w2.shape[3]
+    cin8, cmid32, cout8 = _ceil8(cin), -(-cmid // 32) * 32, _ceil8(cout)
+    xp = _aligned(_pad_last(x, cin8).contiguous())
+    w1p, w2p = (_aligned(_pad_io(w, r, c).contiguous())
+                for w, r, c in ((w1, cin8, cmid32), (w2, cmid32, cout8)))
+    s1p, b1p = (_aligned(_pad_last(v, cmid32).contiguous()) for v in (s1, b1))
+    s2p, b2p = (_aligned(_pad_last(v, cout8).contiguous()) for v in (s2, b2))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = dc_plan(n, h, wd, cin8, cmid32, cout8, sms)
+    out = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
+    pooled = (torch.empty((n, h // 2, wd // 2, cout8), dtype=x.dtype, device=x.device)
+              if pool else None)
+    with _on_device(x):
+        err = _build.library().tuk_tc_double_conv(
+            xp.data_ptr(), w1p.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
+            s2p.data_ptr(), b2p.data_ptr(), out.data_ptr(),
+            None if pooled is None else pooled.data_ptr(), n, h, wd, cin8, cmid32, cout8,
+            plan.th, plan.tw, _build.stream(x))
+    _build.check(err, name)
+    return _unpadded(out, cout), None if pooled is None else _unpadded(pooled, cout)

@@ -9,7 +9,9 @@ as in the JAX package's ``backend="pallas"``:
   ``fused_double_conv``; the others are two ``fused_conv3x3_scale_relu``;
 * each decoder block's first conv is ``fused_conv3x3_concat_scale_relu`` over
   (skip, upsampled), the concat never built;
-* the encoder pools are ``max_pool2x2``;
+* the encoder pools after inc, down1 and down2 come from their
+  ``fused_double_conv`` (``pool=True``: in bf16 its epilogue computes them),
+  the one after down3 is ``max_pool2x2``;
 * the ConvTranspose upsample and the 1x1 ``outc`` head are cuDNN convs, as
   the JAX package leaves them to XLA.
 
@@ -79,16 +81,18 @@ def _kernel_ops(backend: str) -> SimpleNamespace:
     raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
 
 
-def _double_conv(ops, x, p):
+def _double_conv(ops, x, p, pool: bool = False):
+    """The DoubleConv's output, or with ``pool`` (output, its 2x2 max pool)."""
     from tpu_unet_torch.kernels.fused_double_conv import FUSED_DC_MAX_CHANNELS
 
     c1, c2 = p["conv1"], p["conv2"]
     cin, cmid = c1["w"].shape[2], c1["w"].shape[3]
     if max(cin, cmid) <= FUSED_DC_MAX_CHANNELS:
         return ops.double_conv(x, c1["w"], c1["scale"], c1["bias"],
-                               c2["w"], c2["scale"], c2["bias"])
+                               c2["w"], c2["scale"], c2["bias"], pool=pool)
     h = ops.conv(x, c1["w"], c1["scale"], c1["bias"])
-    return ops.conv(h, c2["w"], c2["scale"], c2["bias"])
+    y = ops.conv(h, c2["w"], c2["scale"], c2["bias"])
+    return (y, ops.pool(y)) if pool else y
 
 
 def unet_infer_apply(folded: Params, x: torch.Tensor, *, config: UNetConfig,
@@ -104,10 +108,10 @@ def unet_infer_apply(folded: Params, x: torch.Tensor, *, config: UNetConfig,
         folded = tree_map(lambda t: t.to(compute_dtype), folded)
     x = x.contiguous()
 
-    x1 = _double_conv(ops, x, folded["inc"])
-    x2 = _double_conv(ops, ops.pool(x1), folded["down1"])
-    x3 = _double_conv(ops, ops.pool(x2), folded["down2"])
-    x4 = _double_conv(ops, ops.pool(x3), folded["down3"])
+    x1, h = _double_conv(ops, x, folded["inc"], pool=True)
+    x2, h = _double_conv(ops, h, folded["down1"], pool=True)
+    x3, h = _double_conv(ops, h, folded["down2"], pool=True)
+    x4 = _double_conv(ops, h, folded["down3"])
     x5 = _double_conv(ops, ops.pool(x4), folded["down4"])
 
     h = x5

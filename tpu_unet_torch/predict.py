@@ -1,5 +1,7 @@
-"""Predict masks with the folded-BN forward (``tpu_unet/predict.py``,
-``--kernels`` path).
+"""Predict masks (``tpu_unet/predict.py``): by default through the unfolded
+eval-mode forward (``predict_img``, the reference's path without
+``--kernels``), with ``--kernels cuda|torch`` through the folded-BN forward
+(``predict_img_fused``).
 
 The reference order is kept: preprocess -> forward -> bilinear (half-pixel)
 upscale of the LOGITS to the original resolution -> threshold (sigmoid >
@@ -24,7 +26,7 @@ from PIL import Image
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
 from tpu_unet_torch.models.infer import BACKENDS
-from tpu_unet_torch.models.unet import tree_map
+from tpu_unet_torch.models.unet import tree_map, unet_apply
 from tpu_unet_torch.ops import full_fp32, resize_bilinear
 
 logger = logging.getLogger(__name__)
@@ -59,6 +61,25 @@ def logits_to_mask(logits: torch.Tensor, n_classes: int, threshold: float) -> np
     if n_classes > 1:
         return logits.argmax(dim=-1).cpu().numpy()
     return (torch.sigmoid(logits[..., 0]) > threshold).cpu().numpy()
+
+
+def predict_img(params, state, config: UNetConfig, full_img: Image.Image, *,
+                scale_factor: float = 0.5, out_threshold: float = 0.5, amp: bool = False,
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """The mask of one PIL image at its original resolution, through the
+    unfolded eval-mode forward (``unet_apply(train=False)``, library convs
+    and BN): ``tpu_unet/predict.py:68 predict_img`` without its CRF, TTA and
+    device-preprocess options. ``params``/``state`` may live on any device;
+    they are moved to ``device``."""
+    device = resolve_device(device)
+    x = torch.from_numpy(preprocess(full_img, scale_factor))[None].to(device)
+    full_w, full_h = full_img.size
+    with torch.inference_mode():
+        params, state = (tree_map(lambda t: t.to(device), tree) for tree in (params, state))
+        logits, _ = unet_apply(params, state, x, config=config, train=False,
+                               compute_dtype=torch.bfloat16 if amp else None)
+        logits = resize_bilinear(logits, full_h, full_w, align_corners=False)
+        return logits_to_mask(logits[0], config.n_classes, out_threshold)
 
 
 def predict_img_fused(params, state, config: UNetConfig, full_img: Image.Image, *,
@@ -131,9 +152,10 @@ def get_args(argv=None):
                    help="Use bilinear upsampling")
     p.add_argument("--classes", "-c", type=int, default=1, help="Number of classes")
     p.add_argument("--amp", action="store_true", default=False, help="bf16 inference")
-    p.add_argument("--kernels", choices=BACKENDS, default="cuda",
-                   help="cuda: the hand-written kernels (plain versions for CPU "
-                        "tensors); torch: the kernels' plain PyTorch versions")
+    p.add_argument("--kernels", choices=BACKENDS, default=None,
+                   help="the folded-BN forward on cuda: the hand-written kernels (plain "
+                        "versions for CPU tensors), or torch: their plain PyTorch versions; "
+                        "without it, the unfolded eval-mode forward")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
     for name in UNPORTED_FLAGS:
@@ -153,10 +175,13 @@ def main(argv=None):
     params, state, config, mask_values = load_model(args.model, config, device)
     for i, filename in enumerate(args.input):
         logger.info("Predicting image %s ...", filename)
-        mask = predict_img_fused(params, state, config, Image.open(filename),
-                                 backend=args.kernels, scale_factor=args.scale,
-                                 out_threshold=args.mask_threshold, amp=args.amp,
-                                 device=device)
+        img = Image.open(filename)
+        common = dict(scale_factor=args.scale, out_threshold=args.mask_threshold, amp=args.amp,
+                      device=device)
+        if args.kernels:
+            mask = predict_img_fused(params, state, config, img, backend=args.kernels, **common)
+        else:
+            mask = predict_img(params, state, config, img, **common)
         if not args.no_save:
             mask_to_image(mask, mask_values).save(out_files[i])
             logger.info("Mask saved to %s", out_files[i])

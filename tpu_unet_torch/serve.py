@@ -1,5 +1,7 @@
-"""Batched HTTP inference server on the folded-BN forward (``tpu_unet/serve.py``,
-``--kernels`` path).
+"""Batched HTTP inference server (``tpu_unet/serve.py``): by default on the
+unfolded eval-mode forward (``unet_apply(train=False)``), as the reference
+serves without ``--kernels``; with ``--kernels cuda|torch`` on the folded-BN
+forward (``unet_infer_apply``).
 
 The model stays resident on the device. Requests that arrive within
 ``batch_window_ms`` of each other are grouped by preprocessed shape; each
@@ -12,7 +14,7 @@ Endpoints:
   GET  /metrics   request and error counts, end-to-end latency p50/p90/p99
                   over a sliding window, dispatches and their mean batch
 
-Run: ``python -m tpu_unet_torch.serve -m ckpt.npz --port 8000 [--kernels cuda]``
+Run: ``python -m tpu_unet_torch.serve -m ckpt.npz --port 8000 [--kernels cuda|torch]``
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from PIL import Image
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
 from tpu_unet_torch.models.infer import BACKENDS
-from tpu_unet_torch.models.unet import tree_map
+from tpu_unet_torch.models.unet import tree_map, unet_apply
 from tpu_unet_torch.ops import resize_bilinear
 from tpu_unet_torch.predict import (
     UNPORTED_FLAGS,
@@ -96,16 +98,18 @@ class ServeMetrics:
 
 
 class BatchedPredictor:
-    """Folded model resident on ``device`` + micro-batching queue.
-    Thread-safe ``predict_one`` entry; ``stop`` ends the worker threads."""
+    """Model resident on ``device`` + micro-batching queue: the eval-mode
+    forward when ``kernels`` is None, else the folded-BN forward on that
+    backend. Thread-safe ``predict_one`` entry; ``stop`` ends the worker
+    threads."""
 
     def __init__(self, params, state, config: UNetConfig, mask_values, *,
-                 device: str | torch.device = "cuda", kernels: str = "cuda",
+                 device: str | torch.device = "cuda", kernels: str | None = None,
                  scale: float = 0.5, threshold: float = 0.5, amp: bool = True,
                  max_batch: int = 8, batch_window_ms: float = 5.0,
                  timeout_s: float = 300.0):
-        if kernels not in BACKENDS:
-            raise ValueError(f"kernels must be one of {BACKENDS}, got {kernels!r}")
+        if kernels is not None and kernels not in BACKENDS:
+            raise ValueError(f"kernels must be None or one of {BACKENDS}, got {kernels!r}")
         self.device = resolve_device(device)
         self.config = config
         self.kernels = kernels
@@ -119,11 +123,16 @@ class BatchedPredictor:
         self.timeout_s = timeout_s
         self.metrics = ServeMetrics()
         self._compute_dtype = torch.bfloat16 if amp else None
-        # Fold once and keep the folded weights on the device in the compute
-        # dtype, so a forward casts nothing.
+        # Keep the weights on the device in the compute dtype, so a forward
+        # casts nothing: folded once for the kernels; the eval forward's BN
+        # state stays fp32, as unet_apply takes it.
         dtype = self._compute_dtype or torch.float32
-        self._folded = tree_map(lambda t: t.to(self.device, dtype),
-                                fold_bn(params, state, config))
+        if kernels is None:
+            self._params = tree_map(lambda t: t.to(self.device, dtype), params)
+            self._state = tree_map(lambda t: t.to(self.device), state)
+        else:
+            self._folded = tree_map(lambda t: t.to(self.device, dtype),
+                                    fold_bn(params, state, config))
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._acct_lock = threading.Lock()
@@ -135,6 +144,9 @@ class BatchedPredictor:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC float32 batch on the device -> fp32 logits."""
+        if self.kernels is None:
+            return unet_apply(self._params, self._state, x, config=self.config, train=False,
+                              compute_dtype=self._compute_dtype)[0]
         return unet_infer_apply(self._folded, x, config=self.config, backend=self.kernels,
                                 compute_dtype=self._compute_dtype)
 
@@ -337,8 +349,9 @@ def get_args(argv=None):
                    help="bf16 inference (default on; --no-amp for fp32)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--batch-window-ms", type=float, default=5.0)
-    p.add_argument("--kernels", choices=BACKENDS, default="cuda",
-                   help="cuda: the hand-written kernels; torch: their plain versions")
+    p.add_argument("--kernels", choices=BACKENDS, default=None,
+                   help="the folded-BN forward on cuda: the hand-written kernels, or torch: "
+                        "their plain versions; without it, the unfolded eval-mode forward")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
     p.add_argument("--timeout-s", type=float, default=300.0, help="Per-request wait bound")
