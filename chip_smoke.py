@@ -22,12 +22,14 @@ Phases, each of which exits non-zero on failure, each with its time:
    epilogue), on the CUDA cores in fp32; a second bf16 call of the concat
    and the double conv must repeat the first bit for bit, and the double
    conv's pooled output must equal ``max_pool2x2_plain`` of its own output.
-   Beside the double conv's bf16 time: two compositions, two tensor-core
-   ``fused_conv3x3_scale_relu`` calls (mid through device memory) and two
-   cuDNN convs with a ReLU between.
+   Beside the double conv's time, in both dtypes: two compositions, two
+   ``fused_conv3x3_scale_relu`` calls (mid through device memory; tensor
+   cores in bf16, CUDA cores in fp32) and two cuDNN convs with a ReLU
+   between.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
-   tensor cores in bf16 (``csrc/tc_conv.cu``), on the CUDA cores in fp32; a
+   tensor cores in bf16 (``csrc/tc_conv.cu``); in fp32, conv3x3_fwd and
+   conv3x3_dw there too in 3xTF32, conv3x3_dx on the CUDA cores; a
    second call of each must repeat the first bit for bit. The main bf16
    conv3x3_fwd case's time is split (``fwd_split``): without and with its
    prologue and stats, against the library call.
@@ -50,11 +52,13 @@ Phases, each of which exits non-zero on failure, each with its time:
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
    with ``kernels="cuda"`` against ``kernels=None`` (library convs under
    autograd), comparing loss, gradients, grad norm and BN running stats;
-   then time the 572x572 batch-16 bf16 step of both. Every ``"cuda"`` step
-   must launch each train kernel as often as the network has convs for it,
-   every plain step none; every bf16 call of the three on the tensor cores,
-   no fp32 one. Then a ``torch.profiler`` split of one 572x572 batch-16
-   bf16 ``kernels="cuda"`` step by kernel.
+   then time the 572x572 batch-16 step of both, in bf16 and in fp32, with
+   their peak memory. Every ``"cuda"`` step must launch each train kernel as
+   often as the network has convs for it, every plain step none; every bf16
+   call of the three on the tensor cores, and in fp32 every conv3x3_fwd and
+   conv3x3_dw call (3xTF32) and no conv3x3_dx one. Then a
+   ``torch.profiler`` split of one 572x572 batch-16 ``kernels="cuda"`` step
+   by kernel, in bf16 and in fp32.
 6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
    1918x1280 PNG pairs at scale 0.5, batch 4, bf16, 2 epochs, once with
    ``--kernels cuda`` and once with ``--kernels torch``: launch counts, loss
@@ -143,12 +147,18 @@ TRAIN_SOURCES = {
 # launches per call (the conv, then the fixed-order sum of its partials);
 # the count is of calls.
 PER_STEP = {"conv3x3_fwd": 18, "conv3x3_dx": 17, "conv3x3_dw": 18}
-# Of those, the calls of a bf16 step that must run on the tensor cores; an
-# fp32 step runs none there.
-TC_PER_STEP = {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18}
+# Of those, the calls of a step that must run on the tensor cores, by dtype:
+# all of a bf16 step's; in fp32, fwd and dw (3xTF32), dx stays on the CUDA
+# cores.
+TC_PER_STEP = {
+    "bf16": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
+    "fp32": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 0, "conv3x3_dw.tc": 18},
+}
 # Which implementation runs each kernel in each dtype.
 _CC = "CUDA cores, fp32 FMA"
 _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
+_TF32X3 = ("tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA "
+           "(tpu_unet_torch/csrc/tc_conv.cu)")
 IMPL = {
     "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
     "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
@@ -157,9 +167,9 @@ IMPL = {
                 "(tpu_unet_torch/csrc/tc_double_conv.cu)",
         "fp32": f"{_CC} (csrc/fused_double_conv.cu), pool csrc/pooling.cu"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
-    "conv3x3_fwd": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_fwd": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dx": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
-    "conv3x3_dw": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dw": {"bf16": _TC, "fp32": _TF32X3},
     "im2col_conv3x3": {"bf16": _TC, "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
 }
 
@@ -168,8 +178,9 @@ def expected_launches(name: str, kernels, amp: bool, steps: int = 1) -> int:
     """Launches of counter ``name`` in ``steps`` train steps."""
     if kernels != "cuda":
         return 0
-    if name in TC_PER_STEP:
-        return TC_PER_STEP[name] * steps if amp else 0
+    tc = TC_PER_STEP["bf16" if amp else "fp32"]
+    if name in tc:
+        return tc[name] * steps
     return PER_STEP.get(name, 0) * steps
 # Phase 2b cases: (label, x shape, Cout, prologue) at the 572x572 step's
 # shapes (batch 4 instead of 16, to bound chip time) and one odd-width
@@ -229,10 +240,13 @@ MAIN_IM2COL_CASE = "level0"
 # bytes (each input read once, each output written once) over the memory
 # rate and its operations over the peak rate for the input type. The
 # published H100 SXM figures (dense, at 700 W): 3.35 TB/s of HBM; 989
-# TFLOP/s bf16 on the tensor cores; 67 TFLOP/s fp32 outside them, the
-# port's fp32 rate since it runs fp32 without TF32 (``ops.full_fp32``).
+# TFLOP/s bf16 on the tensor cores. fp32 work at fp32 accuracy is fastest
+# on the tensor cores in 3xTF32 (three TF32 products for each fp32 one, as
+# the port's fp32 conv3x3_fwd and conv3x3_dw run it): 494.7 / 3 TFLOP/s,
+# above the 67 TFLOP/s of fp32 FMA outside them, which cuDNN's fp32 convs
+# (TF32 off) beat.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -390,9 +404,10 @@ REPEAT_BF16 = ("fused_conv3x3_concat_scale_relu", "fused_double_conv")
 
 def dc_pairs(x, w1, s1, b1, w2, s2, b2) -> dict[str, float]:
     """Two compositions of the double conv's function, timed as one call
-    each (``time_ms``): two tensor-core ``fused_conv3x3_scale_relu`` calls
-    with mid through device memory, and two cuDNN convs (scales folded into
-    the weights, biases passed) with a ReLU between and after. Neither pools."""
+    each (``time_ms``): two ``fused_conv3x3_scale_relu`` calls with mid
+    through device memory (tensor cores in bf16, CUDA cores in fp32), and
+    two cuDNN convs (scales folded into the weights, biases passed; TF32 off
+    in fp32) with a ReLU between and after. Neither pools."""
     import torch.nn.functional as F
 
     xl = nchw(x)
@@ -465,9 +480,9 @@ def phase_kernels() -> dict[str, dict]:
             tol = ("exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|") + repeat
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
             pairs = {}
-            if name == "fused_double_conv" and dtype == torch.bfloat16:
+            if name == "fused_double_conv":
                 pairs = dc_pairs(*args)
-                lib += (f"; compositions: tc pair {pairs['tc_pair_ms']:.4f} ms, cuDNN pair "
+                lib += (f"; compositions: fused-conv pair {pairs['tc_pair_ms']:.4f} ms, cuDNN pair "
                         f"{pairs['cudnn_pair_ms']:.4f} ms")
             log(f"kernel {name} {label} {dt} [{IMPL[name][dt]}]: max_abs_err={max_abs:.3e} "
                 f"max_rel_err={max_rel:.3e} (tol {tol}{pool_note}) ms={ms:.4f} "
@@ -885,28 +900,34 @@ def phase_train() -> tuple[dict[str, int], dict]:
         torch.cuda.empty_cache()
     del images, masks, g64
 
-    # Timing at 572x572 batch 16 in bf16, in turns: plain, cuda, cuda, plain.
+    # Timing at 572x572 batch 16, in turns: plain, cuda, cuda, plain; bf16
+    # after 2 warm-ups, fp32 (about 3x the time a step) after 1.
     imgs, msks = synth_batch(np.random.default_rng(2), *TIMING_BATCH)
     n, shape = imgs.shape[0], list(imgs.shape)
     images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
-    steps = {k: make_train_step(config, amp=True, kernels=k) for k in ("cuda", None)}
-    timing: dict[str, list] = {"cuda": [], "plain": []}
-    for kernels in (None, "cuda", "cuda", None):
-        for _ in range(2):  # warm-up
-            run(steps[kernels], kernels, True, images, masks)
-        torch.cuda.reset_peak_memory_stats()
-        times = [run(steps[kernels], kernels, True, images, masks)[1] for _ in range(3)]
-        peak = torch.cuda.max_memory_allocated()
-        ms = statistics.median(times)
-        tag = "cuda" if kernels == "cuda" else "plain"
-        timing[tag].append({"ms": ms, "img_s": n * 1e3 / ms, "peak_bytes": peak,
-                            "times_ms": times})
-        log(f"train step {shape} bf16 kernels={kernels}: {ms:.2f} ms/step (median of "
-            f"{' '.join(f'{t:.2f}' for t in times)}), {n * 1e3 / ms:.2f} img/s, peak memory "
-            f"{peak / 2**30:.3f} GiB")
+    timing: dict[str, dict] = {}
+    for amp, dt, warm in ((True, "bf16", 2), (False, "fp32", 1)):
+        steps = {k: make_train_step(config, amp=amp, kernels=k) for k in ("cuda", None)}
+        timing[dt] = {"cuda": [], "plain": []}
+        for kernels in (None, "cuda", "cuda", None):
+            for _ in range(warm):
+                run(steps[kernels], kernels, amp, images, masks)
+            torch.cuda.reset_peak_memory_stats()
+            times = [run(steps[kernels], kernels, amp, images, masks)[1] for _ in range(3)]
+            peak = torch.cuda.max_memory_allocated()
+            ms = statistics.median(times)
+            tag = "cuda" if kernels == "cuda" else "plain"
+            timing[dt][tag].append({"ms": ms, "img_s": n * 1e3 / ms, "peak_bytes": peak,
+                                    "times_ms": times})
+            log(f"train step {shape} {dt} kernels={kernels}: {ms:.2f} ms/step (median of "
+                f"{' '.join(f'{t:.2f}' for t in times)}), {n * 1e3 / ms:.2f} img/s, peak memory "
+                f"{peak / 2**30:.3f} GiB")
+        timing[dt]["profile"] = profile_step(steps["cuda"], (params, state, opt), images, masks,
+                                             dt)
+        del steps
+        torch.cuda.empty_cache()
     launches = K.launch_counts()
     log(f"launches in phase 5: {json.dumps(launches)}")
-    timing["profile"] = profile_step(steps["cuda"], (params, state, opt), images, masks)
     if failures:
         raise SystemExit(f"chip_smoke: train checks failed: {failures}")
     return launches, timing
@@ -915,8 +936,15 @@ def phase_train() -> tuple[dict[str, int], dict]:
 # Kernel-name groups of the step profile, first match wins. The three
 # tensor-core kernels of a bf16 step: dx is tc_conv_kernel with the DzLoad
 # loader (a template argument in the profiler's name), the fwd the others.
+# An fp32 step's: the fwd is tc_conv_kernel with the Tf32x3Op operands
+# after split_weights_kernel, dw tc_dw_f32_kernel; its dx is tconv_kernel
+# on the CUDA cores.
 PROFILE_GROUPS = (
     ("tc_conv_kernel<DzLoad> (conv3x3_dx, tensor cores)", "dzload"),
+    ("tc_conv_kernel<Tf32x3Op> (conv3x3_fwd fp32, 3xTF32)", "tf32x3op"),
+    ("split_weights_kernel (conv3x3_fwd fp32)", "split_weights_kernel"),
+    ("tc_dw_f32_kernel (conv3x3_dw fp32, 3xTF32)", "tc_dw_f32_kernel"),
+    ("tconv_kernel (conv3x3_dx fp32, CUDA cores)", "tconv_kernel"),
     ("tc_dw_kernel (conv3x3_dw, tensor cores)", "tc_dw_kernel"),
     ("tc_conv_kernel (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
     ("reduce_rows", "reduce_rows"),
@@ -926,7 +954,7 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_step(step, trees, images, masks) -> dict:
+def profile_step(step, trees, images, masks, dt: str = "bf16") -> dict:
     """Device time of one step by kernel group (``torch.profiler``, after the
     caller's warm-ups), the step's wall time between synchronisations and
     the device's idle share of it (1 - summed kernel time / wall; streams
@@ -956,7 +984,7 @@ def profile_step(step, trees, images, masks) -> dict:
     busy = sum(groups.values())
     out = {"wall_ms": wall_ms, "kernel_ms": busy, "idle_share": 1 - busy / wall_ms,
            "groups_ms": groups}
-    log(f"profile, one {list(images.shape)} bf16 kernels=cuda step: wall {wall_ms:.2f} ms, "
+    log(f"profile, one {list(images.shape)} {dt} kernels=cuda step: wall {wall_ms:.2f} ms, "
         f"kernels {busy:.2f} ms, device idle {out['idle_share']:.1%}; "
         + "; ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})"
                     for g, ms in sorted(groups.items(), key=lambda t: -t[1])))

@@ -236,13 +236,31 @@ def test_python_mirrors_of_the_kernel_constants_match_the_source():
         assert f"TUK_TC_CASE({cfg})" in src, cfg
 
 
-def test_tc_launchers_refuse_cpu_and_fp32_tensors():
+def _fwd(x, w):
+    return tc_conv.conv3x3_fwd(x, w, None, None, stats=False)
+
+
+def _fused(x, w):
+    return tc_conv.fused_conv3x3(x, w, torch.ones(8), torch.zeros(8), True)
+
+
+# (launcher, the dtype it refuses past the device check, the error's words):
+# the fused conv keeps bf16 alone; conv3x3_fwd takes fp32 too (3xTF32) and
+# refuses any other type.
+@pytest.mark.parametrize("launch,refused,match", [
+    (_fwd, torch.float16, "bfloat16 or float32"),
+    (_fused, torch.float32, "takes bfloat16, got"),
+], ids=["conv3x3_fwd", "fused_conv3x3"])
+def test_tc_launchers_refuse_cpu_and_fp32_tensors(monkeypatch, launch, refused, match):
     x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
     w = torch.zeros(3, 3, 8, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA device"):
-        tc_conv.conv3x3_fwd(x, w, None, None, stats=False)
-    with pytest.raises(ValueError, match="CUDA device"):
-        tc_conv.fused_conv3x3(x, w, torch.ones(8), torch.zeros(8), True)
+        launch(x, w)
+    # Past the device check, a refused dtype raises before any build.
+    monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_F32)
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built a library"))
+    with pytest.raises(ValueError, match=match):
+        launch(x.to(refused), w.to(refused))
 
 
 def test_cpu_bf16_calls_count_no_tensor_core_launch():
@@ -371,9 +389,9 @@ def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     if dtype == torch.bfloat16:
         assert card.tc.count("conv3x3_fwd") == card.tc.count("im2col_conv3x3") == 2
         assert card.tc.count("fused_conv3x3_concat_scale_relu") == 1 and card.lib == []
-    else:
-        assert card.tc == [] and card.lib.count("tuk_conv3x3") == 2
-        assert "tuk_conv3x3_fwd" in card.lib and card.lib.count("tuk_im2col_conv3x3") == 2
+    else:  # fp32: conv3x3_fwd on the tensor cores (3xTF32), the others on the CUDA cores
+        assert card.tc == ["conv3x3_fwd"] * 2 and card.lib.count("tuk_conv3x3") == 2
+        assert card.lib.count("tuk_im2col_conv3x3") == 2
 
 
 def test_a_failed_tensor_core_launch_counts_nothing(card):

@@ -281,22 +281,31 @@ def test_python_mirrors_of_the_dw_constants_match_the_source():
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
 
 
-def test_tc_bwd_launchers_refuse_cpu_and_fp32_tensors(monkeypatch):
+def _dx(g, coef, w):
+    return tc_conv.conv3x3_dx(g, g, coef, w, g.dtype)
+
+
+def _dw(g, coef, w):
+    return tc_conv.conv3x3_dw(g, g, g, coef, None, None)
+
+
+# (launcher, the dtype it refuses past the device check, the error's words):
+# dx keeps bf16 alone; dw takes fp32 too (3xTF32) and refuses any other type.
+@pytest.mark.parametrize("launch,refused,match", [
+    (_dx, torch.float32, "takes bfloat16, got"),
+    (_dw, torch.float16, "bfloat16 or float32"),
+], ids=["conv3x3_dx", "conv3x3_dw"])
+def test_tc_bwd_launchers_refuse_cpu_and_fp32_tensors(monkeypatch, launch, refused, match):
     g = torch.zeros(1, 4, 4, 8, dtype=BF)
     w = torch.zeros(3, 3, 8, 8, dtype=BF)
     coef = torch.zeros(3, 8)
     with pytest.raises(ValueError, match="CUDA device"):
-        tc_conv.conv3x3_dx(g, g, coef, w, BF)
-    with pytest.raises(ValueError, match="CUDA device"):
-        tc_conv.conv3x3_dw(g, g, g, coef, None, None)
-    # Past the device check, an fp32 tensor is refused before any build.
+        launch(g, coef, w)
+    # Past the device check, a refused dtype raises before any build.
     monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_F32)
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built a library"))
-    g32 = g.float()
-    with pytest.raises(ValueError, match="bfloat16"):
-        tc_conv.conv3x3_dx(g32, g32, coef, w.float(), torch.float32)
-    with pytest.raises(ValueError, match="bfloat16"):
-        tc_conv.conv3x3_dw(g32, g32, g32, coef, None, None)
+    with pytest.raises(ValueError, match=match):
+        launch(g.to(refused), coef, w.to(refused))
 
 
 @pytest.fixture
@@ -322,7 +331,8 @@ def _bwd_calls(dtype):
 @pytest.mark.parametrize("dtype", [BF, torch.float32], ids=["bf16", "fp32"])
 def test_bwd_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     """bf16 dx and dw count ``.tc`` once per return of their tensor-core
-    launcher and never reach the CUDA-core library; fp32 calls count none."""
+    launcher and never reach the CUDA-core library; in fp32, dw does the
+    same (3xTF32) and dx runs on the CUDA cores and counts no ``.tc``."""
     _bwd_calls(dtype)
     counts = K.launch_counts()
     assert counts["conv3x3_dx"] == counts["conv3x3_dw"] == 2
@@ -331,8 +341,7 @@ def test_bwd_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     if dtype == BF:
         assert card.tc == ["conv3x3_dx"] * 2 + ["conv3x3_dw"] * 2 and card.lib == []
     else:
-        assert card.tc == []
-        assert card.lib.count("tuk_conv3x3_dx") == card.lib.count("tuk_conv3x3_dw") == 2
+        assert card.tc == ["conv3x3_dw"] * 2 and card.lib == ["tuk_conv3x3_dx"] * 2
 
 
 def test_a_failed_bwd_tensor_core_launch_counts_nothing(card):

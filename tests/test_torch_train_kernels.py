@@ -192,21 +192,31 @@ def test_plain_versions_run_in_float64():
     assert K.conv3x3_dw(x, z, z, coef).dtype == torch.float64
 
 
-def test_train_kernel_c_interface_matches_the_ctypes_signatures():
-    """No compiler here: check that each exported C function of
-    train_conv.cu takes as many parameters as its ctypes signature lists,
-    and that the CUDA path's checks raise before any build."""
+# The train kernels' exported C functions, by source: fp32 dx on the CUDA
+# cores; fp32 fwd and dw on the tensor cores (3xTF32), whose CUDA-core
+# exports are gone.
+TRAIN_EXPORTS = [("train_conv.cu", "tuk_conv3x3_dx"), ("tc_conv.cu", "tuk_tc_conv3x3_fwd_f32"),
+                 ("tc_conv.cu", "tuk_tc_conv3x3_dw_f32")]
+REMOVED_EXPORTS = ("tuk_conv3x3_fwd", "tuk_conv3x3_fwd_rows", "tuk_conv3x3_dw",
+                   "tuk_conv3x3_dw_splits")
+
+
+@pytest.mark.parametrize("source,name", TRAIN_EXPORTS)
+def test_train_kernel_c_interface_matches_the_ctypes_signatures(source, name):
+    """No compiler here: check that each exported C function of the train
+    kernels takes as many parameters as its ctypes signature lists, that the
+    removed CUDA-core fwd and dw exports are gone from both, and that the
+    CUDA path's checks raise before any build."""
     x = torch.zeros(1, 4, 4, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         _build.validate("conv3x3_fwd", x)
-    assert {"train_conv.cu"} <= {p.name for p in _build.sources()}
-    for name in ("tuk_conv3x3_fwd", "tuk_conv3x3_fwd_rows", "tuk_conv3x3_dx",
-                 "tuk_conv3x3_dw", "tuk_conv3x3_dw_splits"):
-        assert name in _build._SIGNATURES
-    src = (_build.CSRC_DIR / "train_conv.cu").read_text()
-    for name in ("tuk_conv3x3_fwd", "tuk_conv3x3_fwd_rows", "tuk_conv3x3_dx",
-                 "tuk_conv3x3_dw", "tuk_conv3x3_dw_splits"):
-        head = f'extern "C" int {name}('
-        assert head in src, name
-        params = src.split(head, 1)[1].split(")", 1)[0]
-        assert params.count(",") + 1 == len(_build._SIGNATURES[name][0]), name
+    assert {"train_conv.cu", source} <= {p.name for p in _build.sources()}
+    assert name in _build._SIGNATURES
+    src = (_build.CSRC_DIR / source).read_text()
+    head = f'extern "C" int {name}('
+    assert head in src, name
+    params = src.split(head, 1)[1].split(")", 1)[0]
+    assert params.count(",") + 1 == len(_build._SIGNATURES[name][0]), name
+    train_src = (_build.CSRC_DIR / "train_conv.cu").read_text()
+    for gone in REMOVED_EXPORTS:
+        assert gone not in _build._SIGNATURES and f"int {gone}(" not in train_src, gone

@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
-"""Compare the bf16 tensor-core convs (``tpu_unet_torch/csrc/tc_conv.cu``) of
-two trees of this repository on one CUDA card: the split of the level-0
+"""Compare the tensor-core convs (``tpu_unet_torch/csrc/tc_conv.cu``) of two
+trees of this repository on one CUDA card: the split of the level-0
 ``conv3x3_fwd`` (``chip_smoke.fwd_split``), and the back-to-back and device
 times of every phase-2b ``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``
-case, every served ``fused_conv3x3_scale_relu`` and
+case in bf16 and of its fp32 ``conv3x3_fwd`` and ``conv3x3_dw`` (3xTF32
+where the tree has that route, the CUDA-core kernels where it does not),
+every served ``fused_conv3x3_scale_relu`` and
 ``fused_conv3x3_concat_scale_relu`` shape, the three served
 ``fused_double_conv`` shapes (without the pooled output, which the parent's
 wrapper may lack), and the two 572x572 ``im2col_conv3x3`` cases of phase 2c.
+Then the 572x572 batch-16 train step (``make_train_step``, ``kernels="cuda"``
+and ``None``) in bf16 and fp32: CUDA-event ms, median of 3 after one
+warm-up, and the peak device memory; and the served bf16 forward
+(``unet_infer_apply``, ``backend="cuda"``, full width, random weights from
+seed 0) at 959x640: ``chip_smoke.time_ms``, median of 5, and the device
+time of its kernels (``chip_smoke.device_ms``, summed).
 
     python3 tools/tc_conv_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -27,6 +35,70 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BUILD = "from tpu_unet_torch.kernels import _build; _build.library()"
+
+
+def time_steps(c, torch) -> None:
+    """The 572x572 b16 train step of this tree, both dtypes and kernels."""
+    import statistics
+
+    import numpy as np
+
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    config = UNetConfig(**c.TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+    opt = rmsprop_init(params)
+    imgs, msks = synth_batch(np.random.default_rng(2), *c.TIMING_BATCH)
+    images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+    for amp, dt in ((True, "bf16"), (False, "fp32")):
+        for kernels in ("cuda", None):
+            step = make_train_step(config, amp=amp, kernels=kernels)
+
+            def one():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(params, state, opt, images, masks, 1e-4)
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end)
+
+            one()
+            torch.cuda.reset_peak_memory_stats()
+            times = [one() for _ in range(3)]
+            c.log(f"train step {list(imgs.shape)} {dt} kernels={kernels}: "
+                  f"{statistics.median(times):.2f} ms (median of "
+                  f"{' '.join(f'{t:.2f}' for t in times)}), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            del step
+            torch.cuda.empty_cache()
+
+
+def time_forward(c, torch) -> None:
+    """The served bf16 forward of this tree at 959x640, kernels and plain."""
+    import numpy as np
+
+    from tpu_unet_torch.models import UNetConfig, fold_bn, init_unet, unet_infer_apply
+    from tpu_unet_torch.models.unet import tree_map
+
+    config = UNetConfig(**c.TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+    folded = tree_map(lambda t: t.cuda().to(torch.bfloat16), fold_bn(params, state, config))
+    x = torch.from_numpy(np.random.default_rng(1).random((1, 640, 959, 3), np.float32)).cuda()
+    with torch.inference_mode():
+        for backend in ("cuda", "torch"):
+            def fwd(b=backend):
+                return unet_infer_apply(folded, x, config=config, backend=b,
+                                        compute_dtype=torch.bfloat16)
+
+            ms = c.time_ms(fwd, reps=5)
+            dev = c.device_ms(fwd)
+            c.log(f"forward bf16 [1,640,959,3] backend={backend}: {ms:.3f} ms (median of 5), "
+                  f"device {sum(dev.values()):.3f} ms: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items(), key=lambda t: -t[1])))
 
 
 def measure(tree: Path) -> None:
@@ -66,6 +138,11 @@ def measure(tree: Path) -> None:
         dx_dtype = torch.float32 if prologue else torch.bfloat16  # as phase 2b
         line(f"conv3x3_dx {tag}", lambda: K.conv3x3_dx(g, z, coef, w, out_dtype=dx_dtype))
         line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x, g, z, coef, *pro))
+        x32, w32, g32, z32 = x.float(), w.float(), g.float(), z.float()
+        tag = f"{label} {list(shape)}->{cout} fp32"
+        line(f"conv3x3_fwd {tag} stats", lambda: K.conv3x3_fwd(x32, w32, *pro, stats=True))
+        line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x32, g32, z32, coef, *pro))
+        del x32, w32, g32, z32
     for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
         args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
         if name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
@@ -79,6 +156,8 @@ def measure(tree: Path) -> None:
             w = w.bfloat16()
             line(f"im2col_conv3x3 {label} {list(shape)}->{cout} bf16",
                  lambda: K.im2col_conv3x3(x, w, s, b, apply_relu=relu))
+    time_steps(c, torch)
+    time_forward(c, torch)
 
 
 def main() -> int:

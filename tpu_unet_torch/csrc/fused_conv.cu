@@ -23,8 +23,12 @@
 // channels (24 KB per chunk). Measured on an H100 80GB HBM3 at 700 W
 // (chip_smoke.py phase 2): 3.9-5.1 ms at the four served concat shapes
 // (about 9e10 FLOP each, 18-23 TFLOP/s), 1.4-2.0x cuDNN's fp32 conv on a
-// prebuilt concat. The fp32 routes are the last item of the tensor-core
-// work (TF32 or 3xTF32 would change the numerics the port holds fp32 to).
+// prebuilt concat. Its fp32 routes wait in the queue of tensor-core work
+// (ROADMAP Queue 2): one TF32 pass (about 2^-11 a product) would change the
+// numerics the port holds fp32 to, but 3xTF32 does not (each operand split
+// into a TF32 high part and the TF32 rounding of the rest, three products
+// summed in fp32: about 2^-21 a product), as the fp32 conv3x3_fwd and
+// conv3x3_dw of csrc/tc_conv.cu already run.
 //
 // Tile: 8 x 16 output pixels x 64 output channels per block, 256 threads.
 // Grid: (tiles of the image, output-channel blocks, batch). Ragged tiles at

@@ -1,8 +1,10 @@
 // Device helpers and host tensor-map set-up shared by the tensor-core kernels
 // (tc_conv.cu, tc_double_conv.cu): mma.sync on bf16 fragments fed by
-// ldmatrix, mbarriers and TMA loads, and the swizzled byte offsets of staged
-// chunks (64-byte swizzle) and weight slices (128-byte swizzle). The host
-// functions are defined in tc_conv.cu.
+// ldmatrix, and on TF32 fragments for the fp32 routes (each fp32 operand
+// split into a TF32 high part and the TF32 rounding of the rest, three
+// products summed: 3xTF32), mbarriers and TMA loads, and the swizzled byte
+// offsets of staged chunks (64-byte swizzle) and weight slices (128-byte
+// swizzle). The host functions are defined in tc_conv.cu.
 #pragma once
 
 #include <cuda.h>
@@ -44,6 +46,57 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to TF32 (10 mantissa bits), half away from zero, as fp32 bits.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo + (at most 2^-22 |v|): hi the TF32 rounding of v, lo that of
+// the exact remainder v - hi.
+__device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(v);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+// d += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// acc += a * b in 3xTF32 over the split fragments of a (ah, al) and of G n8
+// blocks of b (bh[g], bl[g]: the b0, b1 pairs). The three products of each
+// block, small ones first (lo*hi, hi*lo, then hi*hi; the lo*lo term, about
+// 2^-22 of the product, is left out), go into a fresh fragment, which is
+// then added to acc in fp32 with round-to-nearest. The tensor cores round
+// an accumulation toward zero: summed into acc directly, three MMAs a k8
+// step lose up to three of acc's ulps a step, all of one sign, which over
+// K = 9 * 512 (or 19,600 pixels of a dw) leaves fp32's tolerance.
+template <int G>
+__device__ __forceinline__ void mma_3xtf32(float (*acc)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (*bh)[2],
+                                           const uint32_t (*bl)[2]) {
+  float t[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[g][e] = 0.f;
+    mma_tf32(t[g], al, bh[g][0], bh[g][1]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) mma_tf32(t[g], ah, bl[g][0], bl[g][1]);
+#pragma unroll
+  for (int g = 0; g < G; ++g) mma_tf32(t[g], ah, bh[g][0], bh[g][1]);
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = __fadd_rn(acc[g][e], t[g][e]);
 }
 
 // mbarriers and TMA loads (sm_90).
@@ -102,14 +155,16 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
       (reinterpret_cast<uintptr_t>(raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) with zero fill outside.
+// A bf16 (or, with f32, fp32) tensor map of `rank` dims (innermost first)
+// with zero fill outside.
 cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides_bytes, const cuuint32_t* box,
-                     CUtensorMapSwizzle swizzle);
+                     CUtensorMapSwizzle swizzle, bool f32 = false);
 
-// A 4-D map over an NHWC bf16 tensor (dims c, W, H, N) with box (bc, bw, bh, 1).
+// A 4-D map over an NHWC bf16 (or fp32) tensor (dims c, W, H, N) with box
+// (bc, bw, bh, 1).
 cudaError_t make_nhwc_map(CUtensorMap* map, const void* base, int n, int h, int wd, int c, int bc,
-                          int bw, int bh, CUtensorMapSwizzle swizzle);
+                          int bw, int bh, CUtensorMapSwizzle swizzle, bool f32 = false);
 
 // The shared-memory opt-in of `kernel`, once per device (`done` is the
 // kernel's own flags).

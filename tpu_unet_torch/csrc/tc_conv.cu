@@ -1,7 +1,8 @@
-// 3x3 SAME convolutions on NHWC bf16 activations on the Hopper tensor cores:
-// one implicit-GEMM mainloop over output pixels (tc_conv_kernel) with loader
-// and epilogue policies, and one over the pixels of a weight gradient
-// (tc_dw_kernel, below the first):
+// 3x3 SAME convolutions on NHWC bf16 (and, for conv3x3_fwd and conv3x3_dw,
+// fp32) activations on the Hopper tensor cores: one implicit-GEMM mainloop
+// over output pixels (tc_conv_kernel) with operand, loader and epilogue
+// policies, and one over the pixels of a weight gradient (tc_dw_kernel,
+// below the first, and its fp32 sibling tc_dw_f32_kernel):
 //
 //   tuk_tc_fused_conv3x3  y = [relu](conv3x3_same(x, w) * scale + bias)
 //     replaces tpu_unet/kernels/fused_conv.py:75 fused_conv3x3_scale_relu
@@ -21,10 +22,41 @@
 //     (pallas_call at :329), bf16 route;
 //   tuk_tc_conv3x3_dw     dw[ky,kx,ci,co] = sum over pixels of pro(x) * dz,
 //     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
-//     (pallas_call at :508), bf16 route.
+//     (pallas_call at :508), bf16 route;
+//   tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dw_f32: the fp32 routes of the
+//     same two, in 3xTF32 (described below "fp32 in 3xTF32").
 //
-// fp32 calls stay on the CUDA-core kernels of fused_conv.cu, im2col_conv.cu
-// and train_conv.cu (the port runs fp32 without TF32).
+// The other fp32 calls stay on the CUDA-core kernels of fused_conv.cu,
+// im2col_conv.cu, fused_double_conv.cu and train_conv.cu (dx), in fp32 FMA.
+//
+// fp32 in 3xTF32. The port holds fp32 to fp32 accuracy (TF32 off in its
+// library calls, ops/conv.py). One TF32 pass rounds each operand to 10
+// mantissa bits, about 2^-11 a product, about 5e-4 on a unit output at K =
+// 9 * 512: outside the fp32 tolerance. Each fp32 operand is split instead
+// into hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi) (v - hi is
+// exact), and lo*hi + hi*lo + hi*hi are summed (m16n8k8 TF32 MMAs, small
+// terms first; lo*lo, about 2^-22, is left out): about 2^-21 a product. The
+// tensor cores round the sum of an MMA toward zero, so three MMAs a k8 step
+// summed straight into a large accumulator lose up to three of its ulps a
+// step, all of one sign: over the 19,600 pixels of dw at [16,35,35,512] ->
+// 1024 that left the fp32 tolerance on the H100 (chip_smoke.py's DW_TOL).
+// Each k8 step's three products therefore go into a fresh fragment that is
+// added to the accumulator with round-to-nearest (mma_3xtf32,
+// tc_common.cuh); chip_smoke.py phase 2b reports the errors left, and
+// PERF.md keeps them. The card's fp32-accurate
+// rate is then the dense TF32 rate over three, 494.7 / 3 = 164.9 TFLOP/s
+// (the bound chip_smoke.py states), against 67 TFLOP/s of fp32 FMA.
+// * fwd (Tf32x3Op): KC_F32 = 16 fp32 channels a chunk, the same 64 bytes a
+//   staged pixel as bf16's 32, so the same box, swizzle, ring and tc_plan
+//   tiles; a k-step is two k8 steps. A: ldmatrix.x4 on the 32-bit words of
+//   the staged tile is the m16n8k8 TF32 A layout as it is; split in
+//   registers. B: ldmatrix has no 32-bit transpose, so the HWIO weights are
+//   split and transposed per call (split_weights_kernel, in the timed call)
+//   into K-contiguous [2][9][Cout][Cin] hi and lo planes; one 4-D box
+//   brings a k-step's [2][BN][16] slice. The prologue (ProLoadF32) is fp32,
+//   unrounded. z is stored from the accumulators, and its stats summed from
+//   the same registers into the same per-(image, tile) partial rows.
+// * dw (tc_dw_f32_kernel): see there.
 //
 // The concat conv is the forward's mainloop with a second input tensor map
 // (the ConcatLoad policy): the first ceil(Ca / 32) K chunks come from the
@@ -148,18 +180,39 @@ constexpr int STAGES = 4;  // k-steps in the weight ring
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
+// The operands of the mainloop. Bf16Op: bf16 activations and HWIO weights,
+// KC = 32 channels a chunk, mma.sync m16n8k16. Tf32x3Op: fp32 activations,
+// KC_F32 = 16 channels a chunk (the same 64 bytes a staged pixel, so the
+// same box, swizzle and ldmatrix addresses), weights repacked per call as
+// K-contiguous [2][9][Cout][Cin] TF32 hi and lo planes (split_weights_kernel),
+// mma.sync m16n8k8 in 3xTF32 with A split in registers.
+struct Bf16Op {
+  static constexpr bool kTf32 = false;
+  static constexpr int KC = tc::KC;
+};
+struct Tf32x3Op {
+  static constexpr bool kTf32 = true;
+  static constexpr int KC = 16;
+};
+constexpr int KC_F32 = Tf32x3Op::KC;
+
 // A block configuration: BM output pixels x BN output channels, WM x WN
 // warps (each a (BM / WM) x (BN / WN) warp tile), MAX_STAGED pixels of the
-// tile plus its halo, MIN_BLOCKS resident blocks an SM (launch bounds).
-template <int BM_, int BN_, int WM_, int WN_, int MAX_STAGED_, int MIN_BLOCKS_>
+// tile plus its halo, MIN_BLOCKS resident blocks an SM (launch bounds), the
+// operands Op.
+template <int BM_, int BN_, int WM_, int WN_, int MAX_STAGED_, int MIN_BLOCKS_,
+          class Op_ = Bf16Op>
 struct Config {
+  using Op = Op_;
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int MAX_STAGED = MAX_STAGED_, MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int MI = BM / WM / 16;  // m16 fragments per warp
   static constexpr int NI = BN / WN / 8;   // n8 fragments per warp
-  static constexpr int IN_SLOT = round_up(MAX_STAGED * KC * 2, kAlign);  // bytes
-  static constexpr int W_SLOT = KC * BN * 2;                             // bytes
+  // A staged pixel's chunk is 64 bytes: KC bf16 or KC_F32 fp32 channels.
+  static constexpr int IN_SLOT = round_up(MAX_STAGED * 64, kAlign);  // bytes
+  // A k-step's weights: [KC][BN] bf16, or the hi and lo planes [2][BN][KC_F32].
+  static constexpr int W_SLOT = Op::kTf32 ? 2 * BN * KC_F32 * 4 : KC * BN * 2;  // bytes
   static constexpr int RED = WM * WN * 2 * BN * 4;                       // stats scratch
   static constexpr size_t SMEM =
       kAlign + 2 * IN_SLOT + STAGES * W_SLOT + RED + (2 + STAGES) * 8;
@@ -175,6 +228,12 @@ struct Config {
 // an SM at level 0, and faster at the deep shapes.
 using Cfg0 = Config<128, 128, 2, 2, 288, 2>;
 using Cfg1 = Config<256, 64, 4, 1, 400, 2>;
+// The fp32 (3xTF32) forward's, by the same ids and tile shapes (tc_plan),
+// two blocks an SM: 128 accumulators a thread, beside a k8 step's split A
+// fragment (12 registers), both planes' B fragments of 4 n8 blocks (16) and
+// their fresh sums (16).
+using F32Cfg0 = Config<128, 128, 2, 2, 288, 2, Tf32x3Op>;
+using F32Cfg1 = Config<256, 64, 4, 1, 400, 2, Tf32x3Op>;
 
 // Where a block's tile lies, and what it stages.
 struct Tile {
@@ -236,6 +295,16 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
+// v = relu(v * a + c) on 4 fp32 channels, in place (no rounding: fp32 x).
+__device__ __forceinline__ void pro_chunk_f32(float4* p, const float4& a, const float4& c) {
+  float4 v = *p;
+  v.x = relu_f(__fadd_rn(__fmul_rn(v.x, a.x), c.x));
+  v.y = relu_f(__fadd_rn(__fmul_rn(v.y, a.y), c.y));
+  v.z = relu_f(__fadd_rn(__fmul_rn(v.z, a.z), c.z));
+  v.w = relu_f(__fadd_rn(__fmul_rn(v.w, a.w), c.w));
+  *p = v;
+}
+
 // ---- loader policies: what the staged chunk holds --------------------------
 //
 // kAux: the policy stages a second box of the same shape (z) in a slot of
@@ -282,6 +351,35 @@ struct ProLoad {
       for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
         if (!inside && !t.staged_in_image(q)) continue;
         pro_chunk(reinterpret_cast<uint4*>(slot + in_off(q, ch)), av, cv);
+      }
+    }
+    fence_proxy_async();  // the slot is TMA-written again two chunks later
+  }
+};
+
+// relu(x*a + c) over an fp32 chunk (KC_F32 channels, 4 to a 16-byte piece),
+// as ProLoad; the fp32 forward's loader.
+struct ProLoadF32 {
+  static constexpr bool kTransform = true;
+  static constexpr bool kAux = false;
+  static constexpr bool kConcat = false;
+  const float* a;
+  const float* c;
+  template <class C>
+  __device__ __forceinline__ void transform(unsigned char* slot, const unsigned char*,
+                                            const Tile& t, int k0, int cin) const {
+    static_assert(C::Op::kTf32, "fp32 operands");
+    constexpr int kVec = KC_F32 / 4;  // 16-byte pieces per staged pixel
+    static_assert(C::THREADS % kVec == 0, "a thread keeps its 4 channels");
+    const int ch = threadIdx.x % kVec;
+    const int k = k0 + ch * 4;
+    const bool inside = t.h0 >= 1 && t.h0 + t.th < t.H && t.w0 >= 1 && t.w0 + t.tw < t.W;
+    if (k < cin) {
+      const float4 av = *reinterpret_cast<const float4*>(a + k);
+      const float4 cv = *reinterpret_cast<const float4*>(c + k);
+      for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
+        if (!inside && !t.staged_in_image(q)) continue;
+        pro_chunk_f32(reinterpret_cast<float4*>(slot + in_off(q, ch)), av, cv);
       }
     }
     fence_proxy_async();  // the slot is TMA-written again two chunks later
@@ -355,15 +453,21 @@ constexpr size_t smem_bytes() {
 // tmx: x as [N][H][W][ca] (dims ca, W, H, N), box (KC, tw + 2, th + 2, 1);
 // tmb: b as [N][H][W][cin - ca], the same box (unused without kConcat);
 // tmz: the aux input (z), x's dims and box (unused without kAux);
-// tmw: w as [9][cin][cout] (dims cout, cin, 9), box (64, KC, 1).
-// out: bf16, or fp32 with kF32Out (stored from the accumulators).
+// tmw: w as [9][cin][cout] (dims cout, cin, 9), box (64, KC, 1); with
+// Tf32x3Op the split weights [2][9][cout][cin] (dims cin, cout, 9, 2), box
+// (KC_F32, BN, 1, 2).
+// out: bf16, or fp32 with kF32Out (stored from the accumulators; always with
+// Tf32x3Op, whose stats are then summed from the accumulators too).
 template <class C, class Load, class Epi, bool kStats, bool kF32Out>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmb,
                    const __grid_constant__ CUtensorMap tmz, const __grid_constant__ CUtensorMap tmw,
                    Load ld, Epi epi, void* __restrict__ out_ptr, float* __restrict__ partials,
                    int H, int W, int ca, int cin, int cout, int th, int tw, int tiles_w) {
-  static_assert(!(kStats && kF32Out), "stats are taken from the bf16 tile");
+  using Op = typename C::Op;
+  static_assert(!Op::kTf32 || kF32Out, "fp32 operands store fp32 from the accumulators");
+  static_assert(!(kStats && kF32Out) || Op::kTf32, "bf16 stats are taken from the bf16 tile");
+  constexpr int KCH = Op::KC;  // channels a staged chunk
   constexpr int BN = C::BN;
   constexpr int MI = C::MI;
   constexpr int NI = C::NI;
@@ -389,8 +493,9 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   const int lane = threadIdx.x % 32;
   const int wm = warp % C::WM;
   const int wn = warp / C::WM;
-  const int a_chunks = (ca + KC - 1) / KC;  // x's, with kConcat
-  const int nchunks = Load::kConcat ? a_chunks + (cin - ca + KC - 1) / KC : (cin + KC - 1) / KC;
+  const int a_chunks = (ca + KCH - 1) / KCH;  // x's, with kConcat
+  const int nchunks =
+      Load::kConcat ? a_chunks + (cin - ca + KCH - 1) / KCH : (cin + KCH - 1) / KCH;
   const int nsteps = 9 * nchunks;
 
   // This lane's ldmatrix row in each m16 fragment: the staged pixel that tap
@@ -404,11 +509,18 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   }
   // ldmatrix.trans of four 8x8 blocks of n16 group j: k rows
   // (lane / 8 % 2) * 8 + lane % 8 (+ 16 kk), channels (lane / 16) * 8.
+  // With Tf32x3Op, ldmatrix (no .trans) of the K-contiguous planes: matrix
+  // lane / 8 is n8 block 2 j + lane / 16, k half (lane / 8) % 2; b_off holds
+  // the lane's row (output channel) of the slice.
   int b_off[NI / 2];
 #pragma unroll
   for (int j = 0; j < NI / 2; ++j) {
-    const int col8 = (wn * kWarpN + j * 16) / 8 + lane / 16;  // n8 block in the slice
-    b_off[j] = (col8 / 8) * (KC * 128) + w_off((lane / 8) % 2 * 8 + lane % 8, col8 % 8);
+    if constexpr (Op::kTf32) {
+      b_off[j] = wn * kWarpN + j * 16 + (lane / 16) * 8 + lane % 8;
+    } else {
+      const int col8 = (wn * kWarpN + j * 16) / 8 + lane / 16;  // n8 block in the slice
+      b_off[j] = (col8 / 8) * (KC * 128) + w_off((lane / 8) % 2 * 8 + lane % 8, col8 % 8);
+    }
   }
 
   // One thread issues the loads of k-step g: at a chunk's first tap its
@@ -421,27 +533,32 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     const int chunk = g / 9;
     const int tap = g - chunk * 9;
     const CUtensorMap* src = &tmx;
-    int k = chunk * KC;  // the chunk's first channel in its source
-    int row = k;         // and its first weight row
+    int k = chunk * KCH;  // the chunk's first channel in its source
+    int row = k;          // and its first weight row
     if constexpr (Load::kConcat) {
       if (chunk >= a_chunks) {
         src = &tmb;
-        k = (chunk - a_chunks) * KC;
+        k = (chunk - a_chunks) * KCH;
         row = ca + k;
       }
     }
     fence_proxy_async();
     if (tap == 0) {
       uint64_t* bar = in_bar + (chunk & 1);
-      mbar_expect_tx(bar, (uint32_t)(t.staged() * KC * 2));
+      mbar_expect_tx(bar, (uint32_t)(t.staged() * 64));
       tma_load_4d(in_s + (chunk & 1) * C::IN_SLOT, src, bar, k, t.w0 - 1, t.h0 - 1, t.n);
     }
     uint64_t* bar = w_bar + g % STAGES;
     mbar_expect_tx(bar, (uint32_t)C::W_SLOT);
+    if constexpr (Op::kTf32) {
+      // Both planes' [BN][KC_F32] slices, one box: plane 1 lands BN * 64 bytes on.
+      tma_load_4d(w_s + (g % STAGES) * C::W_SLOT, &tmw, bar, row, co0, tap, 0);
+    } else {
 #pragma unroll
-    for (int hh = 0; hh < BN / 64; ++hh)
-      tma_load_3d(w_s + (g % STAGES) * C::W_SLOT + hh * KC * 128, &tmw, bar, co0 + hh * 64, row,
-                  tap);
+      for (int hh = 0; hh < BN / 64; ++hh)
+        tma_load_3d(w_s + (g % STAGES) * C::W_SLOT + hh * KC * 128, &tmw, bar, co0 + hh * 64,
+                    row, tap);
+    }
   };
   // The aux box of a chunk goes into the one aux slot: chunk k + 1's is
   // issued once chunk k's transform has read the slot, 9 k-steps before it
@@ -481,7 +598,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     mbar_wait(w_bar + s % STAGES, (s / STAGES) & 1);
     __syncthreads();  // every thread is past step s - 1: its weight slot is free
     if (Load::kTransform && tap == 0) {
-      ld.template transform<C>(slot, aux_s, t, chunk * KC, cin);
+      ld.template transform<C>(slot, aux_s, t, chunk * KCH, cin);
       __syncthreads();
       if (Load::kAux && chunk + 1 < nchunks) issue_aux(chunk + 1);
     }
@@ -490,21 +607,53 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     const int tap_q = (tap / 3) * t.sw() + tap % 3;
     const uint32_t a_base = smem_addr(slot);
     const uint32_t b_base = smem_addr(w_s + (s % STAGES) * C::W_SLOT);
+    if constexpr (Op::kTf32) {
+      // Two k8 steps of the 16-channel chunk. A's ldmatrix.x4 on the 32-bit
+      // words of the staged pixels gives the m16n8k8 TF32 layout as it is
+      // (matrix = rows 0-7 / 8-15 x k 0-3 / 4-7); each word is split in
+      // registers. B comes split from the planes, 4 n8 blocks at a time (16
+      // registers, not 32: with all 8 the 128 x 128 block spilled at 255);
+      // mma_3xtf32 runs each pass over the 4 blocks in turn, so no MMA
+      // waits on the one before it.
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t af[MI][4];
-      uint32_t bfr[NI / 2][4];
+      for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldmatrix_x4(af[mi], a_base + in_off(a_q[mi] + tap_q, 2 * kk + lane / 16));
+        for (int g0 = 0; g0 < NI; g0 += 4) {
+          uint32_t bh[2][4], bl[2][4];
 #pragma unroll
-      for (int j = 0; j < NI / 2; ++j)
-        ldmatrix_x4_trans(bfr[j], b_base + b_off[j] + kk * 16 * 128);
+          for (int j = 0; j < 2; ++j) {
+            const int off = in_off(b_off[g0 / 2 + j], 2 * kk + (lane / 8) % 2);
+            ldmatrix_x4(bh[j], b_base + off);
+            ldmatrix_x4(bl[j], b_base + BN * 64 + off);
+          }
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
+          for (int mi = 0; mi < MI; ++mi) {
+            uint32_t ar[4], ah[4], al[4];
+            ldmatrix_x4(ar, a_base + in_off(a_q[mi] + tap_q, 2 * kk + lane / 16));
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2], bfr[ni / 2][(ni % 2) * 2 + 1]);
+            for (int e = 0; e < 4; ++e) split_tf32(ar[e], ah[e], al[e]);
+            mma_3xtf32<4>(&acc[mi][g0], ah, al, reinterpret_cast<const uint32_t(*)[2]>(bh),
+                          reinterpret_cast<const uint32_t(*)[2]>(bl));
+          }
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t af[MI][4];
+        uint32_t bfr[NI / 2][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldmatrix_x4(af[mi], a_base + in_off(a_q[mi] + tap_q, 2 * kk + lane / 16));
+#pragma unroll
+        for (int j = 0; j < NI / 2; ++j)
+          ldmatrix_x4_trans(bfr[j], b_base + b_off[j] + kk * 16 * 128);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+            mma_bf16(acc[mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2],
+                     bfr[ni / 2][(ni % 2) * 2 + 1]);
+      }
     }
   }
 
@@ -512,8 +661,15 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   // channels j = wn*kWarpN + ni*8 + (lane%4)*2 (+1) of the [BM][BN] tile.
   if constexpr (kF32Out) {
     // fp32 out: each quad of lanes stores 8 channels (32 bytes) of a pixel
-    // straight from the accumulators, whole 32-byte sectors.
+    // straight from the accumulators, whole 32-byte sectors. With stats
+    // (fp32 z is the accumulator itself) each thread sums its own channels'
+    // values over its pixels in order, from the same registers.
     float* outf = static_cast<float*>(out_ptr);
+    float s1[kStats ? NI : 1][2], s2[kStats ? NI : 1][2];
+    if constexpr (kStats) {
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) s1[ni][0] = s1[ni][1] = s2[ni][0] = s2[ni][1] = 0.f;
+    }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -526,11 +682,54 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) {
           const int co = co0 + wn * kWarpN + ni * 8 + (lane % 4) * 2;
-          if (co < cout)
-            *reinterpret_cast<float2*>(row + co) =
-                make_float2(epi(acc[mi][ni][hf * 2], co), epi(acc[mi][ni][hf * 2 + 1], co + 1));
+          if (co < cout) {
+            const float y0 = epi(acc[mi][ni][hf * 2], co);
+            const float y1 = epi(acc[mi][ni][hf * 2 + 1], co + 1);
+            *reinterpret_cast<float2*>(row + co) = make_float2(y0, y1);
+            if constexpr (kStats) {
+              s1[ni][0] += y0;
+              s1[ni][1] += y1;
+              s2[ni][0] += y0 * y0;
+              s2[ni][1] += y1 * y1;
+            }
+          }
         }
       }
+    if constexpr (kStats) {
+      // The lanes of one channel pair sit 4 apart: add a warp's 8 with
+      // shuffles, then the WM warps of a channel in order.
+#pragma unroll
+      for (int m = 4; m < 32; m *= 2)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s1[ni][e] += __shfl_xor_sync(0xffffffffu, s1[ni][e], m);
+            s2[ni][e] += __shfl_xor_sync(0xffffffffu, s2[ni][e], m);
+          }
+      if (lane < 4) {
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = wn * kWarpN + ni * 8 + lane * 2 + e;
+            red_s[(wm * 2 + 0) * BN + j] = s1[ni][e];
+            red_s[(wm * 2 + 1) * BN + j] = s2[ni][e];
+          }
+      }
+      __syncthreads();
+      const size_t prow = (size_t)t.n * gridDim.x + blockIdx.x;
+      for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
+        const int st = i / BN;
+        const int j = i % BN;
+        if (co0 + j < cout) {
+          float sum = 0.f;
+#pragma unroll
+          for (int q = 0; q < C::WM; ++q) sum += red_s[(q * 2 + st) * BN + j];
+          partials[(prow * 2 + st) * cout + co0 + j] = sum;
+        }
+      }
+    }
     return;
   }
   __syncthreads();  // the rings are free: the output tile [BM][BN + 8] reuses them
@@ -842,6 +1041,286 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
       }
 }
 
+// ---- fp32 dw in 3xTF32 --------------------------------------------------------
+//
+// The same GEMM (M = ci, N = co, K = pixels; a block owns 64 x 64 channels
+// and all 9 taps, 12 warps of 32 ci x 32 co x the 3 taps of one kernel row)
+// on m16n8k8 TF32 fragments. K is the strided axis of both staged operands
+// (pixel-major, channels contiguous), and ldmatrix has no 32-bit transpose,
+// so the rewrite pass that builds pro(x) and dz on the CUDA cores also
+// writes them K-contiguous: xT[ci][staged pixel] and dzT[co][pixel], with
+// row strides of 4 mod 32 words, so that a fragment's 8 rows x 4 pixels
+// fall in 32 distinct banks whatever the tap's shift along K. A comes from
+// xT by 32-bit loads (the tap's shift breaks 16-byte alignment), B from dzT
+// by ldmatrix; both are split into TF32 hi and lo in registers (B once per
+// k8 step for the warp's 3 taps) and summed as lo*hi + hi*lo + hi*hi
+// (mma_3xtf32).
+// The raw TMA boxes (x over the tile plus halo, g and z over the tile; each
+// two 32-channel halves of 128-byte rows, 128-byte swizzle: w_off) sit in
+// one slot each: the next
+// tile's are issued as soon as this tile's rewrite has read them, and land
+// during its MMAs. Fewer pixels a tile than bf16 (fp32 and the transposed
+// copies): DWF_MAX_PX = 128 and DWF_MAX_STAGED = 200 fill 211 KB of the
+// 227 KB a block may use, one block an SM.
+constexpr int DWF_CI = 64;           // input channels of a block
+constexpr int DWF_CO = 64;           // output channels of a block
+constexpr int DWF_THREADS = 384;     // 3 (ky) x 2 (ci) x 2 (co) warps
+constexpr int DWF_MAX_PX = 128;      // pixels of a tile: its K rows
+constexpr int DWF_MAX_STAGED = 200;  // pixels of the tile plus its halo
+constexpr int DWF_XROW = 228;        // xT row stride in floats: >= DWF_MAX_STAGED, 4 mod 32
+constexpr int DWF_DROW = 132;        // dzT row stride in floats: >= DWF_MAX_PX, 4 mod 32
+constexpr int DWF_X_HALF = round_up(DWF_MAX_STAGED * 128, kAlign);  // 32 fp32 a staged pixel
+constexpr int DWF_D_HALF = DWF_MAX_PX * 128;
+constexpr size_t DWF_SMEM = kAlign + 2 * DWF_X_HALF + 4 * DWF_D_HALF + DWF_CI * DWF_XROW * 4 +
+                            DWF_CO * DWF_DROW * 4 + 5 * 64 * 4 + DWF_MAX_PX * 4 + 8;
+static_assert(DWF_D_HALF % kAlign == 0, "halves keep the swizzle's 1024-byte alignment");
+static_assert(DWF_XROW % 32 == 4 && DWF_DROW % 32 == 4, "conflict-free fragment rows");
+static_assert(DWF_SMEM <= 232448, "one block's shared memory on the H100");
+
+// Grid, out and tile walk as tc_dw_kernel's. tmx: fp32 x (dims cin, W, H, N),
+// box (32, tw + 2, th + 2, 1); tmg, tmz: fp32 g and z (dims cout, W, H, N),
+// box (32, tw, th, 1).
+template <bool kPro>
+__global__ void __launch_bounds__(DWF_THREADS, 1)
+    tc_dw_f32_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmg,
+                     const __grid_constant__ CUtensorMap tmz, const float* __restrict__ a,
+                     const float* __restrict__ c, const float* __restrict__ coef,
+                     float* __restrict__ out, int H, int W, int cin, int cout, int th, int tw,
+                     int tiles_w, int tiles_per_img, int total_tiles, int tiles_per_split) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* x_r = smem;                        // raw x, two 32-channel halves
+  unsigned char* g_r = x_r + 2 * DWF_X_HALF;        // raw g, two halves
+  unsigned char* z_r = g_r + 2 * DWF_D_HALF;        // raw z, two halves
+  float* xT = reinterpret_cast<float*>(z_r + 2 * DWF_D_HALF);  // [DWF_CI][DWF_XROW]
+  float* dzT = xT + DWF_CI * DWF_XROW;                          // [DWF_CO][DWF_DROW]
+  float* vec_s = dzT + DWF_CO * DWF_DROW;                       // [5][64]
+  int* q_of = reinterpret_cast<int*>(vec_s + 5 * 64);  // [DWF_MAX_PX]: staged pixel of p
+  uint64_t* bar = reinterpret_cast<uint64_t*>(q_of + DWF_MAX_PX);
+
+  const int ci_blocks = (cin + DWF_CI - 1) / DWF_CI;
+  const int ci0 = (blockIdx.x % ci_blocks) * DWF_CI;
+  const int co0 = (blockIdx.x / ci_blocks) * DWF_CO;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int ntiles = min(total_tiles, t_begin + tiles_per_split) - t_begin;
+  const int px = th * tw;
+  const int ksteps = (px + 7) / 8;
+  const int sw = tw + 2;
+  const int staged = (th + 2) * sw;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = warp % 2;
+  const int wn = (warp / 2) % 2;
+  const int ky = warp / 4;
+  // Halves past cin / cout are not loaded; their channels are written as 0.
+  const int x_halves = min(2, (cin - ci0 + 31) / 32);
+  const int d_halves = min(2, (cout - co0 + 31) / 32);
+
+  auto tile_of = [&](int i) {
+    const int tt = t_begin + i;
+    const int n = tt / tiles_per_img;
+    const int r = tt - n * tiles_per_img;
+    return Tile{n, (r / tiles_w) * th, (r % tiles_w) * tw, th, tw, H, W};
+  };
+  // Thread 0 issues the raw boxes of tile i.
+  auto issue = [&](int i) {
+    const Tile t = tile_of(i);
+    fence_proxy_async();
+    mbar_expect_tx(bar, (uint32_t)(x_halves * staged * 128 + 2 * d_halves * px * 128));
+    for (int hh = 0; hh < x_halves; ++hh)
+      tma_load_4d(x_r + hh * DWF_X_HALF, &tmx, bar, ci0 + 32 * hh, t.w0 - 1, t.h0 - 1, t.n);
+    for (int hh = 0; hh < d_halves; ++hh) {
+      tma_load_4d(g_r + hh * DWF_D_HALF, &tmg, bar, co0 + 32 * hh, t.w0, t.h0, t.n);
+      tma_load_4d(z_r + hh * DWF_D_HALF, &tmz, bar, co0 + 32 * hh, t.w0, t.h0, t.n);
+    }
+  };
+
+  // dzT columns px ... 8 * ksteps - 1: zero, never written.
+  const int pad = 8 * ksteps - px;
+  for (int i = threadIdx.x; i < DWF_CO * pad; i += DWF_THREADS)
+    dzT[(i / pad) * DWF_DROW + px + i % pad] = 0.f;
+  // The staged pixel (tap (0, 0)) of each of a tile's K rows; rows past the
+  // tile read pixel 0 against dz columns of zeros.
+  for (int p = threadIdx.x; p < 8 * ksteps; p += DWF_THREADS)
+    q_of[p] = p < px ? (p / tw) * sw + p % tw : 0;
+  for (int i = threadIdx.x; i < 5 * 64; i += DWF_THREADS) {
+    const int v = i / 64, k = i % 64;
+    const int ci = ci0 + k, co = co0 + k;
+    float val = 0.f;
+    if (v < 2) {
+      if (kPro && ci < cin) val = (v == 0 ? a : c)[ci];
+    } else if (co < cout) {
+      val = coef[(v - 2) * cout + co];
+    }
+    vec_s[i] = val;
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && ntiles > 0) issue(0);
+
+  // Fragment lanes: A (xT) rows ci = wm*32 + mi*16 + lane/4 (+8), pixels
+  // lane%4 (+4) of the k8 step; B (dzT, ldmatrix.x4 of n16 group j) rows co
+  // = wn*32 + 16 j + (lane/16)*8 + lane%8, pixels ((lane/8)%2)*4.
+  const int a_row = wm * 32 + lane / 4;
+  const int b_row = wn * 32 + (lane / 16) * 8 + lane % 8;
+  const int b_col = ((lane / 8) % 2) * 4;
+  // m16 fragments of ci past cin hold zeros: their MMAs are skipped (warp-
+  // uniform; at inc.conv1, Cin = 3 padded to 8, 7 of the 8 are).
+  const int live_mi = max(0, min(2, (cin - ci0 - wm * 32 + 15) / 16));
+
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[kx][mi][ni][e] = 0.f;
+
+#pragma unroll 1
+  for (int i = 0; i < ntiles; ++i) {
+    const Tile t = tile_of(i);
+    mbar_wait(bar, i & 1);
+    // x: piece c4 (channels 4 c4 ...) of staged pixel q, consecutive threads
+    // on consecutive pixels (conflict-free swizzled reads, xT row writes).
+    {
+      const bool inside = t.h0 >= 1 && t.h0 + th < H && t.w0 >= 1 && t.w0 + tw < W;
+      for (int idx = threadIdx.x; idx < 16 * staged; idx += DWF_THREADS) {
+        const int c4 = idx / staged;
+        const int q = idx - c4 * staged;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ci0 + c4 * 4 < cin) {
+          v = *reinterpret_cast<const float4*>(x_r + (c4 / 8) * DWF_X_HALF + w_off(q, c4 % 8));
+          if (kPro && (inside || t.staged_in_image(q))) {
+            const float4 av = *reinterpret_cast<const float4*>(vec_s + c4 * 4);
+            const float4 cv = *reinterpret_cast<const float4*>(vec_s + 64 + c4 * 4);
+            pro_chunk_f32(&v, av, cv);
+          }
+        }
+        float* col = xT + (c4 * 4) * DWF_XROW + q;
+        col[0] = v.x;
+        col[DWF_XROW] = v.y;
+        col[2 * DWF_XROW] = v.z;
+        col[3 * DWF_XROW] = v.w;
+      }
+    }
+    // dz = alpha*g + beta*z + gamma over the tile's in-image pixels.
+    {
+      const bool inside = t.h0 + th <= H && t.w0 + tw <= W;
+      for (int idx = threadIdx.x; idx < 16 * px; idx += DWF_THREADS) {
+        const int c4 = idx / px;
+        const int p = idx - c4 * px;
+        float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (co0 + c4 * 4 < cout && (inside || (t.h0 + p / tw < H && t.w0 + p % tw < W))) {
+          const int off = (c4 / 8) * DWF_D_HALF + w_off(p, c4 % 8);
+          const float4 g = *reinterpret_cast<const float4*>(g_r + off);
+          const float4 z = *reinterpret_cast<const float4*>(z_r + off);
+          const float* al = vec_s + 128 + c4 * 4;
+          const float* be = vec_s + 192 + c4 * 4;
+          const float* ga = vec_s + 256 + c4 * 4;
+          d.x = __fadd_rn(__fadd_rn(__fmul_rn(al[0], g.x), __fmul_rn(be[0], z.x)), ga[0]);
+          d.y = __fadd_rn(__fadd_rn(__fmul_rn(al[1], g.y), __fmul_rn(be[1], z.y)), ga[1]);
+          d.z = __fadd_rn(__fadd_rn(__fmul_rn(al[2], g.z), __fmul_rn(be[2], z.z)), ga[2]);
+          d.w = __fadd_rn(__fadd_rn(__fmul_rn(al[3], g.w), __fmul_rn(be[3], z.w)), ga[3]);
+        }
+        float* col = dzT + (c4 * 4) * DWF_DROW + p;
+        col[0] = d.x;
+        col[DWF_DROW] = d.y;
+        col[2 * DWF_DROW] = d.z;
+        col[3 * DWF_DROW] = d.w;
+      }
+    }
+    fence_proxy_async();  // the raw slots are TMA-written again
+    __syncthreads();
+    if (threadIdx.x == 0 && i + 1 < ntiles) issue(i + 1);
+
+    const uint32_t da = smem_addr(dzT);
+#pragma unroll 1
+    for (int ks = 0; ks < (live_mi > 0 ? ksteps : 0); ++ks) {
+      // This lane's two pixels of the step, in the staged tile.
+      const int qa = q_of[ks * 8 + lane % 4] + ky * sw;
+      const int qb = q_of[ks * 8 + lane % 4 + 4] + ky * sw;
+      uint32_t bh[2][4], bl[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t br[4];
+        ldmatrix_x4(br, da + ((b_row + 16 * j) * DWF_DROW + ks * 8 + b_col) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(br[e], bh[j][e], bl[j][e]);
+      }
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi >= live_mi) continue;
+          const float* r0 = xT + (a_row + mi * 16) * DWF_XROW + kx;
+          const float* r1 = r0 + 8 * DWF_XROW;
+          uint32_t ah[4], al[4];
+          split_tf32(__float_as_uint(r0[qa]), ah[0], al[0]);
+          split_tf32(__float_as_uint(r1[qa]), ah[1], al[1]);
+          split_tf32(__float_as_uint(r0[qb]), ah[2], al[2]);
+          split_tf32(__float_as_uint(r1[qb]), ah[3], al[3]);
+          mma_3xtf32<4>(acc[kx][mi], ah, al, reinterpret_cast<const uint32_t(*)[2]>(bh),
+                        reinterpret_cast<const uint32_t(*)[2]>(bl));
+        }
+    }
+    __syncthreads();  // xT and dzT are read
+  }
+
+  // Lane holds ci = ci0 + wm*32 + mi*16 + lane/4 (+8), co = co0 + wn*32 +
+  // ni*8 + (lane%4)*2 (+1), as tc_dw_kernel's.
+  float* dst = out + (size_t)blockIdx.y * 9 * cin * cout;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int ci = ci0 + wm * 32 + mi * 16 + lane / 4 + hf * 8;
+        if (ci >= cin) continue;
+        float* row = dst + ((size_t)(ky * 3 + kx) * cin + ci) * cout;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int co = co0 + wn * 32 + ni * 8 + (lane % 4) * 2;
+          if (co < cout)
+            *reinterpret_cast<float2*>(row + co) =
+                make_float2(acc[kx][mi][ni][hf * 2], acc[kx][mi][ni][hf * 2 + 1]);
+        }
+      }
+}
+
+// out[2][9][cout][cin] = the TF32 high part (plane 0) and the TF32 rounding
+// of the rest (plane 1) of fp32 HWIO w [9][cin][cout], transposed so that K
+// (cin) is contiguous: the fp32 forward's B operand, loaded by ldmatrix.
+// Block (co / 32, ci / 32, tap): a 32 x 32 tile through shared memory.
+__global__ void __launch_bounds__(256)
+    split_weights_kernel(const float* __restrict__ w, float* __restrict__ out, int cin, int cout) {
+  __shared__ float tile[32][33];
+  const int tap = blockIdx.z;
+  const int co0 = blockIdx.x * 32, ci0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int ci = ci0 + r, co = co0 + threadIdx.x;
+    tile[r][threadIdx.x] = ci < cin && co < cout ? w[((size_t)tap * cin + ci) * cout + co] : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = 9 * (size_t)cin * cout;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int co = co0 + r, ci = ci0 + threadIdx.x;
+    if (co < cout && ci < cin) {
+      uint32_t hi, lo;
+      split_tf32(__float_as_uint(tile[threadIdx.x][r]), hi, lo);
+      const size_t o = ((size_t)tap * cout + co) * cin + ci;
+      out[o] = __uint_as_float(hi);
+      out[plane + o] = __uint_as_float(lo);
+    }
+  }
+}
+
 // ---- host side --------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -868,28 +1347,32 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) with zero fill outside.
+// A bf16 (or, with f32, fp32) tensor map of `rank` dims (innermost first)
+// with zero fill outside.
 cudaError_t make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides_bytes, const cuuint32_t* box,
-                     CUtensorMapSwizzle swizzle) {
+                     CUtensorMapSwizzle swizzle, bool f32) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                             const_cast<void*>(base), dims, strides_bytes, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 4-D map over an NHWC bf16 tensor (dims c, W, H, N) with box (bc, bw, bh, 1).
+// A 4-D map over an NHWC bf16 (or fp32) tensor (dims c, W, H, N) with box
+// (bc, bw, bh, 1).
 cudaError_t make_nhwc_map(CUtensorMap* map, const void* base, int n, int h, int wd, int c, int bc,
-                          int bw, int bh, CUtensorMapSwizzle swizzle) {
+                          int bw, int bh, CUtensorMapSwizzle swizzle, bool f32) {
+  const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)wd * c * 2,
-                                 (cuuint64_t)h * wd * c * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * es, (cuuint64_t)wd * c * es,
+                                 (cuuint64_t)h * wd * c * es};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh, 1};
-  return make_map(map, base, 4, dims, strides, box, swizzle);
+  return make_map(map, base, 4, dims, strides, box, swizzle, f32);
 }
 
 // The shared-memory opt-in of `kernel`, once per device (`done` is the
@@ -907,7 +1390,8 @@ cudaError_t opt_in_smem(const void* kernel, size_t bytes, std::atomic<bool>* don
 
 // The input: x with ca == cin, or with Load::kConcat the concat of x (ca
 // channels) and b (cin - ca channels). aux: the loader's second input (z,
-// with kAux), the shape of x.
+// with kAux), the shape of x. With C::Op = Tf32x3Op, x is fp32 and w the
+// split weights [2][9][cout][cin] (split_weights_kernel).
 template <class C, class Load, class Epi, bool kStats, bool kF32Out>
 cudaError_t launch(const void* x, const void* b, int ca, const void* aux, const void* w,
                    const Load& ld, const Epi& epi, void* out, float* partials, int n, int h,
@@ -918,9 +1402,10 @@ cudaError_t launch(const void* x, const void* b, int ca, const void* aux, const 
       (th + 2) * (tw + 2) > C::MAX_STAGED || th + 2 > 256 || tw + 2 > 256 ||
       (Load::kAux && aux == nullptr))
     return cudaErrorInvalidValue;
+  constexpr bool kF32 = C::Op::kTf32;
   CUtensorMap tmx, tmb, tmz, tmw;
-  cudaError_t err =
-      make_nhwc_map(&tmx, x, n, h, wd, ca, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
+  cudaError_t err = make_nhwc_map(&tmx, x, n, h, wd, ca, C::Op::KC, tw + 2, th + 2,
+                                  CU_TENSOR_MAP_SWIZZLE_64B, kF32);
   if (err != cudaSuccess) return err;
   tmb = tmz = tmx;  // unused copies, unless encoded below
   if (Load::kConcat) {
@@ -932,10 +1417,18 @@ cudaError_t launch(const void* x, const void* b, int ca, const void* aux, const 
     err = make_nhwc_map(&tmz, aux, n, h, wd, cin, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
     if (err != cudaSuccess) return err;
   }
-  const cuuint64_t wdims[3] = {(cuuint64_t)cout, (cuuint64_t)cin, 9};
-  const cuuint64_t wstrides[2] = {(cuuint64_t)cout * 2, (cuuint64_t)cin * cout * 2};
-  const cuuint32_t wbox[3] = {64, (cuuint32_t)KC, 1};
-  err = make_map(&tmw, w, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if constexpr (kF32) {
+    const cuuint64_t wdims[4] = {(cuuint64_t)cin, (cuuint64_t)cout, 9, 2};
+    const cuuint64_t wstrides[3] = {(cuuint64_t)cin * 4, (cuuint64_t)cout * cin * 4,
+                                    9ull * cout * cin * 4};
+    const cuuint32_t wbox[4] = {(cuuint32_t)KC_F32, (cuuint32_t)C::BN, 1, 2};
+    err = make_map(&tmw, w, 4, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B, true);
+  } else {
+    const cuuint64_t wdims[3] = {(cuuint64_t)cout, (cuuint64_t)cin, 9};
+    const cuuint64_t wstrides[2] = {(cuuint64_t)cout * 2, (cuuint64_t)cin * cout * 2};
+    const cuuint32_t wbox[3] = {64, (cuuint32_t)KC, 1};
+    err = make_map(&tmw, w, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
   if (err != cudaSuccess) return err;
   auto kernel = tc_conv_kernel<C, Load, Epi, kStats, kF32Out>;
   constexpr size_t smem = smem_bytes<C, Load>();
@@ -968,6 +1461,30 @@ cudaError_t launch_cfg(int cfg, const void* x, const void* b, int ca, const void
   return cudaErrorInvalidValue;
 }
 
+// The fp32 forward: split the weights (wsplit: fp32 [2][9][cout][cin]
+// scratch), then the 3xTF32 conv.
+template <class Load, bool kStats>
+cudaError_t launch_fwd_f32(int cfg, const float* x, const float* w, float* wsplit, const Load& ld,
+                           float* out, float* partials, int n, int h, int wd, int cin, int cout,
+                           int th, int tw, cudaStream_t stream) {
+  if (cin % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
+  split_weights_kernel<<<dim3((cout + 31) / 32, (cin + 31) / 32, 9), dim3(32, 8), 0, stream>>>(
+      w, wsplit, cin, cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+#define TUK_F32_CASE(ID)                                                                     \
+  case ID:                                                                                   \
+    return launch<F32Cfg##ID, Load, RoundEpi, kStats, true>(x, nullptr, cin, nullptr, wsplit, \
+                                                            ld, RoundEpi{}, out, partials, n,  \
+                                                            h, wd, cin, cout, th, tw, stream);
+  switch (cfg) {
+    TUK_F32_CASE(0)
+    TUK_F32_CASE(1)
+  }
+#undef TUK_F32_CASE
+  return cudaErrorInvalidValue;
+}
+
 template <bool kPro>
 cudaError_t launch_dw(const void* x, const float* a, const float* c, const void* g, const void* z,
                       const float* coef, float* out, int n, int h, int wd, int cin, int cout,
@@ -991,6 +1508,35 @@ cudaError_t launch_dw(const void* x, const float* a, const float* c, const void*
   const int tiles_per_img = ((h + th - 1) / th) * tiles_w;
   const int blocks = ((cin + DW_CI - 1) / DW_CI) * ((cout + DW_CO - 1) / DW_CO);
   kernel<<<dim3(blocks, splits), DW_THREADS, DW_SMEM, stream>>>(
+      tmx, tmg, tmz, a, c, coef, out, h, wd, cin, cout, th, tw, tiles_w, tiles_per_img,
+      n * tiles_per_img, tiles_per_split);
+  return cudaGetLastError();
+}
+
+template <bool kPro>
+cudaError_t launch_dw_f32(const void* x, const float* a, const float* c, const void* g,
+                          const void* z, const float* coef, float* out, int n, int h, int wd,
+                          int cin, int cout, int th, int tw, int tiles_per_split, int splits,
+                          cudaStream_t stream) {
+  if (cin % 8 != 0 || cout % 8 != 0 || th < 1 || tw < 1 || th * tw > DWF_MAX_PX ||
+      (th + 2) * (tw + 2) > DWF_MAX_STAGED || tiles_per_split < 1 || splits < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmg, tmz;
+  cudaError_t err = make_nhwc_map(&tmx, x, n, h, wd, cin, 32, tw + 2, th + 2,
+                                  CU_TENSOR_MAP_SWIZZLE_128B, true);
+  if (err != cudaSuccess) return err;
+  err = make_nhwc_map(&tmg, g, n, h, wd, cout, 32, tw, th, CU_TENSOR_MAP_SWIZZLE_128B, true);
+  if (err != cudaSuccess) return err;
+  err = make_nhwc_map(&tmz, z, n, h, wd, cout, 32, tw, th, CU_TENSOR_MAP_SWIZZLE_128B, true);
+  if (err != cudaSuccess) return err;
+  auto kernel = tc_dw_f32_kernel<kPro>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  err = opt_in_smem(reinterpret_cast<const void*>(kernel), DWF_SMEM, opted_in);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (wd + tw - 1) / tw;
+  const int tiles_per_img = ((h + th - 1) / th) * tiles_w;
+  const int blocks = ((cin + DWF_CI - 1) / DWF_CI) * ((cout + DWF_CO - 1) / DWF_CO);
+  kernel<<<dim3(blocks, splits), DWF_THREADS, DWF_SMEM, stream>>>(
       tmx, tmg, tmz, a, c, coef, out, h, wd, cin, cout, th, tw, tiles_w, tiles_per_img,
       n * tiles_per_img, tiles_per_split);
   return cudaGetLastError();
@@ -1127,6 +1673,62 @@ extern "C" int tuk_tc_conv3x3_dw(const void* x, const float* a, const float* c, 
                                      tiles_per_split, splits, s)
                    : launch_dw<false>(x, a, c, g, z, coef, out, n, h, wd, cin, cout, th, tw,
                                       tiles_per_split, splits, s);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)tuk::reduce_rows(partials, dw, splits, 9LL * cin * cout, s);
+}
+
+// z[N,H,W,cout] = conv3x3_same(pro(x), w) in fp32 on the tensor cores
+// (3xTF32), pro(x) = relu(x*a + c) when a is not null, else x. x: fp32
+// [N,H,W,cin]; w: fp32 [3,3,cin,cout] HWIO; wsplit: fp32 [2][9][cout][cin]
+// scratch for its split; a/c: fp32 [cin]. With partials (fp32 [n * tiles][2]
+// [cout]), stats (fp32 [2][cout]) receives (sum z, sum z^2) summed from the
+// accumulators. cin and cout multiples of 8; (cfg, th, tw) the plan
+// (kernels/tc_conv.py tc_plan with f32). One call: the split, the conv,
+// then reduce_rows.
+extern "C" int tuk_tc_conv3x3_fwd_f32(const float* x, const float* a, const float* c,
+                                      const float* w, float* wsplit, float* z, float* partials,
+                                      float* stats, int n, int h, int wd, int cin, int cout,
+                                      int cfg, int th, int tw, void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a != nullptr) {
+    const ProLoadF32 ld{a, c};
+    err = partials ? launch_fwd_f32<ProLoadF32, true>(cfg, x, w, wsplit, ld, z, partials, n, h,
+                                                      wd, cin, cout, th, tw, s)
+                   : launch_fwd_f32<ProLoadF32, false>(cfg, x, w, wsplit, ld, z, nullptr, n, h,
+                                                       wd, cin, cout, th, tw, s);
+  } else {
+    err = partials ? launch_fwd_f32<RawLoad, true>(cfg, x, w, wsplit, RawLoad{}, z, partials, n,
+                                                   h, wd, cin, cout, th, tw, s)
+                   : launch_fwd_f32<RawLoad, false>(cfg, x, w, wsplit, RawLoad{}, z, nullptr, n,
+                                                    h, wd, cin, cout, th, tw, s);
+  }
+  if (err != cudaSuccess || partials == nullptr) return (int)err;
+  const int rows = n * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
+  return (int)tuk::reduce_rows(partials, stats, rows, 2LL * cout, s);
+}
+
+// dw[3,3,cin,cout] fp32 on the tensor cores (3xTF32), as tuk_tc_conv3x3_dw
+// with fp32 x, g and z; (th, tw, tiles_per_split, splits) from
+// kernels/tc_conv.py dw_plan with f32.
+extern "C" int tuk_tc_conv3x3_dw_f32(const void* x, const float* a, const float* c, const void* g,
+                                     const void* z, const float* coef, float* partials,
+                                     float* dw, int n, int h, int wd, int cin, int cout, int th,
+                                     int tw, int tiles_per_split, int splits, void* stream) {
+  if (cin == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0 || h == 0 || wd == 0)
+    return (int)cudaMemsetAsync(dw, 0, sizeof(float) * 9 * (size_t)cin * cout, s);
+  if (splits > 1 && partials == nullptr) return (int)cudaErrorInvalidValue;
+  float* out = splits > 1 ? partials : dw;
+  const cudaError_t err =
+      a != nullptr ? launch_dw_f32<true>(x, a, c, g, z, coef, out, n, h, wd, cin, cout, th, tw,
+                                         tiles_per_split, splits, s)
+                   : launch_dw_f32<false>(x, a, c, g, z, coef, out, n, h, wd, cin, cout, th, tw,
+                                          tiles_per_split, splits, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)tuk::reduce_rows(partials, dw, splits, 9LL * cin * cout, s);
 }

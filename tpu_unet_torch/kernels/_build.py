@@ -43,12 +43,7 @@ _SIGNATURES = {
     "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
                         ctypes.c_int),
     "tuk_double_conv_smem": ([_I], ctypes.c_size_t),
-    "tuk_conv3x3_fwd_rows": ([_I, _I, _I], ctypes.c_int),
-    "tuk_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tuk_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-    "tuk_conv3x3_dw_splits": ([_I, _I, _I, _I, _I, _I], ctypes.c_int),
-    "tuk_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-                       ctypes.c_int),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              ctypes.c_int),
     "tuk_tc_concat_conv3x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -63,6 +58,10 @@ _SIGNATURES = {
                             _P], ctypes.c_int),
     "tuk_tc_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P], ctypes.c_int),
+    "tuk_tc_conv3x3_fwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P], ctypes.c_int),
+    "tuk_tc_conv3x3_dw_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P], ctypes.c_int),
     "tuk_im2col_max_cin": ([], ctypes.c_int),
     "tuk_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),

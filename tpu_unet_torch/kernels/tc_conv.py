@@ -2,7 +2,10 @@
 ``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
 ``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``,
 and of ``fused_double_conv``, in ``csrc/tc_double_conv.cu`` (mma.sync on the
-tensor cores, TMA loads):
+tensor cores, TMA loads); and the fp32 route of ``conv3x3_fwd`` and
+``conv3x3_dw`` in 3xTF32 (each fp32 operand split into TF32 hi and lo parts,
+lo*hi + hi*lo + hi*hi summed in fp32: fp32 accuracy, which one TF32 pass
+would lose), with ``tc_plan``/``dw_plan`` given ``f32``:
 
 - one implicit-GEMM kernel over output pixels whose K chunks come from one
   input or, for the concat conv, from the skip's tensor map and then the
@@ -43,8 +46,9 @@ must fit one block's shared memory. The CPU tests check that each covers
 every pixel once.
 
 The wrappers of ``fused_conv``, ``fused_double_conv``, ``train_conv`` and
-``im2col_conv`` call the launchers here for bf16 CUDA tensors; the launchers
-never run on the CPU.
+``im2col_conv`` call the launchers here for bf16 CUDA tensors, and
+``train_conv``'s fwd and dw wrappers for fp32 ones too; the launchers never
+run on the CPU.
 """
 
 from __future__ import annotations
@@ -72,6 +76,18 @@ CONFIGS = {
 DW_CI = DW_CO = 64
 DW_MAX_PX = 256
 DW_MAX_STAGED = 400
+# The fp32 (3xTF32) routes: the forward stages KC_F32 fp32 channels a chunk
+# (the same 64 bytes a pixel) in F32_CONFIGS' blocks (the bf16 shapes, by the
+# same ids); dw's block keeps DWF_CI x DWF_CO channels over tiles of at most
+# DWF_MAX_PX pixels (DWF_MAX_STAGED with the halo).
+KC_F32 = 16
+F32_CONFIGS = {
+    0: (128, 128, 288),
+    1: (256, 64, 400),
+}
+DWF_CI = DWF_CO = 64
+DWF_MAX_PX = 128
+DWF_MAX_STAGED = 200
 
 
 # Mirrors of csrc/tc_double_conv.cu (a CPU test checks that they agree): a
@@ -121,7 +137,7 @@ class TcPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
+def tc_plan(n: int, h: int, w: int, cout: int, f32: bool = False) -> TcPlan:
     """The tile for an [n, h, w, *] -> cout conv. Cout <= 64 takes 256 pixels
     x 64 channels a block, wider outputs 128 x 128. For each width, the
     tallest rectangle whose staged tile fits the staging buffer (any shape
@@ -130,10 +146,11 @@ def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
     16 / bn). A staged pixel (64 bytes a chunk from L2) costs about 16 / bn of
     an MMA row's 9 x 32 x bn multiply-adds, so the halo decides only between
     tilings of about equal MMA work (16 x 16 rather than 4 x 64 at 572²).
+    ``f32``: the fp32 kernel's configurations (``F32_CONFIGS``, ``KC_F32``).
     Cached: the search is a Python loop over up to 256 widths, which would
     otherwise cost more host time per call than the kernel takes."""
     cfg = 1 if cout <= 64 else 0
-    bm, bn, max_staged = CONFIGS[cfg]
+    bm, bn, max_staged = (F32_CONFIGS if f32 else CONFIGS)[cfg]
     best = None
     for tw in range(1, min(w, bm) + 1):
         th = min(bm // tw, h, max_staged // (tw + 2) - 2)
@@ -145,8 +162,8 @@ def tc_plan(n: int, h: int, w: int, cout: int) -> TcPlan:
         if best is None or key < best[0]:
             best = (key, th, tw)
     _, th, tw = best
-    return TcPlan(cfg, bm, bn, KC, th, tw, math.ceil(h / th), math.ceil(w / tw),
-                  math.ceil(cout / bn), n)
+    return TcPlan(cfg, bm, bn, KC_F32 if f32 else KC, th, tw, math.ceil(h / th),
+                  math.ceil(w / tw), math.ceil(cout / bn), n)
 
 
 class DwPlan(NamedTuple):
@@ -180,7 +197,8 @@ class DwPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def dw_plan(n: int, h: int, w: int, cin: int, cout: int, num_sms: int) -> DwPlan:
+def dw_plan(n: int, h: int, w: int, cin: int, cout: int, num_sms: int,
+            f32: bool = False) -> DwPlan:
     """The tile and the splits of an [n, h, w, cin] x [n, h, w, cout] dw.
     Tile: for each width, the tallest rectangle of at most DW_MAX_PX pixels
     whose staged halo fits; among those the least cost per image: tiles x (3
@@ -188,21 +206,26 @@ def dw_plan(n: int, h: int, w: int, cin: int, cout: int, num_sms: int) -> DwPlan
     pixels, for the x box). Splits: the count, up to two waves of blocks
     (one an SM), whose last wave is fullest (the fewest blocks' time per
     split's share of the work), the fewest among equals: each split beyond
-    the first adds a [9, cin, cout] fp32 partial for reduce_rows. Cached, as
+    the first adds a [9, cin, cout] fp32 partial for reduce_rows. ``f32``:
+    the fp32 kernel's tile limits (``DWF_*``) and k8 steps. Cached, as
     tc_plan."""
+    if f32:
+        max_px, max_staged, kstep, bci, bco = DWF_MAX_PX, DWF_MAX_STAGED, 8, DWF_CI, DWF_CO
+    else:
+        max_px, max_staged, kstep, bci, bco = DW_MAX_PX, DW_MAX_STAGED, 16, DW_CI, DW_CO
     best = None
-    for tw in range(1, min(w, DW_MAX_PX) + 1):
-        th = min(DW_MAX_PX // tw, h, DW_MAX_STAGED // (tw + 2) - 2)
+    for tw in range(1, min(w, max_px) + 1):
+        th = min(max_px // tw, h, max_staged // (tw + 2) - 2)
         if th < 1:
             continue
-        kpad = -(-th * tw // 16) * 16
+        kpad = -(-th * tw // kstep) * kstep
         tiles = math.ceil(h / th) * math.ceil(w / tw)
         key = (tiles * (3 * kpad + (th + 2) * (tw + 2)), -tw)
         if best is None or key < best[0]:
             best = (key, th, tw)
     _, th, tw = best
     tiles_h, tiles_w = math.ceil(h / th), math.ceil(w / tw)
-    ci_blocks, co_blocks = math.ceil(cin / DW_CI), math.ceil(cout / DW_CO)
+    ci_blocks, co_blocks = math.ceil(cin / bci), math.ceil(cout / bco)
     total = n * tiles_h * tiles_w
     blocks = ci_blocks * co_blocks
     most = max(1, min(total, math.ceil(2 * num_sms / blocks)))
@@ -337,10 +360,14 @@ def _on_device(t: torch.Tensor):
     return torch.cuda.device(t.device)
 
 
-def _check_bf16(name, *tensors):
+def _check_dtype(name, *tensors, fp32: bool = False):
+    """The launcher's checks: one CUDA device and dtype; bfloat16, or with
+    ``fp32`` also float32 (the routes with a 3xTF32 kernel)."""
     _build.validate(name, *tensors)
-    if tensors[0].dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the tensor-core route takes bfloat16, got {tensors[0].dtype}")
+    if tensors[0].dtype == torch.bfloat16 or (fp32 and tensors[0].dtype == torch.float32):
+        return
+    takes = "bfloat16 or float32" if fp32 else "bfloat16"
+    raise ValueError(f"{name}: the tensor-core route takes {takes}, got {tensors[0].dtype}")
 
 
 class _Affine(NamedTuple):
@@ -356,7 +383,7 @@ class _Affine(NamedTuple):
 
 
 def _affine(name, xs, w, scale, bias, out_dtype) -> _Affine:
-    _check_bf16(name, *xs, w)
+    _check_dtype(name, *xs, w)
     n, h, wd, _ = xs[0].shape
     cout8 = _ceil8(w.shape[3])
     xs, wp = _padded_sources(xs, w, cout8)
@@ -422,16 +449,18 @@ def im2col_conv3x3(x, w, scale, bias, apply_relu: bool, out_dtype) -> torch.Tens
 
 
 def conv3x3_fwd(x, w, a, c, stats: bool):
-    """z = conv3x3_same(relu(x*a + c) or x, w) in bf16 on the tensor cores;
-    with ``stats`` also the fp32 [2, Cout] (sum z, sum z^2) of the rounded z.
-    a, c: fp32 [Cin] or None."""
+    """z = conv3x3_same(relu(x*a + c) or x, w) on the tensor cores, in bf16 or
+    in fp32 (3xTF32: the weights split per call into TF32 hi and lo planes,
+    the activations in registers); with ``stats`` also the fp32 [2, Cout]
+    (sum z, sum z^2) of the rounded z. a, c: fp32 [Cin] or None."""
     name = "conv3x3_fwd"
-    _check_bf16(name, x, w)
+    _check_dtype(name, x, w, fp32=True)
+    f32 = x.dtype == torch.float32
     n, h, wd, _ = x.shape
     cout = w.shape[3]
     cout8 = _ceil8(cout)
     xp, wp, ap, cp = _padded(x, w, cout8, (a, c))
-    plan = tc_plan(n, h, wd, cout8)
+    plan = tc_plan(n, h, wd, cout8, f32)
     z = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
     partials = st = None
     if stats:
@@ -441,9 +470,17 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
     with _on_device(x):
-        err = lib.tuk_tc_conv3x3_fwd(xp.data_ptr(), ptr(ap), ptr(cp), wp.data_ptr(),
-                                     z.data_ptr(), ptr(partials), ptr(st), n, h, wd, xp.shape[3],
-                                     cout8, plan.cfg, plan.th, plan.tw, _build.stream(x))
+        if f32:
+            wsplit = torch.empty((2, 9, cout8, xp.shape[3]), dtype=torch.float32, device=x.device)
+            err = lib.tuk_tc_conv3x3_fwd_f32(
+                xp.data_ptr(), ptr(ap), ptr(cp), wp.data_ptr(), wsplit.data_ptr(), z.data_ptr(),
+                ptr(partials), ptr(st), n, h, wd, xp.shape[3], cout8, plan.cfg, plan.th, plan.tw,
+                _build.stream(x))
+        else:
+            err = lib.tuk_tc_conv3x3_fwd(xp.data_ptr(), ptr(ap), ptr(cp), wp.data_ptr(),
+                                         z.data_ptr(), ptr(partials), ptr(st), n, h, wd,
+                                         xp.shape[3], cout8, plan.cfg, plan.th, plan.tw,
+                                         _build.stream(x))
     _build.check(err, name)
     if cout8 != cout:
         z = z[..., :cout].contiguous()
@@ -457,7 +494,7 @@ def conv3x3_dx(g, z, coef, wt, out_dtype) -> torch.Tensor:
     fp32 [3, C]; wt: bf16 [3,3,C,Cin] (the forward weights flipped and
     transposed) -> [N,H,W,Cin] in ``out_dtype`` (bf16 or fp32)."""
     name = "conv3x3_dx"
-    _check_bf16(name, g, z, wt)
+    _check_dtype(name, g, z, wt)
     n, h, wd, _ = g.shape
     cin = wt.shape[3]
     cin8 = _ceil8(cin)
@@ -479,10 +516,12 @@ def conv3x3_dx(g, z, coef, wt, out_dtype) -> torch.Tensor:
 def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
     """dw [3,3,Cin,Cout] fp32 on the tensor cores: the sum over N,H,W of
     prologue(x) patches times dz = coef[0]*g + coef[1]*z + coef[2], both built
-    in shared memory. x: bf16 [N,H,W,Cin]; g, z: bf16 [N,H,W,Cout]; coef:
-    fp32 [3, Cout]; a, c: fp32 [Cin] or None."""
+    in shared memory. x: bf16 or fp32 (3xTF32, ``tc_dw_f32_kernel``)
+    [N,H,W,Cin]; g, z: [N,H,W,Cout] of x's dtype; coef: fp32 [3, Cout]; a, c:
+    fp32 [Cin] or None."""
     name = "conv3x3_dw"
-    _check_bf16(name, x, g, z)
+    _check_dtype(name, x, g, z, fp32=True)
+    f32 = x.dtype == torch.float32
     n, h, wd, cin = x.shape
     cout = g.shape[3]
     cin8, cout8 = _ceil8(cin), _ceil8(cout)
@@ -495,7 +534,7 @@ def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
         g, z = _pad_last(g, cout8).contiguous(), _pad_last(z, cout8).contiguous()
         coef = _pad_last(coef, cout8).contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = dw_plan(n, h, wd, cin8, cout8, sms)
+    plan = dw_plan(n, h, wd, cin8, cout8, sms, f32)
     dw = torch.empty((3, 3, cin8, cout8), dtype=torch.float32, device=x.device)
     partials = None
     if plan.splits > 1:
@@ -506,10 +545,11 @@ def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
     ops = [None if t is None else _aligned(t) for t in (x, a, c, g, z, coef)]
     lib = _build.library()
     with _on_device(x):
-        err = lib.tuk_tc_conv3x3_dw(*(None if t is None else t.data_ptr() for t in ops),
-                                    None if partials is None else partials.data_ptr(),
-                                    dw.data_ptr(), n, h, wd, cin8, cout8, plan.th, plan.tw,
-                                    plan.tiles_per_split, plan.splits, _build.stream(x))
+        launch = lib.tuk_tc_conv3x3_dw_f32 if f32 else lib.tuk_tc_conv3x3_dw
+        err = launch(*(None if t is None else t.data_ptr() for t in ops),
+                     None if partials is None else partials.data_ptr(), dw.data_ptr(), n, h, wd,
+                     cin8, cout8, plan.th, plan.tw, plan.tiles_per_split, plan.splits,
+                     _build.stream(x))
     _build.check(err, name)
     return dw if (cin8, cout8) == (cin, cout) else dw[:, :, :cin, :cout].contiguous()
 
@@ -530,7 +570,7 @@ def double_conv(x, w1, s1, b1, w2, s2, b2, pool: bool):
     zero-padded to 8, Cmid to 32 (zero w1 columns, scale and bias give mid
     channels of relu(0) = 0, against zero w2 rows), Cout to 8."""
     name = "fused_double_conv"
-    _check_bf16(name, x, w1, w2)
+    _check_dtype(name, x, w1, w2)
     n, h, wd, cin = x.shape
     cmid, cout = w1.shape[3], w2.shape[3]
     cin8, cmid32, cout8 = _ceil8(cin), -(-cmid // 32) * 32, _ceil8(cout)

@@ -3,20 +3,25 @@
 ``conv3x3_dw``, replacing the Pallas kernels at ``:128``, ``:289`` and
 ``:441``) as hand-written CUDA kernels. In bf16 all three run on the tensor
 cores (``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``: dx with the
-forward's mainloop and a dz loader, dw with a 9-tap GEMM over pixels); in
-fp32 on the CUDA cores (``csrc/train_conv.cu``). All are bounded by their
+forward's mainloop and a dz loader, dw with a 9-tap GEMM over pixels). In
+fp32, fwd and dw run there too, in 3xTF32: each fp32 operand is split into a
+TF32 high part and the TF32 rounding of the rest, and lo*hi + hi*lo + hi*hi
+are summed in fp32, about 2^-21 relative per product, so the fp32 results
+keep fp32 accuracy (one TF32 pass, about 2^-11, would not); fp32 dx stays on
+the CUDA cores (``csrc/train_conv.cu``). All are bounded by their
 2*9*Cin*Cout operations a pixel, not by bytes, except at level 0 where the
 two about match. Each source's header says how the design answers and what
 was tried and dropped.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
-launch raises, and a bf16 CUDA tensor goes to the tensor-core launcher or
-nowhere. ``<wrapper>.launches`` counts the wrapper's calls that launched,
-and ``<wrapper>.tc_launches`` those on the tensor cores (counted after the
-launcher returns); ``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` may
-make two or three kernel launches per call (the conv, then the fixed-order
-sum of its fp32 partials).
+launch raises, and a CUDA tensor of fwd or dw, or a bf16 one of dx, goes to
+the tensor-core launcher or nowhere. ``<wrapper>.launches`` counts the
+wrapper's calls that launched, and ``<wrapper>.tc_launches`` those on the
+tensor cores (counted after the launcher returns); one call may make
+several kernel launches (fp32 ``conv3x3_fwd`` first splits its weights;
+``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` end with the fixed-order
+sum of their fp32 partials).
 
 Numerics, as in the Pallas kernels: fp32 accumulation; the prologue
 relu(x*a + c) computed in fp32 and rounded to x's dtype; the cotangent
@@ -86,11 +91,6 @@ def conv3x3_dw_plain(x, g, z, coef, a=None, c=None):
     return torch.stack(taps).reshape(3, 3, x.shape[3], g.shape[3])
 
 
-def _ptr(t):
-    """A tensor's device pointer, or None (NULL) for an absent operand."""
-    return None if t is None else t.data_ptr()
-
-
 def _check_nhwc(name, *tensors):
     for t in tensors:
         if t.ndim != 4:
@@ -111,34 +111,18 @@ def conv3x3_fwd(x, w, a=None, c=None, *, stats: bool = False):
     if x.device.type == "cpu":
         return conv3x3_fwd_plain(x, w, a, c, stats=stats)
     name = "conv3x3_fwd"
-    dtype = _build.validate(name, x, w)
+    _build.validate(name, x, w)
     _check_nhwc(name, x)
-    n, h, wd, cin = x.shape
+    cin = x.shape[3]
     if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"{name}: weight must be [3,3,{cin},Cout], got {tuple(w.shape)}")
     if (a is None) != (c is None):
         raise ValueError(f"{name}: the prologue needs both a and c")
-    cout = w.shape[3]
     av = None if a is None else _build.f32_vector(a, cin, x, name)
     cv = None if c is None else _build.f32_vector(c, cin, x, name)
-    if dtype == _build.DTYPE_BF16:
-        out = tc_conv.conv3x3_fwd(x, w, av, cv, stats)
-        _count(conv3x3_fwd, tc=True)
-        return out
-    z = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    partials = st = None
-    if stats:
-        rows = lib.tuk_conv3x3_fwd_rows(n, h, wd)
-        partials = torch.empty((rows, 2, cout), dtype=torch.float32, device=x.device)
-        st = torch.zeros((2, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.tuk_conv3x3_fwd(x.data_ptr(), _ptr(av), _ptr(cv), w.data_ptr(), z.data_ptr(),
-                                  _ptr(partials), _ptr(st), n, h, wd, cin, cout, dtype,
-                                  _build.stream(x))
-    _build.check(err, name)
-    _count(conv3x3_fwd)
-    return (z, st) if stats else z
+    out = tc_conv.conv3x3_fwd(x, w, av, cv, stats)
+    _count(conv3x3_fwd, tc=True)
+    return out
 
 
 def conv3x3_dx(g, z, coef, w, *, out_dtype=None):
@@ -187,9 +171,9 @@ def conv3x3_dw(x, g, z, coef, a=None, c=None):
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, g, z, coef, a, c)
     name = "conv3x3_dw"
-    dtype = _build.validate(name, x, g, z)
+    _build.validate(name, x, g, z)
     _check_nhwc(name, x, g, z)
-    n, h, wd, cin = x.shape
+    cin = x.shape[3]
     if g.shape[:3] != x.shape[:3] or z.shape != g.shape:
         raise ValueError(f"{name}: x, g, z must share N,H,W and g, z their shape")
     if (a is None) != (c is None):
@@ -200,21 +184,8 @@ def conv3x3_dw(x, g, z, coef, a=None, c=None):
     cf = coef.to(device=x.device, dtype=torch.float32).contiguous()
     av = None if a is None else _build.f32_vector(a, cin, x, name)
     cv = None if c is None else _build.f32_vector(c, cin, x, name)
-    if dtype == _build.DTYPE_BF16:
-        dw = tc_conv.conv3x3_dw(x, g, z, cf, av, cv)
-        _count(conv3x3_dw, tc=True)
-        return dw
-    lib = _build.library()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = lib.tuk_conv3x3_dw_splits(n, h, wd, cin, cout, sms)
-    partials = torch.empty((max(splits, 1), 9, cin, cout), dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.tuk_conv3x3_dw(x.data_ptr(), _ptr(av), _ptr(cv), g.data_ptr(), z.data_ptr(),
-                                 cf.data_ptr(), partials.data_ptr(), dw.data_ptr(), n, h, wd,
-                                 cin, cout, sms, dtype, _build.stream(x))
-    _build.check(err, name)
-    _count(conv3x3_dw)
+    dw = tc_conv.conv3x3_dw(x, g, z, cf, av, cv)
+    _count(conv3x3_dw, tc=True)
     return dw
 
 
