@@ -19,17 +19,18 @@ Phases, each of which exits non-zero on failure, each with its time:
    least time the card could take for its bytes or operations). The
    folded-BN convs run on the tensor cores in bf16 (``csrc/tc_conv.cu``;
    the double conv ``csrc/tc_double_conv.cu``, its pool from the same
-   epilogue), on the CUDA cores in fp32; a second bf16 call of the concat
-   and the double conv must repeat the first bit for bit, and the double
-   conv's pooled output must equal ``max_pool2x2_plain`` of its own output.
+   epilogue), the concat conv in fp32 too (3xTF32), the single and the
+   double conv on the CUDA cores in fp32; a second call of the concat (both
+   dtypes) and of the bf16 double conv must repeat the first bit for bit,
+   and the double conv's pooled output must equal ``max_pool2x2_plain`` of
+   its own output.
    Beside the double conv's time, in both dtypes: two compositions, two
    ``fused_conv3x3_scale_relu`` calls (mid through device memory; tensor
    cores in bf16, CUDA cores in fp32) and two cuDNN convs with a ReLU
    between.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
-   tensor cores in bf16 (``csrc/tc_conv.cu``); in fp32, conv3x3_fwd and
-   conv3x3_dw there too in 3xTF32, conv3x3_dx on the CUDA cores; a
+   tensor cores (``csrc/tc_conv.cu``), in bf16 and in fp32 (3xTF32); a
    second call of each must repeat the first bit for bit. The main bf16
    conv3x3_fwd case's time is split (``fwd_split``): without and with its
    prologue and stats, against the library call.
@@ -46,17 +47,17 @@ Phases, each of which exits non-zero on failure, each with its time:
    forward (``--kernels torch``) on the card; check that every kernel was
    launched by the served forwards (the 8 single, 4 concat and 3 double
    convs of each on the tensor cores, the double convs writing 3 of the 4
-   pools, one ``max_pool2x2``); print ``/metrics``; time the bf16 and fp32
-   forwards, kernels against plain.
+   pools, one ``max_pool2x2``); print ``/metrics``; hold the fp32 forward
+   to the plain one, with its 4 concat convs on the tensor cores; time the
+   bf16 and fp32 forwards, kernels against plain.
 5. Train the same full-width model from seed 0 with the port's
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
    with ``kernels="cuda"`` against ``kernels=None`` (library convs under
    autograd), comparing loss, gradients, grad norm and BN running stats;
    then time the 572x572 batch-16 step of both, in bf16 and in fp32, with
    their peak memory. Every ``"cuda"`` step must launch each train kernel as
-   often as the network has convs for it, every plain step none; every bf16
-   call of the three on the tensor cores, and in fp32 every conv3x3_fwd and
-   conv3x3_dw call (3xTF32) and no conv3x3_dx one. Then a
+   often as the network has convs for it, every plain step none; every
+   call of the three on the tensor cores, in bf16 and in fp32. Then a
    ``torch.profiler`` split of one 572x572 batch-16 ``kernels="cuda"`` step
    by kernel, in bf16 and in fp32.
 6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
@@ -115,6 +116,8 @@ PER_FORWARD = {
 # csrc/tc_double_conv.cu), and the double convs that wrote their pool.
 TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8, "fused_conv3x3_concat_scale_relu.tc": 4,
                   "fused_double_conv.tc": 3, "fused_double_conv.pool": 3}
+# The fp32 forward's concat convs, every one on the tensor cores (3xTF32).
+FP32_CONCAT_PER_FORWARD = 4
 SOURCES = {
     "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                  "tpu_unet/kernels/fused_conv.py:75"),
@@ -148,11 +151,10 @@ TRAIN_SOURCES = {
 # the count is of calls.
 PER_STEP = {"conv3x3_fwd": 18, "conv3x3_dx": 17, "conv3x3_dw": 18}
 # Of those, the calls of a step that must run on the tensor cores, by dtype:
-# all of a bf16 step's; in fp32, fwd and dw (3xTF32), dx stays on the CUDA
-# cores.
+# all of them in both (fp32 in 3xTF32).
 TC_PER_STEP = {
     "bf16": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
-    "fp32": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 0, "conv3x3_dw.tc": 18},
+    "fp32": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
 }
 # Which implementation runs each kernel in each dtype.
 _CC = "CUDA cores, fp32 FMA"
@@ -161,14 +163,14 @@ _TF32X3 = ("tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) +
            "(tpu_unet_torch/csrc/tc_conv.cu)")
 IMPL = {
     "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
-    "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
+    "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": _TF32X3},
     "fused_double_conv": {
         "bf16": "tensor cores, mma.sync + TMA, mid in shared memory, pool in the epilogue "
                 "(tpu_unet_torch/csrc/tc_double_conv.cu)",
         "fp32": f"{_CC} (csrc/fused_double_conv.cu), pool csrc/pooling.cu"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": _TF32X3},
-    "conv3x3_dx": {"bf16": _TC, "fp32": f"{_CC} (csrc/train_conv.cu)"},
+    "conv3x3_dx": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dw": {"bf16": _TC, "fp32": _TF32X3},
     "im2col_conv3x3": {"bf16": _TC, "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
 }
@@ -398,8 +400,9 @@ def kernel_cases(gen):
     return cases
 
 
-# Kernels whose bf16 result phase 2 also holds to a second call, bit for bit.
-REPEAT_BF16 = ("fused_conv3x3_concat_scale_relu", "fused_double_conv")
+# Kernels whose result phase 2 also holds to a second call, bit for bit, by
+# dtype.
+REPEAT = {"fused_conv3x3_concat_scale_relu": ("bf16", "fp32"), "fused_double_conv": ("bf16",)}
 
 
 def dc_pairs(x, w1, s1, b1, w2, s2, b2) -> dict[str, float]:
@@ -462,7 +465,8 @@ def phase_kernels() -> dict[str, dict]:
                 ok = max_abs == 0.0  # a max selects an input: exact
             ok = ok and pool_ok
             repeat = ""
-            if name in REPEAT_BF16 and dtype == torch.bfloat16:
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            if dt in REPEAT.get(name, ()):
                 again = fn(*args)
                 if pooled is not None:  # the double conv: y and its pool
                     same = torch.equal(got, again[0]) and torch.equal(pooled, again[1])
@@ -476,7 +480,6 @@ def phase_kernels() -> dict[str, dict]:
             plain_ms = time_ms(lambda: plain(*args))
             library_ms = time_ms(library(*args)) if library else None
             bound_ms, bound_by = bound(*work(*args), dtype)
-            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
             tol = ("exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|") + repeat
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
             pairs = {}
@@ -936,15 +939,17 @@ def phase_train() -> tuple[dict[str, int], dict]:
 # Kernel-name groups of the step profile, first match wins. The three
 # tensor-core kernels of a bf16 step: dx is tc_conv_kernel with the DzLoad
 # loader (a template argument in the profiler's name), the fwd the others.
-# An fp32 step's: the fwd is tc_conv_kernel with the Tf32x3Op operands
-# after split_weights_kernel, dw tc_dw_f32_kernel; its dx is tconv_kernel
-# on the CUDA cores.
+# An fp32 step's: dx is tc_conv_kernel with the DzLoadF32 loader and the fwd
+# the other tc_conv_kernel with the Tf32x3Op operands, each after its
+# weight split; dw is tc_dw_f32_kernel. "dzloadf32" comes before "dzload",
+# which it contains, and before "tf32x3op", which its name also holds.
 PROFILE_GROUPS = (
+    ("tc_conv_kernel<DzLoadF32> (conv3x3_dx fp32, 3xTF32)", "dzloadf32"),
     ("tc_conv_kernel<DzLoad> (conv3x3_dx, tensor cores)", "dzload"),
     ("tc_conv_kernel<Tf32x3Op> (conv3x3_fwd fp32, 3xTF32)", "tf32x3op"),
+    ("split_dx_weights_kernel (conv3x3_dx fp32)", "split_dx_weights_kernel"),
     ("split_weights_kernel (conv3x3_fwd fp32)", "split_weights_kernel"),
     ("tc_dw_f32_kernel (conv3x3_dw fp32, 3xTF32)", "tc_dw_f32_kernel"),
-    ("tconv_kernel (conv3x3_dx fp32, CUDA cores)", "tconv_kernel"),
     ("tc_dw_kernel (conv3x3_dw, tensor cores)", "tc_dw_kernel"),
     ("tc_conv_kernel (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
     ("reduce_rows", "reduce_rows"),
@@ -1458,12 +1463,21 @@ def phase_serve(workdir: Path) -> dict[str, int]:
         f"{name}={(t[i + 1] - t[i]) * 1e3:.2f}" for i, name in enumerate(steps))
         + f" total={(t[-1] - t[0]) * 1e3:.2f}")
 
-    # The whole forward in fp32, kernels vs plain, and both forwards' times
-    # (bf16 and fp32, in turns: torch, cuda, cuda, torch).
+    # The whole forward in fp32, kernels vs plain, its four concat convs on
+    # the tensor cores (3xTF32), and both forwards' times (bf16 and fp32, in
+    # turns: torch, cuda, cuda, torch).
     x = torch.from_numpy(preprocess(Image.open(paths[1]), 0.5))[None].cuda()
     folded = tree_map(lambda t: t.cuda(), fold_bn(params, state, config))
     with torch.inference_mode():
+        K.reset_launch_counts()
         got = unet_infer_apply(folded, x, config=config, backend="cuda")
+        torch.cuda.synchronize()
+        fp32_counts = K.launch_counts()
+        log(f"launches in one fp32 forward: {json.dumps(fp32_counts)}")
+        for name in ("fused_conv3x3_concat_scale_relu", "fused_conv3x3_concat_scale_relu.tc"):
+            if fp32_counts[name] != FP32_CONCAT_PER_FORWARD:
+                failures.append(f"fp32 forward: {name} {fp32_counts[name]}, expected "
+                                f"{FP32_CONCAT_PER_FORWARD}")
         ref = unet_infer_apply(folded, x, config=config, backend="torch")
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()

@@ -12,7 +12,9 @@ the kernel cannot run:
   ``im2col_conv3x3_plain`` and the Pallas im2col kernel (which sums the K =
   9·Cin products tap-major, the kernel chunk-major);
 - the wrapper's channel padding to 8 per source keeps the function;
-- the new launchers refuse CPU and fp32 tensors. Their C interface, their
+- the launchers refuse CPU tensors, im2col's fp32 ones and the concat
+  conv's of any type but bf16 and fp32 (fp32 runs in 3xTF32,
+  ``tests/test_torch_tc_fp32_dx_concat.py``). Their C interface, their
   routing and their ``.tc`` counts are checked with the other tensor-core
   routes' in ``tests/test_torch_tc_conv.py``.
 
@@ -151,7 +153,7 @@ def test_tc_concat_and_im2col_launchers_refuse_cpu_and_fp32_tensors(monkeypatch)
         tc_conv.im2col_conv3x3(a, w[:, :, :8], one, zero, False, BF)
     monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_F32)
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built a library"))
-    with pytest.raises(ValueError, match="bfloat16"):
-        tc_conv.fused_conv3x3_concat(a.float(), a.float(), w.float(), one, zero, True)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tc_conv.fused_conv3x3_concat(a.half(), a.half(), w.half(), one, zero, True)
     with pytest.raises(ValueError, match="bfloat16"):
         tc_conv.im2col_conv3x3(a.float(), w[:, :, :8].float(), one, zero, False, torch.float32)

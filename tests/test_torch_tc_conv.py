@@ -319,9 +319,9 @@ class _Card:
             record("im2col_conv3x3")
             return torch.empty(x.shape[:3] + (w.shape[3],), dtype=out_dtype, device=x.device)
 
-        def launch_dx(g, z, coef, wt, out_dtype):
+        def launch_dx(g, z, coef, w, out_dtype):  # w: the forward weights [3,3,Cin,C]
             record("conv3x3_dx")
-            return torch.empty(g.shape[:3] + (wt.shape[3],), dtype=out_dtype, device=g.device)
+            return torch.empty(g.shape[:3] + (w.shape[2],), dtype=out_dtype, device=g.device)
 
         def launch_dw(x, g, z, coef, a, c):
             record("conv3x3_dw")
@@ -389,9 +389,10 @@ def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     if dtype == torch.bfloat16:
         assert card.tc.count("conv3x3_fwd") == card.tc.count("im2col_conv3x3") == 2
         assert card.tc.count("fused_conv3x3_concat_scale_relu") == 1 and card.lib == []
-    else:  # fp32: conv3x3_fwd on the tensor cores (3xTF32), the others on the CUDA cores
-        assert card.tc == ["conv3x3_fwd"] * 2 and card.lib.count("tuk_conv3x3") == 2
-        assert card.lib.count("tuk_im2col_conv3x3") == 2
+    else:  # fp32: the concat conv and conv3x3_fwd on the tensor cores (3xTF32), the others
+        # on the CUDA cores
+        assert card.tc == ["fused_conv3x3_concat_scale_relu"] + ["conv3x3_fwd"] * 2
+        assert card.lib.count("tuk_conv3x3") == 1 and card.lib.count("tuk_im2col_conv3x3") == 2
 
 
 def test_a_failed_tensor_core_launch_counts_nothing(card):

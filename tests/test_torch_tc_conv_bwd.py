@@ -290,9 +290,9 @@ def _dw(g, coef, w):
 
 
 # (launcher, the dtype it refuses past the device check, the error's words):
-# dx keeps bf16 alone; dw takes fp32 too (3xTF32) and refuses any other type.
+# dx and dw take fp32 too (3xTF32) and refuse any other type.
 @pytest.mark.parametrize("launch,refused,match", [
-    (_dx, torch.float32, "takes bfloat16, got"),
+    (_dx, torch.float16, "bfloat16 or float32"),
     (_dw, torch.float16, "bfloat16 or float32"),
 ], ids=["conv3x3_dx", "conv3x3_dw"])
 def test_tc_bwd_launchers_refuse_cpu_and_fp32_tensors(monkeypatch, launch, refused, match):
@@ -330,18 +330,14 @@ def _bwd_calls(dtype):
 
 @pytest.mark.parametrize("dtype", [BF, torch.float32], ids=["bf16", "fp32"])
 def test_bwd_tc_counts_follow_the_tensor_core_launcher(card, dtype):
-    """bf16 dx and dw count ``.tc`` once per return of their tensor-core
-    launcher and never reach the CUDA-core library; in fp32, dw does the
-    same (3xTF32) and dx runs on the CUDA cores and counts no ``.tc``."""
+    """dx and dw count ``.tc`` once per return of their tensor-core launcher
+    and never reach the CUDA-core library, in bf16 and in fp32 (3xTF32)."""
     _bwd_calls(dtype)
     counts = K.launch_counts()
     assert counts["conv3x3_dx"] == counts["conv3x3_dw"] == 2
     for name in ("conv3x3_dx", "conv3x3_dw"):
         assert counts[f"{name}.tc"] == card.tc.count(name), (counts, card.tc)
-    if dtype == BF:
-        assert card.tc == ["conv3x3_dx"] * 2 + ["conv3x3_dw"] * 2 and card.lib == []
-    else:
-        assert card.tc == ["conv3x3_dw"] * 2 and card.lib == ["tuk_conv3x3_dx"] * 2
+    assert card.tc == ["conv3x3_dx"] * 2 + ["conv3x3_dw"] * 2 and card.lib == []
 
 
 def test_a_failed_bwd_tensor_core_launch_counts_nothing(card):

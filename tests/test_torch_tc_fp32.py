@@ -16,9 +16,10 @@
   which is why the kernels take three;
 - the Python mirrors of the fp32 constants match the source, and the fp32
   tile and dw plans fit the 227 KB of shared memory at the step's shapes;
-- meta tensors on recording launchers: fp32 fwd and dw reach the
-  tensor-core launchers and count ``.tc``, fp32 dx does not; the launchers
-  hand the C functions the fp32 plans and a weight-split buffer.
+- meta tensors on recording launchers: fp32 fwd, dw and dx reach the
+  tensor-core launchers and count ``.tc``; the launchers hand the C
+  functions the fp32 plans and a weight-split buffer (dx's and the concat
+  conv's in ``tests/test_torch_tc_fp32_dx_concat.py``).
 
 Tolerances, as ``chip_smoke.py`` holds the kernels: z within 1e-4 + 1e-4 *
 |plain| (the same sums of products to about 2^-21 each, in another order,
@@ -377,8 +378,8 @@ def card(monkeypatch):
 
 def test_fp32_fwd_and_dw_count_tensor_core_launches(card):
     """On meta tensors standing in for CUDA ones: fp32 fwd (with and
-    without its stats and prologue) and dw reach the tensor-core launchers
-    and count ``.tc``; fp32 dx reaches the CUDA-core library and does not."""
+    without its stats and prologue), dw and dx reach the tensor-core
+    launchers and count ``.tc``; none reaches the CUDA-core library."""
     x = torch.empty(1, 5, 6, 8, device="meta")
     g = torch.empty(1, 5, 6, 16, device="meta")
     w = torch.empty(3, 3, 8, 16, device="meta")
@@ -388,10 +389,10 @@ def test_fp32_fwd_and_dw_count_tensor_core_launches(card):
     K.conv3x3_dw(x, g, g, coef, torch.ones(8), torch.zeros(8))
     K.conv3x3_dx(g, g, coef, w)
     counts = K.launch_counts()
-    assert card.tc == ["conv3x3_fwd"] * 2 + ["conv3x3_dw"] and card.lib == ["tuk_conv3x3_dx"]
+    assert card.tc == ["conv3x3_fwd"] * 2 + ["conv3x3_dw", "conv3x3_dx"] and card.lib == []
     assert counts["conv3x3_fwd"] == counts["conv3x3_fwd.tc"] == 2
     assert counts["conv3x3_dw"] == counts["conv3x3_dw.tc"] == 1
-    assert counts["conv3x3_dx"] == 1 and counts["conv3x3_dx.tc"] == 0
+    assert counts["conv3x3_dx"] == counts["conv3x3_dx.tc"] == 1
 
 
 class _Recorder:

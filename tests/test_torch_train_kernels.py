@@ -192,13 +192,12 @@ def test_plain_versions_run_in_float64():
     assert K.conv3x3_dw(x, z, z, coef).dtype == torch.float64
 
 
-# The train kernels' exported C functions, by source: fp32 dx on the CUDA
-# cores; fp32 fwd and dw on the tensor cores (3xTF32), whose CUDA-core
-# exports are gone.
-TRAIN_EXPORTS = [("train_conv.cu", "tuk_conv3x3_dx"), ("tc_conv.cu", "tuk_tc_conv3x3_fwd_f32"),
+# The train kernels' fp32 exported C functions, by source: fwd, dx and dw
+# on the tensor cores (3xTF32), whose CUDA-core exports are gone.
+TRAIN_EXPORTS = [("tc_conv.cu", "tuk_tc_conv3x3_dx_f32"), ("tc_conv.cu", "tuk_tc_conv3x3_fwd_f32"),
                  ("tc_conv.cu", "tuk_tc_conv3x3_dw_f32")]
 REMOVED_EXPORTS = ("tuk_conv3x3_fwd", "tuk_conv3x3_fwd_rows", "tuk_conv3x3_dw",
-                   "tuk_conv3x3_dw_splits")
+                   "tuk_conv3x3_dw_splits", "tuk_conv3x3_dx")
 
 
 @pytest.mark.parametrize("source,name", TRAIN_EXPORTS)

@@ -3,18 +3,19 @@
 trees of this repository on one CUDA card: the split of the level-0
 ``conv3x3_fwd`` (``chip_smoke.fwd_split``), and the back-to-back and device
 times of every phase-2b ``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``
-case in bf16 and of its fp32 ``conv3x3_fwd`` and ``conv3x3_dw`` (3xTF32
-where the tree has that route, the CUDA-core kernels where it does not),
-every served ``fused_conv3x3_scale_relu`` and
-``fused_conv3x3_concat_scale_relu`` shape, the three served
+case in bf16 and in fp32 (3xTF32 where the tree has that route, the
+CUDA-core kernels where it does not), every served
+``fused_conv3x3_scale_relu`` and ``fused_conv3x3_concat_scale_relu`` shape
+in bf16 and every served concat shape in fp32, the three served
 ``fused_double_conv`` shapes (without the pooled output, which the parent's
 wrapper may lack), and the two 572x572 ``im2col_conv3x3`` cases of phase 2c.
 Then the 572x572 batch-16 train step (``make_train_step``, ``kernels="cuda"``
 and ``None``) in bf16 and fp32: CUDA-event ms, median of 3 after one
-warm-up, and the peak device memory; and the served bf16 forward
-(``unet_infer_apply``, ``backend="cuda"``, full width, random weights from
-seed 0) at 959x640: ``chip_smoke.time_ms``, median of 5, and the device
-time of its kernels (``chip_smoke.device_ms``, summed).
+warm-up, and the peak device memory; and the served forward
+(``unet_infer_apply``, full width, random weights from seed 0) at 959x640
+in bf16 and fp32, ``backend="cuda"`` and ``"torch"``:
+``chip_smoke.time_ms``, median of 5, and the device time of its kernels
+(``chip_smoke.device_ms``, summed).
 
     python3 tools/tc_conv_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -78,7 +79,8 @@ def time_steps(c, torch) -> None:
 
 
 def time_forward(c, torch) -> None:
-    """The served bf16 forward of this tree at 959x640, kernels and plain."""
+    """The served forward of this tree at 959x640, bf16 and fp32, kernels
+    and plain."""
     import numpy as np
 
     from tpu_unet_torch.models import UNetConfig, fold_bn, init_unet, unet_infer_apply
@@ -86,19 +88,21 @@ def time_forward(c, torch) -> None:
 
     config = UNetConfig(**c.TRAIN_CONFIG)
     params, state = init_unet(config, np.random.default_rng(0), device="cuda")
-    folded = tree_map(lambda t: t.cuda().to(torch.bfloat16), fold_bn(params, state, config))
+    folded = tree_map(lambda t: t.cuda(), fold_bn(params, state, config))
     x = torch.from_numpy(np.random.default_rng(1).random((1, 640, 959, 3), np.float32)).cuda()
     with torch.inference_mode():
-        for backend in ("cuda", "torch"):
-            def fwd(b=backend):
-                return unet_infer_apply(folded, x, config=config, backend=b,
-                                        compute_dtype=torch.bfloat16)
+        for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            fd = tree_map(lambda t, d=dtype: t.to(d), folded)
+            for backend in ("cuda", "torch"):
+                def fwd(b=backend, fd=fd, d=dtype):
+                    return unet_infer_apply(fd, x, config=config, backend=b, compute_dtype=d)
 
-            ms = c.time_ms(fwd, reps=5)
-            dev = c.device_ms(fwd)
-            c.log(f"forward bf16 [1,640,959,3] backend={backend}: {ms:.3f} ms (median of 5), "
-                  f"device {sum(dev.values()):.3f} ms: "
-                  + "; ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items(), key=lambda t: -t[1])))
+                ms = c.time_ms(fwd, reps=5)
+                dev = c.device_ms(fwd)
+                c.log(f"forward {dt} [1,640,959,3] backend={backend}: {ms:.3f} ms (median of "
+                      f"5), device {sum(dev.values()):.3f} ms: "
+                      + "; ".join(f"{k} {v:.4f}"
+                                  for k, v in sorted(dev.items(), key=lambda t: -t[1])))
 
 
 def measure(tree: Path) -> None:
@@ -141,12 +145,15 @@ def measure(tree: Path) -> None:
         x32, w32, g32, z32 = x.float(), w.float(), g.float(), z.float()
         tag = f"{label} {list(shape)}->{cout} fp32"
         line(f"conv3x3_fwd {tag} stats", lambda: K.conv3x3_fwd(x32, w32, *pro, stats=True))
+        line(f"conv3x3_dx {tag}", lambda: K.conv3x3_dx(g32, z32, coef, w32))
         line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x32, g32, z32, coef, *pro))
         del x32, w32, g32, z32
     for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
         args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
         if name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
             line(f"{name} {label} bf16", lambda: fn(*args))
+            if name == "fused_conv3x3_concat_scale_relu":
+                line(f"{name} {label} fp32", lambda: fn(*inputs))
         elif name == "fused_double_conv":
             line(f"{name} {label} bf16", lambda: K.fused_double_conv(*args))
     for label, shape, cout, relu in c.IM2COL_CASES:

@@ -1,14 +1,12 @@
 // Fused 3x3 SAME conv + per-channel scale/bias (folded BatchNorm) + optional
-// ReLU on NHWC, with an optional second input that is read as if it were
-// channel-concatenated after the first. Runs on the CUDA cores in fp32 FMA,
-// for fp32 tensors only.
-//
-// Routes (kernels/fused_conv.py):
-//   fused_conv3x3_concat_scale_relu (tpu_unet/kernels/fused_conv.py:192;
-//     skip a + upsampled b, concat never built): cb > 0;
-//   fused_conv3x3_scale_relu (tpu_unet/kernels/fused_conv.py:75): cb == 0.
-// Both in bf16 run on the tensor cores (csrc/tc_conv.cu), and bf16 is
-// refused here.
+// ReLU on NHWC, on the CUDA cores in fp32 FMA, for fp32 tensors only. It
+// serves one route (kernels/fused_conv.py): the fp32
+// fused_conv3x3_scale_relu (tpu_unet/kernels/fused_conv.py:75, cb == 0).
+// The kernel still reads an optional second input as if it were
+// channel-concatenated after the first (cb > 0), but no wrapper passes one:
+// fused_conv3x3_concat_scale_relu (tpu_unet/kernels/fused_conv.py:192) runs
+// on the tensor cores in both dtypes (csrc/tc_conv.cu; fp32 in 3xTF32), as
+// does the bf16 single conv, and bf16 is refused here.
 //
 // What bounds it on the H100: arithmetic. A U-Net level does 2*9*Cin*Cout
 // FLOPs per pixel against (Cin + Cout) activations moved, hundreds of FLOPs
@@ -21,14 +19,13 @@
 // whole-Cin weight block (several MB at Cin=1024) does not fit the 227 KB of
 // shared memory, so the reduction axis streams in chunks of kKC input
 // channels (24 KB per chunk). Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 2): 3.9-5.1 ms at the four served concat shapes
-// (about 9e10 FLOP each, 18-23 TFLOP/s), 1.4-2.0x cuDNN's fp32 conv on a
-// prebuilt concat. Its fp32 routes wait in the queue of tensor-core work
-// (ROADMAP Queue 2): one TF32 pass (about 2^-11 a product) would change the
-// numerics the port holds fp32 to, but 3xTF32 does not (each operand split
-// into a TF32 high part and the TF32 rounding of the rest, three products
-// summed in fp32: about 2^-21 a product), as the fp32 conv3x3_fwd and
-// conv3x3_dw of csrc/tc_conv.cu already run.
+// (chip_smoke.py phase 2): 2.2-2.9 ms at the served single-conv shapes
+// (about 4.5e10 FLOP each), 1.4-1.7x cuDNN's fp32 conv. Its route waits
+// first in the queue of fp32 tensor-core work (ROADMAP Queue 2): one TF32
+// pass (about 2^-11 a product) would change the numerics the port holds
+// fp32 to, but 3xTF32 does not (each operand split into a TF32 high part
+// and the TF32 rounding of the rest, three products summed in fp32: about
+// 2^-21 a product), as the fp32 convs of csrc/tc_conv.cu already run.
 //
 // Tile: 8 x 16 output pixels x 64 output channels per block, 256 threads.
 // Grid: (tiles of the image, output-channel blocks, batch). Ragged tiles at

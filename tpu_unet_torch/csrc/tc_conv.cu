@@ -1,5 +1,6 @@
-// 3x3 SAME convolutions on NHWC bf16 (and, for conv3x3_fwd and conv3x3_dw,
-// fp32) activations on the Hopper tensor cores: one implicit-GEMM mainloop
+// 3x3 SAME convolutions on NHWC bf16 (and, for conv3x3_fwd, conv3x3_dx,
+// conv3x3_dw and the concat conv, fp32) activations on the Hopper tensor
+// cores: one implicit-GEMM mainloop
 // over output pixels (tc_conv_kernel) with operand, loader and epilogue
 // policies, and one over the pixels of a weight gradient (tc_dw_kernel,
 // below the first, and its fp32 sibling tc_dw_f32_kernel):
@@ -23,11 +24,13 @@
 //   tuk_tc_conv3x3_dw     dw[ky,kx,ci,co] = sum over pixels of pro(x) * dz,
 //     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
 //     (pallas_call at :508), bf16 route;
-//   tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dw_f32: the fp32 routes of the
-//     same two, in 3xTF32 (described below "fp32 in 3xTF32").
+//   tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dx_f32, tuk_tc_conv3x3_dw_f32,
+//     tuk_tc_concat_conv3x3_f32: the fp32 routes of fwd, dx, dw and the
+//     concat conv, in 3xTF32 (described below "fp32 in 3xTF32").
 //
-// The other fp32 calls stay on the CUDA-core kernels of fused_conv.cu,
-// im2col_conv.cu, fused_double_conv.cu and train_conv.cu (dx), in fp32 FMA.
+// The other fp32 calls (the single folded conv, im2col, the double conv)
+// stay on the CUDA-core kernels of fused_conv.cu, im2col_conv.cu and
+// fused_double_conv.cu, in fp32 FMA.
 //
 // fp32 in 3xTF32. The port holds fp32 to fp32 accuracy (TF32 off in its
 // library calls, ops/conv.py). One TF32 pass rounds each operand to 10
@@ -56,17 +59,28 @@
 //   brings a k-step's [2][BN][16] slice. The prologue (ProLoadF32) is fp32,
 //   unrounded. z is stored from the accumulators, and its stats summed from
 //   the same registers into the same per-(image, tile) partial rows.
+// * dx (DzLoadF32): the fwd's mainloop over dz, with bf16 dx's one aux slot
+//   for z; dz = alpha*g + beta*z + gamma is rewritten in place in fp32,
+//   unrounded, in the plain version's order. Its B operand [2][9][Cin][C]
+//   is the forward weights' own HWIO layout [9][Cin][C] with the taps
+//   reversed, so its split (split_dx_weights_kernel) is elementwise: no
+//   transpose and no flipped copy. The aux slot would leave F32Cfg0 one
+//   block an SM; F32DxCfg0 keeps two with a 3-k-step weight ring.
+// * the concat conv: ConcatLoad over 16-channel chunks (weight rows Ca + 16
+//   j for b's chunk j), AffineEpi on the fp32 accumulators, the weights
+//   split as the fwd's.
 // * dw (tc_dw_f32_kernel): see there.
 //
 // The concat conv is the forward's mainloop with a second input tensor map
-// (the ConcatLoad policy): the first ceil(Ca / 32) K chunks come from the
+// (the ConcatLoad policy): the first ceil(Ca / KC) K chunks come from the
 // skip's map, the rest from the upsampled tensor's, whose chunk j meets
-// weight rows Ca + 32 j of the one [9][Ca + Cb][Cout] map. Only the load
-// issue picks the map and the row, at compile time, so the single-source
-// instantiations keep their code (a run-time choice there cost the level-0
-// conv3x3_fwd and down4's dx 3-4% of device time on the H100); the
-// mainloop, swizzles, tile plan and epilogue are the single conv's.
-// A partial last chunk of the skip (Ca % 32 != 0) reads the fill's zeros
+// weight rows Ca + KC j of the one [9][Ca + Cb][Cout] map (KC = 32 bf16 or
+// 16 fp32 channels). Only the load issue picks the map and the row, at
+// compile time, so the single-source instantiations keep their code (a
+// run-time choice there cost the level-0 conv3x3_fwd and down4's dx 3-4% of
+// device time on the H100); the mainloop, swizzles, tile plan and epilogue
+// are the single conv's.
+// A partial last chunk of the skip (Ca % KC != 0) reads the fill's zeros
 // past Ca against the upsampled tensor's first weight rows, which then add
 // nothing; the upsampled tensor's last chunk reads the zero rows past Ca +
 // Cb. Bound: ~9e10 FLOP at each of the four served decoder shapes, far
@@ -87,10 +101,10 @@
 // 0.71 ms, 0.36 and 0.55 on the device (was 5.43 and 18.79; cuDNN 0.50 and
 // 0.70).
 //
-// dx is the forward's GEMM with Cin' = C and Cout' = Cin over the flipped,
-// transposed weights, with the DzLoad policy: each chunk stages g's box in
-// the input ring and z's box in ONE aux slot (a second ring of two would
-// push the 256 x 64 configuration past two blocks an SM); chunk k + 1's z
+// bf16 dx is the forward's GEMM with Cin' = C and Cout' = Cin over the
+// flipped, transposed weights, with the DzLoad policy: each chunk stages g's
+// box in the input ring and z's box in ONE aux slot (a second ring of two
+// would push the 256 x 64 configuration past two blocks an SM); chunk k + 1's z
 // box is issued right after chunk k's rewrite has read the slot, 9 k-steps
 // before it is needed. SMEM a block: 96,312 bytes (256 x 64, Cfg1) and
 // 93,240 (128 x 128, Cfg0) with the slot, two blocks an SM. A two-slot z
@@ -169,6 +183,8 @@
 
 #include "tc_common.cuh"
 
+#include <type_traits>
+
 namespace tuk {
 
 // Fixed-order sum of fp32 rows (train_conv.cu); `in` is scratch.
@@ -176,7 +192,7 @@ cudaError_t reduce_rows(float* in, float* out, int rows, long long cols, cudaStr
 
 namespace tc {
 
-constexpr int STAGES = 4;  // k-steps in the weight ring
+constexpr int STAGES = 4;  // k-steps in the weight ring (a Config may take fewer)
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
@@ -199,13 +215,14 @@ constexpr int KC_F32 = Tf32x3Op::KC;
 // A block configuration: BM output pixels x BN output channels, WM x WN
 // warps (each a (BM / WM) x (BN / WN) warp tile), MAX_STAGED pixels of the
 // tile plus its halo, MIN_BLOCKS resident blocks an SM (launch bounds), the
-// operands Op.
+// operands Op, a weight ring of STAGES k-steps.
 template <int BM_, int BN_, int WM_, int WN_, int MAX_STAGED_, int MIN_BLOCKS_,
-          class Op_ = Bf16Op>
+          class Op_ = Bf16Op, int STAGES_ = STAGES>
 struct Config {
   using Op = Op_;
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int MAX_STAGED = MAX_STAGED_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int STAGES = STAGES_;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int MI = BM / WM / 16;  // m16 fragments per warp
   static constexpr int NI = BN / WN / 8;   // n8 fragments per warp
@@ -234,6 +251,13 @@ using Cfg1 = Config<256, 64, 4, 1, 400, 2>;
 // their fresh sums (16).
 using F32Cfg0 = Config<128, 128, 2, 2, 288, 2, Tf32x3Op>;
 using F32Cfg1 = Config<256, 64, 4, 1, 400, 2, Tf32x3Op>;
+// The fp32 dx's, by the same ids and tiles. Its aux slot (z) adds IN_SLOT +
+// 8 bytes a block: F32Cfg0 would take 126,008 bytes, one block an SM (two
+// need each at most (233,472 - 2 * 1,024) / 2 = 115,712, the 1 KB a block
+// the card reserves included); a 3-k-step weight ring takes 109,624. F32Cfg1
+// with the slot takes 112,696 bytes at 4 k-steps: kept as it is.
+using F32DxCfg0 = Config<128, 128, 2, 2, 288, 2, Tf32x3Op, 3>;
+using F32DxCfg1 = F32Cfg1;
 
 // Where a block's tile lies, and what it stages.
 struct Tile {
@@ -303,6 +327,19 @@ __device__ __forceinline__ void pro_chunk_f32(float4* p, const float4& a, const 
   v.z = relu_f(__fadd_rn(__fmul_rn(v.z, a.z), c.z));
   v.w = relu_f(__fadd_rn(__fmul_rn(v.w, a.w), c.w));
   *p = v;
+}
+
+// g = alpha * g + beta * z + gamma on 4 fp32 channels, in place, in the
+// plain version's order (no rounding: fp32 g).
+__device__ __forceinline__ void dz_chunk_f32(float4* g, const float4* z, const float4& al,
+                                             const float4& be, const float4& ga) {
+  float4 v = *g;
+  const float4 w = *z;
+  v.x = __fadd_rn(__fadd_rn(__fmul_rn(al.x, v.x), __fmul_rn(be.x, w.x)), ga.x);
+  v.y = __fadd_rn(__fadd_rn(__fmul_rn(al.y, v.y), __fmul_rn(be.y, w.y)), ga.y);
+  v.z = __fadd_rn(__fadd_rn(__fmul_rn(al.z, v.z), __fmul_rn(be.z, w.z)), ga.z);
+  v.w = __fadd_rn(__fadd_rn(__fmul_rn(al.w, v.w), __fmul_rn(be.w, w.w)), ga.w);
+  *g = v;
 }
 
 // ---- loader policies: what the staged chunk holds --------------------------
@@ -418,6 +455,36 @@ struct DzLoad {
   }
 };
 
+// dz = alpha*g + beta*z + gamma over an fp32 chunk (KC_F32 channels, 4 to a
+// 16-byte piece), as DzLoad but unrounded; the fp32 dx's loader.
+struct DzLoadF32 {
+  static constexpr bool kTransform = true;
+  static constexpr bool kAux = true;
+  static constexpr bool kConcat = false;
+  const float* coef;
+  template <class C>
+  __device__ __forceinline__ void transform(unsigned char* slot, const unsigned char* zs,
+                                            const Tile& t, int k0, int c) const {
+    static_assert(C::Op::kTf32, "fp32 operands");
+    constexpr int kVec = KC_F32 / 4;
+    static_assert(C::THREADS % kVec == 0, "a thread keeps its 4 channels");
+    const int ch = threadIdx.x % kVec;
+    const int k = k0 + ch * 4;
+    const bool inside = t.h0 >= 1 && t.h0 + t.th < t.H && t.w0 >= 1 && t.w0 + t.tw < t.W;
+    if (k < c) {
+      const float4 al = *reinterpret_cast<const float4*>(coef + k);
+      const float4 be = *reinterpret_cast<const float4*>(coef + c + k);
+      const float4 ga = *reinterpret_cast<const float4*>(coef + 2 * c + k);
+      for (int q = threadIdx.x / kVec; q < t.staged(); q += C::THREADS / kVec) {
+        if (!inside && !t.staged_in_image(q)) continue;
+        dz_chunk_f32(reinterpret_cast<float4*>(slot + in_off(q, ch)),
+                     reinterpret_cast<const float4*>(zs + in_off(q, ch)), al, be, ga);
+      }
+    }
+    fence_proxy_async();  // both slots are TMA-written again
+  }
+};
+
 // ---- epilogue policies: the fp32 value rounded to bf16 for channel co ------
 
 struct RoundEpi {
@@ -468,6 +535,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   static_assert(!Op::kTf32 || kF32Out, "fp32 operands store fp32 from the accumulators");
   static_assert(!(kStats && kF32Out) || Op::kTf32, "bf16 stats are taken from the bf16 tile");
   constexpr int KCH = Op::KC;  // channels a staged chunk
+  constexpr int STAGES = C::STAGES;
   constexpr int BN = C::BN;
   constexpr int MI = C::MI;
   constexpr int NI = C::NI;
@@ -566,8 +634,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   auto issue_aux = [&](int chunk) {
     if (threadIdx.x != 0) return;
     fence_proxy_async();
-    mbar_expect_tx(aux_bar, (uint32_t)(t.staged() * KC * 2));
-    tma_load_4d(aux_s, &tmz, aux_bar, chunk * KC, t.w0 - 1, t.h0 - 1, t.n);
+    mbar_expect_tx(aux_bar, (uint32_t)(t.staged() * 64));
+    tma_load_4d(aux_s, &tmz, aux_bar, chunk * KCH, t.w0 - 1, t.h0 - 1, t.n);
   };
 
   float acc[MI][NI][4];
@@ -1321,6 +1389,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// out[2][9][cout][k] = the TF32 hi and lo planes of w[8 - tap] for plane row
+// tap: fp32 dx's B operand (cout = the forward's Cin, k = its Cout). The
+// forward weights [9][cin][cout] with the taps reversed are already
+// K-contiguous, so this is an elementwise pass: no transpose, no flipped copy.
+// Thread i splits 4 consecutive values (cout * k % 4 == 0: a quad stays in
+// its tap).
+__global__ void __launch_bounds__(256)
+    split_dx_weights_kernel(const float4* __restrict__ w, uint4* __restrict__ out, int tap_quads) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= 9 * tap_quads) return;
+  const int tap = i / tap_quads;
+  const float4 v = w[(8 - tap) * tap_quads + (i - tap * tap_quads)];
+  uint4 hi, lo;
+  split_tf32(__float_as_uint(v.x), hi.x, lo.x);
+  split_tf32(__float_as_uint(v.y), hi.y, lo.y);
+  split_tf32(__float_as_uint(v.z), hi.z, lo.z);
+  split_tf32(__float_as_uint(v.w), hi.w, lo.w);
+  out[i] = hi;
+  out[9 * tap_quads + i] = lo;
+}
+
 // ---- host side --------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1409,12 +1498,13 @@ cudaError_t launch(const void* x, const void* b, int ca, const void* aux, const 
   if (err != cudaSuccess) return err;
   tmb = tmz = tmx;  // unused copies, unless encoded below
   if (Load::kConcat) {
-    err = make_nhwc_map(&tmb, b, n, h, wd, cin - ca, KC, tw + 2, th + 2,
-                        CU_TENSOR_MAP_SWIZZLE_64B);
+    err = make_nhwc_map(&tmb, b, n, h, wd, cin - ca, C::Op::KC, tw + 2, th + 2,
+                        CU_TENSOR_MAP_SWIZZLE_64B, kF32);
     if (err != cudaSuccess) return err;
   }
   if (Load::kAux) {
-    err = make_nhwc_map(&tmz, aux, n, h, wd, cin, KC, tw + 2, th + 2, CU_TENSOR_MAP_SWIZZLE_64B);
+    err = make_nhwc_map(&tmz, aux, n, h, wd, cin, C::Op::KC, tw + 2, th + 2,
+                        CU_TENSOR_MAP_SWIZZLE_64B, kF32);
     if (err != cudaSuccess) return err;
   }
   if constexpr (kF32) {
@@ -1461,22 +1551,32 @@ cudaError_t launch_cfg(int cfg, const void* x, const void* b, int ca, const void
   return cudaErrorInvalidValue;
 }
 
-// The fp32 forward: split the weights (wsplit: fp32 [2][9][cout][cin]
-// scratch), then the 3xTF32 conv.
-template <class Load, bool kStats>
-cudaError_t launch_fwd_f32(int cfg, const float* x, const float* w, float* wsplit, const Load& ld,
-                           float* out, float* partials, int n, int h, int wd, int cin, int cout,
-                           int th, int tw, cudaStream_t stream) {
+// An fp32 (3xTF32) conv: split the weights w into wsplit (fp32 [2][9][cout]
+// [cin] scratch), then the conv of configuration cfg (F32DxCfg* for a
+// loader with an aux slot). The forward and the concat conv split HWIO w
+// [9][cin][cout] (split_weights_kernel); dx (Load::kAux) splits the forward
+// weights [9][cout][cin] with the taps reversed (split_dx_weights_kernel).
+template <class Load, class Epi, bool kStats>
+cudaError_t launch_f32(int cfg, const float* x, const float* b, int ca, const float* aux,
+                       const float* w, float* wsplit, const Load& ld, const Epi& epi, float* out,
+                       float* partials, int n, int h, int wd, int cin, int cout, int th, int tw,
+                       cudaStream_t stream) {
   if (cin % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
-  split_weights_kernel<<<dim3((cout + 31) / 32, (cin + 31) / 32, 9), dim3(32, 8), 0, stream>>>(
-      w, wsplit, cin, cout);
+  if constexpr (Load::kAux) {
+    const int tap_quads = cout * cin / 4;
+    split_dx_weights_kernel<<<(9 * tap_quads + 255) / 256, 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), tap_quads);
+  } else {
+    split_weights_kernel<<<dim3((cout + 31) / 32, (cin + 31) / 32, 9), dim3(32, 8), 0,
+                           stream>>>(w, wsplit, cin, cout);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-#define TUK_F32_CASE(ID)                                                                     \
-  case ID:                                                                                   \
-    return launch<F32Cfg##ID, Load, RoundEpi, kStats, true>(x, nullptr, cin, nullptr, wsplit, \
-                                                            ld, RoundEpi{}, out, partials, n,  \
-                                                            h, wd, cin, cout, th, tw, stream);
+#define TUK_F32_CASE(ID)                                                                  \
+  case ID:                                                                                \
+    return launch<std::conditional_t<Load::kAux, F32DxCfg##ID, F32Cfg##ID>, Load, Epi,    \
+                  kStats, true>(x, b, ca, aux, wsplit, ld, epi, out, partials, n, h, wd, cin, \
+                                cout, th, tw, stream);
   switch (cfg) {
     TUK_F32_CASE(0)
     TUK_F32_CASE(1)
@@ -1695,15 +1795,20 @@ extern "C" int tuk_tc_conv3x3_fwd_f32(const float* x, const float* a, const floa
   cudaError_t err;
   if (a != nullptr) {
     const ProLoadF32 ld{a, c};
-    err = partials ? launch_fwd_f32<ProLoadF32, true>(cfg, x, w, wsplit, ld, z, partials, n, h,
-                                                      wd, cin, cout, th, tw, s)
-                   : launch_fwd_f32<ProLoadF32, false>(cfg, x, w, wsplit, ld, z, nullptr, n, h,
-                                                       wd, cin, cout, th, tw, s);
+    err = partials ? launch_f32<ProLoadF32, RoundEpi, true>(cfg, x, nullptr, cin, nullptr, w,
+                                                            wsplit, ld, RoundEpi{}, z, partials,
+                                                            n, h, wd, cin, cout, th, tw, s)
+                   : launch_f32<ProLoadF32, RoundEpi, false>(cfg, x, nullptr, cin, nullptr, w,
+                                                             wsplit, ld, RoundEpi{}, z, nullptr,
+                                                             n, h, wd, cin, cout, th, tw, s);
   } else {
-    err = partials ? launch_fwd_f32<RawLoad, true>(cfg, x, w, wsplit, RawLoad{}, z, partials, n,
-                                                   h, wd, cin, cout, th, tw, s)
-                   : launch_fwd_f32<RawLoad, false>(cfg, x, w, wsplit, RawLoad{}, z, nullptr, n,
-                                                    h, wd, cin, cout, th, tw, s);
+    err = partials ? launch_f32<RawLoad, RoundEpi, true>(cfg, x, nullptr, cin, nullptr, w, wsplit,
+                                                         RawLoad{}, RoundEpi{}, z, partials, n,
+                                                         h, wd, cin, cout, th, tw, s)
+                   : launch_f32<RawLoad, RoundEpi, false>(cfg, x, nullptr, cin, nullptr, w,
+                                                          wsplit, RawLoad{}, RoundEpi{}, z,
+                                                          nullptr, n, h, wd, cin, cout, th, tw,
+                                                          s);
   }
   if (err != cudaSuccess || partials == nullptr) return (int)err;
   const int rows = n * ((h + th - 1) / th) * ((wd + tw - 1) / tw);
@@ -1731,4 +1836,41 @@ extern "C" int tuk_tc_conv3x3_dw_f32(const void* x, const float* a, const float*
                                           tiles_per_split, splits, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)tuk::reduce_rows(partials, dw, splits, 9LL * cin * cout, s);
+}
+
+// out[N,H,W,cin] = conv3x3_same(dz, flip(w)^T) in fp32 on the tensor cores
+// (3xTF32), dz = coef[0]*g + coef[1]*z + coef[2] per channel (fp32, unrounded)
+// built in shared memory and never written out. g, z: fp32 [N,H,W,c]; w: the
+// forward weights, fp32 [3,3,cin,c] HWIO; wsplit: fp32 [2][9][cin][c] scratch
+// for their split (taps reversed); coef: fp32 [3][c]. c and cin multiples of
+// 8; (cfg, th, tw): kernels/tc_conv.py tc_plan of the output width cin with
+// f32. One call: the split, then the conv.
+extern "C" int tuk_tc_conv3x3_dx_f32(const float* g, const float* z, const float* coef,
+                                     const float* w, float* wsplit, float* out, int n, int h,
+                                     int wd, int c, int cin, int cfg, int th, int tw,
+                                     void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cin == 0) return 0;
+  using namespace tuk::tc;
+  return (int)launch_f32<DzLoadF32, RoundEpi, false>(
+      cfg, g, nullptr, c, z, w, wsplit, DzLoadF32{coef}, RoundEpi{}, out, nullptr, n, h, wd, c,
+      cin, th, tw, static_cast<cudaStream_t>(stream));
+}
+
+// y = [relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) in fp32 on
+// the tensor cores (3xTF32), the concat never built: a's ceil(ca / 16) K
+// chunks, then b's, whose chunk j meets rows ca + 16 j of the split weights.
+// a: fp32 [N,H,W,ca], b: fp32 [N,H,W,cb], w: fp32 [3,3,ca+cb,cout] HWIO;
+// wsplit: fp32 [2][9][cout][ca+cb] scratch for its split; scale/bias: fp32
+// [cout]. ca, cb, cout multiples of 8; (cfg, th, tw) from tc_plan with f32.
+// One call: the split, then the conv.
+extern "C" int tuk_tc_concat_conv3x3_f32(const float* a, const float* b, const float* w,
+                                         float* wsplit, const float* scale, const float* bias,
+                                         float* out, int n, int h, int wd, int ca, int cb,
+                                         int cout, int relu, int cfg, int th, int tw,
+                                         void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  return (int)launch_f32<ConcatLoad, AffineEpi, false>(
+      cfg, a, b, ca, nullptr, w, wsplit, ConcatLoad{}, AffineEpi{scale, bias, relu}, out, nullptr,
+      n, h, wd, ca + cb, cout, th, tw, static_cast<cudaStream_t>(stream));
 }

@@ -43,7 +43,6 @@ _SIGNATURES = {
     "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
                         ctypes.c_int),
     "tuk_double_conv_smem": ([_I], ctypes.c_size_t),
-    "tuk_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              ctypes.c_int),
     "tuk_tc_concat_conv3x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -62,6 +61,10 @@ _SIGNATURES = {
                                 _I, _P], ctypes.c_int),
     "tuk_tc_conv3x3_dw_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P], ctypes.c_int),
+    "tuk_tc_conv3x3_dx_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              ctypes.c_int),
+    "tuk_tc_concat_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P], ctypes.c_int),
     "tuk_im2col_max_cin": ([], ctypes.c_int),
     "tuk_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),

@@ -1,11 +1,13 @@
 """Fused 3x3 SAME conv + folded-BN scale/bias + ReLU on NHWC: the port of
 ``tpu_unet/kernels/fused_conv.py`` (``fused_conv3x3_scale_relu`` and
 ``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. Both in
-bf16 run on the tensor cores (``csrc/tc_conv.cu``, through
-``kernels/tc_conv.py``; the concat's K chunks come from the skip, then from
-the upsampled tensor); both in fp32 run on the CUDA cores
-(``csrc/fused_conv.cu``). Each source's header says what bounds it on the
-H100 and how the design answers.
+bf16, and the concat conv in fp32 too, run on the tensor cores
+(``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``; the concat's K chunks
+come from the skip, then from the upsampled tensor; fp32 in 3xTF32: each
+operand split into a TF32 high part and the TF32 rounding of the rest,
+three products summed in fp32, so fp32 accuracy is kept). The fp32 single
+conv runs on the CUDA cores (``csrc/fused_conv.cu``). Each source's header
+says what bounds it on the H100 and how the design answers.
 
 Each wrapper launches a kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
@@ -67,17 +69,20 @@ def _launch(wrapper, a, b, w, scale, bias, apply_relu):
     cout = w.shape[3]
     s = _build.f32_vector(scale, cout, a, name)
     t = _build.f32_vector(bias, cout, a, name)
+    if b is not None:
+        out = tc_conv.fused_conv3x3_concat(a, b, w, s, t, apply_relu)
+        _count(wrapper, tc=True)
+        return out
     if dtype == _build.DTYPE_BF16:
-        out = (tc_conv.fused_conv3x3(a, w, s, t, apply_relu) if b is None
-               else tc_conv.fused_conv3x3_concat(a, b, w, s, t, apply_relu))
+        out = tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
         _count(wrapper, tc=True)
         return out
     out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):
-        err = lib.tuk_conv3x3(a.data_ptr(), (a if b is None else b).data_ptr(), ca, cb,
-                              w.data_ptr(), s.data_ptr(), t.data_ptr(), out.data_ptr(),
-                              n, h, wd, cout, int(apply_relu), dtype, _build.stream(a))
+        err = lib.tuk_conv3x3(a.data_ptr(), a.data_ptr(), ca, 0, w.data_ptr(), s.data_ptr(),
+                              t.data_ptr(), out.data_ptr(), n, h, wd, cout, int(apply_relu),
+                              dtype, _build.stream(a))
     _build.check(err, name)
     _count(wrapper)
     return out

@@ -2,18 +2,20 @@
 ``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
 ``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``,
 and of ``fused_double_conv``, in ``csrc/tc_double_conv.cu`` (mma.sync on the
-tensor cores, TMA loads); and the fp32 route of ``conv3x3_fwd`` and
-``conv3x3_dw`` in 3xTF32 (each fp32 operand split into TF32 hi and lo parts,
-lo*hi + hi*lo + hi*hi summed in fp32: fp32 accuracy, which one TF32 pass
-would lose), with ``tc_plan``/``dw_plan`` given ``f32``:
+tensor cores, TMA loads); and the fp32 route of ``conv3x3_fwd``,
+``conv3x3_dx``, ``conv3x3_dw`` and ``fused_conv3x3_concat_scale_relu`` in
+3xTF32 (each fp32 operand split into TF32 hi and lo parts, lo*hi + hi*lo +
+hi*hi summed in fp32: fp32 accuracy, which one TF32 pass would lose), with
+``tc_plan``/``dw_plan`` given ``f32``:
 
 - one implicit-GEMM kernel over output pixels whose K chunks come from one
   input or, for the concat conv, from the skip's tensor map and then the
-  upsampled tensor's (weight rows Ca + 32 j for the second's chunk j: the
-  concat is never built), with a loader policy (raw input; the BN prologue
-  relu(x*a + c); or, for dx, the BN-backward cotangent dz = alpha*g +
-  beta*z + gamma built from g's and z's staged boxes, z in one slot whose
-  next box is issued once a chunk's dz is built) and an epilogue policy
+  upsampled tensor's (weight rows Ca + 32 j for the second's chunk j, Ca +
+  16 j in fp32: the concat is never built), with a loader policy (raw
+  input; the BN prologue relu(x*a + c); or, for dx, the BN-backward
+  cotangent dz = alpha*g + beta*z + gamma built from g's and z's staged
+  boxes, z in one slot whose next box is issued once a chunk's dz is
+  built) and an epilogue policy
   (folded-BN scale/bias + ReLU, bf16 or, for im2col, fp32 out; the bare
   conv with its (sum z, sum z^2) partials; dx's bf16 or fp32 output). It
   replaces ``tpu_unet/kernels/fused_conv.py:75`` and ``:192``,
@@ -47,8 +49,8 @@ every pixel once.
 
 The wrappers of ``fused_conv``, ``fused_double_conv``, ``train_conv`` and
 ``im2col_conv`` call the launchers here for bf16 CUDA tensors, and
-``train_conv``'s fwd and dw wrappers for fp32 ones too; the launchers never
-run on the CPU.
+``train_conv``'s wrappers and the concat conv's for fp32 ones too; the
+launchers never run on the CPU.
 """
 
 from __future__ import annotations
@@ -85,6 +87,11 @@ F32_CONFIGS = {
     0: (128, 128, 288),
     1: (256, 64, 400),
 }
+# k-steps in the weight ring: STAGES, and for fp32 dx by configuration id
+# (F32DxCfg*: its aux slot for z fits two 128 x 128 blocks an SM only with
+# 3; the 256 x 64 block keeps 4).
+STAGES = 4
+F32_DX_STAGES = {0: 3, 1: 4}
 DWF_CI = DWF_CO = 64
 DWF_MAX_PX = 128
 DWF_MAX_STAGED = 200
@@ -382,13 +389,15 @@ class _Affine(NamedTuple):
     out: torch.Tensor
 
 
-def _affine(name, xs, w, scale, bias, out_dtype) -> _Affine:
-    _check_dtype(name, *xs, w)
+def _affine(name, xs, w, scale, bias, out_dtype, fp32: bool = False) -> _Affine:
+    """``fp32``: the route also takes float32 (its plan then the fp32 one)."""
+    _check_dtype(name, *xs, w, fp32=fp32)
     n, h, wd, _ = xs[0].shape
     cout8 = _ceil8(w.shape[3])
     xs, wp = _padded_sources(xs, w, cout8)
     return _Affine(xs, wp, _aligned(_pad_last(scale, cout8).contiguous()),
-                   _aligned(_pad_last(bias, cout8).contiguous()), tc_plan(n, h, wd, cout8),
+                   _aligned(_pad_last(bias, cout8).contiguous()),
+                   tc_plan(n, h, wd, cout8, w.dtype == torch.float32),
                    torch.empty((n, h, wd, cout8), dtype=out_dtype, device=w.device))
 
 
@@ -412,19 +421,30 @@ def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
 
 
 def fused_conv3x3_concat(a, b, w, scale, bias, apply_relu: bool) -> torch.Tensor:
-    """[relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) in bf16 on
-    the tensor cores, the concat never built: the kernel's K chunks are a's,
-    then b's (weight rows Ca + 32 j). a: [N,H,W,Ca], b: [N,H,W,Cb] bf16, w:
-    [3,3,Ca+Cb,Cout] bf16, scale/bias fp32 [Cout]."""
+    """[relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) on the
+    tensor cores, in bf16 or in fp32 (3xTF32, the weights split per call),
+    the concat never built: the kernel's K chunks are a's, then b's (weight
+    rows Ca + 32 j, or Ca + 16 j in fp32). a: [N,H,W,Ca], b: [N,H,W,Cb], w:
+    [3,3,Ca+Cb,Cout], all of one dtype; scale/bias fp32 [Cout]."""
     name = "fused_conv3x3_concat_scale_relu"
-    op = _affine(name, [a, b], w, scale, bias, a.dtype)
+    op = _affine(name, [a, b], w, scale, bias, a.dtype, fp32=True)
     (ap, bp), (n, h, wd, _) = op.xs, a.shape
+    cout8 = op.out.shape[3]
+    lib = _build.library()
     with _on_device(a):
-        err = _build.library().tuk_tc_concat_conv3x3(
-            ap.data_ptr(), bp.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(),
-            op.bias.data_ptr(), op.out.data_ptr(), n, h, wd, ap.shape[3], bp.shape[3],
-            op.out.shape[3], int(apply_relu), op.plan.cfg, op.plan.th, op.plan.tw,
-            _build.stream(a))
+        if a.dtype == torch.float32:
+            wsplit = torch.empty((2, 9, cout8, op.w.shape[2]), dtype=torch.float32,
+                                 device=a.device)
+            err = lib.tuk_tc_concat_conv3x3_f32(
+                ap.data_ptr(), bp.data_ptr(), op.w.data_ptr(), wsplit.data_ptr(),
+                op.scale.data_ptr(), op.bias.data_ptr(), op.out.data_ptr(), n, h, wd,
+                ap.shape[3], bp.shape[3], cout8, int(apply_relu), op.plan.cfg, op.plan.th,
+                op.plan.tw, _build.stream(a))
+        else:
+            err = lib.tuk_tc_concat_conv3x3(
+                ap.data_ptr(), bp.data_ptr(), op.w.data_ptr(), op.scale.data_ptr(),
+                op.bias.data_ptr(), op.out.data_ptr(), n, h, wd, ap.shape[3], bp.shape[3],
+                cout8, int(apply_relu), op.plan.cfg, op.plan.th, op.plan.tw, _build.stream(a))
     _build.check(err, name)
     return _unpadded(op.out, w.shape[3])
 
@@ -488,27 +508,44 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
     return (z, st) if stats else z
 
 
-def conv3x3_dx(g, z, coef, wt, out_dtype) -> torch.Tensor:
-    """dx = conv3x3_same(dz, wt) on the tensor cores, dz = coef[0]*g +
-    coef[1]*z + coef[2] built in shared memory. g, z: bf16 [N,H,W,C]; coef:
-    fp32 [3, C]; wt: bf16 [3,3,C,Cin] (the forward weights flipped and
-    transposed) -> [N,H,W,Cin] in ``out_dtype`` (bf16 or fp32)."""
+def conv3x3_dx(g, z, coef, w, out_dtype) -> torch.Tensor:
+    """dx = conv3x3_same(dz, flip(w)^T) on the tensor cores, dz = coef[0]*g +
+    coef[1]*z + coef[2] built in shared memory. g, z: [N,H,W,C]; coef: fp32
+    [3, C]; w: the forward weights [3,3,Cin,C] -> [N,H,W,Cin] in
+    ``out_dtype``. bf16 (out bf16 or fp32): the weights flipped and
+    transposed into a [3,3,C,Cin] copy. fp32 (out fp32, 3xTF32): the split
+    reads w as it is, with its taps reversed (``tc_plan`` with f32)."""
     name = "conv3x3_dx"
-    _check_dtype(name, g, z, wt)
-    n, h, wd, _ = g.shape
-    cin = wt.shape[3]
-    cin8 = _ceil8(cin)
-    # dx is the forward over dz with C input channels: zero channels of g, z
-    # and coef give dz = 0 there.
-    gp, wtp, zp, cf = _padded(g, wt, cin8, (z, coef))
-    plan = tc_plan(n, h, wd, cin8)
+    _check_dtype(name, g, z, w, fp32=True)
+    f32 = g.dtype == torch.float32
+    if f32 and out_dtype != torch.float32:
+        raise ValueError(f"{name}: fp32 g gives an fp32 dx, not {out_dtype}")
+    n, h, wd, ch = g.shape
+    cin = w.shape[2]
+    cin8, ch8 = _ceil8(cin), _ceil8(ch)
+    plan = tc_plan(n, h, wd, cin8, f32)
     out = torch.empty((n, h, wd, cin8), dtype=out_dtype, device=g.device)
     lib = _build.library()
-    with _on_device(g):
-        err = lib.tuk_tc_conv3x3_dx(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(), wtp.data_ptr(),
-                                    out.data_ptr(), n, h, wd, gp.shape[3], cin8,
-                                    int(out_dtype == torch.float32), plan.cfg, plan.th, plan.tw,
-                                    _build.stream(g))
+    # dx is the forward over dz with C input channels: zero channels of g, z
+    # and coef give dz = 0 there. The padded operands are held here until the
+    # launch returns.
+    if f32:
+        gp, zp, cf = (_aligned(_pad_last(t, ch8).contiguous()) for t in (g, z, coef))
+        wp = _aligned(_pad_io(w, cin8, ch8).contiguous())
+        wsplit = torch.empty((2, 9, cin8, ch8), dtype=torch.float32, device=g.device)
+        with _on_device(g):
+            err = lib.tuk_tc_conv3x3_dx_f32(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(),
+                                            wp.data_ptr(), wsplit.data_ptr(), out.data_ptr(), n,
+                                            h, wd, ch8, cin8, plan.cfg, plan.th, plan.tw,
+                                            _build.stream(g))
+    else:
+        wt = w.flip(0, 1).transpose(2, 3).contiguous()  # [3,3,C,Cin], small
+        gp, wtp, zp, cf = _padded(g, wt, cin8, (z, coef))
+        with _on_device(g):
+            err = lib.tuk_tc_conv3x3_dx(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(),
+                                        wtp.data_ptr(), out.data_ptr(), n, h, wd, gp.shape[3],
+                                        cin8, int(out_dtype == torch.float32), plan.cfg, plan.th,
+                                        plan.tw, _build.stream(g))
     _build.check(err, name)
     return out if cin8 == cin else out[..., :cin].contiguous()
 

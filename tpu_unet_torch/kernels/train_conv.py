@@ -1,25 +1,24 @@
 """The train-mode 3x3 conv kernels: the port of
 ``tpu_unet/kernels/train_conv.py`` (``conv3x3_fwd``, ``conv3x3_dx``,
 ``conv3x3_dw``, replacing the Pallas kernels at ``:128``, ``:289`` and
-``:441``) as hand-written CUDA kernels. In bf16 all three run on the tensor
-cores (``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``: dx with the
-forward's mainloop and a dz loader, dw with a 9-tap GEMM over pixels). In
-fp32, fwd and dw run there too, in 3xTF32: each fp32 operand is split into a
-TF32 high part and the TF32 rounding of the rest, and lo*hi + hi*lo + hi*hi
-are summed in fp32, about 2^-21 relative per product, so the fp32 results
-keep fp32 accuracy (one TF32 pass, about 2^-11, would not); fp32 dx stays on
-the CUDA cores (``csrc/train_conv.cu``). All are bounded by their
+``:441``) as hand-written CUDA kernels. All three run on the tensor cores
+(``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``: dx with the forward's
+mainloop and a dz loader, dw with a 9-tap GEMM over pixels), in bf16 and in
+fp32. fp32 runs in 3xTF32: each fp32 operand is split into a TF32 high part
+and the TF32 rounding of the rest, and lo*hi + hi*lo + hi*hi are summed in
+fp32, about 2^-21 relative per product, so the fp32 results keep fp32
+accuracy (one TF32 pass, about 2^-11, would not). All are bounded by their
 2*9*Cin*Cout operations a pixel, not by bytes, except at level 0 where the
 two about match. Each source's header says how the design answers and what
 was tried and dropped.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
-launch raises, and a CUDA tensor of fwd or dw, or a bf16 one of dx, goes to
-the tensor-core launcher or nowhere. ``<wrapper>.launches`` counts the
-wrapper's calls that launched, and ``<wrapper>.tc_launches`` those on the
-tensor cores (counted after the launcher returns); one call may make
-several kernel launches (fp32 ``conv3x3_fwd`` first splits its weights;
+launch raises, and a CUDA tensor goes to the tensor-core launcher or
+nowhere. ``<wrapper>.launches`` counts the wrapper's calls that launched,
+and ``<wrapper>.tc_launches`` those on the tensor cores (counted after the
+launcher returns); one call may make several kernel launches (fp32
+``conv3x3_fwd`` and ``conv3x3_dx`` first split their weights;
 ``conv3x3_fwd`` with ``stats`` and ``conv3x3_dw`` end with the fixed-order
 sum of their fp32 partials).
 
@@ -134,12 +133,11 @@ def conv3x3_dx(g, z, coef, w, *, out_dtype=None):
         return conv3x3_dx_plain(g, z, coef, w, out_dtype=out_dtype)
     name = "conv3x3_dx"
     out_dtype = out_dtype or g.dtype
-    wt = w.flip(0, 1).transpose(2, 3).contiguous()  # [3,3,C,Cin], small
-    dtype = _build.validate(name, g, z, wt)
+    _build.validate(name, g, z, w)
     _check_nhwc(name, g, z)
     if z.shape != g.shape:
         raise ValueError(f"{name}: g and z must have one shape, {tuple(g.shape)} vs {tuple(z.shape)}")
-    n, h, wd, ch = g.shape
+    ch = g.shape[3]
     if w.ndim != 4 or w.shape[:2] != (3, 3) or w.shape[3] != ch:
         raise ValueError(f"{name}: weight must be [3,3,Cin,{ch}], got {tuple(w.shape)}")
     if out_dtype not in (torch.float32, g.dtype):
@@ -147,20 +145,8 @@ def conv3x3_dx(g, z, coef, w, *, out_dtype=None):
     if coef.shape != (3, ch):
         raise ValueError(f"{name}: coef must be [3,{ch}], got {tuple(coef.shape)}")
     cf = coef.to(device=g.device, dtype=torch.float32).contiguous()
-    if dtype == _build.DTYPE_BF16:
-        out = tc_conv.conv3x3_dx(g, z, cf, wt, out_dtype)
-        _count(conv3x3_dx, tc=True)
-        return out
-    cin = w.shape[2]
-    out = torch.empty((n, h, wd, cin), dtype=out_dtype, device=g.device)
-    out_code = _build.DTYPE_BF16 if out_dtype == torch.bfloat16 else _build.DTYPE_F32
-    lib = _build.library()
-    with torch.cuda.device(g.device):
-        err = lib.tuk_conv3x3_dx(g.data_ptr(), z.data_ptr(), cf.data_ptr(), wt.data_ptr(),
-                                 out.data_ptr(), n, h, wd, ch, cin, dtype, out_code,
-                                 _build.stream(g))
-    _build.check(err, name)
-    _count(conv3x3_dx)
+    out = tc_conv.conv3x3_dx(g, z, cf, w, out_dtype)
+    _count(conv3x3_dx, tc=True)
     return out
 
 
