@@ -17,17 +17,14 @@ Phases, each of which exits non-zero on failure, each with its time:
    max abs and relative error, the kernel's, the plain version's and one
    library call's times (CUDA events, median), and the kernel's bound (the
    least time the card could take for its bytes or operations). The
-   folded-BN convs run on the tensor cores in bf16 (``csrc/tc_conv.cu``;
-   the double conv ``csrc/tc_double_conv.cu``, its pool from the same
-   epilogue), the concat conv in fp32 too (3xTF32), the single and the
-   double conv on the CUDA cores in fp32; a second call of the concat (both
-   dtypes) and of the bf16 double conv must repeat the first bit for bit,
-   and the double conv's pooled output must equal ``max_pool2x2_plain`` of
-   its own output.
+   folded-BN convs run on the tensor cores in bf16 and in fp32 (3xTF32)
+   (``csrc/tc_conv.cu``; the double conv ``csrc/tc_double_conv.cu``, its
+   pool from the same epilogue); a second call of each conv (both dtypes)
+   must repeat the first bit for bit, and the double conv's pooled output
+   must equal ``max_pool2x2_plain`` of its own output.
    Beside the double conv's time, in both dtypes: two compositions, two
-   ``fused_conv3x3_scale_relu`` calls (mid through device memory; tensor
-   cores in bf16, CUDA cores in fp32) and two cuDNN convs with a ReLU
-   between.
+   ``fused_conv3x3_scale_relu`` calls (mid through device memory, tensor
+   cores) and two cuDNN convs with a ReLU between.
    2b. The same for the three train kernels (conv3x3_fwd with its stats,
    conv3x3_dx, conv3x3_dw) at the train step's shapes, all three on the
    tensor cores (``csrc/tc_conv.cu``), in bf16 and in fp32 (3xTF32); a
@@ -48,8 +45,10 @@ Phases, each of which exits non-zero on failure, each with its time:
    launched by the served forwards (the 8 single, 4 concat and 3 double
    convs of each on the tensor cores, the double convs writing 3 of the 4
    pools, one ``max_pool2x2``); print ``/metrics``; hold the fp32 forward
-   to the plain one, with its 4 concat convs on the tensor cores; time the
-   bf16 and fp32 forwards, kernels against plain.
+   to the plain one, with the same launches (``FP32_PER_FORWARD``: every
+   conv on the tensor cores in 3xTF32, 3 pools from the double convs'
+   epilogue, one ``max_pool2x2``); time the bf16 and fp32 forwards, kernels
+   against plain.
 5. Train the same full-width model from seed 0 with the port's
    ``make_train_step``: one step at 959x640 batch 4, in fp32 and in bf16,
    with ``kernels="cuda"`` against ``kernels=None`` (library convs under
@@ -116,8 +115,10 @@ PER_FORWARD = {
 # csrc/tc_double_conv.cu), and the double convs that wrote their pool.
 TC_PER_FORWARD = {"fused_conv3x3_scale_relu.tc": 8, "fused_conv3x3_concat_scale_relu.tc": 4,
                   "fused_double_conv.tc": 3, "fused_double_conv.pool": 3}
-# The fp32 forward's concat convs, every one on the tensor cores (3xTF32).
-FP32_CONCAT_PER_FORWARD = 4
+# The launches of one fp32 forward (folded, --kernels cuda --no-amp), every
+# other count 0: the same as a bf16 forward's, every conv on the tensor cores
+# in 3xTF32, the double convs writing 3 of the 4 pools.
+FP32_PER_FORWARD = {**PER_FORWARD, **TC_PER_FORWARD}
 SOURCES = {
     "fused_conv3x3_scale_relu": ("tpu_unet_torch/csrc/tc_conv.cu",
                                  "tpu_unet/kernels/fused_conv.py:75"),
@@ -162,12 +163,14 @@ _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
 _TF32X3 = ("tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA "
            "(tpu_unet_torch/csrc/tc_conv.cu)")
 IMPL = {
-    "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": f"{_CC} (csrc/fused_conv.cu)"},
+    "fused_conv3x3_scale_relu": {"bf16": _TC, "fp32": _TF32X3},
     "fused_conv3x3_concat_scale_relu": {"bf16": _TC, "fp32": _TF32X3},
     "fused_double_conv": {
         "bf16": "tensor cores, mma.sync + TMA, mid in shared memory, pool in the epilogue "
                 "(tpu_unet_torch/csrc/tc_double_conv.cu)",
-        "fp32": f"{_CC} (csrc/fused_double_conv.cu), pool csrc/pooling.cu"},
+        "fp32": "tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA, fp32 "
+                "mid in shared memory, pool in the epilogue "
+                "(tpu_unet_torch/csrc/tc_double_conv.cu)"},
     "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dx": {"bf16": _TC, "fp32": _TF32X3},
@@ -402,14 +405,16 @@ def kernel_cases(gen):
 
 # Kernels whose result phase 2 also holds to a second call, bit for bit, by
 # dtype.
-REPEAT = {"fused_conv3x3_concat_scale_relu": ("bf16", "fp32"), "fused_double_conv": ("bf16",)}
+REPEAT = {"fused_conv3x3_scale_relu": ("bf16", "fp32"),
+          "fused_conv3x3_concat_scale_relu": ("bf16", "fp32"),
+          "fused_double_conv": ("bf16", "fp32")}
 
 
 def dc_pairs(x, w1, s1, b1, w2, s2, b2) -> dict[str, float]:
     """Two compositions of the double conv's function, timed as one call
     each (``time_ms``): two ``fused_conv3x3_scale_relu`` calls with mid
-    through device memory (tensor cores in bf16, CUDA cores in fp32), and
-    two cuDNN convs (scales folded into the weights, biases passed; TF32 off
+    through device memory (tensor cores; 3xTF32 in fp32), and two cuDNN
+    convs (scales folded into the weights, biases passed; TF32 off
     in fp32) with a ReLU between and after. Neither pools."""
     import torch.nn.functional as F
 
@@ -1463,8 +1468,9 @@ def phase_serve(workdir: Path) -> dict[str, int]:
         f"{name}={(t[i + 1] - t[i]) * 1e3:.2f}" for i, name in enumerate(steps))
         + f" total={(t[-1] - t[0]) * 1e3:.2f}")
 
-    # The whole forward in fp32, kernels vs plain, its four concat convs on
-    # the tensor cores (3xTF32), and both forwards' times (bf16 and fp32, in
+    # The whole forward in fp32, kernels vs plain, with FP32_PER_FORWARD's
+    # launches (every conv on the tensor cores in 3xTF32, 3 pools in the
+    # double convs' epilogue), and both forwards' times (bf16 and fp32, in
     # turns: torch, cuda, cuda, torch).
     x = torch.from_numpy(preprocess(Image.open(paths[1]), 0.5))[None].cuda()
     folded = tree_map(lambda t: t.cuda(), fold_bn(params, state, config))
@@ -1474,10 +1480,10 @@ def phase_serve(workdir: Path) -> dict[str, int]:
         torch.cuda.synchronize()
         fp32_counts = K.launch_counts()
         log(f"launches in one fp32 forward: {json.dumps(fp32_counts)}")
-        for name in ("fused_conv3x3_concat_scale_relu", "fused_conv3x3_concat_scale_relu.tc"):
-            if fp32_counts[name] != FP32_CONCAT_PER_FORWARD:
-                failures.append(f"fp32 forward: {name} {fp32_counts[name]}, expected "
-                                f"{FP32_CONCAT_PER_FORWARD}")
+        for name, count in fp32_counts.items():
+            if count != FP32_PER_FORWARD.get(name, 0):
+                failures.append(f"fp32 forward: {name} {count}, expected "
+                                f"{FP32_PER_FORWARD.get(name, 0)}")
         ref = unet_infer_apply(folded, x, config=config, backend="torch")
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()

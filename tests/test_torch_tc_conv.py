@@ -245,11 +245,11 @@ def _fused(x, w):
 
 
 # (launcher, the dtype it refuses past the device check, the error's words):
-# the fused conv keeps bf16 alone; conv3x3_fwd takes fp32 too (3xTF32) and
-# refuses any other type.
+# conv3x3_fwd and the fused conv take fp32 too (3xTF32) and refuse any other
+# type.
 @pytest.mark.parametrize("launch,refused,match", [
     (_fwd, torch.float16, "bfloat16 or float32"),
-    (_fused, torch.float32, "takes bfloat16, got"),
+    (_fused, torch.float16, "bfloat16 or float32"),
 ], ids=["conv3x3_fwd", "fused_conv3x3"])
 def test_tc_launchers_refuse_cpu_and_fp32_tensors(monkeypatch, launch, refused, match):
     x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16)
@@ -389,10 +389,11 @@ def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     if dtype == torch.bfloat16:
         assert card.tc.count("conv3x3_fwd") == card.tc.count("im2col_conv3x3") == 2
         assert card.tc.count("fused_conv3x3_concat_scale_relu") == 1 and card.lib == []
-    else:  # fp32: the concat conv and conv3x3_fwd on the tensor cores (3xTF32), the others
-        # on the CUDA cores
-        assert card.tc == ["fused_conv3x3_concat_scale_relu"] + ["conv3x3_fwd"] * 2
-        assert card.lib.count("tuk_conv3x3") == 1 and card.lib.count("tuk_im2col_conv3x3") == 2
+    else:  # fp32: the single and concat convs and conv3x3_fwd on the tensor cores
+        # (3xTF32), im2col on the CUDA cores
+        assert card.tc == ["fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"] + [
+            "conv3x3_fwd"] * 2
+        assert card.lib == ["tuk_im2col_max_cin", "tuk_im2col_conv3x3"] * 2
 
 
 def test_a_failed_tensor_core_launch_counts_nothing(card):

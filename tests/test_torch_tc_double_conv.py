@@ -262,14 +262,13 @@ def test_cpu_wrapper_returns_the_plain_pool(rng):
 
 
 def test_tc_double_conv_c_interface_matches_the_ctypes_signatures():
+    """The bf16 entry point (the fp32 one, and the removal of the CUDA-core
+    double conv, are checked in test_torch_tc_fp32_single_double.py)."""
     src = (_build.CSRC_DIR / "tc_double_conv.cu").read_text()
-    cc = (_build.CSRC_DIR / "fused_double_conv.cu").read_text()
-    for text, ret, name in ((src, "int", "tuk_tc_double_conv"), (cc, "int", "tuk_double_conv"),
-                            (cc, "size_t", "tuk_double_conv_smem")):
-        head = f'extern "C" {ret} {name}('
-        assert head in text, name
-        params = text.split(head, 1)[1].split(")", 1)[0]
-        assert params.count(",") + 1 == len(_build._SIGNATURES[name][0]), name
+    head = 'extern "C" int tuk_tc_double_conv('
+    assert head in src
+    params = src.split(head, 1)[1].split(")", 1)[0]
+    assert params.count(",") + 1 == len(_build._SIGNATURES["tuk_tc_double_conv"][0])
 
 
 def test_python_mirrors_of_the_double_conv_constants_match_the_source():
@@ -287,6 +286,8 @@ def test_python_mirrors_of_the_double_conv_constants_match_the_source():
 
 
 def test_tc_double_conv_refuses_cpu_and_fp32_tensors(monkeypatch):
+    """CPU tensors are refused; past the device check the launcher takes
+    bf16 and fp32 (3xTF32) and refuses any other type before any build."""
     x = torch.zeros(1, 4, 4, 8, dtype=BF)
     w1, w2 = torch.zeros(3, 3, 8, 32, dtype=BF), torch.zeros(3, 3, 32, 8, dtype=BF)
     v32, v8 = torch.ones(32), torch.ones(8)
@@ -294,8 +295,8 @@ def test_tc_double_conv_refuses_cpu_and_fp32_tensors(monkeypatch):
         tc_conv.double_conv(x, w1, v32, v32, w2, v8, v8, True)
     monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_F32)
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built a library"))
-    with pytest.raises(ValueError, match="bfloat16"):
-        tc_conv.double_conv(x.float(), w1.float(), v32, v32, w2.float(), v8, v8, False)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tc_conv.double_conv(x.half(), w1.half(), v32, v32, w2.half(), v8, v8, False)
 
 
 @pytest.fixture
@@ -324,13 +325,15 @@ def test_bf16_double_conv_counts_follow_the_tensor_core_launcher(card):
 
 
 def test_fp32_double_conv_pools_with_the_pool_kernel(card):
-    """fp32 stays on the CUDA-core kernel; its pool is a max_pool2x2 launch."""
+    """The fp32 double conv's pool is written by the double-conv kernel
+    itself (its epilogue, 3xTF32 on the tensor cores): one ``.tc`` and
+    ``.pool`` launch, no max_pool2x2 launch, no CUDA-core call."""
     y, pooled = K.fused_double_conv(*_meta_dc(torch.float32), pool=True)
-    assert pooled.shape == (1, 4, 6, 64) and card.tc == []
-    assert card.lib == ["tuk_double_conv_smem", "tuk_double_conv", "tuk_max_pool2x2"]
+    assert pooled.shape == (1, 4, 6, 64) and pooled.dtype == torch.float32
+    assert card.tc == ["fused_double_conv"] and card.lib == []
     counts = K.launch_counts()
-    assert counts["fused_double_conv"] == counts["max_pool2x2"] == 1
-    assert counts["fused_double_conv.tc"] == counts["fused_double_conv.pool"] == 0
+    assert counts["fused_double_conv"] == counts["fused_double_conv.tc"] == 1
+    assert counts["fused_double_conv.pool"] == 1 and counts["max_pool2x2"] == 0
 
 
 def test_a_failed_double_conv_launch_counts_nothing(card):

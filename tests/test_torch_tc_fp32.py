@@ -321,7 +321,8 @@ def _dw_f32_smem() -> int:
 
 def test_python_mirrors_of_the_fp32_constants_match_the_source():
     src = (_build.CSRC_DIR / "tc_conv.cu").read_text()
-    kc = re.search(r"struct Tf32x3Op \{[^}]*static constexpr int KC = (\d+);", src)
+    common = (_build.CSRC_DIR / "tc_common.cuh").read_text()  # the operand traits
+    kc = re.search(r"struct Tf32x3Op \{[^}]*static constexpr int KC = (\d+);", common)
     assert int(kc.group(1)) == KC_F32
     found = {int(m.group(1)): tuple(int(v) for v in m.group(2).split(","))
              for m in re.finditer(r"using F32Cfg(\d+) = Config<([\d, ]+), Tf32x3Op>;", src)}

@@ -377,9 +377,9 @@ def card(monkeypatch):
 
 def test_fp32_dx_and_concat_count_tensor_core_launches(card):
     """On meta tensors standing in for CUDA ones: fp32 dx (both ways its
-    output dtype is given) and the fp32 concat conv reach their tensor-core
-    launchers and count ``.tc``; the fp32 single conv stays on the CUDA
-    cores and counts none."""
+    output dtype is given), the fp32 concat conv and the fp32 single conv
+    reach their tensor-core launchers and count ``.tc``; none reaches the
+    CUDA-core library."""
     g = torch.empty(1, 5, 6, 16, device="meta")
     x = torch.empty(1, 5, 6, 8, device="meta")
     w = torch.empty(3, 3, 8, 16, device="meta")
@@ -390,12 +390,13 @@ def test_fp32_dx_and_concat_count_tensor_core_launches(card):
     K.fused_conv3x3_concat_scale_relu(x, x, wc, one, zero)
     K.fused_conv3x3_scale_relu(x, w, one, zero)
     counts = K.launch_counts()
-    assert card.tc == ["conv3x3_dx"] * 2 + ["fused_conv3x3_concat_scale_relu"]
-    assert card.lib == ["tuk_conv3x3"]
+    assert card.tc == ["conv3x3_dx"] * 2 + ["fused_conv3x3_concat_scale_relu",
+                                             "fused_conv3x3_scale_relu"]
+    assert card.lib == []
     assert counts["conv3x3_dx"] == counts["conv3x3_dx.tc"] == 2
     assert counts["fused_conv3x3_concat_scale_relu"] == 1
     assert counts["fused_conv3x3_concat_scale_relu.tc"] == 1
-    assert counts["fused_conv3x3_scale_relu"] == 1 and counts["fused_conv3x3_scale_relu.tc"] == 0
+    assert counts["fused_conv3x3_scale_relu"] == counts["fused_conv3x3_scale_relu.tc"] == 1
 
 
 def test_a_failed_fp32_tensor_core_launch_counts_nothing(card):

@@ -6,9 +6,10 @@ times of every phase-2b ``conv3x3_fwd``, ``conv3x3_dx`` and ``conv3x3_dw``
 case in bf16 and in fp32 (3xTF32 where the tree has that route, the
 CUDA-core kernels where it does not), every served
 ``fused_conv3x3_scale_relu`` and ``fused_conv3x3_concat_scale_relu`` shape
-in bf16 and every served concat shape in fp32, the three served
-``fused_double_conv`` shapes (without the pooled output, which the parent's
-wrapper may lack), and the two 572x572 ``im2col_conv3x3`` cases of phase 2c.
+in bf16 and in fp32, the three served ``fused_double_conv`` shapes in bf16
+(without the pooled output, which an older parent's wrapper may lack) and
+in fp32 (with it, as the forward calls it), and the two 572x572
+``im2col_conv3x3`` cases of phase 2c.
 Then the 572x572 batch-16 train step (``make_train_step``, ``kernels="cuda"``
 and ``None``) in bf16 and fp32: CUDA-event ms, median of 3 after one
 warm-up, and the peak device memory; and the served forward
@@ -152,10 +153,10 @@ def measure(tree: Path) -> None:
         args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
         if name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
             line(f"{name} {label} bf16", lambda: fn(*args))
-            if name == "fused_conv3x3_concat_scale_relu":
-                line(f"{name} {label} fp32", lambda: fn(*inputs))
+            line(f"{name} {label} fp32", lambda: fn(*inputs))
         elif name == "fused_double_conv":
             line(f"{name} {label} bf16", lambda: K.fused_double_conv(*args))
+            line(f"{name} {label} fp32 pool", lambda: fn(*inputs))
     for label, shape, cout, relu in c.IM2COL_CASES:
         if shape[1] == 572 and shape[-1] >= 64:
             x = c._randn(gen, shape).bfloat16()

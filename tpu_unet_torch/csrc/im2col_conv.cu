@@ -15,11 +15,11 @@
 // cores in fp32 FMA (67 TFLOP/s peak at 700 W; the port runs fp32 without
 // TF32), so it is compute-bound. The TPU version was bound by its patch
 // traffic: it wrote the whole [rows, 9*Cin] patch slab to VMEM and read it
-// back. Here the patch never exists outside shared memory, and only kKC of
+// back. Here the patch never exists outside shared memory, and only kImKC of
 // its K columns at a time: a block stages its input tile plus a 1-pixel halo
 // once (all Cin channels, fp32, [180][Cin|1]), then for each K-chunk builds
-// the [kKC][128-pixel] patch slice from that tile, stages the matching
-// [kKC][64] slice of the flattened weights, and accumulates 4 pixels x 8
+// the [kImKC][128-pixel] patch slice from that tile, stages the matching
+// [kImKC][64] slice of the flattened weights, and accumulates 4 pixels x 8
 // output channels a thread in registers. Device memory sees each input pixel
 // of the tile once per output-channel block, each weight once per block,
 // each output once. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py

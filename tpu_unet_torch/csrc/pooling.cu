@@ -2,9 +2,8 @@
 // is dropped, as torch.nn.MaxPool2d(2) does).
 //
 // Replaces the TPU kernel tpu_unet/kernels/pooling.py max_pool2x2. In the
-// bf16 served forward the first three encoder pools come from the double
-// conv's epilogue (tc_double_conv.cu); this kernel runs the fourth, and
-// every pool of the fp32 forward.
+// served forward (bf16 and fp32) the first three encoder pools come from the
+// double conv's epilogue (tc_double_conv.cu); this kernel runs the fourth.
 //
 // What bounds it on the H100: device-memory bandwidth (3.35 TB/s). It reads
 // each input element once and writes a quarter as many, with no arithmetic to

@@ -4,7 +4,8 @@
 // split into a TF32 high part and the TF32 rounding of the rest, three
 // products summed: 3xTF32), mbarriers and TMA loads, and the swizzled byte
 // offsets of staged chunks (64-byte swizzle) and weight slices (128-byte
-// swizzle). The host functions are defined in tc_conv.cu.
+// swizzle), and the operand traits of the bf16 and fp32 mainloops. The host
+// functions are defined in tc_conv.cu.
 #pragma once
 
 #include <cuda.h>
@@ -23,6 +24,22 @@ using bf16 = __nv_bfloat16;
 constexpr int KC = 32;        // input channels per staged chunk (64 bytes a pixel)
 constexpr int kAlign = 1024;  // slot alignment: the swizzle patterns repeat every 1024 bytes
 constexpr int kMaxDevices = 64;
+
+// The operands of a mainloop. Bf16Op: bf16 activations and HWIO weights,
+// KC = 32 channels a chunk, mma.sync m16n8k16. Tf32x3Op: fp32 activations,
+// KC_F32 = 16 channels a chunk (the same 64 bytes a staged pixel, so the
+// same box, swizzle and ldmatrix addresses), weights repacked per call as
+// K-contiguous [2][9][Cout][Cin] TF32 hi and lo planes (split_weights),
+// mma.sync m16n8k8 in 3xTF32 with A split in registers.
+struct Bf16Op {
+  static constexpr bool kTf32 = false;
+  static constexpr int KC = tc::KC;
+};
+struct Tf32x3Op {
+  static constexpr bool kTf32 = true;
+  static constexpr int KC = 16;
+};
+constexpr int KC_F32 = Tf32x3Op::KC;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -169,6 +186,11 @@ cudaError_t make_nhwc_map(CUtensorMap* map, const void* base, int n, int h, int 
 // The shared-memory opt-in of `kernel`, once per device (`done` is the
 // kernel's own flags).
 cudaError_t opt_in_smem(const void* kernel, size_t bytes, std::atomic<bool>* done);
+
+// out[2][9][cout][cin] = the TF32 hi and lo planes of fp32 HWIO w
+// [9][cin][cout], K (cin) contiguous: the fp32 convs' B operand. One launch
+// on `stream`; returns cudaGetLastError().
+cudaError_t split_weights(const float* w, float* out, int cin, int cout, cudaStream_t stream);
 
 }  // namespace tc
 }  // namespace tuk

@@ -24,13 +24,13 @@
 //   tuk_tc_conv3x3_dw     dw[ky,kx,ci,co] = sum over pixels of pro(x) * dz,
 //     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
 //     (pallas_call at :508), bf16 route;
-//   tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dx_f32, tuk_tc_conv3x3_dw_f32,
-//     tuk_tc_concat_conv3x3_f32: the fp32 routes of fwd, dx, dw and the
-//     concat conv, in 3xTF32 (described below "fp32 in 3xTF32").
+//   tuk_tc_fused_conv3x3_f32, tuk_tc_concat_conv3x3_f32,
+//     tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dx_f32, tuk_tc_conv3x3_dw_f32:
+//     the fp32 routes of the single and the concat conv, fwd, dx and dw, in
+//     3xTF32 (described below "fp32 in 3xTF32").
 //
-// The other fp32 calls (the single folded conv, im2col, the double conv)
-// stay on the CUDA-core kernels of fused_conv.cu, im2col_conv.cu and
-// fused_double_conv.cu, in fp32 FMA.
+// fp32 im2col stays on the CUDA-core kernel of im2col_conv.cu, in fp32 FMA;
+// the fp32 double conv runs in 3xTF32 in tc_double_conv.cu.
 //
 // fp32 in 3xTF32. The port holds fp32 to fp32 accuracy (TF32 off in its
 // library calls, ops/conv.py). One TF32 pass rounds each operand to 10
@@ -69,6 +69,8 @@
 // * the concat conv: ConcatLoad over 16-channel chunks (weight rows Ca + 16
 //   j for b's chunk j), AffineEpi on the fp32 accumulators, the weights
 //   split as the fwd's.
+// * the single folded conv: the concat conv's instantiation with one source
+//   (RawLoad, AffineEpi), the weights split as the fwd's.
 // * dw (tc_dw_f32_kernel): see there.
 //
 // The concat conv is the forward's mainloop with a second input tensor map
@@ -195,22 +197,6 @@ namespace tc {
 constexpr int STAGES = 4;  // k-steps in the weight ring (a Config may take fewer)
 
 constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-// The operands of the mainloop. Bf16Op: bf16 activations and HWIO weights,
-// KC = 32 channels a chunk, mma.sync m16n8k16. Tf32x3Op: fp32 activations,
-// KC_F32 = 16 channels a chunk (the same 64 bytes a staged pixel, so the
-// same box, swizzle and ldmatrix addresses), weights repacked per call as
-// K-contiguous [2][9][Cout][Cin] TF32 hi and lo planes (split_weights_kernel),
-// mma.sync m16n8k8 in 3xTF32 with A split in registers.
-struct Bf16Op {
-  static constexpr bool kTf32 = false;
-  static constexpr int KC = tc::KC;
-};
-struct Tf32x3Op {
-  static constexpr bool kTf32 = true;
-  static constexpr int KC = 16;
-};
-constexpr int KC_F32 = Tf32x3Op::KC;
 
 // A block configuration: BM output pixels x BN output channels, WM x WN
 // warps (each a (BM / WM) x (BN / WN) warp tile), MAX_STAGED pixels of the
@@ -1412,6 +1398,12 @@ __global__ void __launch_bounds__(256)
 
 // ---- host side --------------------------------------------------------------
 
+cudaError_t split_weights(const float* w, float* out, int cin, int cout, cudaStream_t stream) {
+  split_weights_kernel<<<dim3((cout + 31) / 32, (cin + 31) / 32, 9), dim3(32, 8), 0, stream>>>(
+      w, out, cin, cout);
+  return cudaGetLastError();
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1562,15 +1554,15 @@ cudaError_t launch_f32(int cfg, const float* x, const float* b, int ca, const fl
                        float* partials, int n, int h, int wd, int cin, int cout, int th, int tw,
                        cudaStream_t stream) {
   if (cin % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
+  cudaError_t err;
   if constexpr (Load::kAux) {
     const int tap_quads = cout * cin / 4;
     split_dx_weights_kernel<<<(9 * tap_quads + 255) / 256, 256, 0, stream>>>(
         reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), tap_quads);
+    err = cudaGetLastError();
   } else {
-    split_weights_kernel<<<dim3((cout + 31) / 32, (cin + 31) / 32, 9), dim3(32, 8), 0,
-                           stream>>>(w, wsplit, cin, cout);
+    err = split_weights(w, wsplit, cin, cout, stream);
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 #define TUK_F32_CASE(ID)                                                                  \
   case ID:                                                                                \
@@ -1854,6 +1846,22 @@ extern "C" int tuk_tc_conv3x3_dx_f32(const float* g, const float* z, const float
   return (int)launch_f32<DzLoadF32, RoundEpi, false>(
       cfg, g, nullptr, c, z, w, wsplit, DzLoadF32{coef}, RoundEpi{}, out, nullptr, n, h, wd, c,
       cin, th, tw, static_cast<cudaStream_t>(stream));
+}
+
+// y[N,H,W,cout] = [relu](conv3x3_same(x, w) * scale + bias) in fp32 on the
+// tensor cores (3xTF32). x: fp32 [N,H,W,cin], w: fp32 [3,3,cin,cout] HWIO;
+// wsplit: fp32 [2][9][cout][cin] scratch for its split; scale/bias: fp32
+// [cout]. cin and cout multiples of 8; (cfg, th, tw) from kernels/tc_conv.py
+// tc_plan with f32. One call: the split, then the conv.
+extern "C" int tuk_tc_fused_conv3x3_f32(const float* x, const float* w, float* wsplit,
+                                        const float* scale, const float* bias, float* out, int n,
+                                        int h, int wd, int cin, int cout, int relu, int cfg,
+                                        int th, int tw, void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  return (int)launch_f32<RawLoad, AffineEpi, false>(
+      cfg, x, nullptr, cin, nullptr, w, wsplit, RawLoad{}, AffineEpi{scale, bias, relu}, out,
+      nullptr, n, h, wd, cin, cout, th, tw, static_cast<cudaStream_t>(stream));
 }
 
 // y = [relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) in fp32 on

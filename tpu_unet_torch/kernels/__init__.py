@@ -31,7 +31,7 @@ WRAPPERS = (
 )
 
 
-# The wrappers with a tensor-core route (bf16) beside their CUDA-core one;
+# The wrappers with a tensor-core route (bf16 and, all but im2col's, fp32);
 # each also carries a ``tc_launches`` count.
 TC_WRAPPERS = (
     fused_conv3x3_scale_relu,

@@ -38,13 +38,10 @@ _I = ctypes.c_int
 # stream, so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "tuk_max_pool2x2": ([_P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-    "tuk_conv3x3": ([_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-                    ctypes.c_int),
-    "tuk_double_conv": ([_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-                        ctypes.c_int),
-    "tuk_double_conv_smem": ([_I], ctypes.c_size_t),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              ctypes.c_int),
+    "tuk_tc_fused_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P], ctypes.c_int),
     "tuk_tc_concat_conv3x3": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _P], ctypes.c_int),
     "tuk_tc_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -55,6 +52,8 @@ _SIGNATURES = {
                           ctypes.c_int),
     "tuk_tc_double_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P], ctypes.c_int),
+    "tuk_tc_double_conv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P], ctypes.c_int),
     "tuk_tc_conv3x3_dw": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P], ctypes.c_int),
     "tuk_tc_conv3x3_fwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

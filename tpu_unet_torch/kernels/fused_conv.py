@@ -1,18 +1,17 @@
 """Fused 3x3 SAME conv + folded-BN scale/bias + ReLU on NHWC: the port of
 ``tpu_unet/kernels/fused_conv.py`` (``fused_conv3x3_scale_relu`` and
-``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. Both in
-bf16, and the concat conv in fp32 too, run on the tensor cores
-(``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``; the concat's K chunks
-come from the skip, then from the upsampled tensor; fp32 in 3xTF32: each
-operand split into a TF32 high part and the TF32 rounding of the rest,
-three products summed in fp32, so fp32 accuracy is kept). The fp32 single
-conv runs on the CUDA cores (``csrc/fused_conv.cu``). Each source's header
-says what bounds it on the H100 and how the design answers.
+``fused_conv3x3_concat_scale_relu``) as hand-written CUDA kernels. Both run
+on the tensor cores in bf16 and in fp32 (``csrc/tc_conv.cu``, through
+``kernels/tc_conv.py``; the concat's K chunks come from the skip, then from
+the upsampled tensor; fp32 in 3xTF32: each operand split into a TF32 high
+part and the TF32 rounding of the rest, three products summed in fp32, so
+fp32 accuracy is kept). The source's header says what bounds them on the
+H100 and how the design answers.
 
 Each wrapper launches a kernel for CUDA tensors and runs its plain PyTorch
 version (``*_plain``) for CPU tensors. It never falls back: a failed build or
 launch raises. ``<wrapper>.launches`` counts the kernel launches, and
-``<wrapper>.tc_launches`` those on the tensor cores.
+``<wrapper>.tc_launches`` those on the tensor cores (all of them).
 
 Numerics, as in the Pallas kernels: inputs and weights in the input dtype
 (fp32 or bf16), fp32 accumulation, scale and bias upcast to fp32, the
@@ -47,43 +46,30 @@ def fused_conv3x3_concat_scale_relu_plain(a, b, w, scale, bias, *, apply_relu: b
                                           apply_relu=apply_relu)
 
 
-def _count(wrapper, tc: bool = False) -> None:
+def _count(wrapper) -> None:
     with _count_lock:
         wrapper.launches += 1
-        if tc:
-            wrapper.tc_launches += 1
+        wrapper.tc_launches += 1
 
 
 def _launch(wrapper, a, b, w, scale, bias, apply_relu):
-    """Launch the kernel of ``wrapper`` and count the launch on the route
-    that made it."""
+    """Launch the tensor-core kernel of ``wrapper`` and count the launch."""
     name = wrapper.__name__
     tensors = (a, w) if b is None else (a, b, w)
-    dtype = _build.validate(name, *tensors)
+    _build.validate(name, *tensors)
     if a.ndim != 4 or (b is not None and (b.ndim != 4 or b.shape[:3] != a.shape[:3])):
         raise ValueError(f"{name}: inputs must be [N,H,W,C] with equal N,H,W")
-    n, h, wd, ca = a.shape
+    ca = a.shape[3]
     cb = 0 if b is None else b.shape[3]
     if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, ca + cb):
         raise ValueError(f"{name}: weight must be [3,3,{ca + cb},Cout], got {tuple(w.shape)}")
     cout = w.shape[3]
     s = _build.f32_vector(scale, cout, a, name)
     t = _build.f32_vector(bias, cout, a, name)
-    if b is not None:
-        out = tc_conv.fused_conv3x3_concat(a, b, w, s, t, apply_relu)
-        _count(wrapper, tc=True)
-        return out
-    if dtype == _build.DTYPE_BF16:
+    if b is None:
         out = tc_conv.fused_conv3x3(a, w, s, t, apply_relu)
-        _count(wrapper, tc=True)
-        return out
-    out = torch.empty((n, h, wd, cout), dtype=a.dtype, device=a.device)
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        err = lib.tuk_conv3x3(a.data_ptr(), a.data_ptr(), ca, 0, w.data_ptr(), s.data_ptr(),
-                              t.data_ptr(), out.data_ptr(), n, h, wd, cout, int(apply_relu),
-                              dtype, _build.stream(a))
-    _build.check(err, name)
+    else:
+        out = tc_conv.fused_conv3x3_concat(a, b, w, s, t, apply_relu)
     _count(wrapper)
     return out
 

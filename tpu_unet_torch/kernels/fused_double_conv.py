@@ -1,22 +1,20 @@
 """A whole folded-BN DoubleConv in one kernel: the port of
 ``tpu_unet/kernels/fused_double_conv.py::fused_double_conv`` as hand-written
-CUDA kernels. bf16 runs on the tensor cores (``csrc/tc_double_conv.cu``,
-through ``kernels/tc_conv.py``: conv1 over the tile plus its halo into a mid
-tile kept in shared memory, then conv2 from it, the 2x2 max pool optionally
-folded into the epilogue); fp32 on the CUDA cores
-(``csrc/fused_double_conv.cu``). Each source's header says what bounds it on
-the H100 and how the design answers.
+CUDA kernel. It runs on the tensor cores in bf16 and in fp32 (3xTF32)
+(``csrc/tc_double_conv.cu``, through ``kernels/tc_conv.py``: conv1 over the
+tile plus its halo into a mid tile kept in shared memory, then conv2 from
+it, the 2x2 max pool optionally folded into the epilogue). The source's
+header says what bounds it on the H100 and how the design answers.
 
-``fused_double_conv`` launches a kernel for CUDA tensors and runs
+``fused_double_conv`` launches the kernel for CUDA tensors and runs
 ``fused_double_conv_plain`` for CPU tensors. It never falls back: a failed
 build or launch raises. ``fused_double_conv.launches`` counts the launches,
-``.tc_launches`` those on the tensor cores and ``.pool_launches`` those that
-also wrote the pooled output.
+``.tc_launches`` those on the tensor cores (all of them) and
+``.pool_launches`` those that also wrote the pooled output.
 
-With ``pool=True`` it returns ``(y, max_pool2x2(y))``: in bf16 on a CUDA
-device the kernel's epilogue computes the pool from the output tile it holds
-(bit-identical: a max selects an input); in fp32 the pool is the
-``max_pool2x2`` kernel's launch on y; on the CPU, both plain versions.
+With ``pool=True`` it returns ``(y, max_pool2x2(y))``: on a CUDA device the
+kernel's epilogue computes the pool from the output tile it holds
+(bit-identical: a max selects an input); on the CPU, both plain versions.
 
 Numerics, as in the Pallas kernel: fp32 accumulation and epilogues, the mid
 activation rounded to the input dtype (it is held in shared memory in that
@@ -27,17 +25,15 @@ from __future__ import annotations
 
 import threading
 
-import torch
-
 from tpu_unet_torch.kernels import _build, tc_conv
 from tpu_unet_torch.kernels.fused_conv import fused_conv3x3_scale_relu_plain
-from tpu_unet_torch.kernels.pooling import max_pool2x2, max_pool2x2_plain
+from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 
 # Channel ceiling of the fused path, as in the JAX package: unet_infer_apply
 # routes a DoubleConv here when max(Cin, Cmid) <= this. On the H100 the bound
-# is shared memory: the fp32 mid tile [Cmid, 10, 18] at Cmid = 256 takes 180
-# KB of the 227 KB a block may use (bf16 on 6 x 30 tiles: 225 KB with the
-# rings).
+# is shared memory: at Cmid = 256 the mid tile and the rings of one block
+# fill 225 KB (bf16, 6 x 30 tiles) and 220 KB (fp32, 8 x 10 tiles) of the
+# 227 KB a block may use (kernels/tc_conv.py dc_smem).
 FUSED_DC_MAX_CHANNELS = 256
 
 _count_lock = threading.Lock()
@@ -52,10 +48,10 @@ def fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2, *, pool: bo
     return (y, max_pool2x2_plain(y)) if pool else y
 
 
-def _count(tc: bool, pool: bool) -> None:
+def _count(pool: bool) -> None:
     with _count_lock:
         fused_double_conv.launches += 1
-        fused_double_conv.tc_launches += tc
+        fused_double_conv.tc_launches += 1
         fused_double_conv.pool_launches += pool
 
 
@@ -66,10 +62,10 @@ def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2, *, pool: bool = F
     if x.device.type == "cpu":
         return fused_double_conv_plain(x, w1, scale1, bias1, w2, scale2, bias2, pool=pool)
     name = "fused_double_conv"
-    dtype = _build.validate(name, x, w1, w2)
+    _build.validate(name, x, w1, w2)
     if x.ndim != 4:
         raise ValueError(f"{name}: expected [N,H,W,Cin], got {tuple(x.shape)}")
-    n, h, wd, cin = x.shape
+    cin = x.shape[3]
     if w1.ndim != 4 or tuple(w1.shape[:3]) != (3, 3, cin):
         raise ValueError(f"{name}: w1 must be [3,3,{cin},Cmid], got {tuple(w1.shape)}")
     cmid = w1.shape[3]
@@ -80,25 +76,9 @@ def fused_double_conv(x, w1, scale1, bias1, w2, scale2, bias2, *, pool: bool = F
     b1 = _build.f32_vector(bias1, cmid, x, name)
     s2 = _build.f32_vector(scale2, cout, x, name)
     b2 = _build.f32_vector(bias2, cout, x, name)
-    if dtype == _build.DTYPE_BF16:
-        out, pooled = tc_conv.double_conv(x, w1, s1, b1, w2, s2, b2, pool)
-        _count(tc=True, pool=pool)
-        return (out, pooled) if pool else out
-    lib = _build.library()
-    smem = lib.tuk_double_conv_smem(cmid)
-    limit = getattr(torch.cuda.get_device_properties(x.device),
-                    "shared_memory_per_block_optin", None)
-    if limit is not None and smem > limit:
-        raise ValueError(f"{name}: Cmid={cmid} needs {smem} bytes of shared memory per "
-                         f"block; this device allows {limit}")
-    out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.tuk_double_conv(x.data_ptr(), cin, w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
-                                  cmid, w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), cout,
-                                  out.data_ptr(), n, h, wd, dtype, _build.stream(x))
-    _build.check(err, name)
-    _count(tc=False, pool=False)
-    return (out, max_pool2x2(out)) if pool else out
+    out, pooled = tc_conv.double_conv(x, w1, s1, b1, w2, s2, b2, pool)
+    _count(pool=pool)
+    return (out, pooled) if pool else out
 
 
 fused_double_conv.launches = 0

@@ -2,11 +2,10 @@
 ``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
 ``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``,
 and of ``fused_double_conv``, in ``csrc/tc_double_conv.cu`` (mma.sync on the
-tensor cores, TMA loads); and the fp32 route of ``conv3x3_fwd``,
-``conv3x3_dx``, ``conv3x3_dw`` and ``fused_conv3x3_concat_scale_relu`` in
-3xTF32 (each fp32 operand split into TF32 hi and lo parts, lo*hi + hi*lo +
-hi*hi summed in fp32: fp32 accuracy, which one TF32 pass would lose), with
-``tc_plan``/``dw_plan`` given ``f32``:
+tensor cores, TMA loads); and the fp32 route of all but ``im2col_conv3x3``
+in 3xTF32 (each fp32 operand split into TF32 hi and lo parts, lo*hi + hi*lo
++ hi*hi summed in fp32: fp32 accuracy, which one TF32 pass would lose), with
+``tc_plan``/``dw_plan``/``dc_plan`` given ``f32``:
 
 - one implicit-GEMM kernel over output pixels whose K chunks come from one
   input or, for the concat conv, from the skip's tensor map and then the
@@ -25,12 +24,13 @@ hi*hi summed in fp32: fp32 accuracy, which one TF32 pass would lose), with
   9 taps, 12 warps of 32 x 32 channels x the 3 taps of one kernel row (96
   fp32 accumulators a thread), and walks its split's pixel tiles, each
   rewritten (prologue, dz) once for the 9 taps;
-- the bf16 ``fused_double_conv`` (``csrc/tc_double_conv.cu``, replacing
-  ``tpu_unet/kernels/fused_double_conv.py:94``): conv1 over the tile plus a
-  1-pixel halo into a bf16 mid tile kept in shared memory (zero outside the
-  image), conv2 from it on the same mainloop, and optionally the 2x2 max
-  pool of the output tile in the epilogue (``tpu_unet/kernels/pooling.py:33``
-  for the encoder's first three pools).
+- ``fused_double_conv`` (``csrc/tc_double_conv.cu``, replacing
+  ``tpu_unet/kernels/fused_double_conv.py:94``), one kernel templated on the
+  operand type: conv1 over the tile plus a 1-pixel halo into a mid tile
+  (bf16, or fp32 unrounded) kept in shared memory (zero outside the image),
+  conv2 from it on the same mainloop, and optionally the 2x2 max pool of the
+  output tile in the epilogue (``tpu_unet/kernels/pooling.py:33`` for the
+  encoder's first three pools).
 
 All are bounded by their 2*9*Cin*Cout multiply-adds a pixel (operations)
 at the deep levels and by bytes and operations about equally at level 0;
@@ -48,9 +48,8 @@ must fit one block's shared memory. The CPU tests check that each covers
 every pixel once.
 
 The wrappers of ``fused_conv``, ``fused_double_conv``, ``train_conv`` and
-``im2col_conv`` call the launchers here for bf16 CUDA tensors, and
-``train_conv``'s wrappers and the concat conv's for fp32 ones too; the
-launchers never run on the CPU.
+``im2col_conv`` call the launchers here for bf16 CUDA tensors, and all but
+``im2col_conv``'s for fp32 ones too; the launchers never run on the CPU.
 """
 
 from __future__ import annotations
@@ -99,12 +98,16 @@ DWF_MAX_STAGED = 200
 
 # Mirrors of csrc/tc_double_conv.cu (a CPU test checks that they agree): a
 # block's warps, the most m16 fragments a warp holds, the weight ring's
-# k-steps and the bytes of a slot, the shared memory a block may use on the
-# H100.
+# k-steps and the bytes of a slot, bf16 and fp32 (a slot holds both TF32
+# planes of 128 columns x 16 K rows), the shared memory a block may use on
+# the H100.
 DC_WARPS = 8
 DC_MI_MAX = 4
 DC_STAGES = 6
 DC_W_SLOT = 2 * KC * 128
+DC_MI_MAX_F32 = 3
+DC_STAGES_F32 = 3
+DC_W_SLOT_F32 = 2 * 2 * 64 * KC_F32 * 4
 DC_MAX_SMEM = 232448
 
 
@@ -246,17 +249,20 @@ def _up_align(v: int) -> int:
     return -(-v // 1024) * 1024
 
 
-def dc_smem(th: int, tw: int, cmid: int, cout: int) -> int:
+def dc_smem(th: int, tw: int, cmid: int, cout: int, f32: bool = False) -> int:
     """Dynamic shared memory of one double-conv block, as the kernel's
-    ``layout()``: the 1024-byte alignment slack, Cmid / 32 mid slots of the
-    (th+2) x (tw+2) region, the two input slots of the (th+4) x (tw+4) box
-    or the bf16 output tile, whichever is larger, the weight ring and the
+    ``layout()``: the 1024-byte alignment slack, Cmid / KC mid slots (KC =
+    32 bf16 or 16 fp32 channels: 64 bytes a pixel in both) of the (th+2) x
+    (tw+2) region, the two input slots of the (th+4) x (tw+4) box or the
+    output tile (bf16 or fp32), whichever is larger, the weight ring and the
     mbarriers."""
-    mid_slot = _up_align((th + 2) * (tw + 2) * KC * 2)
-    in_slot = _up_align((th + 4) * (tw + 4) * KC * 2)
-    out_tile = _up_align(th * tw * ((128 if cout > 64 else 64) + 8) * 2)
-    return (1024 + cmid // KC * mid_slot + max(2 * in_slot, out_tile) + DC_STAGES * DC_W_SLOT
-            + (2 + DC_STAGES) * 8)
+    kc, es = (KC_F32, 4) if f32 else (KC, 2)
+    stages, w_slot = (DC_STAGES_F32, DC_W_SLOT_F32) if f32 else (DC_STAGES, DC_W_SLOT)
+    mid_slot = _up_align((th + 2) * (tw + 2) * 64)
+    in_slot = _up_align((th + 4) * (tw + 4) * 64)
+    out_tile = _up_align(th * tw * ((128 if cout > 64 else 64) + 8) * es)
+    return (1024 + cmid // kc * mid_slot + max(2 * in_slot, out_tile) + stages * w_slot
+            + (2 + stages) * 8)
 
 
 def _dc_frags(m: int, warps: int) -> int:
@@ -285,34 +291,46 @@ class DcPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def dc_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int, num_sms: int) -> DcPlan:
+def dc_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int, num_sms: int,
+            f32: bool = False) -> DcPlan:
     """The tile of an [n, h, w, cin] -> cmid -> cout double conv (cin a
-    multiple of 8, cmid of 32, cout of 8). Candidates: even th x tw whose
-    staged box fits TMA (<= 256 a side), whose rows fit the warps' fragments
-    (conv1's (th+2)(tw+2) mid pixels and conv2's th*tw over 8 warps, or over
-    4 for each 64-column half of a 128-column pass) and whose block fits the
-    shared memory. Cost: the waves of blocks on ``num_sms`` SMs (one block
-    an SM) x a block's k-steps, each weighted by the fragments every warp
-    computes in its phase (the busiest warp's, the kernel's MI1 and MI2;
-    half of them in a chunk of x whose channels fit one k16 half) plus one
-    for the step's loads and barrier. The mid halo's recompute
-    and the tile's edge waste both show in it. Cached, as tc_plan."""
-    n1, c2 = -(-cmid // 128), cmid // KC
+    multiple of 8, cmid of 32 (bf16) or 16 (fp32), cout of 8). Candidates:
+    even th x tw whose staged box fits TMA (<= 256 a side), whose rows fit
+    the warps' fragments (conv1's (th+2)(tw+2) mid pixels and conv2's th*tw
+    over 8 warps, or over 4 for each 64-column half of a 128-column pass; at
+    most DC_MI_MAX, or DC_MI_MAX_F32 in fp32) and whose block fits the
+    shared memory (``dc_smem``). Cost: the waves of blocks on ``num_sms``
+    SMs (one block an SM) x a block's k-steps, each weighted by the
+    fragments every warp computes in its phase (the busiest warp's, the
+    kernel's MI1 and MI2; half of them in a chunk of x whose channels fit
+    one k16 half, or one k8 step in fp32) plus one for the step's loads and
+    barrier. An fp32 fragment's k-step issues three TF32 MMAs for each bf16
+    one, and a k-step's loads (both planes of B, per group of 4 n8 blocks)
+    and barrier weigh 4: with these weights the plan's tile was among the
+    fastest of its wave count, within 1.4% of the fastest fitting tile up to
+    16 x 64, at the three served shapes on the H100 (tools/dc_tile_sweep.py,
+    PERF.md). The mid halo's recompute and the tile's edge waste both show
+    in it. Cached, as tc_plan."""
+    kc, mi_max = (KC_F32, DC_MI_MAX_F32) if f32 else (KC, DC_MI_MAX)
+    mma, loads = (3, 4) if f32 else (1, 1)
+    n1, c2 = -(-cmid // 128), cmid // kc
     passes2 = -(-cout // 128)
-    # x's chunks as k16 halves that hold channels: the kernel skips the rest
-    halves1 = [1.0 if cin - k0 > 16 else 0.5 for k0 in range(0, cin, KC)]
+    # x's chunks as k16 halves (k8 steps) that hold channels: the kernel
+    # skips the rest
+    halves1 = [1.0 if cin - k0 > kc // 2 else 0.5 for k0 in range(0, cin, kc)]
     best = None
     for th in range(2, min(252, h + h % 2) + 1, 2):
         for tw in range(2, min(252, w + w % 2) + 1, 2):
             f1 = _dc_frags((th + 2) * (tw + 2), DC_WARPS // 2 if cmid > 64 else DC_WARPS)
             f2 = _dc_frags(th * tw, DC_WARPS // 2 if cout > 64 else DC_WARPS)
-            if f1 > DC_MI_MAX or f2 > DC_MI_MAX:
+            if f1 > mi_max or f2 > mi_max:
                 continue
-            smem = dc_smem(th, tw, cmid, cout)
+            smem = dc_smem(th, tw, cmid, cout, f32)
             if smem > DC_MAX_SMEM:
                 continue
             tiles = math.ceil(h / th) * math.ceil(w / tw)
-            steps = n1 * 9 * sum(f1 * kks + 1 for kks in halves1) + passes2 * c2 * 9 * (f2 + 1)
+            steps = (n1 * 9 * sum(mma * f1 * kks + loads for kks in halves1)
+                     + passes2 * c2 * 9 * (mma * f2 + loads))
             key = (math.ceil(n * tiles / num_sms) * steps, tiles, -tw)
             if best is None or key < best[0]:
                 best = (key, th, tw, smem)
@@ -406,16 +424,27 @@ def _unpadded(out, cout):
 
 
 def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
-    """[relu](conv3x3_same(x, w) * scale + bias) in bf16 on the tensor cores.
-    x: [N,H,W,Cin] bf16, w: [3,3,Cin,Cout] bf16, scale/bias fp32 [Cout]."""
+    """[relu](conv3x3_same(x, w) * scale + bias) on the tensor cores, in bf16
+    or in fp32 (3xTF32, the weights split per call: the concat conv's kernel
+    with one source). x: [N,H,W,Cin], w: [3,3,Cin,Cout], both of one dtype;
+    scale/bias fp32 [Cout]."""
     name = "fused_conv3x3_scale_relu"
-    op = _affine(name, [x], w, scale, bias, x.dtype)
+    op = _affine(name, [x], w, scale, bias, x.dtype, fp32=True)
     n, h, wd, cin = op.xs[0].shape
+    cout8 = op.out.shape[3]
+    lib = _build.library()
     with _on_device(x):
-        err = _build.library().tuk_tc_fused_conv3x3(
-            op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
-            op.out.data_ptr(), n, h, wd, cin, op.out.shape[3], int(apply_relu), op.plan.cfg,
-            op.plan.th, op.plan.tw, _build.stream(x))
+        if x.dtype == torch.float32:
+            wsplit = torch.empty((2, 9, cout8, cin), dtype=torch.float32, device=x.device)
+            err = lib.tuk_tc_fused_conv3x3_f32(
+                op.xs[0].data_ptr(), op.w.data_ptr(), wsplit.data_ptr(), op.scale.data_ptr(),
+                op.bias.data_ptr(), op.out.data_ptr(), n, h, wd, cin, cout8, int(apply_relu),
+                op.plan.cfg, op.plan.th, op.plan.tw, _build.stream(x))
+        else:
+            err = lib.tuk_tc_fused_conv3x3(
+                op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+                op.out.data_ptr(), n, h, wd, cin, cout8, int(apply_relu), op.plan.cfg,
+                op.plan.th, op.plan.tw, _build.stream(x))
     _build.check(err, name)
     return _unpadded(op.out, w.shape[3])
 
@@ -599,33 +628,46 @@ def _pad_io(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def double_conv(x, w1, s1, b1, w2, s2, b2, pool: bool):
-    """relu(conv3x3_same(relu(conv3x3_same(x, w1)·s1 + b1), w2)·s2 + b2) in
-    bf16 on the tensor cores, mid (rounded to bf16) kept in shared memory;
-    with ``pool`` also its 2x2 / stride-2 max pool (floor mode) from the same
-    epilogue. Returns (y, pooled or None). x: [N,H,W,Cin] bf16, w1:
-    [3,3,Cin,Cmid], w2: [3,3,Cmid,Cout] bf16, s*/b*: fp32. Cin is
-    zero-padded to 8, Cmid to 32 (zero w1 columns, scale and bias give mid
-    channels of relu(0) = 0, against zero w2 rows), Cout to 8."""
+    """relu(conv3x3_same(relu(conv3x3_same(x, w1)·s1 + b1), w2)·s2 + b2) on
+    the tensor cores, in bf16 (mid rounded to bf16) or in fp32 (3xTF32, mid
+    fp32, w1 and w2 split per call), mid kept in shared memory; with
+    ``pool`` also its 2x2 / stride-2 max pool (floor mode) from the same
+    epilogue. Returns (y, pooled or None). x: [N,H,W,Cin], w1:
+    [3,3,Cin,Cmid], w2: [3,3,Cmid,Cout], all of one dtype; s*/b*: fp32. Cin
+    is zero-padded to 8, Cmid to 32 in bf16 and 16 in fp32 (zero w1 columns,
+    scale and bias give mid channels of relu(0) = 0, against zero w2 rows),
+    Cout to 8."""
     name = "fused_double_conv"
-    _check_dtype(name, x, w1, w2)
+    _check_dtype(name, x, w1, w2, fp32=True)
+    f32 = x.dtype == torch.float32
     n, h, wd, cin = x.shape
     cmid, cout = w1.shape[3], w2.shape[3]
-    cin8, cmid32, cout8 = _ceil8(cin), -(-cmid // 32) * 32, _ceil8(cout)
+    kc = KC_F32 if f32 else KC
+    cin8, cmidk, cout8 = _ceil8(cin), -(-cmid // kc) * kc, _ceil8(cout)
     xp = _aligned(_pad_last(x, cin8).contiguous())
     w1p, w2p = (_aligned(_pad_io(w, r, c).contiguous())
-                for w, r, c in ((w1, cin8, cmid32), (w2, cmid32, cout8)))
-    s1p, b1p = (_aligned(_pad_last(v, cmid32).contiguous()) for v in (s1, b1))
+                for w, r, c in ((w1, cin8, cmidk), (w2, cmidk, cout8)))
+    s1p, b1p = (_aligned(_pad_last(v, cmidk).contiguous()) for v in (s1, b1))
     s2p, b2p = (_aligned(_pad_last(v, cout8).contiguous()) for v in (s2, b2))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = dc_plan(n, h, wd, cin8, cmid32, cout8, sms)
+    plan = dc_plan(n, h, wd, cin8, cmidk, cout8, sms, f32)
     out = torch.empty((n, h, wd, cout8), dtype=x.dtype, device=x.device)
     pooled = (torch.empty((n, h // 2, wd // 2, cout8), dtype=x.dtype, device=x.device)
               if pool else None)
+    ptr = None if pooled is None else pooled.data_ptr()
+    lib = _build.library()
     with _on_device(x):
-        err = _build.library().tuk_tc_double_conv(
-            xp.data_ptr(), w1p.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
-            s2p.data_ptr(), b2p.data_ptr(), out.data_ptr(),
-            None if pooled is None else pooled.data_ptr(), n, h, wd, cin8, cmid32, cout8,
-            plan.th, plan.tw, _build.stream(x))
+        if f32:
+            w1s = torch.empty((2, 9, cmidk, cin8), dtype=torch.float32, device=x.device)
+            w2s = torch.empty((2, 9, cout8, cmidk), dtype=torch.float32, device=x.device)
+            err = lib.tuk_tc_double_conv_f32(
+                xp.data_ptr(), w1p.data_ptr(), w1s.data_ptr(), s1p.data_ptr(), b1p.data_ptr(),
+                w2p.data_ptr(), w2s.data_ptr(), s2p.data_ptr(), b2p.data_ptr(), out.data_ptr(),
+                ptr, n, h, wd, cin8, cmidk, cout8, plan.th, plan.tw, _build.stream(x))
+        else:
+            err = lib.tuk_tc_double_conv(
+                xp.data_ptr(), w1p.data_ptr(), s1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
+                s2p.data_ptr(), b2p.data_ptr(), out.data_ptr(), ptr, n, h, wd, cin8, cmidk,
+                cout8, plan.th, plan.tw, _build.stream(x))
     _build.check(err, name)
     return _unpadded(out, cout), None if pooled is None else _unpadded(pooled, cout)
