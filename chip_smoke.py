@@ -19,9 +19,12 @@ Phases, each of which exits non-zero on failure, each with its time:
    least time the card could take for its bytes or operations). The
    folded-BN convs run on the tensor cores in bf16 and in fp32 (3xTF32)
    (``csrc/tc_conv.cu``; the double conv ``csrc/tc_double_conv.cu``, its
-   pool from the same epilogue); a second call of each conv (both dtypes)
-   must repeat the first bit for bit, and the double conv's pooled output
-   must equal ``max_pool2x2_plain`` of its own output.
+   pool from the same epilogue); a second call of each conv and of the pool
+   (both dtypes) must repeat the first bit for bit, and the double conv's
+   pooled output must equal ``max_pool2x2_plain`` of its own output. The
+   pool runs at down3's output (the forward's one ``max_pool2x2``) and at
+   level 0's width, exactly equal to its plain version, with its and the
+   library call's time in a CUDA graph of 50 calls beside one call's.
    Beside the double conv's time, in both dtypes: two compositions, two
    ``fused_conv3x3_scale_relu`` calls (mid through device memory, tensor
    cores) and two cuDNN convs with a ReLU between.
@@ -32,9 +35,10 @@ Phases, each of which exits non-zero on failure, each with its time:
    conv3x3_fwd case's time is split (``fwd_split``): without and with its
    prologue and stats, against the library call.
    2c. ``im2col_conv3x3`` through its own entry point (no model path calls
-   it; in bf16 its one launch must be on the tensor cores), then against
-   its plain version in bf16 (bf16 and fp32 output) and fp32; a second bf16
-   call must repeat the first bit for bit.
+   it), once in bf16 and once in fp32: each call one launch, on the tensor
+   cores; then against its plain version in bf16 and in fp32 (3xTF32), each
+   with bf16 and fp32 output; a second call must repeat the first bit for
+   bit.
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
    class, 31.0M parameters) from a seed, with a non-trivial BN state, save it
    as a checkpoint and start the port's HTTP server on it in this process
@@ -158,7 +162,6 @@ TC_PER_STEP = {
     "fp32": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
 }
 # Which implementation runs each kernel in each dtype.
-_CC = "CUDA cores, fp32 FMA"
 _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
 _TF32X3 = ("tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA "
            "(tpu_unet_torch/csrc/tc_conv.cu)")
@@ -171,11 +174,14 @@ IMPL = {
         "fp32": "tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA, fp32 "
                 "mid in shared memory, pool in the epilogue "
                 "(tpu_unet_torch/csrc/tc_double_conv.cu)"},
-    "max_pool2x2": {"bf16": "csrc/pooling.cu", "fp32": "csrc/pooling.cu"},
+    "max_pool2x2": {"bf16": "CUDA cores, no divides, 16-byte loads with no L1 allocation, "
+                            "__hmax2_nan on bf16 pairs (tpu_unet_torch/csrc/pooling.cu)",
+                    "fp32": "CUDA cores, no divides, 16-byte __ldg loads "
+                            "(tpu_unet_torch/csrc/pooling.cu)"},
     "conv3x3_fwd": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dx": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dw": {"bf16": _TC, "fp32": _TF32X3},
-    "im2col_conv3x3": {"bf16": _TC, "fp32": f"{_CC} (csrc/im2col_conv.cu)"},
+    "im2col_conv3x3": {"bf16": _TC, "fp32": _TF32X3},
 }
 
 
@@ -367,8 +373,7 @@ def kernel_cases(gen):
         wl, bl = oihw((w.float() * s).to(w.dtype)), b.to(w.dtype)
         return lambda: F.conv2d(xl, wl, bl, padding=1)
 
-    cases = [("max_pool2x2", "[1,640,959,64]", K.max_pool2x2, max_pool2x2_plain,
-              [_randn(gen, (1, 640, 959, 64))], pool_work, pool_library)]
+    cases = []
     # The served forward's three double convs (inc, down1, down2), each with
     # the pool of its output, as the forward calls them.
     for shape, cmid in (((1, 640, 959, 3), 64), ((1, 320, 479, 64), 128),
@@ -400,12 +405,20 @@ def kernel_cases(gen):
                       K.fused_conv3x3_concat_scale_relu, fused_conv3x3_concat_scale_relu_plain,
                       [_randn(gen, shape), _randn(gen, shape[:3] + (cb,)), w, s, b], conv_work,
                       conv_library))
+    # The pool at the one shape a forward gives the kernel (down3's output;
+    # the first three pools come from the double convs' epilogue), then at
+    # level 0's width. Last: one call of a 12 MB pool is mostly host time,
+    # which the first calls after the build, on an idle card and host, inflate.
+    cases += [("max_pool2x2", f"{list(shape)}".replace(" ", ""), K.max_pool2x2,
+               max_pool2x2_plain, [_randn(gen, shape)], pool_work, pool_library)
+              for shape in ((1, 80, 119, 512), (1, 640, 959, 64))]
     return cases
 
 
 # Kernels whose result phase 2 also holds to a second call, bit for bit, by
 # dtype.
-REPEAT = {"fused_conv3x3_scale_relu": ("bf16", "fp32"),
+REPEAT = {"max_pool2x2": ("bf16", "fp32"),
+          "fused_conv3x3_scale_relu": ("bf16", "fp32"),
           "fused_conv3x3_concat_scale_relu": ("bf16", "fp32"),
           "fused_double_conv": ("bf16", "fp32")}
 
@@ -481,12 +494,21 @@ def phase_kernels() -> dict[str, dict]:
                 repeat = f", bitwise repeat {same}"
                 del again
             del got, ref, diff, pooled
-            ms = time_ms(lambda: fn(*args))
-            plain_ms = time_ms(lambda: plain(*args))
-            library_ms = time_ms(library(*args)) if library else None
+            # One call of the served pool is ~0.03 ms of mostly host time, whose
+            # jitter a median of 10 does not settle: 50 calls for the pool.
+            reps = 50 if name == "max_pool2x2" else 10
+            ms = time_ms(lambda: fn(*args), reps)
+            plain_ms = time_ms(lambda: plain(*args), reps)
+            library_ms = time_ms(library(*args), reps) if library else None
             bound_ms, bound_by = bound(*work(*args), dtype)
             tol = ("exact" if name == "max_pool2x2" else f"{atol:g}+{rtol:g}*|plain|") + repeat
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+            device = {}
+            if name == "max_pool2x2":  # one call of the served pool is mostly host time
+                device = {"graph_ms": graph_ms(lambda: fn(*args)),
+                          "library_graph_ms": graph_ms(library(*args))}
+                lib += (f"; in a CUDA graph: kernel {device['graph_ms']:.4f}, library "
+                        f"{device['library_graph_ms']:.4f}")
             pairs = {}
             if name == "fused_double_conv":
                 pairs = dc_pairs(*args)
@@ -503,7 +525,7 @@ def phase_kernels() -> dict[str, dict]:
             entry["cases"].append({"shape": label, "dtype": dt, "impl": IMPL[name][dt],
                                    "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
                                    "plain_ms": plain_ms, "library_ms": library_ms,
-                                   "bound_ms": bound_ms, "bound_by": bound_by, **pairs})
+                                   "bound_ms": bound_ms, "bound_by": bound_by, **pairs, **device})
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
@@ -524,6 +546,32 @@ def b2b_ms(fn, reps: int = 20) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean CUDA-event time of one call when ``reps`` calls, captured once
+    in a CUDA graph, replay back to back: the card's time without the
+    host's work between launches, which one call of a few-microsecond
+    kernel mostly measures."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -704,15 +752,15 @@ def phase_train_kernels() -> dict[str, dict]:
 
 def phase_im2col() -> tuple[dict[str, int], dict]:
     """Phase 2c: ``im2col_conv3x3``, the kernel of its own entry point (no
-    model path calls it). One bf16 call through that entry point at the main
-    case, with the counts reset just before and read just after: one launch,
-    on the tensor cores. Then the kernel vs its plain version at every case:
-    bf16 x with bf16 and with fp32 output (tensor cores), fp32 x (CUDA
-    cores), with the kernel's, the plain version's and the library call's
-    times; a second bf16 call must repeat the first bit for bit. The library
-    call is one cuDNN conv with the scale folded into the weights and the
-    bias passed (the ReLU is not in it). Returns (the entry-point run's
-    counts, results)."""
+    model path calls it). One call through that entry point at the main
+    case in each input dtype, with the counts reset just before and read
+    just after: one launch, on the tensor cores (bf16; fp32 in 3xTF32).
+    Then the kernel vs its plain version at every case, bf16 and fp32 x,
+    each with bf16 and fp32 output, with the kernel's, the plain version's
+    and the library call's times; a second call must repeat the first bit
+    for bit. The library call is one cuDNN conv with the scale folded into
+    the weights and the bias passed (the ReLU is not in it). Returns (the
+    entry-point runs' counts, summed over both, results)."""
     import torch.nn.functional as F
 
     from tpu_unet_torch.kernels.im2col_conv import im2col_conv3x3_plain
@@ -720,14 +768,15 @@ def phase_im2col() -> tuple[dict[str, int], dict]:
     gen = torch.Generator(device="cuda").manual_seed(2)
     results: dict = {"max_abs_err": 0.0, "cases": []}
     failures = []
-    counts = None
+    runs: dict[str, dict[str, int]] = {}
     for label, shape, cout, relu in IM2COL_CASES:
         cin = shape[-1]
         x32 = _randn(gen, shape)
         w32, s, b = _conv_params(gen, cin, cout)
         for dtype, out_dtype in ((torch.bfloat16, torch.bfloat16),
                                  (torch.bfloat16, torch.float32),
-                                 (torch.float32, torch.float32)):
+                                 (torch.float32, torch.float32),
+                                 (torch.float32, torch.bfloat16)):
             dt = "bf16" if dtype == torch.bfloat16 else "fp32"
             out_dt = "bf16" if out_dtype == torch.bfloat16 else "fp32"
             x, w = x32.to(dtype), w32.to(dtype)
@@ -738,21 +787,19 @@ def phase_im2col() -> tuple[dict[str, int], dict]:
             def plain():
                 return im2col_conv3x3_plain(x, w, s, b, apply_relu=relu, out_dtype=out_dtype)
 
-            if label == MAIN_IM2COL_CASE and counts is None:
+            if label == MAIN_IM2COL_CASE and dt not in runs:
                 K.reset_launch_counts()
                 fn()
                 torch.cuda.synchronize()
-                counts = {k: v for k, v in K.launch_counts().items() if k.startswith("im2col")}
+                runs[dt] = {k: v for k, v in K.launch_counts().items() if k.startswith("im2col")}
             got = fn()
             torch.cuda.synchronize()
             ref = plain()
             atol, rtol = TOL[out_dtype]
             max_abs, max_rel, ok = _compare(got, ref, atol, rtol)
-            tol = f"{atol:g}+{rtol:g}*|plain|"
-            if dtype == torch.bfloat16:
-                same = torch.equal(got, fn())
-                ok = ok and same
-                tol += f", bitwise repeat {same}"
+            same = torch.equal(got, fn())
+            ok = ok and same
+            tol = f"{atol:g}+{rtol:g}*|plain|, bitwise repeat {same}"
             del got, ref
             wl = oihw((w.float() * s).to(dtype))
             bl = b.to(dtype)
@@ -780,14 +827,15 @@ def phase_im2col() -> tuple[dict[str, int], dict]:
             del x, w, wl, xl
         del x32
         torch.cuda.empty_cache()
-    log(f"im2col_conv3x3 entry-point run (bf16): {json.dumps(counts)}")
+    log(f"im2col_conv3x3 entry-point runs: {json.dumps(runs)}")
     if failures:
         raise SystemExit(f"chip_smoke: im2col_conv3x3 disagrees with its plain version: "
                          f"{failures}")
-    if counts != {"im2col_conv3x3": 1, "im2col_conv3x3.tc": 1}:
-        raise SystemExit(f"chip_smoke: the im2col entry point launched {counts}, not one "
-                         f"tensor-core launch")
-    return counts, results
+    one = {"im2col_conv3x3": 1, "im2col_conv3x3.tc": 1}
+    if runs != {"bf16": one, "fp32": one}:
+        raise SystemExit(f"chip_smoke: the im2col entry point launched {runs}, not one "
+                         f"tensor-core launch a dtype")
+    return {k: runs["bf16"][k] + runs["fp32"][k] for k in one}, results
 
 
 def _leaves(tree, prefix: str = "") -> dict[str, torch.Tensor]:

@@ -144,7 +144,7 @@ def test_build_module_imports_without_compiling(monkeypatch, tmp_path):
     """Importing the kernels builds nothing; a build with no nvcc raises a
     clear error instead of falling back."""
     names = {p.name for p in _build.sources()}
-    assert {"common.cuh", "pooling.cu", "tc_common.cuh", "tc_conv.cu", "tc_double_conv.cu"} <= names
+    assert {"pooling.cu", "tc_common.cuh", "tc_conv.cu", "tc_double_conv.cu"} <= names
     assert _build.library_path().name == f"libtuk_{_build.source_hash()}.so"
     assert _build.library_path().parent == _build.PACKAGE_DIR / "_build"
     monkeypatch.setenv("PATH", str(tmp_path))

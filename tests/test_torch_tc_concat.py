@@ -1,5 +1,6 @@
 """The bf16 tensor-core routes of ``fused_conv3x3_concat_scale_relu`` and
-``im2col_conv3x3`` (``tpu_unet_torch/kernels/tc_conv.py``, kernel
+``im2col_conv3x3`` (their fp32 routes: ``tests/test_torch_tc_fp32_dx_concat.py``
+and ``tests/test_torch_tc_im2col_pool.py``) (``tpu_unet_torch/kernels/tc_conv.py``, kernel
 ``tc_conv_kernel`` in ``tpu_unet_torch/csrc/tc_conv.cu``) on the CPU, where
 the kernel cannot run:
 
@@ -12,9 +13,8 @@ the kernel cannot run:
   ``im2col_conv3x3_plain`` and the Pallas im2col kernel (which sums the K =
   9·Cin products tap-major, the kernel chunk-major);
 - the wrapper's channel padding to 8 per source keeps the function;
-- the launchers refuse CPU tensors, im2col's fp32 ones and the concat
-  conv's of any type but bf16 and fp32 (fp32 runs in 3xTF32,
-  ``tests/test_torch_tc_fp32_dx_concat.py``). Their C interface, their
+- the launchers refuse CPU tensors and tensors of any type but bf16 and
+  fp32 (fp32 runs in 3xTF32). Their C interface, their
   routing and their ``.tc`` counts are checked with the other tensor-core
   routes' in ``tests/test_torch_tc_conv.py``.
 
@@ -155,5 +155,5 @@ def test_tc_concat_and_im2col_launchers_refuse_cpu_and_fp32_tensors(monkeypatch)
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built a library"))
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         tc_conv.fused_conv3x3_concat(a.half(), a.half(), w.half(), one, zero, True)
-    with pytest.raises(ValueError, match="bfloat16"):
-        tc_conv.im2col_conv3x3(a.float(), w[:, :, :8].float(), one, zero, False, torch.float32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tc_conv.im2col_conv3x3(a.half(), w[:, :, :8].half(), one, zero, False, torch.float32)

@@ -294,7 +294,7 @@ class _Card:
             def __getattr__(self, name):
                 def call(*args):
                     card.lib.append(name)
-                    return 256 if name == "tuk_im2col_max_cin" else 0
+                    return 0
                 return call
 
         def record(name):
@@ -341,7 +341,7 @@ class _Card:
         monkeypatch.setattr(_build, "validate", validate)
         monkeypatch.setattr(_build, "library", Lib)
         monkeypatch.setattr(_build, "stream", lambda t: 0)
-        monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        monkeypatch.setattr(_build, "on_device", lambda t: contextlib.nullcontext())
         monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
         monkeypatch.setattr(tc_conv, "fused_conv3x3", launcher("fused_conv3x3_scale_relu"))
         monkeypatch.setattr(tc_conv, "fused_conv3x3_concat", launch_concat)
@@ -386,14 +386,11 @@ def test_tc_counts_follow_the_tensor_core_launcher(card, dtype):
     for name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu", "conv3x3_fwd",
                  "im2col_conv3x3"):
         assert counts[f"{name}.tc"] == card.tc.count(name), (counts, card.tc)
-    if dtype == torch.bfloat16:
-        assert card.tc.count("conv3x3_fwd") == card.tc.count("im2col_conv3x3") == 2
-        assert card.tc.count("fused_conv3x3_concat_scale_relu") == 1 and card.lib == []
-    else:  # fp32: the single and concat convs and conv3x3_fwd on the tensor cores
-        # (3xTF32), im2col on the CUDA cores
-        assert card.tc == ["fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"] + [
-            "conv3x3_fwd"] * 2
-        assert card.lib == ["tuk_im2col_max_cin", "tuk_im2col_conv3x3"] * 2
+    # every call on the tensor cores in both dtypes (fp32 in 3xTF32), none
+    # in the C library's other kernels
+    assert card.tc == ["fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"] + [
+        "conv3x3_fwd"] * 2 + ["im2col_conv3x3"] * 2
+    assert card.lib == []
 
 
 def test_a_failed_tensor_core_launch_counts_nothing(card):

@@ -402,7 +402,7 @@ def test_dw_launcher_gets_live_distinct_operands(monkeypatch, rng, prologue):
     monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_BF16)
     monkeypatch.setattr(_build, "library", Lib)
     monkeypatch.setattr(_build, "stream", lambda t: 0)
-    monkeypatch.setattr(tc_conv, "_on_device", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
     dw = tc_conv.conv3x3_dw(ops["x"], ops["g"], ops["z"], ops["coef"], ops["a"], ops["c"])
     assert len(calls) == 1 and dw.shape == (3, 3, 8, 16)

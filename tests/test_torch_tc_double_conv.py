@@ -324,7 +324,7 @@ def test_bf16_double_conv_counts_follow_the_tensor_core_launcher(card):
     assert counts["fused_double_conv.pool"] == 1 and counts["max_pool2x2"] == 0
 
 
-def test_fp32_double_conv_pools_with_the_pool_kernel(card):
+def test_fp32_double_conv_pools_in_its_epilogue(card):
     """The fp32 double conv's pool is written by the double-conv kernel
     itself (its epilogue, 3xTF32 on the tensor cores): one ``.tc`` and
     ``.pool`` launch, no max_pool2x2 launch, no CUDA-core call."""

@@ -419,7 +419,7 @@ def lib(monkeypatch):
     monkeypatch.setattr(_build, "validate", lambda kernel, *tensors: _build.DTYPE_F32)
     monkeypatch.setattr(_build, "library", lambda: rec)
     monkeypatch.setattr(_build, "stream", lambda t: 0)
-    monkeypatch.setattr(tc_conv, "_on_device", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "on_device", lambda t: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
     return rec
 

@@ -8,8 +8,9 @@ CUDA-core kernels where it does not), every served
 ``fused_conv3x3_scale_relu`` and ``fused_conv3x3_concat_scale_relu`` shape
 in bf16 and in fp32, the three served ``fused_double_conv`` shapes in bf16
 (without the pooled output, which an older parent's wrapper may lack) and
-in fp32 (with it, as the forward calls it), and the two 572x572
-``im2col_conv3x3`` cases of phase 2c.
+in fp32 (with it, as the forward calls it), the two phase-2 ``max_pool2x2``
+shapes in bf16 and fp32 beside ``F.max_pool2d`` on the same input, and the
+two 572x572 ``im2col_conv3x3`` cases of phase 2c in bf16 and fp32.
 Then the 572x572 batch-16 train step (``make_train_step``, ``kernels="cuda"``
 and ``None``) in bf16 and fp32: CUDA-event ms, median of 3 after one
 warm-up, and the peak device memory; and the served forward
@@ -149,9 +150,13 @@ def measure(tree: Path) -> None:
         line(f"conv3x3_dx {tag}", lambda: K.conv3x3_dx(g32, z32, coef, w32))
         line(f"conv3x3_dw {tag}", lambda: K.conv3x3_dw(x32, g32, z32, coef, *pro))
         del x32, w32, g32, z32
-    for name, label, fn, _, inputs, _, _ in c.kernel_cases(gen):
+    for name, label, fn, _, inputs, _, library in c.kernel_cases(gen):
         args = [t.bfloat16() if t.ndim == 4 else t for t in inputs]
-        if name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
+        if name == "max_pool2x2":
+            for dt, xs in (("bf16", args), ("fp32", inputs)):
+                line(f"{name} {label} {dt}", lambda: fn(*xs))
+                line(f"F.max_pool2d {label} {dt}", library(*xs))
+        elif name in ("fused_conv3x3_scale_relu", "fused_conv3x3_concat_scale_relu"):
             line(f"{name} {label} bf16", lambda: fn(*args))
             line(f"{name} {label} fp32", lambda: fn(*inputs))
         elif name == "fused_double_conv":
@@ -159,11 +164,11 @@ def measure(tree: Path) -> None:
             line(f"{name} {label} fp32 pool", lambda: fn(*inputs))
     for label, shape, cout, relu in c.IM2COL_CASES:
         if shape[1] == 572 and shape[-1] >= 64:
-            x = c._randn(gen, shape).bfloat16()
-            w, s, b = c._conv_params(gen, shape[-1], cout)
-            w = w.bfloat16()
-            line(f"im2col_conv3x3 {label} {list(shape)}->{cout} bf16",
-                 lambda: K.im2col_conv3x3(x, w, s, b, apply_relu=relu))
+            x32 = c._randn(gen, shape)
+            w32, s, b = c._conv_params(gen, shape[-1], cout)
+            for dt, x, w in (("bf16", x32.bfloat16(), w32.bfloat16()), ("fp32", x32, w32)):
+                line(f"im2col_conv3x3 {label} {list(shape)}->{cout} {dt}",
+                     lambda: K.im2col_conv3x3(x, w, s, b, apply_relu=relu))
     time_steps(c, torch)
     time_forward(c, torch)
 

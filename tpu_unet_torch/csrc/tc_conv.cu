@@ -13,7 +13,7 @@
 //     fused_conv3x3_concat_scale_relu (pallas_call at :242), bf16 route;
 //   tuk_tc_im2col_conv3x3 the same as one K = 9 * Cin contraction, bf16 or
 //     fp32 out: replaces tpu_unet/kernels/im2col_conv.py:84 im2col_conv3x3
-//     (pallas_call at :118), bf16 route;
+//     (pallas_call at :118), bf16 route (tuk_tc_im2col_conv3x3_f32: fp32 x);
 //   tuk_tc_conv3x3_fwd    z = conv3x3_same(pro(x), w), optional (sum z, sum z^2)
 //     replaces tpu_unet/kernels/train_conv.py:128 conv3x3_fwd (pallas_call at
 //     :204), bf16 route. pro(x) = relu(x*a + c) rounded to bf16, or x;
@@ -25,12 +25,13 @@
 //     fp32: replaces tpu_unet/kernels/train_conv.py:441 conv3x3_dw
 //     (pallas_call at :508), bf16 route;
 //   tuk_tc_fused_conv3x3_f32, tuk_tc_concat_conv3x3_f32,
-//     tuk_tc_conv3x3_fwd_f32, tuk_tc_conv3x3_dx_f32, tuk_tc_conv3x3_dw_f32:
-//     the fp32 routes of the single and the concat conv, fwd, dx and dw, in
-//     3xTF32 (described below "fp32 in 3xTF32").
+//     tuk_tc_im2col_conv3x3_f32, tuk_tc_conv3x3_fwd_f32,
+//     tuk_tc_conv3x3_dx_f32, tuk_tc_conv3x3_dw_f32: the fp32 routes of the
+//     single, the concat and the im2col conv, fwd, dx and dw, in 3xTF32
+//     (described below "fp32 in 3xTF32").
 //
-// fp32 im2col stays on the CUDA-core kernel of im2col_conv.cu, in fp32 FMA;
-// the fp32 double conv runs in 3xTF32 in tc_double_conv.cu.
+// The fp32 double conv runs in 3xTF32 in tc_double_conv.cu. No conv of the
+// port runs on the CUDA cores.
 //
 // fp32 in 3xTF32. The port holds fp32 to fp32 accuracy (TF32 off in its
 // library calls, ops/conv.py). One TF32 pass rounds each operand to 10
@@ -71,6 +72,12 @@
 //   split as the fwd's.
 // * the single folded conv: the concat conv's instantiation with one source
 //   (RawLoad, AffineEpi), the weights split as the fwd's.
+// * im2col: the single conv's mainloop, stored as fp32 from the accumulators
+//   or, for out_dtype bf16, through the bf16 output tile (the rings are free
+//   by then; F32Cfg*'s rings hold it as Cfg*'s do), rounded once after the
+//   ReLU. Its CUDA-core kernel (fp32 FMA over a patch built in shared
+//   memory, Cin <= 256) ran at 7-11% of its bound on the H100 and 1.7-3.2x
+//   behind cuDNN's fp32 conv at [4,572,572,64|128]->64 (PERF.md).
 // * dw (tc_dw_f32_kernel): see there.
 //
 // The concat conv is the forward's mainloop with a second input tensor map
@@ -509,8 +516,8 @@ constexpr size_t smem_bytes() {
 // tmw: w as [9][cin][cout] (dims cout, cin, 9), box (64, KC, 1); with
 // Tf32x3Op the split weights [2][9][cout][cin] (dims cin, cout, 9, 2), box
 // (KC_F32, BN, 1, 2).
-// out: bf16, or fp32 with kF32Out (stored from the accumulators; always with
-// Tf32x3Op, whose stats are then summed from the accumulators too).
+// out: bf16, or fp32 with kF32Out (stored from the accumulators; with
+// Tf32x3Op and stats always, the stats then summed from the accumulators too).
 template <class C, class Load, class Epi, bool kStats, bool kF32Out>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     tc_conv_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmb,
@@ -518,7 +525,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                    Load ld, Epi epi, void* __restrict__ out_ptr, float* __restrict__ partials,
                    int H, int W, int ca, int cin, int cout, int th, int tw, int tiles_w) {
   using Op = typename C::Op;
-  static_assert(!Op::kTf32 || kF32Out, "fp32 operands store fp32 from the accumulators");
+  static_assert(!Op::kTf32 || kF32Out || !kStats, "fp32 stats are summed from the accumulators");
   static_assert(!(kStats && kF32Out) || Op::kTf32, "bf16 stats are taken from the bf16 tile");
   constexpr int KCH = Op::KC;  // channels a staged chunk
   constexpr int STAGES = C::STAGES;
@@ -1548,9 +1555,10 @@ cudaError_t launch_cfg(int cfg, const void* x, const void* b, int ca, const void
 // loader with an aux slot). The forward and the concat conv split HWIO w
 // [9][cin][cout] (split_weights_kernel); dx (Load::kAux) splits the forward
 // weights [9][cout][cin] with the taps reversed (split_dx_weights_kernel).
-template <class Load, class Epi, bool kStats>
+// out: fp32, or bf16 without kF32Out (im2col's out_dtype).
+template <class Load, class Epi, bool kStats, bool kF32Out = true>
 cudaError_t launch_f32(int cfg, const float* x, const float* b, int ca, const float* aux,
-                       const float* w, float* wsplit, const Load& ld, const Epi& epi, float* out,
+                       const float* w, float* wsplit, const Load& ld, const Epi& epi, void* out,
                        float* partials, int n, int h, int wd, int cin, int cout, int th, int tw,
                        cudaStream_t stream) {
   if (cin % 8 != 0 || cout % 8 != 0) return cudaErrorInvalidValue;
@@ -1567,8 +1575,8 @@ cudaError_t launch_f32(int cfg, const float* x, const float* b, int ca, const fl
 #define TUK_F32_CASE(ID)                                                                  \
   case ID:                                                                                \
     return launch<std::conditional_t<Load::kAux, F32DxCfg##ID, F32Cfg##ID>, Load, Epi,    \
-                  kStats, true>(x, b, ca, aux, wsplit, ld, epi, out, partials, n, h, wd, cin, \
-                                cout, th, tw, stream);
+                  kStats, kF32Out>(x, b, ca, aux, wsplit, ld, epi, out, partials, n, h, wd,   \
+                                   cin, cout, th, tw, stream);
   switch (cfg) {
     TUK_F32_CASE(0)
     TUK_F32_CASE(1)
@@ -1862,6 +1870,27 @@ extern "C" int tuk_tc_fused_conv3x3_f32(const float* x, const float* w, float* w
   return (int)launch_f32<RawLoad, AffineEpi, false>(
       cfg, x, nullptr, cin, nullptr, w, wsplit, RawLoad{}, AffineEpi{scale, bias, relu}, out,
       nullptr, n, h, wd, cin, cout, th, tw, static_cast<cudaStream_t>(stream));
+}
+
+// im2col_conv3x3's function, y = [relu](conv3x3_same(x, w) * scale + bias),
+// in fp32 on the tensor cores (3xTF32): as tuk_tc_fused_conv3x3_f32, with
+// out fp32 when out_f32 (stored from the accumulators), else bf16 (rounded
+// once, after the ReLU). One call: the split, then the conv.
+extern "C" int tuk_tc_im2col_conv3x3_f32(const float* x, const float* w, float* wsplit,
+                                         const float* scale, const float* bias, void* out, int n,
+                                         int h, int wd, int cin, int cout, int relu, int out_f32,
+                                         int cfg, int th, int tw, void* stream) {
+  if (n == 0 || h == 0 || wd == 0 || cout == 0) return 0;
+  using namespace tuk::tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AffineEpi epi{scale, bias, relu};
+  if (out_f32)
+    return (int)launch_f32<RawLoad, AffineEpi, false>(cfg, x, nullptr, cin, nullptr, w, wsplit,
+                                                      RawLoad{}, epi, out, nullptr, n, h, wd,
+                                                      cin, cout, th, tw, s);
+  return (int)launch_f32<RawLoad, AffineEpi, false, false>(cfg, x, nullptr, cin, nullptr, w,
+                                                           wsplit, RawLoad{}, epi, out, nullptr,
+                                                           n, h, wd, cin, cout, th, tw, s);
 }
 
 // y = [relu](conv3x3_same(concat([a, b], -1), w) * scale + bias) in fp32 on

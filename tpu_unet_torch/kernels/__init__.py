@@ -31,8 +31,8 @@ WRAPPERS = (
 )
 
 
-# The wrappers with a tensor-core route (bf16 and, all but im2col's, fp32);
-# each also carries a ``tc_launches`` count.
+# The wrappers with a tensor-core route (bf16 and fp32, in 3xTF32); each
+# also carries a ``tc_launches`` count.
 TC_WRAPPERS = (
     fused_conv3x3_scale_relu,
     fused_conv3x3_concat_scale_relu,

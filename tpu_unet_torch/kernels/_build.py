@@ -12,6 +12,7 @@ Nothing is built or loaded at import: the first kernel launch calls
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,7 +38,7 @@ _I = ctypes.c_int
 # argtypes of every exported function: c_void_p for each pointer and the
 # stream, so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
-    "tuk_max_pool2x2": ([_P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    "tuk_max_pool2x2": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                              ctypes.c_int),
     "tuk_tc_fused_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -46,6 +47,8 @@ _SIGNATURES = {
                                _I, _P], ctypes.c_int),
     "tuk_tc_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P], ctypes.c_int),
+    "tuk_tc_im2col_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P], ctypes.c_int),
     "tuk_tc_conv3x3_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                            ctypes.c_int),
     "tuk_tc_conv3x3_dx": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -64,13 +67,10 @@ _SIGNATURES = {
                               ctypes.c_int),
     "tuk_tc_concat_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P], ctypes.c_int),
-    "tuk_im2col_max_cin": ([], ctypes.c_int),
-    "tuk_im2col_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                           ctypes.c_int),
     "tuk_error_string": ([_I], ctypes.c_char_p),
 }
 
-# dtype codes of the C interface (csrc/common.cuh).
+# dtype codes of the C interface (csrc/pooling.cu).
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
 
@@ -187,5 +187,15 @@ def f32_vector(v: torch.Tensor, n: int, like: torch.Tensor, kernel: str) -> torc
 
 
 def stream(t: torch.Tensor) -> int:
-    """The calling thread's current stream on ``t``'s device, as an int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The calling thread's current stream on ``t``'s device, as an int: the
+    raw handle, as PyTorch's generated kernels take it
+    (``torch.cuda.current_stream`` builds a Stream object first, about as
+    long on the host as the served pool's whole kernel on the H100)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s device current, or none when it is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

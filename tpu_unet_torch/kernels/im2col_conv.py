@@ -1,17 +1,17 @@
 """3x3 SAME conv + scale/bias + optional ReLU as one K = 9·Cin contraction:
-the port of ``tpu_unet/kernels/im2col_conv.py::im2col_conv3x3`` as
-hand-written CUDA kernels. bf16 ``x`` runs on the tensor cores
-(``csrc/tc_conv.cu``, through ``kernels/tc_conv.py``): the contraction is
-the implicit GEMM of the folded-BN conv, its patch matrix never built, with
-an fp32 output stored from the accumulators for ``out_dtype=float32``. fp32
-``x`` runs on the CUDA cores (``csrc/im2col_conv.cu``). Each source's header
-says what bounds it on the H100 and how the design answers.
+the port of ``tpu_unet/kernels/im2col_conv.py::im2col_conv3x3`` as a
+hand-written CUDA kernel on the tensor cores (``csrc/tc_conv.cu``, through
+``kernels/tc_conv.py``): the contraction is the implicit GEMM of the
+folded-BN conv, its patch matrix never built, in bf16 or, for fp32 ``x``,
+in 3xTF32 (fp32 accuracy). The output is stored in ``out_dtype`` from
+either input dtype: fp32 from the accumulators, bf16 rounded once. The
+source's header says what bounds it on the H100 and how the design answers.
 
 Like the JAX kernel, it is an entry point of its own that no model path
-calls. The wrapper launches a kernel for CUDA tensors and runs the plain
+calls. The wrapper launches the kernel for CUDA tensors and runs the plain
 PyTorch version (``im2col_conv3x3_plain``) for CPU tensors; a failed build or
 launch raises. ``im2col_conv3x3.launches`` counts the kernel launches, and
-``im2col_conv3x3.tc_launches`` those on the tensor cores.
+``im2col_conv3x3.tc_launches`` those on the tensor cores (all of them).
 
 The JAX function's ``tile_h`` (rows of a VMEM slab) and ``merged`` (one
 matmul per slab or one per row) choose a TPU layout and do not change the
@@ -20,8 +20,9 @@ result, so the port's signature leaves them out.
 Numerics, as in the Pallas kernel: x and the flattened weights in x's dtype,
 fp32 accumulation, scale and bias upcast to fp32, ``acc * scale + bias`` in
 fp32, then ReLU, then one rounding to ``out_dtype`` (x's by default). The
-tensor-core route sums the same exact products in another order (32-channel
-chunks, the 9 taps inside each, against the Pallas kernel's tap-major K).
+kernel sums the same exact products (bf16; fp32 to about 2^-21 each in
+3xTF32) in another order (32-channel chunks, 16 in fp32, the 9 taps inside
+each, against the Pallas kernel's tap-major K).
 """
 
 from __future__ import annotations
@@ -61,51 +62,32 @@ def im2col_conv3x3_plain(x, w, scale, bias, *, apply_relu: bool = False, out_dty
 
 def im2col_conv3x3(x, w, scale, bias, *, apply_relu: bool = False, out_dtype=None):
     """y = [relu](conv3x3_same(x, w) * scale + bias). x: [N,H,W,Cin] fp32 or
-    bf16 (fp32: Cin <= 256, the CUDA-core kernel stages a tile of every input
-    channel; the JAX kernel is meant for Cin <= 128); w: [3,3,Cin,Cout];
-    scale, bias: [Cout] -> [N,H,W,Cout] in ``out_dtype`` (fp32 or bf16; x's
-    by default)."""
+    bf16; w: [3,3,Cin,Cout]; scale, bias: [Cout] -> [N,H,W,Cout] in
+    ``out_dtype`` (fp32 or bf16; x's by default)."""
     if x.device.type == "cpu":
         return im2col_conv3x3_plain(x, w, scale, bias, apply_relu=apply_relu,
                                     out_dtype=out_dtype)
     name = "im2col_conv3x3"
     out_dtype = out_dtype or x.dtype
     wflat = _flat_weights(w, x.dtype).contiguous()
-    dtype = _build.validate(name, x, wflat)
     if x.ndim != 4:
         raise ValueError(f"{name}: expected [N,H,W,Cin], got {tuple(x.shape)}")
-    n, h, wd, cin = x.shape
+    cin, cout = x.shape[3], w.shape[3]
     if w.shape[2] != cin:
         raise ValueError(f"{name}: weight must be [3,3,{cin},Cout], got {tuple(w.shape)}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
-    cout = w.shape[3]
     s = _build.f32_vector(scale, cout, x, name)
     t = _build.f32_vector(bias, cout, x, name)
-    if dtype == _build.DTYPE_BF16:
-        out = tc_conv.im2col_conv3x3(x, wflat.view(3, 3, cin, cout), s, t, apply_relu, out_dtype)
-        _count(tc=True)
-        return out
-    lib = _build.library()
-    max_cin = lib.tuk_im2col_max_cin()
-    if cin > max_cin:
-        raise ValueError(f"{name}: Cin {cin} > {max_cin}, the widest tile a block can stage")
-    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
-    out_code = _build.DTYPE_BF16 if out_dtype == torch.bfloat16 else _build.DTYPE_F32
-    with torch.cuda.device(x.device):
-        err = lib.tuk_im2col_conv3x3(x.data_ptr(), wflat.data_ptr(), s.data_ptr(), t.data_ptr(),
-                                     out.data_ptr(), n, h, wd, cin, cout, int(apply_relu), dtype,
-                                     out_code, _build.stream(x))
-    _build.check(err, name)
+    out = tc_conv.im2col_conv3x3(x, wflat.view(3, 3, cin, cout), s, t, apply_relu, out_dtype)
     _count()
     return out
 
 
-def _count(tc: bool = False) -> None:
+def _count() -> None:
     with _count_lock:
         im2col_conv3x3.launches += 1
-        if tc:
-            im2col_conv3x3.tc_launches += 1
+        im2col_conv3x3.tc_launches += 1
 
 
 im2col_conv3x3.launches = 0

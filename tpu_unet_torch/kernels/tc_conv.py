@@ -2,9 +2,9 @@
 ``fused_conv3x3_concat_scale_relu``, ``conv3x3_fwd``, ``conv3x3_dx``,
 ``conv3x3_dw`` and ``im2col_conv3x3``, in ``tpu_unet_torch/csrc/tc_conv.cu``,
 and of ``fused_double_conv``, in ``csrc/tc_double_conv.cu`` (mma.sync on the
-tensor cores, TMA loads); and the fp32 route of all but ``im2col_conv3x3``
-in 3xTF32 (each fp32 operand split into TF32 hi and lo parts, lo*hi + hi*lo
-+ hi*hi summed in fp32: fp32 accuracy, which one TF32 pass would lose), with
+tensor cores, TMA loads); and the fp32 route of each in 3xTF32 (each fp32
+operand split into TF32 hi and lo parts, lo*hi + hi*lo + hi*hi summed in
+fp32: fp32 accuracy, which one TF32 pass would lose), with
 ``tc_plan``/``dw_plan``/``dc_plan`` given ``f32``:
 
 - one implicit-GEMM kernel over output pixels whose K chunks come from one
@@ -15,7 +15,8 @@ in 3xTF32 (each fp32 operand split into TF32 hi and lo parts, lo*hi + hi*lo
   cotangent dz = alpha*g + beta*z + gamma built from g's and z's staged
   boxes, z in one slot whose next box is issued once a chunk's dz is
   built) and an epilogue policy
-  (folded-BN scale/bias + ReLU, bf16 or, for im2col, fp32 out; the bare
+  (folded-BN scale/bias + ReLU, bf16 or, for im2col, either dtype out
+  from either dtype in; the bare
   conv with its (sum z, sum z^2) partials; dx's bf16 or fp32 output). It
   replaces ``tpu_unet/kernels/fused_conv.py:75`` and ``:192``,
   ``train_conv.py:128`` and ``:289`` (dx) and ``im2col_conv.py:84``;
@@ -48,13 +49,12 @@ must fit one block's shared memory. The CPU tests check that each covers
 every pixel once.
 
 The wrappers of ``fused_conv``, ``fused_double_conv``, ``train_conv`` and
-``im2col_conv`` call the launchers here for bf16 CUDA tensors, and all but
-``im2col_conv``'s for fp32 ones too; the launchers never run on the CPU.
+``im2col_conv`` call the launchers here for bf16 and fp32 CUDA tensors; the
+launchers never run on the CPU.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 from typing import NamedTuple
@@ -378,13 +378,6 @@ def _padded(x, w, cout8, vecs=()):
                       for v in vecs))
 
 
-def _on_device(t: torch.Tensor):
-    """A context that makes ``t``'s device current, or none when it is."""
-    if t.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
-
-
 def _check_dtype(name, *tensors, fp32: bool = False):
     """The launcher's checks: one CUDA device and dtype; bfloat16, or with
     ``fp32`` also float32 (the routes with a 3xTF32 kernel)."""
@@ -433,7 +426,7 @@ def fused_conv3x3(x, w, scale, bias, apply_relu: bool) -> torch.Tensor:
     n, h, wd, cin = op.xs[0].shape
     cout8 = op.out.shape[3]
     lib = _build.library()
-    with _on_device(x):
+    with _build.on_device(x):
         if x.dtype == torch.float32:
             wsplit = torch.empty((2, 9, cout8, cin), dtype=torch.float32, device=x.device)
             err = lib.tuk_tc_fused_conv3x3_f32(
@@ -460,7 +453,7 @@ def fused_conv3x3_concat(a, b, w, scale, bias, apply_relu: bool) -> torch.Tensor
     (ap, bp), (n, h, wd, _) = op.xs, a.shape
     cout8 = op.out.shape[3]
     lib = _build.library()
-    with _on_device(a):
+    with _build.on_device(a):
         if a.dtype == torch.float32:
             wsplit = torch.empty((2, 9, cout8, op.w.shape[2]), dtype=torch.float32,
                                  device=a.device)
@@ -479,20 +472,30 @@ def fused_conv3x3_concat(a, b, w, scale, bias, apply_relu: bool) -> torch.Tensor
 
 
 def im2col_conv3x3(x, w, scale, bias, apply_relu: bool, out_dtype) -> torch.Tensor:
-    """``im2col_conv3x3``'s function in bf16 on the tensor cores: the K =
-    9·Cin contraction over w flattened to [9·Cin, Cout] (the HWIO layout),
-    as the implicit GEMM of ``fused_conv3x3`` (K chunk-major, taps inside a
-    chunk). x: [N,H,W,Cin] bf16, w: [3,3,Cin,Cout] bf16 -> ``out_dtype``
-    (bf16, or fp32 stored from the accumulators)."""
+    """``im2col_conv3x3``'s function on the tensor cores: the K = 9·Cin
+    contraction over w flattened to [9·Cin, Cout] (the HWIO layout), as the
+    implicit GEMM of ``fused_conv3x3`` (K chunk-major, taps inside a chunk),
+    in bf16 or in fp32 (3xTF32, the weights split per call). x: [N,H,W,Cin],
+    w: [3,3,Cin,Cout], both of one dtype -> ``out_dtype`` (bf16, or fp32
+    stored from the accumulators), from either input dtype."""
     name = "im2col_conv3x3"
-    op = _affine(name, [x], w, scale, bias, out_dtype)
+    op = _affine(name, [x], w, scale, bias, out_dtype, fp32=True)
     n, h, wd, cin = op.xs[0].shape
-    with _on_device(x):
-        err = _build.library().tuk_tc_im2col_conv3x3(
-            op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
-            op.out.data_ptr(), n, h, wd, cin, op.out.shape[3], int(apply_relu),
-            int(out_dtype == torch.float32), op.plan.cfg, op.plan.th, op.plan.tw,
-            _build.stream(x))
+    cout8 = op.out.shape[3]
+    out_f32 = int(out_dtype == torch.float32)
+    lib = _build.library()
+    with _build.on_device(x):
+        if x.dtype == torch.float32:
+            wsplit = torch.empty((2, 9, cout8, cin), dtype=torch.float32, device=x.device)
+            err = lib.tuk_tc_im2col_conv3x3_f32(
+                op.xs[0].data_ptr(), op.w.data_ptr(), wsplit.data_ptr(), op.scale.data_ptr(),
+                op.bias.data_ptr(), op.out.data_ptr(), n, h, wd, cin, cout8, int(apply_relu),
+                out_f32, op.plan.cfg, op.plan.th, op.plan.tw, _build.stream(x))
+        else:
+            err = lib.tuk_tc_im2col_conv3x3(
+                op.xs[0].data_ptr(), op.w.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+                op.out.data_ptr(), n, h, wd, cin, cout8, int(apply_relu), out_f32, op.plan.cfg,
+                op.plan.th, op.plan.tw, _build.stream(x))
     _build.check(err, name)
     return _unpadded(op.out, w.shape[3])
 
@@ -518,7 +521,7 @@ def conv3x3_fwd(x, w, a, c, stats: bool):
         st = torch.empty((2, cout8), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
-    with _on_device(x):
+    with _build.on_device(x):
         if f32:
             wsplit = torch.empty((2, 9, cout8, xp.shape[3]), dtype=torch.float32, device=x.device)
             err = lib.tuk_tc_conv3x3_fwd_f32(
@@ -562,7 +565,7 @@ def conv3x3_dx(g, z, coef, w, out_dtype) -> torch.Tensor:
         gp, zp, cf = (_aligned(_pad_last(t, ch8).contiguous()) for t in (g, z, coef))
         wp = _aligned(_pad_io(w, cin8, ch8).contiguous())
         wsplit = torch.empty((2, 9, cin8, ch8), dtype=torch.float32, device=g.device)
-        with _on_device(g):
+        with _build.on_device(g):
             err = lib.tuk_tc_conv3x3_dx_f32(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(),
                                             wp.data_ptr(), wsplit.data_ptr(), out.data_ptr(), n,
                                             h, wd, ch8, cin8, plan.cfg, plan.th, plan.tw,
@@ -570,7 +573,7 @@ def conv3x3_dx(g, z, coef, w, out_dtype) -> torch.Tensor:
     else:
         wt = w.flip(0, 1).transpose(2, 3).contiguous()  # [3,3,C,Cin], small
         gp, wtp, zp, cf = _padded(g, wt, cin8, (z, coef))
-        with _on_device(g):
+        with _build.on_device(g):
             err = lib.tuk_tc_conv3x3_dx(gp.data_ptr(), zp.data_ptr(), cf.data_ptr(),
                                         wtp.data_ptr(), out.data_ptr(), n, h, wd, gp.shape[3],
                                         cin8, int(out_dtype == torch.float32), plan.cfg, plan.th,
@@ -610,7 +613,7 @@ def conv3x3_dw(x, g, z, coef, a, c) -> torch.Tensor:
     # freed earlier could hand its block to the next one.
     ops = [None if t is None else _aligned(t) for t in (x, a, c, g, z, coef)]
     lib = _build.library()
-    with _on_device(x):
+    with _build.on_device(x):
         launch = lib.tuk_tc_conv3x3_dw_f32 if f32 else lib.tuk_tc_conv3x3_dw
         err = launch(*(None if t is None else t.data_ptr() for t in ops),
                      None if partials is None else partials.data_ptr(), dw.data_ptr(), n, h, wd,
@@ -656,7 +659,7 @@ def double_conv(x, w1, s1, b1, w2, s2, b2, pool: bool):
               if pool else None)
     ptr = None if pooled is None else pooled.data_ptr()
     lib = _build.library()
-    with _on_device(x):
+    with _build.on_device(x):
         if f32:
             w1s = torch.empty((2, 9, cmidk, cin8), dtype=torch.float32, device=x.device)
             w2s = torch.empty((2, 9, cout8, cmidk), dtype=torch.float32, device=x.device)
