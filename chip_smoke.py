@@ -73,6 +73,22 @@ Phases, each of which exits non-zero on failure, each with its time:
    the loader, validation time and peak device memory.
    6b. One 572x572 batch-16 bf16 step with ``remat`` against one without:
    equal loss and gradients, both peak memories and times.
+7. The single-GPU predict surface on phase 3's checkpoint (eval forward,
+   library convs, no kernel): ``export_pth`` then ``import_pth`` bitwise,
+   ``predict -m x.pth`` and ``-m x.npz`` the same PNGs, the checkpoint
+   averaged with itself unchanged; the ``predict`` CLI in fp32 on 6 synthetic
+   1918x1280 images and 2 of 1280x960 with ``--batch-size 4`` (groups 4, 2,
+   2) and ``--batch-size 1``, masks >= 99.99% equal, images/s of both;
+   ``tta_logits`` at 959x640 against four hand-flipped forwards (1e-3 of the
+   logits' range) and ``predict --tta`` in both modes; the tiled sweep at
+   2048² (BASELINE config #4: scale 1.0, tile 512, halo 128) against the
+   full-image forward (1e-3 of the range, masks >= 99.99% equal), the padded
+   sweep at 959x640 (tile 128) against it away from the padded edge, and
+   the 2048² sweep's time per image and per tile with its peak memory, fp32
+   and bf16, beside the full-image forward's; ``serve --tile 512 --tta``
+   (bf16) on one 2048² request, its mask equal to ``predict_img_tiled``'s;
+   ``evaluate --tta`` over phase 6's data within ``CLI_DICE_TOL`` of the
+   plain Dice; ``crf_refine_binary`` at 959x640 in [0, 1].
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -1559,6 +1575,261 @@ def phase_serve(workdir: Path) -> dict[str, int]:
     return launches
 
 
+# Phase 7: the predict surface. Batched and single predict masks must agree
+# on this share of pixels (fp32; cuDNN may pick another algorithm for batch
+# 4 than for batch 1, so they agree to rounding, not bit for bit).
+BATCH_AGREEMENT = 0.9999
+# fp32 logits held to this share of the reference logits' range: TTA
+# against four hand-flipped forwards, tiled against full-image.
+RANGE_TOL = 1e-3
+TILE, HALO, TILE_SIZE = 512, 128, 2048  # BASELINE.json config #4, tools/bench_tiles.py
+PADDED_TILE = 128  # the padded sweep at 959x640 (960x640 after padding)
+
+
+def _mask_agreement(a: np.ndarray, b: np.ndarray) -> tuple[float, int]:
+    differ = int((np.asarray(a) != np.asarray(b)).sum())
+    return 1.0 - differ / np.asarray(a).size, differ
+
+
+def _peak_gib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_predict_surface(workdir: Path, ckpt: Path, train_data: Path, card: str) -> dict:
+    """Phase 7: the single-GPU predict surface on the phase-3 checkpoint (the
+    full-width flagship, BN calibrated): ``.pth`` round trip, batched
+    predict, TTA, the tiled sweep (BASELINE config #4 and the padded 959x640
+    path), the tiled TTA server, ``evaluate --tta`` and the CRF. Returns its
+    numbers."""
+    from tpu_unet_torch import evaluate, predict, serve
+    from tpu_unet_torch.checkpoint import (
+        average_checkpoints,
+        export_pth,
+        flatten,
+        import_pth,
+        load_checkpoint,
+    )
+    from tpu_unet_torch.data import make_synthetic_carvana, preprocess
+    from tpu_unet_torch.models import UNetConfig
+    from tpu_unet_torch.models.tta import TTA_FLIPS, flip, tta_logits
+    from tpu_unet_torch.models.unet import unet_apply
+    from tpu_unet_torch.parallel.tiling import (
+        predict_img_tiled,
+        tiled_forward,
+        tiled_forward_padded,
+    )
+    from tpu_unet_torch.postprocess import crf_refine_binary
+
+    failures: list[str] = []
+    numbers: dict = {"card": card}
+    cuda = torch.device("cuda")
+    config = UNetConfig(n_channels=3, n_classes=1, bilinear=False, base_channels=64)
+    params, state, config, _ = predict.load_model(ckpt, config, cuda)
+    big, _ = make_synthetic_carvana(workdir / "big", n=6, h=1280, w=1918, seed=7)
+    small, _ = make_synthetic_carvana(workdir / "small", n=2, h=960, w=1280, seed=8)
+    inputs = [str(p) for d in (big, small) for p in sorted(d.glob("*.png"))]
+    one = Image.open(inputs[0])
+
+    # .pth round trip: bitwise arrays, equal predict PNGs, averaging with itself.
+    t0 = time.perf_counter()
+    pth = workdir / "unet_base64.pth"
+    export_pth(pth, params, state, bilinear=False, mask_values=[0, 1])
+    p2, s2, mv = import_pth(pth, config, cuda)
+    want, got = flatten(params, state), flatten(p2, s2)
+    unequal = [k for k in want if k not in got or not np.array_equal(want[k], got[k])]
+    if unequal or set(got) != set(want) or mv != [0, 1]:
+        failures.append(f".pth round trip: {len(unequal)} arrays differ, palette {mv}")
+    for model in (pth, ckpt):
+        predict.main(["-m", str(model), "-i", inputs[0],
+                      "-o", str(workdir / f"{model.suffix[1:]}.png")])
+    same, differ = _mask_agreement(np.asarray(Image.open(workdir / "pth.png")),
+                                   np.asarray(Image.open(workdir / "npz.png")))
+    if differ:
+        failures.append(f"predict -m x.pth vs x.npz: {differ} pixels differ")
+    average_checkpoints([ckpt, ckpt], workdir / "avg.npz")
+    ap, as_, _, _ = load_checkpoint(workdir / "avg.npz", config)
+    avg_unequal = [k for k, v in flatten(ap, as_).items() if not np.array_equal(v, want[k])]
+    if avg_unequal:
+        failures.append(f"average_checkpoints(ckpt, ckpt): {len(avg_unequal)} arrays changed")
+    log(f"pth: {len(want)} arrays bitwise equal after export/import: {not unequal}; predict "
+        f"-m x.pth vs x.npz differing pixels {differ}; average of the checkpoint with itself "
+        f"unchanged: {not avg_unequal} ({time.perf_counter() - t0:.1f} s)")
+
+    # Batched predict, fp32: 6 images of 1918x1280 then 2 of 1280x960, so a
+    # group of 4 flushes at its size, then at the change of size.
+    groups: list[int] = []
+    real_forward = predict._forward_full
+
+    def recording(params, state, x, **kw):
+        groups.append(int(x.shape[0]))
+        return real_forward(params, state, x, **kw)
+
+    predict._forward_full = recording
+    try:
+        wall = {}
+        for rep, bs in enumerate((1, 4, 4, 1)):
+            outs = [str(workdir / f"b{bs}_{k}.png") for k in range(len(inputs))]
+            groups.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict.main(["-m", str(ckpt), "-i", *inputs, "-o", *outs, "--batch-size", str(bs)])
+            torch.cuda.synchronize()
+            wall.setdefault(bs, []).append(time.perf_counter() - t0)
+            want_groups = [1] * 8 if bs == 1 else [4, 2, 2]
+            if groups != want_groups:
+                failures.append(f"--batch-size {bs}: groups {groups}, expected {want_groups}")
+    finally:
+        predict._forward_full = real_forward
+    worst, total_differ = 1.0, 0
+    for k in range(len(inputs)):
+        a, differ = _mask_agreement(np.asarray(Image.open(workdir / f"b4_{k}.png")),
+                                    np.asarray(Image.open(workdir / f"b1_{k}.png")))
+        worst, total_differ = min(worst, a), total_differ + differ
+    if worst < BATCH_AGREEMENT:
+        failures.append(f"--batch-size 4 vs 1: agreement {worst:.6f} < {BATCH_AGREEMENT}")
+    ips = {bs: [round(len(inputs) / s, 3) for s in v] for bs, v in wall.items()}
+    numbers["predict_images_per_s"] = ips
+    log(f"batched predict fp32, 8 images (6 of 1918x1280, 2 of 1280x960), scale 0.5, CLI wall "
+        f"clock incl. PNG decode/resize/encode, runs in turns b1 b4 b4 b1: images/s "
+        f"--batch-size 1 {ips[1]}, --batch-size 4 {ips[4]}; masks b4 vs b1: worst agreement "
+        f"{worst:.6f}, {total_differ} pixels differ in all ({card})")
+
+    # TTA at 959x640, fp32: tta_logits against four hand-flipped forwards.
+    x = torch.from_numpy(preprocess(one, 0.5))[None].to(cuda)
+    with torch.inference_mode():
+        got = tta_logits(params, state, x, config=config)
+        parts = [flip(unet_apply(params, state, flip(x, fh, fw), config=config)[0], fh, fw)
+                 for fh, fw in TTA_FLIPS]
+        ref = (parts[0] + parts[1] + parts[2] + parts[3]) / 4
+        err = (got - ref).abs().max().item()
+        span = (ref.max() - ref.min()).item()
+    del parts
+    if not err <= RANGE_TOL * span:
+        failures.append(f"tta_logits vs four flipped forwards: {err:.3e} > "
+                        f"{RANGE_TOL} x {span:.3e}")
+    for mode in ("flips", "hflip"):
+        predict.main(["-m", str(ckpt), "-i", inputs[0], "-o", str(workdir / f"tta_{mode}.png"),
+                      "--tta", "--tta-mode", mode])
+        m = np.asarray(Image.open(workdir / f"tta_{mode}.png"))
+        if m.shape != (one.height, one.width):
+            failures.append(f"predict --tta --tta-mode {mode}: mask {m.shape}")
+    log(f"tta fp32 [1,640,959,3]: tta_logits vs four hand-flipped forwards max_abs_err "
+        f"{err:.3e} (logit range {span:.3e}); predict --tta and --tta-mode hflip ran")
+
+    # Tiled, BASELINE config #4: 2048² at scale 1.0, tile 512, halo 128.
+    timg, _ = make_synthetic_carvana(workdir / "tile", n=1, h=TILE_SIZE, w=TILE_SIZE, seed=9)
+    tpath = next(timg.glob("*.png"))
+    big_img = Image.open(tpath)
+    x = torch.from_numpy(preprocess(big_img, 1.0))[None].to(cuda)
+    n_tiles = (TILE_SIZE // TILE) ** 2
+    with torch.inference_mode():
+        full, _ = unet_apply(params, state, x, config=config)
+        tiled = tiled_forward(params, state, x, config=config, tile=TILE, halo=HALO)
+        err = (tiled - full).abs().max().item()
+        span = (full.max() - full.min()).item()
+        agree, differ = _mask_agreement((tiled > 0).cpu().numpy(), (full > 0).cpu().numpy())
+        del full, tiled
+        if not err <= RANGE_TOL * span:
+            failures.append(f"tiled {TILE_SIZE}² vs full: {err:.3e} > {RANGE_TOL} x {span:.3e}")
+        if agree < BATCH_AGREEMENT:
+            failures.append(f"tiled {TILE_SIZE}² masks: agreement {agree:.6f}")
+        log(f"tiled fp32 {tuple(x.shape)} tile {TILE} halo {HALO} ({n_tiles} tiles): max_abs_err "
+            f"vs full image {err:.3e} (logit range {span:.3e}), mask agreement {agree:.6f} "
+            f"({differ} pixels differ)")
+        # The padded sweep at 959x640 (960 after padding), tile 128, against
+        # the full-image forward of the unpadded image away from the padded
+        # right edge (two halos).
+        x959 = torch.from_numpy(preprocess(one, 0.5))[None].to(cuda)
+        padded = tiled_forward_padded(params, state, x959, config=config, tile=PADDED_TILE,
+                                      halo=HALO)
+        full959, _ = unet_apply(params, state, x959, config=config)
+        away = x959.shape[2] - 2 * HALO
+        perr = (padded[:, :, :away] - full959[:, :, :away]).abs().max().item()
+        prng = (full959.max() - full959.min()).item()
+        if padded.shape != full959.shape or not perr <= RANGE_TOL * prng:
+            failures.append(f"padded tiled 959x640: {tuple(padded.shape)}, {perr:.3e} away from "
+                            f"the padded edge (range {prng:.3e})")
+        log(f"padded tiled fp32 [1,640,959,3] -> 960, tile {PADDED_TILE}: logits "
+            f"{tuple(padded.shape)}, max_abs_err vs full image over columns < {away} "
+            f"{perr:.3e} (logit range {prng:.3e})")
+        del padded, full959
+        torch.cuda.empty_cache()
+        times = {}
+        for dtype, amp in (("fp32", False), ("bf16", True)):
+            cd = torch.bfloat16 if amp else None
+            sweep = functools.partial(tiled_forward, params, state, x, config=config, tile=TILE,
+                                      halo=HALO, amp=amp)
+            whole = functools.partial(unet_apply, params, state, x, config=config,
+                                      compute_dtype=cd)
+            t_ms, f_ms = time_ms(sweep, reps=5), time_ms(whole, reps=5)
+            t_gib, f_gib = _peak_gib(sweep), _peak_gib(whole)
+            times[dtype] = {"tiled_ms_per_image": round(t_ms, 3),
+                            "tiled_ms_per_tile": round(t_ms / n_tiles, 3),
+                            "tiled_peak_gib": round(t_gib, 3), "full_ms": round(f_ms, 3),
+                            "full_peak_gib": round(f_gib, 3)}
+            torch.cuda.empty_cache()
+        numbers[f"tiled_{TILE_SIZE}"] = times
+    log(f"tiled sweep {TILE_SIZE}² (CUDA events, median of 5; tile {TILE}, halo {HALO}, 4 windows "
+        f"a forward, eval forward, TF32 off) beside the full-image forward: "
+        f"{json.dumps(times)} ({card})")
+
+    # Serve --tile 512 --tta (bf16 by default): one 2048² request against
+    # predict_img_tiled(tta=True) at bf16.
+    server, predictor = serve.make_server(["-m", str(ckpt), "--port", "0", "--tile", str(TILE),
+                                           "--halo", str(HALO), "--tta", "-s", "1.0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, body, dt = post(server.server_address[1], tpath.read_bytes())
+    finally:
+        server.shutdown()
+        server.server_close()
+        predictor.stop()
+        thread.join(timeout=10)
+    if status != 200:
+        failures.append(f"serve --tile --tta: HTTP {status}")
+    else:
+        served = np.asarray(Image.open(io.BytesIO(body))).astype(bool)
+        want = predict_img_tiled(params, state, config, big_img, tile=TILE, halo=HALO,
+                                 scale_factor=1.0, amp=True, tta=True, device=cuda)
+        _, differ = _mask_agreement(served, want)
+        if served.shape != want.shape or differ:
+            failures.append(f"serve --tile --tta vs predict_img_tiled: {served.shape}, "
+                            f"{differ} pixels differ")
+        log(f"serve --tile {TILE} --tta (bf16) {TILE_SIZE}² request: HTTP 200 in "
+            f"{dt * 1e3:.1f} ms "
+            f"(cold, client clock), mask vs predict_img_tiled(tta=True, bf16): {differ} "
+            f"pixels differ, foreground {served.mean():.4f}")
+    torch.cuda.empty_cache()
+
+    # evaluate --tta over phase 6's synthetic data, and the CRF.
+    argv = ["-m", str(ckpt), "--data-dir", str(train_data), "-s", "0.5", "-b", "4"]
+    dice = evaluate.main(argv)
+    dice_tta = evaluate.main(argv + ["--tta"])
+    numbers["dice"], numbers["dice_tta"] = dice, dice_tta
+    if not abs(dice_tta - dice) <= CLI_DICE_TOL:
+        failures.append(f"evaluate --tta Dice {dice_tta:.6f} vs {dice:.6f}")
+    with torch.inference_mode():
+        logits, _ = unet_apply(params, state, x959, config=config)
+        rgb = x959  # preprocess at scale 0.5 is the image the logits are of
+        refined = crf_refine_binary(rgb, torch.sigmoid(logits[..., 0]))
+        ok = (refined.shape == logits.shape[:3] and bool(torch.isfinite(refined).all())
+              and 0 <= refined.min().item() and refined.max().item() <= 1)
+    if not ok:
+        failures.append(f"crf_refine_binary: {tuple(refined.shape)}, range "
+                        f"[{refined.min().item()}, {refined.max().item()}]")
+    log(f"evaluate fp32: Dice {dice:.6f}, --tta {dice_tta:.6f} (|diff| <= {CLI_DICE_TOL}); "
+        f"crf_refine_binary [1,640,959]: in [0, 1] {ok}")
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"chip_smoke: predict surface checks failed: {failures}")
+    return numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -1613,6 +1884,13 @@ def main(argv=None) -> int:
         log(f"train CLI numbers: {json.dumps(cli_numbers)}")
         torch.cuda.empty_cache()
         phase_done("6 (train CLI)", t0)
+        # Phase 7: the predict surface on phase 3's checkpoint.
+        t0 = time.perf_counter()
+        surface = phase_predict_surface(workdir / "surface", workdir / "serve" / "unet_base64.npz",
+                                        workdir / "train" / "data", card)
+        log(f"predict surface numbers: {json.dumps(surface)}")
+        torch.cuda.empty_cache()
+        phase_done("7 (predict surface)", t0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

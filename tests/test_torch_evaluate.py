@@ -89,9 +89,12 @@ def test_evaluate_cli_matches_jax(tmp_path, capsys, per_class):
 
 
 def test_evaluate_cli_refuses_and_needs_a_gpu(tmp_path):
-    for flag in (["--tta"], ["--data-parallel"], ["--arch", "unetpp"], ["--tta-mode", "hflip"]):
+    for flag in (["--data-parallel"], ["--arch", "unetpp"], ["--arch", "r2u"]):
         with pytest.raises(SystemExit, match="is not ported"):
             main(["-m", "x.npz", *flag, "--device", "cpu"])
+    # --tta is ported: it gets past the refusals to the missing file.
+    with pytest.raises(FileNotFoundError):
+        main(["-m", "x.npz", "--tta", "--tta-mode", "hflip", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-m", "x.npz"])

@@ -149,8 +149,9 @@ def test_make_server_from_cli_flags(ckpt):
     finally:
         server.server_close()
         pred.stop()
-    with pytest.raises(SystemExit, match="--tta is not ported"):
-        make_server(["-m", str(ckpt), "--device", "cpu", "--tta"])
+    # Still refused: the device-side preprocess.
+    with pytest.raises(SystemExit, match="--device-preprocess is not ported"):
+        make_server(["-m", str(ckpt), "--device", "cpu", "--device-preprocess"])
 
 
 def test_predict_cli_png_equals_jax(ckpt, tmp_path):
@@ -241,10 +242,12 @@ def test_serve_default_is_the_eval_forward_and_equals_jax(ckpt, monkeypatch):
 def test_predict_cli_refuses_unported_flags_and_missing_gpu(ckpt, tmp_path):
     img_path = tmp_path / "in.png"
     _img(31).save(img_path)
-    for flag in (["--tile", "64"], ["--tta"], ["--crf"], ["--batch-size", "4"],
-                 ["--device-preprocess"]):
+    for flag in (["--device-preprocess"], ["--tile-sharded"], ["--arch", "unetpp"]):
         with pytest.raises(SystemExit, match="is not ported"):
             t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", *flag])
+    with pytest.raises(SystemExit, match="--tile does not compose with --kernels"):
+        t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", "--tile", "64",
+                        "--kernels", "cuda"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_predict_main(["-m", str(ckpt), "-i", str(img_path)])

@@ -331,7 +331,7 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
     ["--pipeline-parallel", "2"], ["--zero"], ["--device-dataset"], ["--device-preprocess"],
     ["--augment"], ["--augment-elastic", "3"], ["--augment-rot", "5"], ["--augment-scale", "0.1"],
     ["--augment-shift", "2"], ["--wandb"], ["--profile", "p"], ["--debug-nans"],
-    ["--arch", "unetpp"], ["--deep-supervision"], ["--load", "weights.pth"],
+    ["--arch", "unetpp"], ["--deep-supervision"], ["--arch", "r2u"],
 ])
 def test_train_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="is not ported"):

@@ -8,6 +8,10 @@ fields (``opt/square_avg/inc/conv1/w``, ``opt/step``), plus a ``__meta__``
 JSON entry with ``mask_values``, ``extra`` (``extra["config"]`` is the
 model's ``UNetConfig``) and ``has_opt_state``. A checkpoint written by
 either package loads in the other unchanged.
+
+The reference's own format, a torch ``.pth`` state dict with its
+``mask_values`` list, is read by ``import_pth`` and written by
+``export_pth``; ``average_checkpoints`` averages ``.npz`` files.
 """
 
 from __future__ import annotations
@@ -174,3 +178,140 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+
+def average_checkpoints(paths, out_path: str | Path) -> None:
+    """Uniform weight average of ``.npz`` checkpoints (SWA-style), written as
+    a standard checkpoint: every ``params/*`` and ``state/*`` array is
+    averaged in float64 and cast back to its dtype. BN running statistics
+    are averaged too (an approximation: SWA proper re-estimates them); the
+    optimizer state is dropped; ``mask_values`` and ``extra`` come from the
+    LAST input, with ``extra["averaged_from"]`` the inputs' file names."""
+    paths = [Path(p) for p in paths]
+    if not paths:
+        raise ValueError("average_checkpoints needs at least one input")
+    sums: dict[str, np.ndarray] = {}
+    dtypes: dict[str, np.dtype] = {}
+    meta: dict = {}
+    for p in paths:
+        with np.load(p, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"].tolist()).decode("utf-8"))
+            keys = [k for k in z.files if k.startswith(("params/", "state/"))]
+            if sums and set(keys) != set(sums):
+                raise ValueError(f"{p} has a different parameter tree than {paths[0]} "
+                                 "— cannot average")
+            for k in keys:
+                arr = z[k].astype(np.float64)
+                if k not in sums:
+                    sums[k], dtypes[k] = arr.copy(), z[k].dtype
+                elif arr.shape != sums[k].shape:
+                    raise ValueError(f"shape mismatch for {k} in {p}: "
+                                     f"{arr.shape} vs {sums[k].shape}")
+                else:
+                    sums[k] += arr
+    inv = 1.0 / len(paths)
+    arrays = {k: (v * inv).astype(dtypes[k]) for k, v in sums.items()}
+    extra = dict(meta.get("extra", {}))
+    extra["averaged_from"] = [p.name for p in paths]
+    out_meta = {"mask_values": meta.get("mask_values"), "extra": extra, "has_opt_state": False}
+    arrays["__meta__"] = np.frombuffer(json.dumps(out_meta).encode("utf-8"), dtype=np.uint8)
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def export_pth(path: str | Path, params: Params, state: State, *, bilinear: bool,
+               mask_values: list | None = None) -> None:
+    """Write a torch ``.pth`` state dict that the reference's U-Net loads with
+    ``load_state_dict`` (``torch.save(state_dict ∪ {"mask_values"})``).
+
+    Keys are the upstream module names (``inc.double_conv.0.weight``,
+    ``downN.maxpool_conv.1.double_conv...``, ``upN.up``,
+    ``upN.conv.double_conv...``, ``outc.conv``); HWIO conv weights become
+    OIHW, ConvTranspose weights (kH,kW,I,O) become (I,O,kH,kW), and each BN's
+    ``num_batches_tracked`` is written as 0."""
+    def t(x: torch.Tensor, *perm: int) -> torch.Tensor:
+        x = x.detach().to("cpu")
+        return (x.permute(*perm) if perm else x).contiguous().clone()
+
+    sd: dict = {}
+
+    def double_conv(prefix: str, p: dict, s: dict) -> None:
+        # Sequential indices: 0 conv, 1 bn, 2 relu, 3 conv, 4 bn, 5 relu.
+        for idx, conv, bn in ((0, "conv1", "bn1"), (3, "conv2", "bn2")):
+            sd[f"{prefix}.{idx}.weight"] = t(p[conv]["w"], 3, 2, 0, 1)
+            sd[f"{prefix}.{idx + 1}.weight"] = t(p[bn]["scale"])
+            sd[f"{prefix}.{idx + 1}.bias"] = t(p[bn]["bias"])
+            sd[f"{prefix}.{idx + 1}.running_mean"] = t(s[bn].mean)
+            sd[f"{prefix}.{idx + 1}.running_var"] = t(s[bn].var)
+            sd[f"{prefix}.{idx + 1}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    double_conv("inc.double_conv", params["inc"], state["inc"])
+    for b in ("down1", "down2", "down3", "down4"):
+        double_conv(f"{b}.maxpool_conv.1.double_conv", params[b], state[b])
+    for b in ("up1", "up2", "up3", "up4"):
+        if not bilinear:
+            sd[f"{b}.up.weight"] = t(params[b]["up"]["w"], 2, 3, 0, 1)
+            sd[f"{b}.up.bias"] = t(params[b]["up"]["b"])
+        double_conv(f"{b}.conv.double_conv", params[b]["conv"], state[b]["conv"])
+    sd["outc.conv.weight"] = t(params["outc"]["w"], 3, 2, 0, 1)
+    sd["outc.conv.bias"] = t(params["outc"]["b"])
+    if mask_values is not None:
+        sd["mask_values"] = list(mask_values)  # every reference loader pops it first
+    torch.save(sd, str(path))
+
+
+def import_pth(path: str | Path, config: UNetConfig, device: str | torch.device = "cpu"
+               ) -> tuple[Params, State, list | None]:
+    """(params, state, mask_values) from a torch U-Net ``.pth`` state dict.
+
+    The reference's layout, by tensor ORDER within each top-level block
+    (inc, down1..4, up1..4, outc): a DoubleConv is conv w, bn weight, bias,
+    running mean, running var (``num_batches_tracked`` skipped), twice; an
+    up block starts with the ConvTranspose weight and bias unless
+    ``config.bilinear``; outc is a 1x1 conv w and b. ``mask_values`` (a list
+    of ints or of lists) is popped first, as every reference loader does.
+    Loaded with ``weights_only=True``: tensors and plain lists only."""
+    sd = torch.load(str(path), map_location="cpu", weights_only=True)
+    mask_values = sd.pop("mask_values", None)
+    if hasattr(mask_values, "tolist"):
+        mask_values = mask_values.tolist()
+    groups: dict[str, list[torch.Tensor]] = {}
+    for k, v in sd.items():
+        if not k.endswith("num_batches_tracked"):
+            groups.setdefault(k.split(".")[0], []).append(v.detach())
+
+    def hwio(w: torch.Tensor, *perm: int) -> torch.Tensor:
+        return w.permute(*perm).contiguous().to(device)
+
+    def double_conv(ts: list[torch.Tensor]):
+        if len(ts) != 10:
+            raise ValueError(f"{path}: a DoubleConv has 10 tensors, got {len(ts)}")
+        c1, g1, b1, m1, v1, c2, g2, b2, m2, v2 = ts
+        p = {"conv1": {"w": hwio(c1, 2, 3, 1, 0)},
+             "bn1": {"scale": g1.to(device), "bias": b1.to(device)},
+             "conv2": {"w": hwio(c2, 2, 3, 1, 0)},
+             "bn2": {"scale": g2.to(device), "bias": b2.to(device)}}
+        s = {"bn1": BNState(m1.to(device), v1.to(device)),
+             "bn2": BNState(m2.to(device), v2.to(device))}
+        return p, s
+
+    params: Params = {}
+    state: State = {}
+    for block in ("inc", "down1", "down2", "down3", "down4"):
+        params[block], state[block] = double_conv(groups[block])
+    for block in ("up1", "up2", "up3", "up4"):
+        ts = groups[block]
+        if config.bilinear:
+            conv_p, conv_s = double_conv(ts)
+            params[block] = {"conv": conv_p}
+        else:
+            conv_p, conv_s = double_conv(ts[2:])
+            # torch ConvTranspose2d weight (I, O, kH, kW) -> (kH, kW, I, O)
+            params[block] = {"up": {"w": hwio(ts[0], 2, 3, 0, 1), "b": ts[1].to(device)},
+                             "conv": conv_p}
+        state[block] = {"conv": conv_s}
+    out_w, out_b = groups["outc"]
+    params["outc"] = {"w": hwio(out_w, 2, 3, 1, 0), "b": out_b.to(device)}
+    return params, state, mask_values

@@ -1,7 +1,12 @@
 """Batched HTTP inference server (``tpu_unet/serve.py``): by default on the
 unfolded eval-mode forward (``unet_apply(train=False)``), as the reference
 serves without ``--kernels``; with ``--kernels cuda|torch`` on the folded-BN
-forward (``unet_infer_apply``).
+forward (``unet_infer_apply``). ``--tta`` serves the flip ensemble, its views
+as batch rows of the canvas; ``--tile N`` runs a group whose preprocessed
+shape holds one window (tile + 2·halo, after padding to 16) through the
+tiled sweep (``parallel/tiling.py``), other groups through the full-image
+forward. Preprocessing runs on the host (``--device-preprocess`` is not
+ported).
 
 The model stays resident on the device. Requests that arrive within
 ``batch_window_ms`` of each other are grouped by preprocessed shape; each
@@ -14,7 +19,8 @@ Endpoints:
   GET  /metrics   request and error counts, end-to-end latency p50/p90/p99
                   over a sliding window, dispatches and their mean batch
 
-Run: ``python -m tpu_unet_torch.serve -m ckpt.npz --port 8000 [--kernels cuda|torch]``
+Run: ``python -m tpu_unet_torch.serve -m ckpt.npz|model.pth --port 8000
+[--kernels cuda|torch | --tile 512 [--halo 128]] [--tta [--tta-mode hflip]]``
 """
 
 from __future__ import annotations
@@ -38,10 +44,16 @@ from PIL import Image
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
 from tpu_unet_torch.models.infer import BACKENDS
+from tpu_unet_torch.models.tta import TTA_MODES, tta_merge, tta_views
 from tpu_unet_torch.models.unet import tree_map, unet_apply
 from tpu_unet_torch.ops import resize_bilinear
+from tpu_unet_torch.parallel.tiling import (
+    DEFAULT_HALO,
+    min_halo,
+    padded_hw,
+    tiled_forward_padded,
+)
 from tpu_unet_torch.predict import (
-    UNPORTED_FLAGS,
     load_model,
     logits_to_mask,
     mask_to_image,
@@ -99,17 +111,35 @@ class ServeMetrics:
 
 class BatchedPredictor:
     """Model resident on ``device`` + micro-batching queue: the eval-mode
-    forward when ``kernels`` is None, else the folded-BN forward on that
-    backend. Thread-safe ``predict_one`` entry; ``stop`` ends the worker
-    threads."""
+    forward when ``kernels`` is None (with ``tta``, the flip ensemble; with
+    ``tile``, the tiled sweep for groups large enough), else the folded-BN
+    forward on that backend. Thread-safe ``predict_one`` entry; ``stop``
+    ends the worker threads."""
 
     def __init__(self, params, state, config: UNetConfig, mask_values, *,
                  device: str | torch.device = "cuda", kernels: str | None = None,
                  scale: float = 0.5, threshold: float = 0.5, amp: bool = True,
                  max_batch: int = 8, batch_window_ms: float = 5.0,
-                 timeout_s: float = 300.0):
+                 timeout_s: float = 300.0, tile: int | None = None,
+                 halo: int = DEFAULT_HALO, tta: bool = False, tta_mode: str = "flips"):
         if kernels is not None and kernels not in BACKENDS:
             raise ValueError(f"kernels must be None or one of {BACKENDS}, got {kernels!r}")
+        if tile is not None and (tile % 16 or halo % 16):
+            # Window starts must stay 16-aligned for exact stitching: refuse
+            # at startup, not with a 500 on every large request.
+            raise ValueError(f"--tile/--halo must be multiples of 16 "
+                             f"(got tile={tile}, halo={halo})")
+        if tile and kernels:
+            raise ValueError("--tile serving runs the eval forward (not --kernels)")
+        if tta and kernels:
+            raise ValueError("--tta serving composes with the eval forward (default or "
+                             "--tile), not --kernels")
+        if tile and halo < min_halo(config):
+            logger.warning("serve --tile: halo %d below arch=%r requirement — using halo=%d",
+                           halo, config.arch, min_halo(config))
+            halo = min_halo(config)
+        self.tile, self.halo = tile, halo
+        self.tta, self.tta_mode = tta, tta_mode
         self.device = resolve_device(device)
         self.config = config
         self.kernels = kernels
@@ -143,12 +173,21 @@ class BatchedPredictor:
         self._worker.start()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC float32 batch on the device -> fp32 logits."""
-        if self.kernels is None:
-            return unet_apply(self._params, self._state, x, config=self.config, train=False,
-                              compute_dtype=self._compute_dtype)[0]
-        return unet_infer_apply(self._folded, x, config=self.config, backend=self.kernels,
-                                compute_dtype=self._compute_dtype)
+        """NHWC float32 batch on the device -> fp32 logits. With ``tile``, a
+        batch whose padded H and W hold one window runs the tiled sweep; with
+        ``tta``, the flip views of the whole batch run as one and are merged
+        with ``n`` the batch size."""
+        if self.kernels is not None:
+            return unet_infer_apply(self._folded, x, config=self.config, backend=self.kernels,
+                                    compute_dtype=self._compute_dtype)
+        views = tta_views(x, self.tta_mode) if self.tta else x
+        if self.tile and self.tile + 2 * self.halo <= min(padded_hw(x.shape[1], x.shape[2])):
+            logits = tiled_forward_padded(self._params, self._state, views, config=self.config,
+                                          tile=self.tile, halo=self.halo, amp=self.amp)
+        else:
+            logits = unet_apply(self._params, self._state, views, config=self.config,
+                                train=False, compute_dtype=self._compute_dtype)[0]
+        return tta_merge(logits, x.shape[0], self.tta_mode) if self.tta else logits
 
     # -- client side ------------------------------------------------------
     def predict_one(self, img: Image.Image, timeout: float | None = None) -> np.ndarray:
@@ -278,7 +317,8 @@ def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
                 self._json({"status": "ok", "n_classes": predictor.config.n_classes,
                             "arch": predictor.config.arch, "scale": predictor.scale,
                             "kernels": predictor.kernels, "device": str(predictor.device),
-                            "amp": predictor.amp})
+                            "amp": predictor.amp, "tta": predictor.tta,
+                            "tile": predictor.tile})
             elif self.path == "/metrics":
                 self._json(predictor.metrics.snapshot())
             else:
@@ -320,7 +360,8 @@ def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
 
 
 def build_predictor(model_path: str, args) -> BatchedPredictor:
-    """A predictor for a ``.npz`` checkpoint, warmed up when asked."""
+    """A predictor for a ``.npz`` checkpoint or a ``.pth`` state dict, warmed
+    up when asked."""
     device = resolve_device(args.device)
     config = UNetConfig(3, args.classes, bilinear=args.bilinear)
     params, state, config, mask_values = load_model(model_path, config, device)
@@ -328,7 +369,8 @@ def build_predictor(model_path: str, args) -> BatchedPredictor:
         params, state, config, mask_values,
         device=device, kernels=args.kernels, scale=args.scale, threshold=args.mask_threshold,
         amp=args.amp, max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
-        timeout_s=args.timeout_s)
+        timeout_s=args.timeout_s, tile=args.tile, halo=args.halo, tta=args.tta,
+        tta_mode=args.tta_mode)
     if args.warmup:
         h, w = (int(v) for v in args.warmup.lower().split("x"))
         predictor.warmup(h, w)
@@ -338,7 +380,8 @@ def build_predictor(model_path: str, args) -> BatchedPredictor:
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="tpu-unet batched inference server (PyTorch port)")
-    p.add_argument("--model", "-m", required=True, help="The .npz checkpoint to serve")
+    p.add_argument("--model", "-m", required=True,
+                   help="The model to serve: a .npz checkpoint or a torch .pth state dict")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--scale", "-s", type=float, default=0.5)
@@ -359,9 +402,18 @@ def get_args(argv=None):
                    help="Reject POST bodies larger than this with 413")
     p.add_argument("--warmup", type=str, default=None, metavar="HxW",
                    help="Run one blank request of this raw size before serving")
-    for name in UNPORTED_FLAGS:
-        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
+    p.add_argument("--tta", action="store_true", default=False,
+                   help="Flip-ensemble TTA: the views ride as batch rows of each group")
+    p.add_argument("--tta-mode", choices=tuple(TTA_MODES), default="flips",
+                   help="TTA views: all four flips, or identity + left-right only")
+    p.add_argument("--tile", type=int, default=None,
+                   help="Serve large images through the tiled sweep (activations of "
+                        "4 windows, not the image); per request group, when its "
+                        "preprocessed shape holds one window, else full-image")
+    p.add_argument("--halo", type=int, default=DEFAULT_HALO,
+                   help="Tile overlap; must cover the receptive field (110 px)")
+    p.add_argument("--device-preprocess", action=argparse.BooleanOptionalAction,
+                   default=None, help="not ported: preprocessing runs on the host")
     return p.parse_args(argv)
 
 
@@ -369,13 +421,13 @@ def make_server(argv=None) -> tuple[ThreadingHTTPServer, BatchedPredictor]:
     """Parse the CLI, load the model and bind the server (not yet serving).
     ``--port 0`` binds a free port: read it from ``server.server_address``."""
     args = get_args(argv)
-    refuse_unported(args, "tpu_unet_torch.serve")
+    refuse_unported(args, "tpu_unet_torch.serve", ("device_preprocess",))
     predictor = build_predictor(args.model, args)
     handler = make_handler(predictor, max_body_bytes=args.max_body_mb << 20)
     server = ThreadingHTTPServer((args.host, args.port), handler)
-    logger.info("Serving %s on %s:%d (kernels=%s, device=%s, max_batch=%d)", args.model,
-                args.host, server.server_address[1], args.kernels, predictor.device,
-                args.max_batch)
+    logger.info("Serving %s on %s:%d (kernels=%s, tile=%s, tta=%s, device=%s, max_batch=%d)",
+                args.model, args.host, server.server_address[1], args.kernels, args.tile,
+                args.tta, predictor.device, args.max_batch)
     return server, predictor
 
 

@@ -15,7 +15,8 @@ checkpointing.
 The JAX flags this port does not run yet are refused with an error, never
 ignored: data parallelism and multi-host, ZeRO, the device-resident dataset
 and device preprocessing, augmentation, W&B, the profiler, ``--debug-nans``,
-the other model families and deep supervision, and ``.pth`` weights.
+and the other model families and deep supervision. ``--load`` takes a
+``.npz`` checkpoint or the reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
 """
 
@@ -45,7 +46,8 @@ def get_args(argv=None):
     p.add_argument("--learning-rate", "-l", metavar="LR", type=float, default=1e-5, dest="lr",
                    help="Learning rate")
     p.add_argument("--load", "-f", type=str, default=False,
-                   help="Load weights from a .npz checkpoint (either package's)")
+                   help="Load weights from a .npz checkpoint (either package's) or a torch "
+                        ".pth state dict")
     p.add_argument("--scale", "-s", type=float, default=0.5,
                    help="Downscaling factor of the images")
     p.add_argument("--validation", "-v", dest="val", type=float, default=10.0,
@@ -141,7 +143,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--augment-shift": args.augment_shift, "--wandb": args.wandb,
         "--profile": args.profile is not None, "--debug-nans": args.debug_nans,
         f"--arch {args.arch}": args.arch != "unet", "--deep-supervision": args.deep_supervision,
-        "--load of a .pth file": str(args.load).endswith(".pth"),
     }
     for flag, given in asked.items():
         if given:
@@ -150,7 +151,7 @@ def refuse_unported(args: argparse.Namespace) -> None:
 
 
 def main(argv=None):
-    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.checkpoint import import_pth, load_checkpoint
     from tpu_unet_torch.data import BasicDataset, CarvanaDataset
     from tpu_unet_torch.models.unet import UNetConfig, init_unet, param_count, tree_map
     from tpu_unet_torch.predict import resolve_device
@@ -167,7 +168,10 @@ def main(argv=None):
     params, bn_state = init_unet(config, np.random.default_rng(args.seed))
     logger.info("Model parameters: %.1fM", param_count(params) / 1e6)
     if args.load:
-        params, bn_state, _, _ = load_checkpoint(args.load, config)
+        if str(args.load).endswith(".pth"):
+            params, bn_state, _ = import_pth(args.load, config)
+        else:
+            params, bn_state, _, _ = load_checkpoint(args.load, config)
         logger.info("Model loaded from %s", args.load)
 
     data_dir = Path(args.data_dir)
