@@ -8,7 +8,9 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
 Phases, each of which exits non-zero on failure, each with its time:
 
 1. Print the card's name and power limit; build the CUDA kernels from
-   ``tpu_unet_torch/csrc`` and print the build time.
+   ``tpu_unet_torch/csrc`` and print the build time; build the native C++
+   host tier (``tpu_unet_torch/native``) with g++ and self-check it against
+   Pillow.
 2. Run each of the four serving kernels and its plain PyTorch version on the
    card at the serving path's own shapes (``fused_conv3x3_scale_relu`` at
    all seven of the served forward's, ``fused_conv3x3_concat_scale_relu``
@@ -88,7 +90,25 @@ Phases, each of which exits non-zero on failure, each with its time:
    and bf16, beside the full-image forward's; ``serve --tile 512 --tta``
    (bf16) on one 2048² request, its mask equal to ``predict_img_tiled``'s;
    ``evaluate --tta`` over phase 6's data within ``CLI_DICE_TOL`` of the
-   plain Dice; ``crf_refine_binary`` at 959x640 in [0, 1].
+   plain Dice; ``crf_refine_binary`` at 959x640 in [0, 1]. The tiled server
+   preprocesses on the card (the default under ``--tile``).
+8. The data path at 1918x1280 -> 959x640 (no kernel of the repo; the
+   train runs launch the three train kernels): the native C++ tier
+   (``tpu_unet_torch/native``) built with g++ and self-checked, its PNG,
+   JPEG and GIF decode and BICUBIC/NEAREST resize bitwise equal to PIL's and
+   timed beside it (host clock; ``has_jpeg`` printed: JPEG may fall back to
+   PIL where the host lacks libjpeg); ``device_preprocess_images`` and
+   ``device_preprocess_masks`` on the card bitwise equal to the host path at
+   b1 and b4 (CUDA events); ``predict --device-preprocess`` on phase 7's
+   files, in turns with the host path, masks equal to phase 7's; one served
+   request with ``--device-preprocess`` (``--kernels cuda``), its mask equal
+   to the host request's, broken down like phase 4's; ``serve --tile`` on
+   device preprocess by default; ``train_cli -s 0.5 -b 4 --amp --kernels
+   cuda`` with ``--device-preprocess``, ``--device-dataset`` (first batch
+   bitwise the host loader's, losses and val Dice within ``CLI_LOSS_TOL``
+   and ``CLI_DICE_TOL`` of phase 6's run, the staged MB) and ``--augment
+   --augment-elastic 34 --augment-rot 10`` twice (bitwise equal), each with
+   its train-kernel launches.
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -114,6 +134,7 @@ import torch
 from PIL import Image
 
 from tpu_unet_torch import kernels as K
+from tpu_unet_torch import native
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 from tpu_unet_torch.ops import full_fp32
@@ -1091,11 +1112,38 @@ CLI_LOSS_TOL = 5e-3
 CLI_DICE_TOL = 5e-2
 
 
+class _TimedFeed:
+    """A device-side feed (``DevicePipeline``, the resident corpus's batches)
+    whose waits are added to ``stats["loader_wait_s"]``; the first batch is
+    kept in ``stats["first_batch"]`` (on the host)."""
+
+    def __init__(self, loader, stats: dict):
+        self.loader, self.stats = loader, stats
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            self.stats["loader_wait_s"] += time.perf_counter() - t
+            if batch is None:
+                return
+            if "first_batch" not in self.stats:
+                self.stats["first_batch"] = {k: v.cpu() for k, v in batch.items()}
+            yield batch
+
+
 def _timed_loop_hooks(train_mod, stats: dict):
-    """Wrap the train loop's loader feed and evaluation to time the host's
-    waits on the loader and each validation (synchronised: evaluate fetches
-    its sums). Returns the originals, to restore."""
+    """Wrap the train loop's loader feed (the host prefetch, or a device-side
+    feed) and evaluation to time the host's waits on the loader and each
+    validation (synchronised: evaluate fetches its sums), and keep the first
+    augmented batch in ``stats["first_augmented"]``. Returns a function that
+    restores the originals."""
     real_prefetch, real_eval = train_mod.prefetch_to_device, train_mod.evaluate
+    real_build, real_augment = train_mod._build_loaders, train_mod.augment_batch
 
     def prefetch(*a, **k):
         it = real_prefetch(*a, **k)
@@ -1113,8 +1161,29 @@ def _timed_loop_hooks(train_mod, stats: dict):
         stats["val_s"] += time.perf_counter() - t
         return out
 
+    def build_loaders(*a, **k):
+        train, val = real_build(*a, **k)
+        staged = getattr(getattr(train, "parent", None), "staged_bytes", None)
+        if staged is not None:
+            stats["staged_mb"] = staged / 1e6
+        if isinstance(train, train_mod.DataLoader):  # the host feed: timed in prefetch
+            return train, val
+        return _TimedFeed(train, stats), val
+
+    def augment_batch(*a, **k):
+        out = real_augment(*a, **k)
+        if "first_augmented" not in stats:
+            stats["first_augmented"] = [t.cpu() for t in out]
+        return out
+
     train_mod.prefetch_to_device, train_mod.evaluate = prefetch, evaluate
-    return real_prefetch, real_eval
+    train_mod._build_loaders, train_mod.augment_batch = build_loaders, augment_batch
+
+    def restore():
+        train_mod.prefetch_to_device, train_mod.evaluate = real_prefetch, real_eval
+        train_mod._build_loaders, train_mod.augment_batch = real_build, real_augment
+
+    return restore
 
 
 def _cli_run(argv: list[str], tag: str) -> tuple[dict, dict, dict]:
@@ -1124,7 +1193,7 @@ def _cli_run(argv: list[str], tag: str) -> tuple[dict, dict, dict]:
     from tpu_unet_torch import train_cli
 
     stats = {"loader_wait_s": 0.0, "val_s": 0.0}
-    saved = _timed_loop_hooks(train_mod, stats)
+    restore = _timed_loop_hooks(train_mod, stats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -1133,7 +1202,7 @@ def _cli_run(argv: list[str], tag: str) -> tuple[dict, dict, dict]:
         _, _, history = train_cli.main(argv)
         torch.cuda.synchronize()
     finally:
-        train_mod.prefetch_to_device, train_mod.evaluate = saved
+        restore()
     stats["wall_s"] = time.perf_counter() - t0
     launches = K.launch_counts()
     stats["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -1143,7 +1212,9 @@ def _cli_run(argv: list[str], tag: str) -> tuple[dict, dict, dict]:
     log(f"train_cli {tag}: {steps} steps, {len(history['val_dice'])} validations in "
         f"{stats['wall_s']:.2f} s wall ({stats['img_s']:.3f} img/s over the whole loop), "
         f"loader wait {stats['loader_wait_s']:.2f} s, validation {stats['val_s']:.2f} s, "
-        f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB; losses "
+        f"peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB"
+        + (f", staged {stats['staged_mb']:.1f} MB" if "staged_mb" in stats else "")
+        + "; losses "
         + " ".join(f"{v:.6f}" for v in history["train_loss"])
         + f"; val Dice {' '.join(f'{v:.6f}' for v in history['val_dice'])}; lr {history['lr']}")
     return history, launches, stats
@@ -1777,10 +1848,13 @@ def phase_predict_surface(workdir: Path, ckpt: Path, train_data: Path, card: str
         f"a forward, eval forward, TF32 off) beside the full-image forward: "
         f"{json.dumps(times)} ({card})")
 
-    # Serve --tile 512 --tta (bf16 by default): one 2048² request against
-    # predict_img_tiled(tta=True) at bf16.
+    # Serve --tile 512 --tta (bf16 by default; device preprocess by default
+    # under --tile): one 2048² request against predict_img_tiled(tta=True) at
+    # bf16, which preprocesses on the host.
     server, predictor = serve.make_server(["-m", str(ckpt), "--port", "0", "--tile", str(TILE),
                                            "--halo", str(HALO), "--tta", "-s", "1.0"])
+    if not predictor.device_preprocess:
+        failures.append("serve --tile: device preprocess is not on by default")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -1800,7 +1874,7 @@ def phase_predict_surface(workdir: Path, ckpt: Path, train_data: Path, card: str
         if served.shape != want.shape or differ:
             failures.append(f"serve --tile --tta vs predict_img_tiled: {served.shape}, "
                             f"{differ} pixels differ")
-        log(f"serve --tile {TILE} --tta (bf16) {TILE_SIZE}² request: HTTP 200 in "
+        log(f"serve --tile {TILE} --tta (bf16, device preprocess) {TILE_SIZE}² request: HTTP 200 in "
             f"{dt * 1e3:.1f} ms "
             f"(cold, client clock), mask vs predict_img_tiled(tta=True, bf16): {differ} "
             f"pixels differ, foreground {served.mean():.4f}")
@@ -1830,6 +1904,330 @@ def phase_predict_surface(workdir: Path, ckpt: Path, train_data: Path, card: str
     return numbers
 
 
+# Phase 8: the data path (the native host tier, device preprocess, the
+# device-resident corpus, augmentation). Host-clock times are medians of
+# DATA_REPS calls after one warm-up.
+DATA_IMAGES = 4
+DATA_REPS = 5
+DATA_HW = (1280, 1918)
+DATA_OUT_HW = (640, 959)  # scale 0.5
+
+
+def _host_ms(fn, reps: int = DATA_REPS) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32 and b.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def _carvana_formats(png_img_dir: Path, png_mask_dir: Path, out: Path) -> tuple[Path, Path]:
+    """The PNG pairs rewritten as Carvana ships them: JPEG images, one-frame
+    palette GIF masks with indices 0 and 1."""
+    imgs, masks = out / "imgs", out / "masks"
+    imgs.mkdir(parents=True)
+    masks.mkdir()
+    for p in sorted(png_img_dir.glob("*.png")):
+        Image.open(p).save(imgs / f"{p.stem}.jpg", quality=90)
+    for p in sorted(png_mask_dir.glob("*.png")):
+        gif = Image.fromarray((np.asarray(Image.open(p)) > 0).astype(np.uint8), mode="P")
+        gif.putpalette([0, 0, 0, 255, 255, 255])
+        gif.save(masks / f"{p.stem}.gif")
+    return imgs, masks
+
+
+def phase_data_path(workdir: Path, ckpt: Path, predict_inputs: list[str], surface_dir: Path,
+                    train_dir: Path, card: str) -> dict:
+    """Phase 8: the data path at 1918x1280 -> 959x640. The native tier
+    (built, self-checked, decode and resize against PIL, bitwise, timed);
+    ``device_preprocess_images``/``_masks`` on the card against the host
+    path, bitwise, at b1 and b4, timed; ``predict --device-preprocess`` on
+    phase 7's files (masks equal to phase 7's host masks); one served request
+    with ``--device-preprocess`` broken down like phase 4's, its mask equal
+    to the host request's, and ``serve --tile`` on by default; the train CLI
+    (``--kernels cuda``) with ``--device-preprocess``, ``--device-dataset``
+    and ``--augment --augment-elastic 34 --augment-rot 10`` (twice) against
+    phase 6's host run. Returns its numbers."""
+    from tpu_unet_torch import predict, serve
+    from tpu_unet_torch.data import (
+        CarvanaDataset,
+        DataLoader,
+        make_synthetic_carvana,
+        preprocess,
+        preprocess_mask,
+        random_split_indices,
+    )
+    from tpu_unet_torch.data.device_pipeline import (
+        device_preprocess_images,
+        device_preprocess_masks,
+        raw_u8_for_device,
+    )
+    from tpu_unet_torch.ops import resize_bilinear
+    from tpu_unet_torch.predict import logits_to_mask, mask_to_image
+
+    failures: list[str] = []
+    numbers: dict = {"card": card}
+    cuda = torch.device("cuda")
+
+    # (a) The native tier (built and self-checked in phase 1): decode and
+    # resize against PIL. Without libjpeg on this host, JPEG declines to PIL.
+    if not native.available():
+        raise SystemExit("chip_smoke: the native tier did not build or failed its self-check")
+    has_jpeg = bool(native._load().tu_has_jpeg)
+    numbers["has_jpeg"] = has_jpeg
+    log(f"native tier: available, has_jpeg={has_jpeg}")
+    png_imgs, png_masks = make_synthetic_carvana(workdir / "png", n=DATA_IMAGES, h=DATA_HW[0],
+                                                 w=DATA_HW[1], seed=11)
+    jpg_imgs, gif_masks = _carvana_formats(png_imgs, png_masks, workdir / "carvana")
+    files = {"png image": sorted(png_imgs.glob("*.png"))[0],
+             "jpeg image": sorted(jpg_imgs.glob("*.jpg"))[0],
+             "gif mask": sorted(gif_masks.glob("*.gif"))[0],
+             "png mask": sorted(png_masks.glob("*.png"))[0]}
+    decoders = {".png": native.decode_png, ".jpg": native.decode_jpeg, ".gif": native.decode_gif}
+    host: dict = {}
+    for label, path in files.items():
+        data = path.read_bytes()
+        ref = np.asarray(Image.open(io.BytesIO(data)))
+        got = decoders[path.suffix](data)
+        declined = got is None
+        if declined and not (path.suffix == ".jpg" and not has_jpeg):
+            failures.append(f"native {label} decode declined")
+        elif not declined and not _same_bits(got, ref):
+            failures.append(f"native {label} decode differs from PIL")
+        host[f"{label} decode"] = {
+            "native_ms": None if declined else _host_ms(lambda d=data, p=path:
+                                                        decoders[p.suffix](d)),
+            "pil_ms": _host_ms(lambda d=data: np.asarray(Image.open(io.BytesIO(d))))}
+    rgb = np.asarray(Image.open(files["png image"]))
+    mask_idx = np.asarray(Image.open(files["gif mask"]))
+    out_w_h = DATA_OUT_HW[::-1]
+    for label, arr, pil_f, nat_f in (("bicubic image resize", rgb, Image.BICUBIC, native.BICUBIC),
+                                     ("nearest mask resize", mask_idx, Image.NEAREST,
+                                      native.NEAREST)):
+        pil = Image.fromarray(arr)
+        ref = np.asarray(pil.resize(out_w_h, resample=pil_f))
+        for threads in (1, 8):
+            if not _same_bits(native.resize_u8(arr, *DATA_OUT_HW, nat_f, n_threads=threads), ref):
+                failures.append(f"native {label} ({threads} threads) differs from PIL")
+        host[label] = {"native_ms": _host_ms(lambda a=arr, f=nat_f: native.resize_u8(
+                           a, *DATA_OUT_HW, f, n_threads=1)),
+                       "native_8_threads_ms": _host_ms(lambda a=arr, f=nat_f: native.resize_u8(
+                           a, *DATA_OUT_HW, f, n_threads=8)),
+                       "pil_ms": _host_ms(lambda p=pil, f=pil_f: np.asarray(
+                           p.resize(out_w_h, resample=f)))}
+    host["host preprocess (native resize + /255)"] = {
+        "ms": _host_ms(lambda: preprocess(Image.fromarray(rgb), 0.5))}
+    numbers["host_ms"] = host
+    log(f"native tier vs PIL, {DATA_HW[1]}x{DATA_HW[0]} -> {DATA_OUT_HW[1]}x{DATA_OUT_HW[0]}, "
+        f"host clock, median of {DATA_REPS}: {json.dumps(host)}")
+
+    # (b) The device preprocess on the card against the host path, bitwise.
+    paths = sorted(png_imgs.glob("*.png"))
+    raw = torch.from_numpy(np.stack([raw_u8_for_device(Image.open(p)) for p in paths])).to(cuda)
+    want_x = np.stack([preprocess(Image.open(p), 0.5) for p in paths])
+    ds_masks = CarvanaDataset(jpg_imgs, gif_masks, 0.5)
+    mv = ds_masks.mask_values
+    raw_m = torch.from_numpy(np.stack([np.asarray(Image.open(p))
+                                       for p in sorted(gif_masks.glob("*.gif"))])).to(cuda)
+    want_m = np.stack([preprocess_mask(mv, Image.open(p), 0.5)
+                       for p in sorted(gif_masks.glob("*.gif"))])
+    mv_t = torch.tensor(mv, device=cuda)
+    dev: dict = {}
+    with torch.inference_mode():
+        for b in (1, DATA_IMAGES):
+            xi = device_preprocess_images(raw[:b], out_h=DATA_OUT_HW[0], out_w=DATA_OUT_HW[1])
+            xm = device_preprocess_masks(raw_m[:b], mv_t, out_h=DATA_OUT_HW[0],
+                                         out_w=DATA_OUT_HW[1])
+            if not _same_bits(xi.cpu().numpy(), want_x[:b]):
+                failures.append(f"device_preprocess_images b{b} differs from the host path")
+            if not np.array_equal(xm.cpu().numpy(), want_m[:b]):
+                failures.append(f"device_preprocess_masks b{b} differs from the host path")
+            dev[f"b{b}"] = {
+                "images_ms": time_ms(lambda b=b: device_preprocess_images(
+                    raw[:b], out_h=DATA_OUT_HW[0], out_w=DATA_OUT_HW[1])),
+                "masks_ms": time_ms(lambda b=b: device_preprocess_masks(
+                    raw_m[:b], mv_t, out_h=DATA_OUT_HW[0], out_w=DATA_OUT_HW[1]))}
+    numbers["device_ms"] = dev
+    log(f"device preprocess on the card, [b,{DATA_HW[0]},{DATA_HW[1]},3] uint8 -> "
+        f"[b,{DATA_OUT_HW[0]},{DATA_OUT_HW[1]},3] fp32 and GIF masks (palette {mv}), bitwise "
+        f"equal to the host path at b1 and b{DATA_IMAGES}: "
+        f"{not any('device_preprocess' in f for f in failures)}; CUDA events, median of 10: "
+        f"{json.dumps(dev)} ({card})")
+    del raw, raw_m
+
+    # (c) predict --device-preprocess on phase 7's 8 files, in turns with the
+    # host path (b1), then batched; masks equal phase 7's host masks.
+    wall: dict = {}
+    for tag in ("host", "device", "device", "host"):
+        outs = [str(workdir / f"p_{tag}_{k}.png") for k in range(len(predict_inputs))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict.main(["-m", str(ckpt), "-i", *predict_inputs, "-o", *outs]
+                     + (["--device-preprocess"] if tag == "device" else []))
+        torch.cuda.synchronize()
+        wall.setdefault(tag, []).append(time.perf_counter() - t0)
+    outs4 = [str(workdir / f"p_b4_{k}.png") for k in range(len(predict_inputs))]
+    predict.main(["-m", str(ckpt), "-i", *predict_inputs, "-o", *outs4, "--device-preprocess",
+                  "--batch-size", "4"])
+    differ = {}
+    for k in range(len(predict_inputs)):
+        for tag, ref in (("device", f"b1_{k}.png"), ("b4", f"b4_{k}.png")):
+            got = np.asarray(Image.open(workdir / f"p_{tag}_{k}.png"))
+            n = int((got != np.asarray(Image.open(surface_dir / ref))).sum())
+            differ[tag] = differ.get(tag, 0) + n
+    if differ["device"] or differ["b4"]:
+        failures.append(f"predict --device-preprocess masks differ from phase 7's: {differ}")
+    ips = {tag: [round(len(predict_inputs) / t, 3) for t in v] for tag, v in wall.items()}
+    numbers["predict_images_per_s"] = ips
+    log(f"predict fp32 on phase 7's {len(predict_inputs)} files, CLI wall clock, in turns host "
+        f"device device host: images/s host {ips['host']}, --device-preprocess "
+        f"{ips['device']}; pixels differing from phase 7's host masks: b1 {differ['device']}, "
+        f"--batch-size 4 {differ['b4']} ({card})")
+
+    # (d) One served request with --device-preprocess (--kernels cuda, bf16),
+    # its mask against the host request's (the same forward on the host
+    # preprocess); its breakdown like phase 4's; serve --tile's default.
+    body = paths[0].read_bytes()
+    server, predictor = serve.make_server(["-m", str(ckpt), "--port", "0", "--kernels", "cuda",
+                                           "--device-preprocess", "--warmup", "1280x1918"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        served = [post(server.server_address[1], body) for _ in range(3)]
+        metrics = get_json(server.server_address[1], "/metrics")
+        img = Image.open(io.BytesIO(body))
+        with torch.inference_mode():
+            x = torch.from_numpy(preprocess(img, 0.5))[None].to(cuda)
+            lg = resize_bilinear(predictor.forward(x), img.height, img.width,
+                                 align_corners=False)
+            host_mask = logits_to_mask(lg[0], 1, 0.5)
+        t = [time.perf_counter()]
+        img = Image.open(io.BytesIO(body))
+        img.load()
+        t.append(time.perf_counter())
+        arr = raw_u8_for_device(img)
+        t.append(time.perf_counter())
+        with torch.inference_mode():
+            xr = torch.from_numpy(arr[None].copy()).to(cuda)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            x = device_preprocess_images(xr, out_h=DATA_OUT_HW[0], out_w=DATA_OUT_HW[1])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            logits = predictor.forward(x)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            lg = resize_bilinear(logits, img.height, img.width, align_corners=False)
+            mask = logits_to_mask(lg[0], 1, 0.5)
+        t.append(time.perf_counter())
+        mask_to_image(mask, [0, 1]).save(io.BytesIO(), format="PNG")
+        t.append(time.perf_counter())
+    finally:
+        server.shutdown()
+        server.server_close()
+        predictor.stop()
+        thread.join(timeout=10)
+    steps = ("png_decode", "raw_u8", "h2d_u8", "device_resize", "forward",
+             "upscale_threshold_d2h", "png_encode")
+    breakdown = {name: round((t[i + 1] - t[i]) * 1e3, 2) for i, name in enumerate(steps)}
+    breakdown["total"] = round((t[-1] - t[0]) * 1e3, 2)
+    numbers["serve_breakdown_ms"] = breakdown
+    numbers["serve_client_ms"] = [round(r[2] * 1e3, 2) for r in served]
+    for k, (status, data, _) in enumerate(served):
+        got = np.asarray(Image.open(io.BytesIO(data))).astype(bool) if status == 200 else None
+        if got is None or not np.array_equal(got, host_mask.astype(bool)):
+            failures.append(f"served --device-preprocess request {k}: HTTP {status}, mask "
+                            "differs from the host request's")
+    if not np.array_equal(mask, host_mask):
+        failures.append("device-preprocess breakdown mask differs from the host request's")
+    log("request breakdown ms (--device-preprocess, --kernels cuda, bf16): " + " ".join(
+        f"{k}={v:.2f}" for k, v in breakdown.items()) + f"; served client ms "
+        f"{numbers['serve_client_ms']}, /metrics p50 {metrics.get('latency_ms', {}).get('p50')}; "
+        f"masks equal to the host request's: {not any('served' in f for f in failures)}")
+    for argv, want in ((["--tile", str(TILE)], True),
+                       (["--tile", str(TILE), "--no-device-preprocess"], False)):
+        server, predictor = serve.make_server(["-m", str(ckpt), "--port", "0", *argv])
+        server.server_close()
+        predictor.stop()
+        if predictor.device_preprocess is not want:
+            failures.append(f"serve {' '.join(argv)}: device_preprocess "
+                            f"{predictor.device_preprocess}, expected {want}")
+    log(f"serve --tile {TILE} defaults to device preprocess: "
+        f"{not any('serve --tile' in f for f in failures)}")
+    torch.cuda.empty_cache()
+
+    # (e) The train CLI with the data flags, --kernels cuda, on phase 6's data
+    # and initial checkpoint, against phase 6's --kernels cuda host run.
+    ref = json.loads((train_dir / "history_cuda.json").read_text())
+    data = train_dir / "data"
+    common = [*CLI_ARGS, "--data-dir", str(data), "--load", str(train_dir / "init.npz"),
+              "--kernels", "cuda"]
+    hds = CarvanaDataset(data / "imgs", data / "masks", 0.5)
+    train_idx, _ = random_split_indices(len(hds), 0.2, seed=0)
+    first = next(iter(DataLoader(hds, 4, shuffle=True, indices=train_idx, seed=0)))
+    augment = ["--augment", "--augment-elastic", "34", "--augment-rot", "10"]
+    runs: dict = {}
+    for tag, flags in (("device-preprocess", ["--device-preprocess"]),
+                       ("device-dataset", ["--device-dataset"]),
+                       ("augment", augment), ("augment again", augment)):
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = tag.startswith("augment")
+        try:
+            history, launches, stats = _cli_run(
+                common + flags + ["--checkpoint-dir", str(workdir / f"ck_{tag.replace(' ', '_')}")],
+                " ".join(flags) + " --kernels cuda")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        runs[tag] = (history, stats)
+        steps = len(history["train_loss"])
+        for name, count in launches.items():
+            if count != expected_launches(name, "cuda", True, steps):
+                failures.append(f"{tag}: {name} launched {count} times, expected "
+                                f"{expected_launches(name, 'cuda', True, steps)}")
+        if steps != CLI_STEPS or len(history["val_dice"]) != 2:
+            failures.append(f"{tag}: {steps} steps, {len(history['val_dice'])} validations")
+        if not all(np.isfinite(history["train_loss"])):
+            failures.append(f"{tag}: non-finite loss")
+        if tag.startswith("device"):
+            fb = stats["first_batch"]
+            same = (_same_bits(fb["image"].numpy(), first["image"])
+                    and np.array_equal(fb["mask"].numpy(), first["mask"]))
+            rel = (np.abs(np.asarray(history["train_loss"]) - ref["train_loss"])
+                   / np.abs(ref["train_loss"]))
+            dice = np.abs(np.asarray(history["val_dice"]) - ref["val_dice"])
+            log(f"{tag}: first batch bitwise equal to the host loader's: {same}; loss rel err "
+                f"vs phase 6's host run " + " ".join(f"{r:.3e}" for r in rel)
+                + f" (tol {CLI_LOSS_TOL:g}); val Dice abs err "
+                + " ".join(f"{d:.3e}" for d in dice) + f" (tol {CLI_DICE_TOL:g})")
+            if not same:
+                failures.append(f"{tag}: first batch differs from the host loader's")
+            if not ((rel <= CLI_LOSS_TOL).all() and (dice <= CLI_DICE_TOL).all()):
+                failures.append(f"{tag}: losses {rel.tolist()} or val Dice {dice.tolist()} "
+                                "off phase 6's host run")
+    (ha, sa), (hb, sb) = runs["augment"], runs["augment again"]
+    repeat = (ha["train_loss"] == hb["train_loss"] and ha["val_dice"] == hb["val_dice"]
+              and all(torch.equal(a, b) for a, b in zip(sa["first_augmented"],
+                                                       sb["first_augmented"])))
+    log(f"augment: two runs bitwise equal (losses, val Dice, first batch): {repeat}")
+    if not repeat:
+        failures.append("the augmented train CLI run did not repeat bitwise")
+    numbers["train_cli"] = {tag: {k: (round(v, 4) if isinstance(v, float) else v)
+                                  for k, v in st.items() if not k.startswith("first_")}
+                            for tag, (_, st) in runs.items()}
+    if failures:
+        raise SystemExit(f"chip_smoke: data path checks failed: {failures}")
+    return numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -1852,6 +2250,12 @@ def main(argv=None) -> int:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    t1 = time.perf_counter()
+    if not native.available():
+        raise SystemExit("chip_smoke: the native tier did not build or failed its self-check")
+    log(f"native tier: {native.build().relative_to(ROOT)} built with g++ and self-checked "
+        f"against Pillow in {time.perf_counter() - t1:.1f} s, has_jpeg="
+        f"{bool(native._load().tu_has_jpeg)}")
     phase_done("1 (build)", t0)
 
     # Phase 2: kernels vs plain; 2b: train kernels; 2c: the im2col conv.
@@ -1891,6 +2295,16 @@ def main(argv=None) -> int:
         log(f"predict surface numbers: {json.dumps(surface)}")
         torch.cuda.empty_cache()
         phase_done("7 (predict surface)", t0)
+        # Phase 8: the data path, on phase 3's checkpoint and phase 6's and
+        # phase 7's files.
+        t0 = time.perf_counter()
+        inputs = [str(p) for d in ("big", "small")
+                  for p in sorted((workdir / "surface" / d / "imgs").glob("*.png"))]
+        data_path = phase_data_path(workdir / "data_path", workdir / "serve" / "unet_base64.npz",
+                                    inputs, workdir / "surface", workdir / "train", card)
+        log(f"data path numbers: {json.dumps(data_path)}")
+        torch.cuda.empty_cache()
+        phase_done("8 (data path)", t0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

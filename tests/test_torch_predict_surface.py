@@ -137,7 +137,8 @@ def test_predict_cli_equals_jax(ckpt, tmp_path, flags, sizes):
 
 # (the port's flags, the message, JAX's flags where JAX refuses them too).
 @pytest.mark.parametrize("flags,match,jax_flags", [
-    (["--device-preprocess"], "--device-preprocess is not ported", None),
+    (["--device-preprocess", "--tile", "128"], "--device-preprocess applies to the default",
+     ["--device-preprocess", "--tile", "128"]),
     (["--tile-sharded"], "--tile-sharded is not ported", None),
     (["--arch", "unetpp"], "--arch unetpp is not ported", None),
     (["--tta", "--kernels", "torch"], "--tta does not compose with --kernels",
@@ -221,8 +222,15 @@ def test_serve_cli_flags_and_refusals(ckpt):
     finally:
         server.server_close()
         pred.stop()
-    with pytest.raises(SystemExit, match="--device-preprocess is not ported"):
-        make_server(["-m", str(ckpt), "--device", "cpu", "--device-preprocess"])
+    # --device-preprocess is ported: on by default under --tile (JAX's
+    # default), off without it, and on when asked for.
+    for argv, want in ((["--tile", "256"], True), ([], False), (["--device-preprocess"], True)):
+        server, pred = make_server(["-m", str(ckpt), "--port", "0", "--device", "cpu", *argv])
+        try:
+            assert pred.device_preprocess is want
+        finally:
+            server.server_close()
+            pred.stop()
     params, state, mv, _ = load_checkpoint(ckpt, CFG)
     for kw, match in (({"tile": 100}, "multiples of 16"), ({"tile": 128, "halo": 120},
                                                            "multiples of 16"),

@@ -149,9 +149,31 @@ def test_make_server_from_cli_flags(ckpt):
     finally:
         server.server_close()
         pred.stop()
-    # Still refused: the device-side preprocess.
-    with pytest.raises(SystemExit, match="--device-preprocess is not ported"):
-        make_server(["-m", str(ckpt), "--device", "cpu", "--device-preprocess"])
+    # Ported: --device-preprocess resizes each raw request on the device, here
+    # before the folded forward; the masks equal the host path's and JAX's.
+    from tpu_unet.checkpoint import load_checkpoint as j_load
+
+    server, pred = make_server(["-m", str(ckpt), "--port", "0", "--device", "cpu",
+                                "--kernels", "torch", "--no-amp", "-s", "0.5",
+                                "--device-preprocess"])
+    like_p, like_s = j_init(jax.random.PRNGKey(0), JCFG)
+    jp, js, mv, _ = j_load(ckpt, like_p, like_s)
+    jpred = JPredictor(jp, js, JCFG, mv, scale=0.5, amp=False, kernels="xla",
+                       device_preprocess=True)
+    params, state, _, _ = load_checkpoint(ckpt)
+    try:
+        assert pred.device_preprocess and not pred.tile
+        for seed, (h, w) in enumerate([(74, 96), (64, 80)]):
+            img = _img(50 + seed, h, w)
+            got = pred.predict_one(img)
+            np.testing.assert_array_equal(got, jpred.predict_one(img))
+            np.testing.assert_array_equal(got, predict_img_fused(
+                params, state, UNetConfig(*JCFG), img, backend="torch", scale_factor=0.5,
+                device="cpu"))
+    finally:
+        jpred.stop()
+        server.server_close()
+        pred.stop()
 
 
 def test_predict_cli_png_equals_jax(ckpt, tmp_path):
@@ -242,9 +264,14 @@ def test_serve_default_is_the_eval_forward_and_equals_jax(ckpt, monkeypatch):
 def test_predict_cli_refuses_unported_flags_and_missing_gpu(ckpt, tmp_path):
     img_path = tmp_path / "in.png"
     _img(31).save(img_path)
-    for flag in (["--device-preprocess"], ["--tile-sharded"], ["--arch", "unetpp"]):
+    for flag in (["--tile-sharded"], ["--arch", "unetpp"]):
         with pytest.raises(SystemExit, match="is not ported"):
             t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", *flag])
+    # --device-preprocess is ported; JAX's refusals of it hold.
+    for flag in (["--tile", "64"], ["--kernels", "cuda"]):
+        with pytest.raises(SystemExit, match="--device-preprocess applies to the default"):
+            t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu",
+                            "--device-preprocess", *flag])
     with pytest.raises(SystemExit, match="--tile does not compose with --kernels"):
         t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", "--tile", "64",
                         "--kernels", "cuda"])

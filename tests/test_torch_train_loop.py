@@ -328,14 +328,61 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 @pytest.mark.parametrize("flag", [
     ["--data-parallel"], ["--multihost"], ["--coordinator", "h:1"], ["--num-processes", "2"],
     ["--process-id", "0"], ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
-    ["--pipeline-parallel", "2"], ["--zero"], ["--device-dataset"], ["--device-preprocess"],
-    ["--augment"], ["--augment-elastic", "3"], ["--augment-rot", "5"], ["--augment-scale", "0.1"],
-    ["--augment-shift", "2"], ["--wandb"], ["--profile", "p"], ["--debug-nans"],
-    ["--arch", "unetpp"], ["--deep-supervision"], ["--arch", "r2u"],
+    ["--pipeline-parallel", "2"], ["--zero"], ["--wandb"], ["--profile", "p"],
+    ["--debug-nans"], ["--arch", "unetpp"], ["--deep-supervision"], ["--arch", "r2u"],
 ])
 def test_train_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="is not ported"):
         train_cli.main(["--device", "cpu", *flag])
+
+
+def _jax_augment(images, masks, *, config, seed, step):
+    """The port's apply step on JAX's draws for (seed, step), the key
+    ``fold_in(PRNGKey(seed), step)`` that JAX's loop makes."""
+    from tests.test_torch_augment import jax_draws
+    from tpu_unet_torch.data.augment import apply_augment
+
+    n, h, w, _ = images.shape
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), step)
+    return apply_augment(jax_draws(key, config, n, h, w), images, masks, config)
+
+
+# The data flags (once refused, now ported), each run by both CLIs from one
+# checkpoint: the device paths at scale 0.5 give the host path's batches, the
+# augmented runs take JAX's draws, so the histories agree as the plain run's.
+@pytest.mark.parametrize("flag", [
+    ["--device-dataset", "-s", "0.5"], ["--device-preprocess", "-s", "0.5"], ["--augment"],
+    ["--augment-elastic", "3"], ["--augment-rot", "5"], ["--augment-scale", "0.1"],
+    ["--augment-shift", "2"],
+])
+def test_train_cli_data_flags_match_jax(world, tmp_path, monkeypatch, flag):
+    argv = _cli_world(world, tmp_path, monkeypatch) + ["-e", "1", *flag]
+    seen = []
+    if flag[0].startswith("--augment"):
+        def augment(images, masks, **kw):
+            seen.append(kw["step"])
+            return _jax_augment(images, masks, **kw)
+
+        monkeypatch.setattr(t_train, "augment_batch", augment)
+    train_cli.main(argv + ["--device", "cpu", "--checkpoint-dir", str(tmp_path / "t"),
+                           "--history-out", str(tmp_path / "t.json")])
+    j_cli_main(argv + ["--checkpoint-dir", str(tmp_path / "j"),
+                       "--history-out", str(tmp_path / "j.json")])
+    got = json.loads((tmp_path / "t.json").read_text())
+    _assert_history(got, json.loads((tmp_path / "j.json").read_text()))
+    assert len(got["train_loss"]) == 4 and len(got["val_dice"]) == 2
+    assert seen == ([0, 1, 2, 3] if flag[0].startswith("--augment") else [])
+    _assert_same_files(tmp_path / "t", tmp_path / "j", arrays=False)
+
+
+def test_train_cli_data_flag_refusals_are_jaxs(world, tmp_path, monkeypatch):
+    argv = _cli_world(world, tmp_path, monkeypatch) + ["--device-dataset",
+                                                       "--device-preprocess"]
+    with pytest.raises(ValueError, match="mutually exclusive") as port:
+        train_cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError) as ref:
+        j_cli_main(argv)
+    assert str(port.value) == str(ref.value)
 
 
 def test_train_cli_drops_vmem_limit_and_needs_a_gpu(world):

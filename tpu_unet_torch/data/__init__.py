@@ -4,6 +4,8 @@ synthetic Carvana-like data generator."""
 from tpu_unet_torch.data.loading import (
     BasicDataset,
     CarvanaDataset,
+    RawCarvanaDataset,
+    RawDataset,
     load_image,
     preprocess,
     preprocess_mask,
@@ -17,6 +19,8 @@ __all__ = [
     "BasicDataset",
     "CarvanaDataset",
     "DataLoader",
+    "RawCarvanaDataset",
+    "RawDataset",
     "collate",
     "load_image",
     "make_synthetic_carvana",

@@ -2,9 +2,12 @@
 reference's shared train/predict transform, the paired image/mask datasets
 and the seeded train/val split.
 
-Plain PIL: the JAX package's native resampler is bit-exact with Pillow, so
-this gives the same arrays. The layout is the JAX package's, channels-last:
-images HWC float32, masks HW int64 class-index maps.
+Decode and resize go through the native C++ tier (``tpu_unet_torch.native``),
+which is bit-exact with Pillow and falls back to PIL where it cannot serve an
+image, so either route gives the same arrays. The layout is the JAX
+package's, channels-last: images HWC float32, masks HW int64 class-index
+maps. ``RawDataset`` decodes only (uint8), for the device-side preprocess
+(``data/device_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from pathlib import Path
 import numpy as np
 import torch
 from PIL import Image
+
+from tpu_unet_torch import native
 
 logger = logging.getLogger(__name__)
 
@@ -36,7 +41,7 @@ def load_image(filename) -> Image.Image:
 def preprocess(pil_img: Image.Image, scale: float) -> np.ndarray:
     """Resize by ``scale`` with BICUBIC, to HWC float32, divided by 255 when
     any value exceeds 1 (the reference's transform, channels-last)."""
-    img = np.asarray(pil_img.resize(_scaled_size(pil_img, scale), resample=Image.BICUBIC))
+    img = _resized(pil_img, _scaled_size(pil_img, scale), Image.BICUBIC)
     if img.ndim == 2:
         img = img[..., None]
     img = img.astype(np.float32)
@@ -50,7 +55,7 @@ def preprocess_mask(mask_values, pil_img: Image.Image, scale: float) -> np.ndarr
     its value in ``mask_values`` (grey values, or RGB triples for [H,W,3]
     masks): an HW int64 class-index map."""
     new_w, new_h = _scaled_size(pil_img, scale)
-    img = np.asarray(pil_img.resize((new_w, new_h), resample=Image.NEAREST))
+    img = _resized(pil_img, (new_w, new_h), Image.NEAREST)
     mask = np.zeros((new_h, new_w), dtype=np.int64)
     for i, v in enumerate(mask_values):
         if img.ndim == 2:
@@ -58,6 +63,13 @@ def preprocess_mask(mask_values, pil_img: Image.Image, scale: float) -> np.ndarr
         else:
             mask[(img == v).all(-1)] = i
     return mask
+
+
+def _resized(pil_img: Image.Image, size: tuple[int, int], resample) -> np.ndarray:
+    """``np.asarray(pil_img.resize(size, resample))``, natively where the
+    tier serves the image."""
+    img = native.pil_resize_native(pil_img, *size, resample)
+    return np.asarray(pil_img.resize(size, resample=resample)) if img is None else img
 
 
 def _scaled_size(pil_img: Image.Image, scale: float) -> tuple[int, int]:
@@ -71,7 +83,7 @@ def _scaled_size(pil_img: Image.Image, scale: float) -> tuple[int, int]:
 def unique_mask_values(idx, mask_dir: Path, mask_suffix: str) -> np.ndarray:
     """The unique pixel values (or RGB triples) of one mask file."""
     mask_file = list(mask_dir.glob(idx + mask_suffix + ".*"))[0]
-    mask = np.asarray(load_image(mask_file))
+    mask = native.asarray_fast(load_image(mask_file))
     if mask.ndim == 2:
         return np.unique(mask)
     if mask.ndim == 3:
@@ -119,16 +131,9 @@ class BasicDataset:
         if self._cache is not None and idx in self._cache:
             return self._cache[idx]
         name = self.ids[idx]
-        mask_file = list(self.mask_dir.glob(name + self.mask_suffix + ".*"))
-        img_file = list(self.images_dir.glob(name + ".*"))
-        if len(img_file) != 1:
-            raise ValueError(f"Either no image or multiple images found for the ID {name}: "
-                             f"{img_file}")
-        if len(mask_file) != 1:
-            raise ValueError(f"Either no mask or multiple masks found for the ID {name}: "
-                             f"{mask_file}")
-        mask = load_image(mask_file[0])
-        img = load_image(img_file[0])
+        img_file, mask_file = self._files(name)
+        mask = load_image(mask_file)
+        img = load_image(img_file)
         if img.size != mask.size:
             raise ValueError(f"Image and mask {name} should be the same size, "
                              f"but are {img.size} and {mask.size}")
@@ -138,6 +143,18 @@ class BasicDataset:
             self._cache[idx] = sample
         return sample
 
+    def _files(self, name: str) -> tuple[Path, Path]:
+        """(image file, mask file) of one id; exactly one of each."""
+        img_file = list(self.images_dir.glob(name + ".*"))
+        mask_file = list(self.mask_dir.glob(name + self.mask_suffix + ".*"))
+        if len(img_file) != 1:
+            raise ValueError(f"Either no image or multiple images found for the ID {name}: "
+                             f"{img_file}")
+        if len(mask_file) != 1:
+            raise ValueError(f"Either no mask or multiple masks found for the ID {name}: "
+                             f"{mask_file}")
+        return img_file[0], mask_file[0]
+
 
 class CarvanaDataset(BasicDataset):
     """The Carvana layout: each image's mask has the ``_mask`` suffix."""
@@ -146,6 +163,38 @@ class CarvanaDataset(BasicDataset):
                  num_workers: int | None = None, cache: bool = False):
         super().__init__(images_dir, mask_dir, scale, mask_suffix="_mask",
                          num_workers=num_workers, cache=cache)
+
+
+class RawDataset(BasicDataset):
+    """Decode only, for the device-side preprocess (``DevicePipeline``):
+    each sample is the raw uint8 image (HWC) and mask (HW, or HW3 for RGB
+    masks), neither resized nor normalised. Every image must have the first
+    image's size (``raw_h``, ``raw_w``), as Carvana's do."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.raw_w, self.raw_h = load_image(self._files(self.ids[0])[0]).size
+
+    def __getitem__(self, idx):
+        name = self.ids[idx]
+        img_file, mask_file = self._files(name)
+        img, mask = load_image(img_file), load_image(mask_file)
+        if img.size != (self.raw_w, self.raw_h):
+            raise ValueError(f"RawDataset requires uniform image sizes; {name} is {img.size}, "
+                             f"expected {(self.raw_w, self.raw_h)}")
+        img_arr = native.asarray_fast(img)
+        if img_arr.ndim == 2:
+            img_arr = img_arr[..., None]
+        return {"image": img_arr.astype(np.uint8), "mask": native.asarray_fast(mask)}
+
+
+class RawCarvanaDataset(RawDataset):
+    """``RawDataset`` in the Carvana layout (``_mask`` suffix)."""
+
+    def __init__(self, images_dir, mask_dir, scale: float = 1.0,
+                 num_workers: int | None = None):
+        super().__init__(images_dir, mask_dir, scale, mask_suffix="_mask",
+                         num_workers=num_workers)
 
 
 def random_split_indices(n: int, val_fraction: float, seed: int = 0):

@@ -78,14 +78,18 @@ class DataLoader:
                 yield collate([f.result() for f in futures])
 
 
-def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device``: through pinned memory with a
-    non-blocking copy on a CUDA device (the copy is ordered on the current
-    stream before any later kernel), as is on the CPU."""
-    if device.type != "cuda":
-        return {k: torch.from_numpy(v) for k, v in batch.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """A batch as tensors on ``device``. Host arrays go through pinned memory
+    with a non-blocking copy on a CUDA device (the copy is ordered on the
+    current stream before any later kernel), as they are on the CPU; tensors
+    (a batch made on the device) are moved only if they lie elsewhere."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        t = torch.from_numpy(v)
+        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+    return {k: one(v) for k, v in batch.items()}
 
 
 def prefetch_to_device(iterator: Iterable[dict], buffer_size: int = 2,

@@ -4,6 +4,9 @@ eval-mode forward (``predict_img``, the reference's path without
 (``predict_img_fused``), with ``--tile`` through the tiled sweep
 (``parallel/tiling.py``), and with ``--batch-size N`` through
 ``iter_predicted_masks``, which runs up to N same-sized inputs as one batch.
+``--device-preprocess`` (default path only) decodes on the host and resizes
+and normalises on the device (``data/device_pipeline.py``), bitwise the host
+preprocess; images of another mode than L or RGB fall back to the host.
 
 The reference order is kept: preprocess -> forward (``--tta``: the flip
 ensemble's merged logits) -> bilinear (half-pixel) upscale of the LOGITS to
@@ -15,7 +18,7 @@ reference's torch ``.pth``.
 Run:
     python -m tpu_unet_torch.predict -m ckpt.npz|model.pth -i a.png b.png \
         [--batch-size N] [--tta [--tta-mode hflip]] [--tile 512] [--crf] [--viz] \
-        [--kernels cuda|torch] [--device cuda|cpu] [--amp]
+        [--kernels cuda|torch] [--device-preprocess] [--device cuda|cpu] [--amp]
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from tpu_unet_torch.data.device_pipeline import device_preprocess_images, raw_u8_for_device
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
 from tpu_unet_torch.models.infer import BACKENDS
@@ -39,7 +43,7 @@ from tpu_unet_torch.ops import full_fp32, resize_bilinear
 logger = logging.getLogger(__name__)
 
 # Flags of the JAX CLIs that this port does not run yet.
-UNPORTED_FLAGS = ("device_preprocess", "tile_sharded")
+UNPORTED_FLAGS = ("tile_sharded",)
 ARCHS = ("unet", "unetpp", "attention", "r2u", "r2attu")
 
 
@@ -93,21 +97,46 @@ def _on(device: torch.device, *trees):
     return tuple(tree_map(lambda t: t.to(device), tree) for tree in trees)
 
 
+def _device_resized(raw: torch.Tensor, scale_factor: float) -> torch.Tensor:
+    """Raw uint8 NHWC on the device -> the preprocessed float32 batch."""
+    new_h, new_w = int(scale_factor * raw.shape[1]), int(scale_factor * raw.shape[2])
+    if new_h <= 0 or new_w <= 0:
+        raise ValueError("Scale is too small, resized images would have no pixel")
+    return device_preprocess_images(raw, out_h=new_h, out_w=new_w)
+
+
+def _raw_or_warn(img: Image.Image, what: str) -> np.ndarray | None:
+    """``raw_u8_for_device(img)``, with a warning when the image must take
+    the host path instead."""
+    arr = raw_u8_for_device(img)
+    if arr is None:
+        logger.warning("%s not device-preprocessable (mode %s): falling back to host "
+                       "preprocess", what, getattr(img, "mode", "?"))
+    return arr
+
+
 def predict_img(params, state, config: UNetConfig, full_img: Image.Image, *,
                 scale_factor: float = 0.5, out_threshold: float = 0.5, amp: bool = False,
                 use_crf: bool = False, tta: bool = False, tta_mode: str = "flips",
+                device_preprocess: bool = False,
                 device: str | torch.device = "cuda") -> np.ndarray:
     """The mask of one PIL image at its original resolution, through the
     unfolded eval-mode forward (``unet_apply(train=False)``, library convs
     and BN). ``tta`` averages the logits of the flip views; ``use_crf``
     refines the probabilities at the original resolution, against the image
-    itself, before the threshold. ``params``/``state`` may live on any
-    device; they are moved to ``device``."""
+    itself, before the threshold. ``device_preprocess`` resizes and
+    normalises on the device (the same mask; L and RGB images only, others
+    fall back to the host with a warning). ``params``/``state`` may live on
+    any device; they are moved to ``device``."""
     device = resolve_device(device)
     full_w, full_h = full_img.size
+    raw = _raw_or_warn(full_img, "image") if device_preprocess else None
     with torch.inference_mode():
         params, state = _on(device, params, state)
-        x = torch.from_numpy(preprocess(full_img, scale_factor))[None].to(device)
+        if raw is not None:
+            x = _device_resized(torch.from_numpy(raw[None].copy()).to(device), scale_factor)
+        else:
+            x = torch.from_numpy(preprocess(full_img, scale_factor))[None].to(device)
         logits = _forward_full(params, state, x, config=config, full_h=full_h, full_w=full_w,
                                amp=amp, tta=tta, tta_mode=tta_mode)
         if not use_crf:
@@ -125,18 +154,20 @@ def predict_img(params, state, config: UNetConfig, full_img: Image.Image, *,
 def iter_predicted_masks(params, state, config: UNetConfig, filenames, *,
                          scale_factor: float = 0.5, out_threshold: float = 0.5,
                          amp: bool = False, tta: bool = False, tta_mode: str = "flips",
-                         batch_size: int = 1, device: str | torch.device = "cuda"):
+                         batch_size: int = 1, device_preprocess: bool = False,
+                         device: str | torch.device = "cuda"):
     """Yield ``(filename, PIL image, mask)`` in input order, running up to
-    ``batch_size`` consecutive inputs of one preprocessed shape AND one
-    original size as one batch. A change of either, or a full batch,
-    flushes the group, so memory stays bounded at ``batch_size`` images.
-    Each group is stacked on the host: one copy to the device, one forward,
-    one fetch of its masks. The threshold follows the batched upscale, so
-    each mask is the one ``predict_img`` gives."""
+    ``batch_size`` consecutive inputs of one kind (raw uint8 for the device
+    preprocess, or preprocessed on the host), one array shape AND one
+    original size as one batch. A change of any, or a full batch, flushes
+    the group, so memory stays bounded at ``batch_size`` images. Each group
+    is stacked on the host: one copy to the device, one forward, one fetch
+    of its masks. The threshold follows the batched upscale, so each mask is
+    the one ``predict_img`` gives."""
     device = resolve_device(device)
     params, state = _on(device, params, state)
     pending: list[tuple[str, Image.Image, np.ndarray]] = []
-    key = None  # (preprocessed shape, original PIL size)
+    key = None  # (raw uint8, array shape, original PIL size)
 
     def flush():
         nonlocal pending, key
@@ -145,6 +176,8 @@ def iter_predicted_masks(params, state, config: UNetConfig, filenames, *,
         full_w, full_h = pending[0][1].size
         with torch.inference_mode():
             x = torch.from_numpy(np.stack([arr for _, _, arr in pending])).to(device)
+            if key[0]:
+                x = _device_resized(x, scale_factor)
             logits = _forward_full(params, state, x, config=config, full_h=full_h,
                                    full_w=full_w, amp=amp, tta=tta, tta_mode=tta_mode)
             masks = logits_to_mask(logits, config.n_classes, out_threshold)
@@ -154,8 +187,11 @@ def iter_predicted_masks(params, state, config: UNetConfig, filenames, *,
 
     for filename in filenames:
         img = Image.open(filename)
-        arr = preprocess(img, scale_factor)
-        k = (arr.shape, img.size)
+        arr = _raw_or_warn(img, f"image {filename}") if device_preprocess else None
+        raw = arr is not None
+        if not raw:
+            arr = preprocess(img, scale_factor)
+        k = (raw, arr.shape, img.size)
         if key is not None and k != key:
             yield from flush()
         key = k
@@ -260,6 +296,9 @@ def get_args(argv=None):
                    help="the folded-BN forward on cuda: the hand-written kernels (plain "
                         "versions for CPU tensors), or torch: their plain PyTorch versions; "
                         "without it, the unfolded eval-mode forward")
+    p.add_argument("--device-preprocess", action="store_true", default=False,
+                   help="Resize and normalise on the device (Pillow-bit-exact int32 "
+                        "resample, the same mask; the host keeps only the decode)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
     for name in UNPORTED_FLAGS:
@@ -282,6 +321,9 @@ def main(argv=None):
         # refuses the pair. The port refuses it in both.
         raise SystemExit("--tile does not compose with --kernels (the tiled sweep runs "
                          "the eval forward)")
+    if args.device_preprocess and (args.tile or args.tile_sharded or args.kernels):
+        raise SystemExit("--device-preprocess applies to the default predict path "
+                         "(not --tile/--tile-sharded/--kernels)")
     if args.batch_size > 1 and (args.tile or args.kernels or args.crf):
         raise SystemExit("--batch-size composes with the default predict path only "
                          "(not --tile/--tile-sharded/--kernels/--crf)")
@@ -308,13 +350,15 @@ def main(argv=None):
                 mask = predict_img_fused(params, state, config, img, backend=args.kernels,
                                          **common)
             else:
-                mask = predict_img(params, state, config, img, use_crf=args.crf, **views,
-                                   **common)
+                mask = predict_img(params, state, config, img, use_crf=args.crf,
+                                   device_preprocess=args.device_preprocess, **views, **common)
             yield filename, img, mask
 
     if args.batch_size > 1:
         produced = iter_predicted_masks(params, state, config, args.input,
-                                        batch_size=args.batch_size, **views, **common)
+                                        batch_size=args.batch_size,
+                                        device_preprocess=args.device_preprocess, **views,
+                                        **common)
     else:
         produced = one_at_a_time()
     for i, (filename, img, mask) in enumerate(produced):

@@ -5,8 +5,10 @@ forward (``unet_infer_apply``). ``--tta`` serves the flip ensemble, its views
 as batch rows of the canvas; ``--tile N`` runs a group whose preprocessed
 shape holds one window (tile + 2·halo, after padding to 16) through the
 tiled sweep (``parallel/tiling.py``), other groups through the full-image
-forward. Preprocessing runs on the host (``--device-preprocess`` is not
-ported).
+forward. ``--device-preprocess`` (on by default with ``--tile``, as in the
+JAX package) decodes on the host and resizes and normalises on the device
+(``data/device_pipeline.py``), bitwise the host preprocess; requests of
+another mode than L or RGB take the host path.
 
 The model stays resident on the device. Requests that arrive within
 ``batch_window_ms`` of each other are grouped by preprocessed shape; each
@@ -20,7 +22,8 @@ Endpoints:
                   over a sliding window, dispatches and their mean batch
 
 Run: ``python -m tpu_unet_torch.serve -m ckpt.npz|model.pth --port 8000
-[--kernels cuda|torch | --tile 512 [--halo 128]] [--tta [--tta-mode hflip]]``
+[--kernels cuda|torch | --tile 512 [--halo 128]] [--tta [--tta-mode hflip]]
+[--[no-]device-preprocess]``
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from tpu_unet_torch.data.device_pipeline import raw_u8_for_device
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
 from tpu_unet_torch.models.infer import BACKENDS
@@ -54,6 +58,7 @@ from tpu_unet_torch.parallel.tiling import (
     tiled_forward_padded,
 )
 from tpu_unet_torch.predict import (
+    _device_resized,
     load_model,
     logits_to_mask,
     mask_to_image,
@@ -113,15 +118,18 @@ class BatchedPredictor:
     """Model resident on ``device`` + micro-batching queue: the eval-mode
     forward when ``kernels`` is None (with ``tta``, the flip ensemble; with
     ``tile``, the tiled sweep for groups large enough), else the folded-BN
-    forward on that backend. Thread-safe ``predict_one`` entry; ``stop``
-    ends the worker threads."""
+    forward on that backend. ``device_preprocess`` (None: on iff ``tile``)
+    sends L and RGB requests to the device raw, resized there before
+    whichever forward runs. Thread-safe ``predict_one`` entry; ``stop`` ends
+    the worker threads."""
 
     def __init__(self, params, state, config: UNetConfig, mask_values, *,
                  device: str | torch.device = "cuda", kernels: str | None = None,
                  scale: float = 0.5, threshold: float = 0.5, amp: bool = True,
                  max_batch: int = 8, batch_window_ms: float = 5.0,
                  timeout_s: float = 300.0, tile: int | None = None,
-                 halo: int = DEFAULT_HALO, tta: bool = False, tta_mode: str = "flips"):
+                 halo: int = DEFAULT_HALO, tta: bool = False, tta_mode: str = "flips",
+                 device_preprocess: bool | None = None):
         if kernels is not None and kernels not in BACKENDS:
             raise ValueError(f"kernels must be None or one of {BACKENDS}, got {kernels!r}")
         if tile is not None and (tile % 16 or halo % 16):
@@ -140,6 +148,13 @@ class BatchedPredictor:
             halo = min_halo(config)
         self.tile, self.halo = tile, halo
         self.tta, self.tta_mode = tta, tta_mode
+        # The JAX package's default: tiled serving (large images, where the
+        # host resize dominates a request) preprocesses on the device.
+        self.device_preprocess = bool(tile) if device_preprocess is None else device_preprocess
+        if tile and not self.device_preprocess:
+            logger.info("serve --tile with --no-device-preprocess: device preprocess (the "
+                        "same masks) is the default for tiled serving")
+        self._dp_warned_modes: set[str] = set()
         self.device = resolve_device(device)
         self.config = config
         self.kernels = kernels
@@ -215,6 +230,23 @@ class BatchedPredictor:
             return True
 
     # -- server side ------------------------------------------------------
+    def _preprocess(self, img: Image.Image) -> np.ndarray:
+        """The host's part of one request: with ``device_preprocess``, the
+        decoded uint8 HWC array of an L or RGB image (the device resizes
+        it); else, or for other modes, the preprocessed float32 array."""
+        if self.device_preprocess:
+            arr = raw_u8_for_device(img)
+            if arr is not None:
+                if int(self.scale * arr.shape[0]) <= 0 or int(self.scale * arr.shape[1]) <= 0:
+                    raise ValueError("Scale is too small, resized images would have no pixel")
+                return arr
+            mode = getattr(img, "mode", "?")
+            if mode not in self._dp_warned_modes:  # once per mode, not per request
+                self._dp_warned_modes.add(mode)
+                logger.warning("request image not device-preprocessable (mode %s): host "
+                               "preprocess for such requests", mode)
+        return preprocess(img, self.scale)
+
     def _loop(self):
         while not self._stop.is_set():
             try:
@@ -238,31 +270,38 @@ class BatchedPredictor:
         pre = {}
         for k, (img, slot, done, _) in enumerate(batch):
             try:
-                pre[k] = preprocess(img, self.scale)
+                pre[k] = self._preprocess(img)
             except Exception as e:  # noqa: BLE001 - reported to the request's waiter
                 logger.exception("preprocess failed")
                 if self._claim(slot):
                     self.metrics.record_error()
                 slot["error"] = str(e)
                 done.set()
-        # One canvas per (H, W, C): zero-padding a smaller image onto a larger
-        # canvas would shift its pool/upsample grid and change its mask.
+        # One canvas per (H, W, C, dtype): zero-padding a smaller image onto
+        # a larger canvas would shift its pool/upsample grid and change its
+        # mask, and a raw uint8 request must not share a canvas with a
+        # host-preprocessed one of the same shape.
         groups: dict[tuple, list[int]] = {}
         for k, arr in pre.items():
-            groups.setdefault(arr.shape, []).append(k)
-        for shape, idxs in sorted(groups.items(), key=lambda kv: kv[0][0] * kv[0][1]):
-            self._group_pool.submit(self._run_group, shape, idxs, pre, batch)
+            groups.setdefault(arr.shape + (arr.dtype.str,), []).append(k)
+        for key, idxs in sorted(groups.items(), key=lambda kv: kv[0][0] * kv[0][1]):
+            self._group_pool.submit(self._run_group, key, idxs, pre, batch)
 
-    def _run_group(self, shape, idxs, pre, batch):
+    def _run_group(self, key, idxs, pre, batch):
         try:
             self.metrics.record_dispatch(len(idxs))
             # Canvas batch = next power of two >= group size.
             bsz = min(self.max_batch, 1 << max(0, len(idxs) - 1).bit_length())
-            canvas = np.zeros((bsz, *shape), np.float32)
+            canvas = np.zeros((bsz, *key[:-1]), pre[idxs[0]].dtype)
             for j, k in enumerate(idxs):
                 canvas[j] = pre[k]
             with torch.inference_mode():
-                logits = self.forward(torch.from_numpy(canvas).to(self.device))
+                x = torch.from_numpy(canvas).to(self.device)
+                if x.dtype == torch.uint8:
+                    # Raw canvas: resized on the device before the forward. The
+                    # all-zero pad rows stay zero (max <= 1: no /255).
+                    x = _device_resized(x, self.scale)
+                logits = self.forward(x)
                 for j, k in enumerate(idxs):
                     img, slot, done, t_enq = batch[k]
                     full_w, full_h = img.size
@@ -272,7 +311,7 @@ class BatchedPredictor:
                         self.metrics.record(time.monotonic() - t_enq)
                     done.set()
         except Exception as e:  # noqa: BLE001 - every waiter of the group must hear of it
-            logger.exception("group %s failed", shape)
+            logger.exception("group %s failed", key)
             # Only requests still in flight: a finished one keeps its mask.
             pending = [k for k in idxs if not batch[k][2].is_set()]
             self.metrics.record_error(sum(self._claim(batch[k][1]) for k in pending))
@@ -318,7 +357,8 @@ def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
                             "arch": predictor.config.arch, "scale": predictor.scale,
                             "kernels": predictor.kernels, "device": str(predictor.device),
                             "amp": predictor.amp, "tta": predictor.tta,
-                            "tile": predictor.tile})
+                            "tile": predictor.tile,
+                            "device_preprocess": predictor.device_preprocess})
             elif self.path == "/metrics":
                 self._json(predictor.metrics.snapshot())
             else:
@@ -370,7 +410,7 @@ def build_predictor(model_path: str, args) -> BatchedPredictor:
         device=device, kernels=args.kernels, scale=args.scale, threshold=args.mask_threshold,
         amp=args.amp, max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
         timeout_s=args.timeout_s, tile=args.tile, halo=args.halo, tta=args.tta,
-        tta_mode=args.tta_mode)
+        tta_mode=args.tta_mode, device_preprocess=args.device_preprocess)
     if args.warmup:
         h, w = (int(v) for v in args.warmup.lower().split("x"))
         predictor.warmup(h, w)
@@ -413,7 +453,10 @@ def get_args(argv=None):
     p.add_argument("--halo", type=int, default=DEFAULT_HALO,
                    help="Tile overlap; must cover the receptive field (110 px)")
     p.add_argument("--device-preprocess", action=argparse.BooleanOptionalAction,
-                   default=None, help="not ported: preprocessing runs on the host")
+                   default=None,
+                   help="Resize and normalise each request on the device (Pillow-bit-exact "
+                        "int32 resample, the same masks); the host keeps only the decode. "
+                        "Default: on with --tile, off otherwise")
     return p.parse_args(argv)
 
 
@@ -421,13 +464,14 @@ def make_server(argv=None) -> tuple[ThreadingHTTPServer, BatchedPredictor]:
     """Parse the CLI, load the model and bind the server (not yet serving).
     ``--port 0`` binds a free port: read it from ``server.server_address``."""
     args = get_args(argv)
-    refuse_unported(args, "tpu_unet_torch.serve", ("device_preprocess",))
+    refuse_unported(args, "tpu_unet_torch.serve", ())
     predictor = build_predictor(args.model, args)
     handler = make_handler(predictor, max_body_bytes=args.max_body_mb << 20)
     server = ThreadingHTTPServer((args.host, args.port), handler)
-    logger.info("Serving %s on %s:%d (kernels=%s, tile=%s, tta=%s, device=%s, max_batch=%d)",
-                args.model, args.host, server.server_address[1], args.kernels, args.tile,
-                args.tta, predictor.device, args.max_batch)
+    logger.info("Serving %s on %s:%d (kernels=%s, tile=%s, tta=%s, device_preprocess=%s, "
+                "device=%s, max_batch=%d)", args.model, args.host, server.server_address[1],
+                args.kernels, args.tile, args.tta, predictor.device_preprocess,
+                predictor.device, args.max_batch)
     return server, predictor
 
 

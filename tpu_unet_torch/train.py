@@ -16,9 +16,11 @@ It returns new trees and updates nothing in place, as the JAX step does.
 fp32's exponent range).
 
 ``train_model`` is the loop over the step (``tpu_unet/train.py``): a
-seeded train/val split, the threaded loader, validation ``val_per_epoch``
-times an epoch, the LR schedule, early stopping, EMA and the checkpoint
-policy. Its CLI is ``train_cli.py``.
+seeded train/val split, the feed (the threaded loader with device prefetch;
+the raw loader with the resize on the device, ``device_preprocess``; or the
+corpus staged on the device, ``device_dataset``), augmentation on the
+device, validation ``val_per_epoch`` times an epoch, the LR schedule, early
+stopping, EMA and the checkpoint policy. Its CLI is ``train_cli.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ import torch
 from tpu_unet_torch import train_ema
 from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta
 from tpu_unet_torch.data import DataLoader, prefetch_to_device, random_split_indices
+from tpu_unet_torch.data.augment import augment_batch
+from tpu_unet_torch.data.device_cache import DeviceResidentData
+from tpu_unet_torch.data.device_pipeline import DevicePipeline
 from tpu_unet_torch.evaluate import evaluate
 from tpu_unet_torch.losses import bce_with_logits, cross_entropy, dice_loss
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, tree_map, unet_apply
@@ -142,6 +147,30 @@ def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels):
         raise ValueError(f"--early-stopping must be >= 1, got {early_stopping}")
 
 
+def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
+                   device_dataset, device_preprocess):
+    """The train and val feeds: host loaders (decode threads), the corpus
+    staged on the device, and/or the raw loaders' batches resized on the
+    device (``dataset`` then a ``RawDataset``)."""
+    if device_dataset:
+        if device_preprocess:
+            raise ValueError("--device-dataset already preprocesses on host once; it is "
+                             "mutually exclusive with --device-preprocess")
+        dd = DeviceResidentData(dataset, device=device)
+        train_loader = dd.batches(train_idx, batch_size, shuffle=True, seed=seed)
+        val_loader = dd.batches(val_idx, batch_size)
+    else:
+        train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx,
+                                  seed=seed)
+        val_loader = DataLoader(dataset, batch_size, shuffle=False, indices=val_idx)
+    if device_preprocess:
+        train_loader, val_loader = (
+            DevicePipeline(loader, dataset.mask_values, dataset.scale, dataset.raw_h,
+                           dataset.raw_w, device=device)
+            for loader in (train_loader, val_loader))
+    return train_loader, val_loader
+
+
 def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, optimizer,
                     lr_scheduler, learning_rate):
     """Full-state resume: weights, BN state, optimizer state (when the file
@@ -219,23 +248,29 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 save_optimizer: bool = False, resume: str | None = None,
                 kernels: str | None = None, accum_steps: int = 1,
                 ema_decay: float | None = None, val_per_epoch: int = 5,
-                early_stopping: int | None = None):
+                early_stopping: int | None = None, device_preprocess: bool = False,
+                device_dataset: bool = False, augment=None):
     """The reference's train loop on the port's step, with the JAX
     ``train_model``'s arguments but those of what the port does not have
-    yet (data parallelism, W&B, augmentation, the device-side data paths).
-    Trains on the device the params lie on. Returns (params, bn_state,
-    history) with history's ``train_loss`` per step and ``val_dice`` and
-    ``lr`` per validation (``val_dice_ema`` with EMA)."""
+    yet (data parallelism, W&B). Trains on the device the params lie on.
+    ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
+    ``device_dataset`` stages the preprocessed corpus on the device (the two
+    exclude each other); ``augment`` (an ``AugmentConfig``) augments each
+    batch on the device with the draws of (``seed``, global step). Returns
+    (params, bn_state, history) with history's ``train_loss`` per step and
+    ``val_dice`` and ``lr`` per validation (``val_dice_ema`` with EMA)."""
     _check_train_flags(accum_steps=accum_steps, batch_size=batch_size,
                        early_stopping=early_stopping, kernels=kernels)
     device = tree_leaves(params)[0].device
     train_idx, val_idx = random_split_indices(len(dataset), val_percent, seed=seed)
     n_train, n_val = len(train_idx), len(val_idx)
-    train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx, seed=seed)
-    val_loader = DataLoader(dataset, batch_size, shuffle=False, indices=val_idx)
+    train_loader, val_loader = _build_loaders(
+        dataset, train_idx, val_idx, batch_size=batch_size, seed=seed, device=device,
+        device_dataset=device_dataset, device_preprocess=device_preprocess)
     logger.info("Starting training: epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
-                "device=%s kernels=%s", epochs, batch_size, learning_rate, n_train, n_val, amp,
-                device, kernels)
+                "device=%s kernels=%s device_preprocess=%s device_dataset=%s augment=%s",
+                epochs, batch_size, learning_rate, n_train, n_val, amp, device, kernels,
+                device_preprocess, device_dataset, augment)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
                                 nesterov=nesterov)
@@ -277,12 +312,19 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
 
     with StopSignal() as stop:
         for epoch in range(start_epoch, epochs + 1):
-            for batch in prefetch_to_device(train_loader, buffer_size=2, device=device):
+            # Batches of the device paths are made on the device already.
+            feed = (train_loader if device_dataset or device_preprocess
+                    else prefetch_to_device(train_loader, buffer_size=2, device=device))
+            for batch in feed:
                 if stop.requested:
                     interrupted = True  # act at this batch boundary
                     break
+                images, masks = batch["image"], batch["mask"]
+                if augment is not None:
+                    images, masks = augment_batch(images, masks, config=augment, seed=seed,
+                                                  step=global_step)
                 params, bn_state, opt_state, loss, _ = train_step(
-                    params, bn_state, opt_state, batch["image"], batch["mask"], scheduler.lr)
+                    params, bn_state, opt_state, images, masks, scheduler.lr)
                 if ema is not None:
                     ema.update(params)
                 global_step += 1

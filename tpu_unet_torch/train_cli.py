@@ -6,17 +6,21 @@ Run:
         --data-dir data [--device cuda|cpu] [--history-out history.json]
 
 ``--kernels cuda`` runs the train step's convs on the hand-written kernels,
-``torch`` (the default) on library convs under autograd. The device is
-``cuda`` unless ``--device`` says otherwise; with no GPU it raises. On an
-out-of-memory error the run starts again once with ``remat`` (activation
-recomputation) from the initial weights, as the reference falls back to
-checkpointing.
+``torch`` (the default) on library convs under autograd.
+``--device-preprocess`` decodes on the host and resizes on the device (a
+``RawDataset``); ``--device-dataset`` stages the preprocessed corpus on the
+device (the two exclude each other); ``--augment`` (flips and photometric
+jitter) and ``--augment-elastic/-rot/-scale/-shift`` (one warp) augment each
+batch on the device. The device is ``cuda`` unless ``--device`` says
+otherwise; with no GPU it raises. On an out-of-memory error the run starts
+again once with ``remat`` (activation recomputation) from the initial
+weights, as the reference falls back to checkpointing.
 
 The JAX flags this port does not run yet are refused with an error, never
-ignored: data parallelism and multi-host, ZeRO, the device-resident dataset
-and device preprocessing, augmentation, W&B, the profiler, ``--debug-nans``,
-and the other model families and deep supervision. ``--load`` takes a
-``.npz`` checkpoint or the reference's torch ``.pth`` state dict.
+ignored: data parallelism and multi-host, ZeRO, W&B, the profiler,
+``--debug-nans``, and the other model families and deep supervision.
+``--load`` takes a ``.npz`` checkpoint or the reference's torch ``.pth``
+state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
 """
 
@@ -99,6 +103,24 @@ def get_args(argv=None):
                    help="torch device; 'cuda' raises when no GPU is present")
     p.add_argument("--cache-dataset", action="store_true", default=False,
                    help="Keep preprocessed samples in memory after their first decode")
+    p.add_argument("--device-preprocess", action="store_true", default=False,
+                   help="Decode on the host, resize and normalise on the device "
+                        "(Pillow-bit-exact int32 resample: the host path's tensors)")
+    p.add_argument("--device-dataset", action="store_true", default=False,
+                   help="Stage the whole preprocessed corpus on the device as uint8 and "
+                        "gather batches there (Carvana at scale 0.5 is about 12.5 GB)")
+    p.add_argument("--augment", action="store_true", default=False,
+                   help="Augmentation on the device: random h-flip and brightness/contrast "
+                        "jitter")
+    p.add_argument("--augment-elastic", type=float, default=0.0, metavar="ALPHA",
+                   help="Random elastic deformation of this magnitude in pixels (images "
+                        "bilinear, masks nearest); implies augmentation")
+    p.add_argument("--augment-rot", type=float, default=0.0, metavar="DEG",
+                   help="Random rotation up to ±DEG degrees (the same warp)")
+    p.add_argument("--augment-scale", type=float, default=0.0, metavar="J",
+                   help="Random isotropic scale in [1-J, 1+J]")
+    p.add_argument("--augment-shift", type=float, default=0.0, metavar="PX",
+                   help="Random translation up to ±PX pixels per axis")
     p.add_argument("--keep-checkpoints", type=int, default=None, metavar="N",
                    help="Keep only the newest N per-epoch checkpoints")
     p.add_argument("--save-best", action="store_true", default=False,
@@ -112,8 +134,7 @@ def get_args(argv=None):
                    help="Full-state resume from a checkpoint (params, BN, optimizer, epoch)")
     p.add_argument("--seed", type=int, default=0)
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--data-parallel", "--multihost", "--zero", "--device-dataset",
-                 "--device-preprocess", "--augment", "--wandb", "--debug-nans",
+    for flag in ("--data-parallel", "--multihost", "--zero", "--wandb", "--debug-nans",
                  "--deep-supervision"):
         p.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
     for flag in ("--coordinator", "--profile"):
@@ -122,8 +143,6 @@ def get_args(argv=None):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     for flag in ("--spatial-parallel", "--tensor-parallel", "--pipeline-parallel"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
-    for flag in ("--augment-elastic", "--augment-rot", "--augment-scale", "--augment-shift"):
-        p.add_argument(flag, type=float, default=0.0, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -137,10 +156,7 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--spatial-parallel": args.spatial_parallel > 1,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-parallel": args.pipeline_parallel > 1, "--zero": args.zero,
-        "--device-dataset": args.device_dataset, "--device-preprocess": args.device_preprocess,
-        "--augment": args.augment, "--augment-elastic": args.augment_elastic,
-        "--augment-rot": args.augment_rot, "--augment-scale": args.augment_scale,
-        "--augment-shift": args.augment_shift, "--wandb": args.wandb,
+        "--wandb": args.wandb,
         "--profile": args.profile is not None, "--debug-nans": args.debug_nans,
         f"--arch {args.arch}": args.arch != "unet", "--deep-supervision": args.deep_supervision,
     }
@@ -150,9 +166,24 @@ def refuse_unported(args: argparse.Namespace) -> None:
                              "yet; use the JAX package (tpu_unet) for it")
 
 
+def _build_augment(args: argparse.Namespace):
+    """The ``AugmentConfig`` of the flags (the JAX CLI's): ``--augment``
+    turns on the h-flip and 0.1 brightness and contrast jitter; any warp
+    flag alone augments too. None when no flag asks for it."""
+    from tpu_unet_torch.data.augment import AugmentConfig
+
+    if not (args.augment or args.augment_elastic or args.augment_rot or args.augment_scale
+            or args.augment_shift):
+        return None
+    jitter = 0.1 if args.augment else 0.0
+    return AugmentConfig(hflip=args.augment, brightness=jitter, contrast=jitter,
+                         elastic_alpha=args.augment_elastic, rot_deg=args.augment_rot,
+                         scale_jitter=args.augment_scale, shift_px=args.augment_shift)
+
+
 def main(argv=None):
     from tpu_unet_torch.checkpoint import import_pth, load_checkpoint
-    from tpu_unet_torch.data import BasicDataset, CarvanaDataset
+    from tpu_unet_torch.data import BasicDataset, CarvanaDataset, RawCarvanaDataset, RawDataset
     from tpu_unet_torch.models.unet import UNetConfig, init_unet, param_count, tree_map
     from tpu_unet_torch.predict import resolve_device
 
@@ -175,12 +206,14 @@ def main(argv=None):
         logger.info("Model loaded from %s", args.load)
 
     data_dir = Path(args.data_dir)
+    if args.device_preprocess:  # decode only: the device resizes
+        kinds, kw = (RawCarvanaDataset, RawDataset), {}
+    else:
+        kinds, kw = (CarvanaDataset, BasicDataset), {"cache": args.cache_dataset}
     try:
-        dataset = CarvanaDataset(data_dir / "imgs", data_dir / "masks", args.scale,
-                                 cache=args.cache_dataset)
+        dataset = kinds[0](data_dir / "imgs", data_dir / "masks", args.scale, **kw)
     except (RuntimeError, IndexError):
-        dataset = BasicDataset(data_dir / "imgs", data_dir / "masks", args.scale,
-                               cache=args.cache_dataset)
+        dataset = kinds[1](data_dir / "imgs", data_dir / "masks", args.scale, **kw)
 
     def run(remat: bool):
         # Fresh device trees from the host copies: a retry starts from the
@@ -200,7 +233,8 @@ def main(argv=None):
             kernels=KERNELS[args.kernels], accum_steps=args.accum_steps,
             ema_decay=args.ema_decay, val_per_epoch=args.val_per_epoch,
             early_stopping=args.early_stopping, keep_checkpoints=args.keep_checkpoints,
-            save_best=args.save_best)
+            save_best=args.save_best, device_preprocess=args.device_preprocess,
+            device_dataset=args.device_dataset, augment=_build_augment(args))
 
     try:
         result = run(remat=False)
