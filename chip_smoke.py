@@ -109,6 +109,25 @@ Phases, each of which exits non-zero on failure, each with its time:
    and ``CLI_DICE_TOL`` of phase 6's run, the staged MB) and ``--augment
    --augment-elastic 34 --augment-rot 10`` twice (bitwise equal), each with
    its train-kernel launches.
+9. The four other model families at full width (base 64, one class,
+   ConvTranspose decoder, t = 2 with per-step recurrent BN, seed 0; UNet++
+   upsamples and trains with deep supervision), which run no kernel of the
+   repo (none launches in this phase): for each of attention, unetpp, r2u
+   and r2attu one ``make_train_step`` step (``kernels=None``) at 959x640
+   batch 4 in fp32 and bf16, its loss finite, the second of the timed steps
+   (all from the same trees) equal to the first bit for bit or within
+   ``STEP_TOL``, with the reason (the pair again in cuDNN's and torch's
+   deterministic modes, bitwise or not, and the ops torch names), ms per
+   step (CUDA events, median of 3) and peak memory; Attention U-Net's
+   folded forward (``backend="torch"``) within 1e-3 of the eval forward's
+   logit range at 959x640 fp32 with moved BN statistics, ``backend="cuda"``
+   refused, and ``serve --arch attention`` answering one 1918x1280 request
+   with ``predict --arch attention``'s mask; ``train_cli --arch r2u -s 0.5 -b
+   4 --amp --epochs 1`` on phase 6's images (the checkpoint stores
+   ``recur_bn``), ``predict --arch r2u`` and ``evaluate --arch r2u`` on the
+   run's validation images within ``CLI_DICE_TOL`` of its last validation;
+   ``predict_img_tiled`` for r2u at 2048² with tile 512 taking ``min_halo``
+   (352), its logits within 1e-3 of the full image's range.
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -1708,7 +1727,7 @@ def phase_predict_surface(workdir: Path, ckpt: Path, train_data: Path, card: str
     # .pth round trip: bitwise arrays, equal predict PNGs, averaging with itself.
     t0 = time.perf_counter()
     pth = workdir / "unet_base64.pth"
-    export_pth(pth, params, state, bilinear=False, mask_values=[0, 1])
+    export_pth(pth, params, state, config, mask_values=[0, 1])
     p2, s2, mv = import_pth(pth, config, cuda)
     want, got = flatten(params, state), flatten(p2, s2)
     unequal = [k for k in want if k not in got or not np.array_equal(want[k], got[k])]
@@ -2228,6 +2247,350 @@ def phase_data_path(workdir: Path, ckpt: Path, predict_inputs: list[str], surfac
     return numbers
 
 
+# Phase 9: the four other model families at full width (base 64, one class,
+# ConvTranspose decoder, t = 2 with per-step recurrent BN, seed 0; UNet++
+# upsamples by construction and trains with deep supervision). None runs a
+# kernel of the repo: the JAX package refuses its kernel tiers for them.
+FAMILIES = ("attention", "unetpp", "r2u", "r2attu")
+FAMILY_PARAMS = {"attention": 31_388_201, "unetpp": 36_622_532, "r2u": 35_601_985,
+                 "r2attu": 35_952_553}
+FAMILY_REPS = 3
+# The second timed step (from the same trees) must repeat the first bit for
+# bit, or stay within STEP_TOL (phase 5's bound for two summation orders of
+# one step; "grads" is the gradients' relative L2 error as one vector, held
+# to the grad-norm tolerance) and say why: measured on the H100, cuDNN's
+# default fp32 algorithms for these shapes are not run-to-run deterministic,
+# and the same pair with cudnn.deterministic is bitwise (bf16 repeats
+# bitwise either way).
+FAMILY_TILE_HALO = 352  # min_halo for r2u at t = 2: 110·3 + 18, 16-aligned
+
+
+def family_config(arch: str):
+    from tpu_unet_torch.models import UNetConfig
+
+    return UNetConfig(**TRAIN_CONFIG, arch=arch, deep_supervision=arch == "unetpp",
+                      recur_t=2, recur_bn="per_step")
+
+
+class _Deterministic:
+    """cuDNN deterministic, torch's deterministic algorithms in warn-only
+    mode; the warnings of ops without a deterministic form are recorded in
+    ``self.reasons``. Restores every setting on exit."""
+
+    def __enter__(self):
+        import warnings
+
+        self._prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                      torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    @property
+    def reasons(self) -> list[str]:
+        return sorted({str(w.message).split("\n")[0][:160] for w in self._caught})
+
+    def __exit__(self, *exc):
+        self._catch.__exit__(*exc)
+        det, bench, algos, warn_only = self._prev
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+        torch.use_deterministic_algorithms(algos, warn_only=warn_only)
+        return False
+
+
+def _family_step(arch: str, images, masks) -> tuple[dict, list[str]]:
+    """One family's make_train_step (kernels=None) at [4,640,959] in fp32 and
+    bf16: loss finite, the repeat check, ms per step (CUDA events, median of
+    FAMILY_REPS after a warm-up) and peak memory. Returns (numbers,
+    failures)."""
+    from tpu_unet_torch.models import init_unet, param_count
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    config = family_config(arch)
+    params, state = init_unet(config, np.random.default_rng(0), device=images.device)
+    opt = rmsprop_init(params)
+    failures = []
+    numbers = {"params": param_count(params)}
+    if numbers["params"] != FAMILY_PARAMS[arch]:
+        failures.append(f"{arch}: {numbers['params']} parameters, expected {FAMILY_PARAMS[arch]}")
+    for dt, amp in (("fp32", False), ("bf16", True)):
+        step = make_train_step(config, amp=amp, return_grads=True)
+        step(params, state, opt, images, masks, 1e-5)  # warm-up (cuDNN's choice)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, host = [], []
+        for _ in range(FAMILY_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(params, state, opt, images, masks, 1e-5)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            if len(host) < 2:  # the first two steps, on the host for the repeat check
+                host.append(_step_leaves(out))
+            del out
+        peak = torch.cuda.max_memory_allocated()
+        loss, gnorm = host[0]["loss"].item(), host[0]["grad_norm"].item()
+        bitwise = all(torch.equal(v, host[1][k]) for k, v in host[0].items())
+        why = ""
+        if not bitwise:
+            # Held to phase 5's tolerances for two fp32/bf16 summation orders
+            # of one step; the pair again in cuDNN's and torch's deterministic
+            # modes says why (torch names each op without a deterministic form).
+            repeat = _repeat_errors(host[0], host[1])
+            tol = {k: STEP_TOL[dt]["grad_norm" if k == "grads" else k] for k in repeat}
+            with _Deterministic() as det:
+                a, b = (_step_leaves(step(params, state, opt, images, masks, 1e-5))
+                        for _ in range(2))
+            bitwise_det = all(torch.equal(v, b[k]) for k, v in a.items())
+            why = (f"; not bitwise with cuDNN's default algorithms ({json.dumps(repeat)}, "
+                   f"tol {json.dumps(tol)}); with "
+                   f"cudnn.deterministic and torch's deterministic algorithms bitwise "
+                   f"{bitwise_det}, ops without a deterministic form: {det.reasons or 'none'}")
+            over = [k for k, v in repeat.items() if not v <= tol[k]]
+            if over:
+                failures.append(f"{arch} {dt}: the repeated step differs beyond STEP_TOL in "
+                                f"{over}{why}")
+        numbers[dt] = {"ms": statistics.median(times), "ms_reps": times,
+                       "peak_gib": peak / 2**30, "loss": loss, "bitwise_repeat": bitwise}
+        if not bitwise:
+            numbers[dt]["repeat"] = repeat
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            failures.append(f"{arch} {dt}: loss {loss}, grad norm {gnorm}")
+        log(f"family {arch} {dt} step {list(images.shape[:3])} kernels=None: "
+            f"{numbers[dt]['ms']:.2f} ms (median of {FAMILY_REPS}: "
+            f"{' '.join(f'{t:.2f}' for t in times)}), peak memory "
+            f"{numbers[dt]['peak_gib']:.3f} GiB, loss {loss:.6f}, second step bitwise equal to "
+            f"the first: {bitwise}{why}")
+        del step, host
+    del params, state, opt
+    torch.cuda.empty_cache()
+    return numbers, failures
+
+
+def _repeat_errors(a: dict, b: dict) -> dict[str, float]:
+    """Two runs of one step: loss and grad norm relative errors, the
+    gradients' relative L2 error as one vector, and the largest per-tensor
+    relative L2 error of the new BN running statistics."""
+    grads = [k for k in a if k.startswith("grads")]
+    diff = sum(float((b[k].double() - a[k].double()).square().sum()) for k in grads)
+    norm = sum(float(a[k].double().square().sum()) for k in grads)
+    rel = lambda k: abs(b[k].item() - a[k].item()) / max(abs(a[k].item()), 1e-30)  # noqa: E731
+    return {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
+            "grads": (diff / max(norm, 1e-300)) ** 0.5,
+            "bn_state": max(_rel_l2(b[k], a[k]) for k in a if k.startswith("bn"))}
+
+
+def _step_leaves(out) -> dict[str, torch.Tensor]:
+    """A train step's loss, grad norm, params, BN state, optimizer state and
+    gradients, copied to the host."""
+    leaves = {"loss": out[3], "grad_norm": out[4]}
+    for name, i in (("params", 0), ("bn", 1), ("opt", 2), ("grads", 5)):
+        leaves.update({f"{name}{k}": v for k, v in _leaves(out[i]).items()})
+    return {k: v.detach().cpu() for k, v in leaves.items()}
+
+
+def _serve_one(ckpt: Path, argv: list[str], body: bytes) -> np.ndarray:
+    """The mask that ``serve`` (in this process) returns for one request."""
+    from tpu_unet_torch import serve
+
+    server, predictor = serve.make_server(["-m", str(ckpt), "--port", "0", *argv])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, data, _ = post(server.server_address[1], body)
+        health = get_json(server.server_address[1], "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        predictor.stop()
+        thread.join(timeout=10)
+    if status != 200:
+        raise SystemExit(f"chip_smoke: serve {argv} answered {status}: {data[:200]!r}")
+    log(f"serve {' '.join(argv)}: healthz {json.dumps(health)}")
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def phase_families(workdir: Path, train_data: Path) -> dict:
+    """Phase 9: the families' train steps; Attention U-Net's folded forward
+    and ``serve --arch attention`` against ``predict --arch attention``; per-
+    step R2U-Net through ``train_cli``, ``predict`` and ``evaluate``; its
+    tiled sweep at 2048² with the arch-aware halo. Runs no kernel of the
+    repo. Returns its numbers."""
+    from tpu_unet_torch import evaluate, predict
+    from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta, save_checkpoint
+    from tpu_unet_torch.data import (
+        CarvanaDataset,
+        make_synthetic_carvana,
+        preprocess,
+        random_split_indices,
+        synth_batch,
+    )
+    from tpu_unet_torch.models import fold_bn, init_unet, unet_infer_apply
+    from tpu_unet_torch.models.unet import unet_apply
+    from tpu_unet_torch.parallel import tiling
+
+    failures: list[str] = []
+    numbers: dict = {}
+    cuda = torch.device("cuda")
+    K.reset_launch_counts()  # _cli_run in (d) resets and reads them again
+
+    # (a) the train steps, BASELINE config #2's shape.
+    imgs, msks = synth_batch(np.random.default_rng(1), *PARITY_BATCH)
+    images, masks = torch.from_numpy(imgs).to(cuda), torch.from_numpy(msks).to(cuda)
+    for arch in FAMILIES:
+        numbers[arch], fails = _family_step(arch, images, masks)
+        failures += fails
+    del images, masks
+
+    # (b) Attention U-Net: the folded forward against the eval forward at
+    # 959x640 fp32, with running stats moved by three train-mode forwards.
+    config = family_config("attention")
+    params, state = init_unet(config, np.random.default_rng(0), device=cuda)
+    img_path = sorted((train_data / "imgs").glob("*.png"))[0]
+    x = torch.from_numpy(preprocess(Image.open(img_path), 0.5))[None].to(cuda)
+    with torch.inference_mode():
+        for _ in range(3):
+            _, state = unet_apply(params, state, x, config=config, train=True)
+        ref = unet_apply(params, state, x, config=config)[0]
+        folded = fold_bn(params, state, config)
+        got = unet_infer_apply(folded, x, config=config, backend="torch")
+        err, span = (got - ref).abs().max().item(), (ref.max() - ref.min()).item()
+        try:
+            unet_infer_apply(folded, x, config=config, backend="cuda")
+            failures.append("attention: unet_infer_apply(backend='cuda') did not raise")
+        except ValueError as e:
+            log(f"attention backend='cuda' refused: {e}")
+    numbers["attention"]["folded_max_abs_err"], numbers["attention"]["logit_range"] = err, span
+    log(f"attention folded forward (fold_bn, backend='torch') vs unet_apply(train=False), "
+        f"fp32 {tuple(x.shape)}: max_abs_err {err:.3e}, logit range {span:.3e}")
+    if not err <= RANGE_TOL * span:
+        failures.append(f"attention folded forward: {err:.3e} > {RANGE_TOL} x {span:.3e}")
+
+    # (c) serve --arch attention against predict --arch attention, fp32. The
+    # random head's logits span about 1e-2 around a bias near 0.1, so every
+    # pixel would threshold alike and any forward would agree. The head is
+    # rescaled about this image's median logit to a range of 20: about half
+    # the mask is foreground, and where it falls depends on the gated forward.
+    k, med = 20.0 / span, ref.median().item()
+    params["outc"] = {"w": params["outc"]["w"] * k, "b": (params["outc"]["b"] - med) * k}
+    att_ckpt = workdir / "attention.npz"
+    save_checkpoint(att_ckpt, params, state, [0, 1], {"config": config._asdict()})
+    del params, state, folded, got, ref
+    out_png = workdir / "attention_mask.png"
+    predict.main(["-m", str(att_ckpt), "-i", str(img_path), "-o", str(out_png), "--arch",
+                  "attention", "--device", "cuda"])
+    want = np.asarray(Image.open(out_png))
+    served = _serve_one(att_ckpt, ["--arch", "attention", "--no-amp", "--device", "cuda"],
+                        img_path.read_bytes())
+    agree, differ = _mask_agreement(served, want)
+    fg = float((want > want.min()).mean())
+    log(f"serve --arch attention --no-amp, one {'x'.join(map(str, Image.open(img_path).size))} "
+        f"request: mask {served.shape} vs predict --arch attention: agreement {agree:.6f} "
+        f"({differ} pixels differ); predict's mask is {fg:.4f} foreground")
+    if served.shape != want.shape or agree < BATCH_AGREEMENT or not 0.1 <= fg <= 0.9:
+        failures.append(f"serve --arch attention vs predict: {served.shape}, {agree:.6f}, "
+                        f"foreground {fg:.4f}")
+    numbers["attention"]["serve_vs_predict_agreement"] = agree
+    numbers["attention"]["mask_foreground"] = fg
+
+    # (d) per-step R2U-Net through the CLIs on phase 6's images.
+    ck = workdir / "ck_r2u"
+    history, launches, stats = _cli_run(
+        ["-s", "0.5", "-b", "4", "--amp", "--epochs", "1", "--validation", "20",
+         "--val-per-epoch", "1", "--arch", "r2u", "--data-dir", str(train_data),
+         "--checkpoint-dir", str(ck), "--device", "cuda"], "--arch r2u")
+    ckpt = ck / "checkpoint_epoch1.npz"
+    _, extra = read_checkpoint_meta(ckpt)
+    stored = extra.get("config", {})
+    if (stored.get("arch"), stored.get("recur_bn")) != ("r2u", "per_step"):
+        failures.append(f"r2u checkpoint config {stored}")
+    r2u_config = type(family_config("r2u"))(**stored)
+    params, state, _, _ = load_checkpoint(ckpt, r2u_config, cuda)
+    if set(state["inc"]["rec1"]) != {"bn0", "bn1", "bn2"}:
+        failures.append(f"r2u checkpoint state layout {sorted(state['inc']['rec1'])}")
+    if not (len(history["train_loss"]) == 2 and np.isfinite(history["train_loss"]).all()
+            and len(history["val_dice"]) == 1):
+        failures.append(f"train_cli --arch r2u history {history}")
+    inputs = sorted((train_data / "imgs").glob("*.png"))[:2]
+    outs = [workdir / f"r2u_{k}.png" for k in range(len(inputs))]
+    predict.main(["-m", str(ckpt), "--arch", "r2u", "-i", *map(str, inputs),
+                  "-o", *map(str, outs), "--device", "cuda"])
+    shapes = [np.asarray(Image.open(p)).shape for p in outs]
+    if shapes != [Image.open(p).size[::-1] for p in inputs]:
+        failures.append(f"predict --arch r2u masks {shapes}")
+    # evaluate on the run's validation images alone: its Dice is the run's.
+    ds = CarvanaDataset(train_data / "imgs", train_data / "masks", 0.5)
+    _, val_idx = random_split_indices(len(ds), 0.2, seed=0)
+    val_dir = workdir / "r2u_val"
+    for sub in ("imgs", "masks"):
+        (val_dir / sub).mkdir(parents=True, exist_ok=True)
+    for i in val_idx:
+        name = ds.ids[i]
+        shutil.copy(train_data / "imgs" / f"{name}.png", val_dir / "imgs")
+        shutil.copy(train_data / "masks" / f"{name}_mask.png", val_dir / "masks")
+    dice = evaluate.main(["-m", str(ckpt), "--data-dir", str(val_dir), "-s", "0.5", "-b", "4",
+                          "--amp", "--arch", "r2u", "--device", "cuda"])
+    last = history["val_dice"][-1]
+    if any(launches.values()):
+        failures.append(f"train_cli --arch r2u launched kernels of the repo: {launches}")
+    log(f"train_cli --arch r2u: launches {json.dumps(launches)}, checkpoint recur_bn "
+        f"{stored.get('recur_bn')!r}; predict --arch r2u masks {shapes}; evaluate --arch r2u on "
+        f"the {len(val_idx)} validation images: Dice {dice:.6f} vs the run's last validation "
+        f"{last:.6f} (tol {CLI_DICE_TOL:g})")
+    if not abs(dice - last) <= CLI_DICE_TOL:
+        failures.append(f"evaluate --arch r2u Dice {dice} vs validation {last}")
+    numbers["r2u"]["cli"] = {"wall_s": stats["wall_s"], "img_s": stats["img_s"],
+                             "peak_gib": stats["peak_bytes"] / 2**30, "val_dice": last,
+                             "evaluate_dice": dice}
+
+    # (e) the r2u tiled sweep at 2048², tile 512: predict_img_tiled takes
+    # min_halo (352) over the default 128, and its logits match the full image.
+    timg, _ = make_synthetic_carvana(workdir / "tile", n=1, h=TILE_SIZE, w=TILE_SIZE, seed=9)
+    big = Image.open(next(timg.glob("*.png")))
+    seen = {}
+    real_sweep = tiling.tiled_forward_padded
+
+    def sweep(*a, **k):
+        seen["halo"] = k["halo"]
+        seen["logits"] = real_sweep(*a, **k)
+        return seen["logits"]
+
+    tiling.tiled_forward_padded = sweep
+    try:
+        mask = tiling.predict_img_tiled(params, state, r2u_config, big, tile=TILE, halo=HALO,
+                                        scale_factor=1.0, device=cuda)
+    finally:
+        tiling.tiled_forward_padded = real_sweep
+    x = torch.from_numpy(preprocess(big, 1.0))[None].to(cuda)
+    with torch.inference_mode():
+        full = unet_apply(params, state, x, config=r2u_config)[0]
+    err = (seen["logits"] - full).abs().max().item()
+    span = (full.max() - full.min()).item()
+    log(f"r2u tiled {TILE_SIZE}² tile {TILE}: halo {seen.get('halo')} (min_halo "
+        f"{tiling.min_halo(r2u_config)}), max_abs_err vs full image {err:.3e} (logit range "
+        f"{span:.3e}), mask {mask.shape}")
+    if seen.get("halo") != FAMILY_TILE_HALO or tiling.min_halo(r2u_config) != FAMILY_TILE_HALO:
+        failures.append(f"r2u tiling halo {seen.get('halo')}, expected {FAMILY_TILE_HALO}")
+    if not err <= RANGE_TOL * span:
+        failures.append(f"r2u tiled vs full: {err:.3e} > {RANGE_TOL} x {span:.3e}")
+    numbers["r2u"]["tiled"] = {"halo": seen.get("halo"), "max_abs_err": err, "range": span}
+    del params, state, full, seen
+
+    counts = K.launch_counts()
+    if any(counts.values()):
+        failures.append(f"phase 9 launched kernels of the repo: {counts}")
+    if failures:
+        raise SystemExit(f"chip_smoke: phase 9 (families) failed: {failures}")
+    return numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -2305,6 +2668,12 @@ def main(argv=None) -> int:
         log(f"data path numbers: {json.dumps(data_path)}")
         torch.cuda.empty_cache()
         phase_done("8 (data path)", t0)
+        # Phase 9: the other model families, on phase 6's files.
+        t0 = time.perf_counter()
+        families = phase_families(workdir / "families", workdir / "train" / "data")
+        log(f"families numbers: {json.dumps(families)}")
+        torch.cuda.empty_cache()
+        phase_done("9 (families)", t0)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

@@ -89,9 +89,15 @@ def test_evaluate_cli_matches_jax(tmp_path, capsys, per_class):
 
 
 def test_evaluate_cli_refuses_and_needs_a_gpu(tmp_path):
-    for flag in (["--data-parallel"], ["--arch", "unetpp"], ["--arch", "r2u"]):
-        with pytest.raises(SystemExit, match="is not ported"):
-            main(["-m", "x.npz", *flag, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="is not ported"):
+        main(["-m", "x.npz", "--data-parallel", "--device", "cpu"])
+    # The families evaluate (past the refusals to the missing file); a .pth
+    # is the U-Net's layout only, as in the JAX package.
+    for arch in ("unetpp", "r2u"):
+        with pytest.raises(SystemExit, match=r"\.pth import is reference-layout"):
+            main(["-m", "x.pth", "--arch", arch, "--device", "cpu"])
+        with pytest.raises(FileNotFoundError):
+            main(["-m", "x.npz", "--arch", arch, "--device", "cpu"])
     # --tta is ported: it gets past the refusals to the missing file.
     with pytest.raises(FileNotFoundError):
         main(["-m", "x.npz", "--tta", "--tta-mode", "hflip", "--device", "cpu"])

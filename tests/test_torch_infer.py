@@ -135,11 +135,20 @@ def test_init_bounds_are_torch_kaiming_uniform():
 
 
 def test_unported_arch_and_backend_refused():
-    with pytest.raises(ValueError, match="arch='unet'"):
-        init_unet(UNetConfig(arch="attention"), np.random.default_rng(0))
+    # fold_bn folds the U-Net and Attention U-Net; the other families are
+    # refused with the JAX package's words, and attention's folded forward
+    # has no CUDA tier, as JAX's has no Pallas one.
+    with pytest.raises(ValueError, match="unknown arch"):
+        init_unet(UNetConfig(arch="vnet"), np.random.default_rng(0))
+    for arch in ("unetpp", "r2u", "r2attu"):
+        cfg = UNetConfig(3, 1, base_channels=8, arch=arch)
+        with pytest.raises(ValueError, match="support arch='unet'/'attention'"):
+            fold_bn(*init_unet(cfg, np.random.default_rng(0)), cfg)
+    att = UNetConfig(3, 1, base_channels=8, arch="attention")
+    with pytest.raises(ValueError, match="wired for the flagship U-Net only"):
+        unet_infer_apply(fold_bn(*init_unet(att, np.random.default_rng(0)), att),
+                         torch.zeros(1, 16, 16, 3), config=att, backend="cuda")
     tp, ts = init_unet(UNetConfig(3, 1, base_channels=8), np.random.default_rng(0))
-    with pytest.raises(ValueError, match="arch='unet'"):
-        fold_bn(tp, ts, UNetConfig(3, 1, base_channels=8, arch="unetpp"))
     with pytest.raises(ValueError, match="backend"):
         unet_infer_apply(fold_bn(tp, ts, UNetConfig(3, 1, base_channels=8)),
                          torch.zeros(1, 16, 16, 3), config=UNetConfig(3, 1, base_channels=8),

@@ -140,7 +140,7 @@ def test_predict_cli_equals_jax(ckpt, tmp_path, flags, sizes):
     (["--device-preprocess", "--tile", "128"], "--device-preprocess applies to the default",
      ["--device-preprocess", "--tile", "128"]),
     (["--tile-sharded"], "--tile-sharded is not ported", None),
-    (["--arch", "unetpp"], "--arch unetpp is not ported", None),
+    (["-m", "x.pth", "--arch", "unetpp"], "pth import is reference-layout", None),
     (["--tta", "--kernels", "torch"], "--tta does not compose with --kernels",
      ["--tta", "--kernels", "xla"]),
     (["--tile", "128", "--kernels", "cuda"], "--tile does not compose with --kernels", None),

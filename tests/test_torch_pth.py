@@ -119,7 +119,7 @@ def test_export_pth_loads_strict_upstream_and_reimports(tmp_path, bilinear):
     cfg = UNetConfig(3, 2, bilinear=bilinear, base_channels=8)
     params, state = init_unet(cfg, np.random.default_rng(3))
     path = tmp_path / "ours.pth"
-    export_pth(path, params, state, bilinear=bilinear, mask_values=[0, 128])
+    export_pth(path, params, state, cfg, mask_values=[0, 128])
     sd = torch.load(path, map_location="cpu", weights_only=True)
     assert sd.pop("mask_values") == [0, 128]
     assert sd["inc.double_conv.1.num_batches_tracked"].dtype == torch.long
@@ -200,7 +200,7 @@ def test_clis_take_a_pth(tmp_path):
     cfg = UNetConfig(3, 1, bilinear=False, base_channels=8)
     params, state = _calibrated(cfg, 4)
     pth, npz = tmp_path / "m.pth", tmp_path / "m.npz"
-    export_pth(pth, params, state, bilinear=False, mask_values=[0, 255])
+    export_pth(pth, params, state, cfg, mask_values=[0, 255])
     save_checkpoint(npz, params, state, [0, 255], {"config": cfg._asdict()})
     _, _, config, mv = load_model(pth, cfg, torch.device("cpu"))
     assert config == cfg and mv == [0, 255]
@@ -236,7 +236,7 @@ def test_train_cli_loads_a_pth(tmp_path, monkeypatch):
     monkeypatch.setattr(t_unet, "UNetConfig", lambda **kw: UNetConfig(**kw, base_channels=8))
     cfg = UNetConfig(3, 1, bilinear=False, base_channels=8)
     params, state = init_unet(cfg, np.random.default_rng(6))
-    export_pth(tmp_path / "w.pth", params, state, bilinear=False)
+    export_pth(tmp_path / "w.pth", params, state, cfg)
     save_checkpoint(tmp_path / "w.npz", params, state)
     make_synthetic_carvana(tmp_path / "data", n=4, h=32, w=40, seed=2)
     runs = {}

@@ -264,8 +264,10 @@ def test_serve_default_is_the_eval_forward_and_equals_jax(ckpt, monkeypatch):
 def test_predict_cli_refuses_unported_flags_and_missing_gpu(ckpt, tmp_path):
     img_path = tmp_path / "in.png"
     _img(31).save(img_path)
-    for flag in (["--tile-sharded"], ["--arch", "unetpp"]):
-        with pytest.raises(SystemExit, match="is not ported"):
+    # Every family predicts; a family's .pth is refused, as in the JAX package.
+    for flag, match in ((["--tile-sharded"], "is not ported"),
+                        (["-m", "x.pth", "--arch", "unetpp"], "pth import is reference-layout")):
+        with pytest.raises(SystemExit, match=match):
             t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", *flag])
     # --device-preprocess is ported; JAX's refusals of it hold.
     for flag in (["--tile", "64"], ["--kernels", "cuda"]):

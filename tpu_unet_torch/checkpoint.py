@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu_unet_torch.models.unet import Params, State, UNetConfig, init_unet, tree_map
+from tpu_unet_torch.models.unet import Params, Refused, State, UNetConfig, init_unet, tree_map
 from tpu_unet_torch.ops.batchnorm import BNState
 from tpu_unet_torch.optim import AdamState, RMSpropState, SGDState
 
@@ -128,6 +128,19 @@ def _restore(z, key: str, like, device, path):
     return torch.from_numpy(np.array(arr)).to(device=device, dtype=like.dtype)
 
 
+def _layout_hint(key: str) -> str:
+    """Why a recurrent unit's BN entry may be missing: the file holds the
+    other ``recur_bn`` layout (the JAX package's wording)."""
+    if "/rec" in key and "/bn0/" in key:
+        return (" — a per-step recurrent-BN template cannot load a shared-layout "
+                "checkpoint (written pre-r5 or with recur_bn='shared'); rebuild with "
+                "UNetConfig(recur_bn='shared')")
+    if "/rec" in key and "/bn/" in key:
+        return (" — a shared recurrent-BN template cannot load a per-step checkpoint; "
+                "rebuild with the default UNetConfig(recur_bn='per_step')")
+    return ""
+
+
 def load_checkpoint(path: str | Path, config: UNetConfig | None = None,
                     device: str | torch.device = "cpu", opt_like=None
                     ) -> tuple[Params, State, list | None, dict]:
@@ -142,10 +155,12 @@ def load_checkpoint(path: str | Path, config: UNetConfig | None = None,
         if opt_like is not None and meta.get("has_opt_state"):
             opt_state = _restore(z, "opt", opt_like, device, path)
     if config is not None:
+        # The template of any family (init_unet dispatches on config.arch);
+        # its values are never used.
         template = flatten(*init_unet(config, np.random.default_rng(0)))
         for key, like in template.items():
             if key not in flat:
-                raise KeyError(f"checkpoint {path} has no entry {key!r}")
+                raise KeyError(f"checkpoint {path} has no entry {key!r}{_layout_hint(key)}")
             if flat[key].shape != like.shape:
                 raise ValueError(f"shape mismatch for {key}: {flat[key].shape} vs {like.shape}")
     params, state = from_jax_arrays(flat, device)
@@ -221,7 +236,15 @@ def average_checkpoints(paths, out_path: str | Path) -> None:
         np.savez(f, **arrays)
 
 
-def export_pth(path: str | Path, params: Params, state: State, *, bilinear: bool,
+def _check_pth(config: UNetConfig, direction: str) -> None:
+    """``.pth`` is the reference U-Net's layout; the other families'
+    checkpoints are .npz (the JAX package's wording, tpu_unet/hub.py)."""
+    if config.arch != "unet":
+        raise Refused(f".pth {direction} is reference-layout (flagship) only; "
+                      f"arch={config.arch!r} checkpoints are .npz")
+
+
+def export_pth(path: str | Path, params: Params, state: State, config: UNetConfig, *,
                mask_values: list | None = None) -> None:
     """Write a torch ``.pth`` state dict that the reference's U-Net loads with
     ``load_state_dict`` (``torch.save(state_dict ∪ {"mask_values"})``).
@@ -230,7 +253,11 @@ def export_pth(path: str | Path, params: Params, state: State, *, bilinear: bool
     ``downN.maxpool_conv.1.double_conv...``, ``upN.up``,
     ``upN.conv.double_conv...``, ``outc.conv``); HWIO conv weights become
     OIHW, ConvTranspose weights (kH,kW,I,O) become (I,O,kH,kW), and each BN's
-    ``num_batches_tracked`` is written as 0."""
+    ``num_batches_tracked`` is written as 0. ``config`` gives the decoder
+    (``bilinear`` writes no ConvTranspose); ``arch`` other than ``unet``
+    raises."""
+    _check_pth(config, "export")
+
     def t(x: torch.Tensor, *perm: int) -> torch.Tensor:
         x = x.detach().to("cpu")
         return (x.permute(*perm) if perm else x).contiguous().clone()
@@ -251,7 +278,7 @@ def export_pth(path: str | Path, params: Params, state: State, *, bilinear: bool
     for b in ("down1", "down2", "down3", "down4"):
         double_conv(f"{b}.maxpool_conv.1.double_conv", params[b], state[b])
     for b in ("up1", "up2", "up3", "up4"):
-        if not bilinear:
+        if not config.bilinear:
             sd[f"{b}.up.weight"] = t(params[b]["up"]["w"], 2, 3, 0, 1)
             sd[f"{b}.up.bias"] = t(params[b]["up"]["b"])
         double_conv(f"{b}.conv.double_conv", params[b]["conv"], state[b]["conv"])
@@ -272,7 +299,10 @@ def import_pth(path: str | Path, config: UNetConfig, device: str | torch.device 
     up block starts with the ConvTranspose weight and bias unless
     ``config.bilinear``; outc is a 1x1 conv w and b. ``mask_values`` (a list
     of ints or of lists) is popped first, as every reference loader does.
-    Loaded with ``weights_only=True``: tensors and plain lists only."""
+    Loaded with ``weights_only=True``: tensors and plain lists only. The
+    other families have no ``.pth`` layout (their checkpoints are ``.npz``,
+    as in the JAX package): ``config.arch`` other than ``unet`` raises."""
+    _check_pth(config, "import")
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
     mask_values = sd.pop("mask_values", None)
     if hasattr(mask_values, "tolist"):

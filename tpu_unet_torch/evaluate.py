@@ -10,9 +10,13 @@ it; ``tta`` ensembles the flip views one view at a time
 not multiplied by the views. The per-batch sums stay on the device; the
 host fetches them once.
 
+Every model family evaluates through the same forward (``--arch``, or the
+family a ``.npz`` stores in its config).
+
 Run:
     python -m tpu_unet_torch.evaluate -m ckpt.npz|model.pth --data-dir data -s 0.5 \
-        [--per-class] [--tta [--tta-mode hflip]] [--amp] [--device cuda|cpu]
+        [--arch unetpp|attention|r2u|r2attu] [--per-class] [--tta [--tta-mode hflip]] \
+        [--amp] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from tpu_unet_torch.data.prefetch import to_device
 from tpu_unet_torch.losses import dice_coeff, iou_coeff, multiclass_dice_coeff
 from tpu_unet_torch.models.tta import TTA_MODES, tta_logits
+from tpu_unet_torch.predict import exit_on_refusal
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, unet_apply
 
 logger = logging.getLogger(__name__)
@@ -118,10 +123,12 @@ def evaluate_per_class(params, state, dataloader, config: UNetConfig, amp: bool 
     return dice_c / n, iou_c / n
 
 
+@exit_on_refusal("tpu_unet_torch.evaluate")
 def main(argv=None) -> float:
     """The evaluation CLI: Dice and IoU of a checkpoint on a dataset."""
     from tpu_unet_torch.data import BasicDataset, CarvanaDataset, DataLoader
-    from tpu_unet_torch.predict import ARCHS, load_model, refuse_unported, resolve_device
+    from tpu_unet_torch.models.unet import ARCHS
+    from tpu_unet_torch.predict import load_model, refuse_unported, resolve_device
 
     p = argparse.ArgumentParser(description="Evaluate a checkpoint on a dataset (PyTorch port)")
     p.add_argument("--model", "-m", required=True)
@@ -130,7 +137,8 @@ def main(argv=None) -> float:
     p.add_argument("--batch-size", "-b", type=int, default=4)
     p.add_argument("--classes", "-c", type=int, default=1)
     p.add_argument("--bilinear", action="store_true")
-    p.add_argument("--arch", choices=ARCHS, default="unet")
+    p.add_argument("--arch", choices=ARCHS, default="unet",
+                   help="Model family of the checkpoint (a .npz's stored config wins)")
     p.add_argument("--amp", action="store_true")
     p.add_argument("--per-class", action="store_true", default=False,
                    help="Also report per-class Dice/IoU (multiclass: class 0 is background, "
@@ -146,7 +154,7 @@ def main(argv=None) -> float:
     refuse_unported(args, "tpu_unet_torch.evaluate", ("data_parallel",))
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     device = resolve_device(args.device)
-    config = UNetConfig(3, args.classes, bilinear=args.bilinear)
+    config = UNetConfig(3, args.classes, bilinear=args.bilinear, arch=args.arch)
     params, state, config, _ = load_model(args.model, config, device)
     data_dir = Path(args.data_dir)
     try:

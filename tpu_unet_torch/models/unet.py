@@ -1,5 +1,6 @@
 """The flagship U-Net: configuration, parameter layout and forward
-(``tpu_unet/models/unet.py``).
+(``tpu_unet/models/unet.py``), and the dispatch of ``init_unet`` and
+``unet_apply`` to the other families by ``config.arch``.
 
 Parameters are the JAX package's nested dicts, with tensors in its layouts
 (HWIO conv weights), and BN running statistics are explicit ``BNState``
@@ -31,11 +32,43 @@ from tpu_unet_torch.ops.conv_stats import double_conv_train_fused
 Params = dict[str, Any]
 State = dict[str, Any]
 
+ARCHS = ("unet", "unetpp", "attention", "r2u", "r2attu")
+
+
+class Refused(ValueError):
+    """A route that the JAX package refuses too (a family on the hand-written
+    kernels, ``fold_bn`` of a family whose BN does not fold, a family's
+    ``.pth``). Raised by the one function that owns each refusal; the CLIs
+    exit with its message (``predict.exit_on_refusal``)."""
+
+
+def check_kernels(config: UNetConfig, kernels: str | None) -> None:
+    """Raise unless ``kernels`` is a train route of ``config.arch``: None
+    (library convs), or ``"cuda"`` (the hand-written train kernels) for the
+    U-Net alone, as the JAX package refuses ``kernels="pallas"`` for the
+    families: the kernels are wired for the U-Net's DoubleConv, and a silent
+    run on library convs would mislead a measurement."""
+    if kernels not in (None, "cuda"):
+        raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
+    if kernels and config.arch != "unet":
+        raise Refused(f"kernels={kernels!r} is not implemented for arch={config.arch!r} "
+                      "(the JAX package refuses kernels='pallas' for it too); use the "
+                      "default library-conv route (kernels=None, --kernels torch)")
+
 
 class UNetConfig(NamedTuple):
     """The JAX package's ``UNetConfig``, field for field, so a checkpoint's
-    stored config (``extra["config"]``) loads here unchanged. The port runs
-    ``arch="unet"`` only so far; the other fields are carried, not used."""
+    stored config (``extra["config"]``) loads here unchanged.
+
+    ``arch`` picks the family: ``"unet"`` (this module), ``"unetpp"``
+    (``models/unetpp.py``; ``deep_supervision`` averages its per-column
+    heads), ``"attention"`` (``models/attention_unet.py``), ``"r2u"``
+    (``models/r2u_unet.py``) and ``"r2attu"`` (``models/r2attu_unet.py``).
+    ``recur_t`` is the recurrence depth of r2u/r2attu, and ``recur_bn``
+    their BN statistics across the t+1 weight-shared applications:
+    ``"per_step"`` (one running mean/var per application, γ/β shared; the
+    default) or ``"shared"`` (one BN stepped t+1 times). ``s2d_level0`` is
+    a TPU experiment, carried and refused."""
 
     n_channels: int = 3
     n_classes: int = 2
@@ -74,41 +107,54 @@ def _double_conv_init(rng, cin, cout, cmid=None, *, device):
     return params, state
 
 
+def _convt_init(rng, cin: int, cout: int, *, device) -> Params:
+    """ConvTranspose2d(cin, cout, k=2, s=2) as HWIO (2, 2, cin, cout) plus a
+    bias: torch's fan_in for its (Cin, Cout, k, k) weight is Cout * k * k."""
+    bound = 1.0 / (cout * 2 * 2) ** 0.5
+    return {"w": _uniform(rng, (2, 2, cin, cout), bound, device),
+            "b": _uniform(rng, (cout,), bound, device)}
+
+
+def encoder_plan(config: UNetConfig) -> list[tuple[int, int]]:
+    """(in, out) channels of inc, down1..down4: the reference's 64, 128,
+    256, 512, 1024 // f at base 64, f = 2 if bilinear."""
+    c, f = config.base_channels, 2 if config.bilinear else 1
+    return [(config.n_channels, c), (c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c),
+            (8 * c, 16 * c // f)]
+
+
+def decoder_plan(config: UNetConfig) -> list[tuple[int, int, int]]:
+    """(skip, in, out) channels of up1..up4: in 1024 // f, 512 // f, 256 // f,
+    128 // f and out 512 // f, 256 // f, 128 // f, 64 at base 64."""
+    c, f = config.base_channels, 2 if config.bilinear else 1
+    return [(8 * c, 16 * c // f, 8 * c // f), (4 * c, 8 * c // f, 4 * c // f),
+            (2 * c, 4 * c // f, 2 * c // f), (c, 2 * c // f, c)]
+
+
 def init_unet(config: UNetConfig, rng: np.random.Generator,
               device: str | torch.device = "cpu") -> tuple[Params, State]:
     """(params, state) for ``config`` with torch's kaiming-uniform bounds,
-    drawn from ``rng``. The channel plan is the reference's: inc 64, down
-    128/256/512/1024//f, up 512//f, 256//f, 128//f, 64 with f = 2 if bilinear.
+    drawn from ``rng``, for every family (``config.arch``). The U-Net's
+    channel plan is the reference's (``encoder_plan``, ``decoder_plan``).
     The values differ from JAX's ``init_unet`` (another generator); the
     shapes and keys are the same."""
     if config.arch != "unet":
-        raise ValueError(f"tpu_unet_torch ports arch='unet' only, not {config.arch!r}")
-    c = config.base_channels
-    factor = 2 if config.bilinear else 1
+        return _family(config.arch)[0](config, rng, device)
     params: Params = {}
     state: State = {}
-    params["inc"], state["inc"] = _double_conv_init(rng, config.n_channels, c, device=device)
-    down = [(c, 2 * c), (2 * c, 4 * c), (4 * c, 8 * c), (8 * c, 16 * c // factor)]
-    for i, (cin, cout) in enumerate(down, start=1):
-        params[f"down{i}"], state[f"down{i}"] = _double_conv_init(rng, cin, cout, device=device)
-    up = [(16 * c // factor, 8 * c // factor), (8 * c // factor, 4 * c // factor),
-          (4 * c // factor, 2 * c // factor), (2 * c // factor, c)]
-    for i, (cin, cout) in enumerate(up, start=1):
-        skip = [8 * c, 4 * c, 2 * c, c][i - 1]
+    for name, (cin, cout) in zip(ENCODER, encoder_plan(config)):
+        params[name], state[name] = _double_conv_init(rng, cin, cout, device=device)
+    for i, (skip, cin, cout) in enumerate(decoder_plan(config), start=1):
         if config.bilinear:
             concat_c = skip + cin
             conv_p, conv_s = _double_conv_init(rng, concat_c, cout, concat_c // 2, device=device)
             params[f"up{i}"], state[f"up{i}"] = {"conv": conv_p}, {"conv": conv_s}
         else:
-            # ConvTranspose2d(cin, cin // 2, k=2, s=2): torch's fan_in for its
-            # (Cin, Cout, k, k) weight is Cout * k * k.
-            half = cin // 2
-            bound = 1.0 / (half * 2 * 2) ** 0.5
-            up_p = {"w": _uniform(rng, (2, 2, cin, half), bound, device),
-                    "b": _uniform(rng, (half,), bound, device)}
-            conv_p, conv_s = _double_conv_init(rng, skip + half, cout, device=device)
+            up_p = _convt_init(rng, cin, cin // 2, device=device)
+            conv_p, conv_s = _double_conv_init(rng, skip + cin // 2, cout, device=device)
             params[f"up{i}"], state[f"up{i}"] = {"up": up_p, "conv": conv_p}, {"conv": conv_s}
-    params["outc"] = _conv_init(rng, 1, 1, c, config.n_classes, bias=True, device=device)
+    params["outc"] = _conv_init(rng, 1, 1, config.base_channels, config.n_classes, bias=True,
+                                device=device)
     return params, state
 
 
@@ -148,17 +194,22 @@ def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bo
     return torch.relu(h), {"bn1": bn1, "bn2": bn2}
 
 
-def _up_apply(params, state, x1, x2, *, bilinear: bool, train: bool, kernels=None):
-    """Decoder block: upsample x1, pad it to the skip x2, concat [x2, x1],
-    DoubleConv."""
+def _upsample(params, x1, x2, *, bilinear: bool) -> torch.Tensor:
+    """x1 upsampled 2x (align-corners bilinear, or the block's ConvTranspose
+    plus its bias) and padded to the skip x2's size."""
     if bilinear:
         x1 = upsample2x_align_corners(x1)
     else:
         up = conv_transpose2d(x1, params["up"]["w"], stride=2)
         x1 = (up.float() + params["up"]["b"].float()).to(x1.dtype)
-    x = torch.cat([x2, pad_to_match(x1, x2)], dim=-1)
-    out, conv_state = _double_conv_apply(params["conv"], state["conv"], x, train=train,
-                                         kernels=kernels)
+    return pad_to_match(x1, x2)
+
+
+def _up_apply(params, state, x1, x2, *, bilinear: bool, block):
+    """Decoder block: upsample x1, pad it to the skip x2, concat [x2, x1],
+    then ``block`` (the DoubleConv, or R2U-Net's RRCNN) under ``conv``."""
+    x = torch.cat([x2, _upsample(params, x1, x2, bilinear=bilinear)], dim=-1)
+    out, conv_state = block(params["conv"], state["conv"], x)
     return out, {"conv": conv_state}
 
 
@@ -170,30 +221,77 @@ def _remat(fn):
     return wrapped
 
 
+ENCODER = ("inc", "down1", "down2", "down3", "down4")
+
+
+def encoder_decoder(params: Params, state: State, x: torch.Tensor, *, block, up,
+                    remat: bool = False, inc_kwargs: dict | None = None
+                    ) -> tuple[torch.Tensor, State]:
+    """The U-Net topology over a family's blocks: ``block`` on the input
+    (inc, with ``inc_kwargs``) and after each 2x2 max pool (down1..4), ``up``
+    (up1..4) on the deeper output and its skip, the 1x1 ``outc`` head. Each
+    block is ``fn(params, state, *inputs) -> (out, new state)``; ``remat``
+    recomputes each in the backward pass, the blocks JAX wraps in
+    ``jax.checkpoint``."""
+    if remat:
+        block, up = _remat(block), _remat(up)
+    new_state: State = {}
+    h, new_state["inc"] = block(params["inc"], state["inc"], x, **(inc_kwargs or {}))
+    skips = [h]
+    for name in ENCODER[1:]:
+        h, new_state[name] = block(params[name], state[name], max_pool2d(h))
+        skips.append(h)
+    for i, skip in zip(range(1, 5), skips[-2::-1]):
+        name = f"up{i}"
+        h, new_state[name] = up(params[name], state[name], h, skip)
+    logits = conv2d(h, params["outc"]["w"], stride=1, padding=0)
+    return logits.float() + params["outc"]["b"].float(), new_state
+
+
+def _family(arch: str):
+    """(init, apply) of a family other than the U-Net, imported at the call:
+    the families' modules import this one."""
+    if arch == "unetpp":
+        from tpu_unet_torch.models.unetpp import init_unetpp as init, unetpp_apply as apply
+    elif arch == "attention":
+        from tpu_unet_torch.models.attention_unet import (
+            attention_unet_apply as apply,
+            init_attention_unet as init,
+        )
+    elif arch == "r2u":
+        from tpu_unet_torch.models.r2u_unet import init_r2u_unet as init, r2u_unet_apply as apply
+    elif arch == "r2attu":
+        from tpu_unet_torch.models.r2attu_unet import (
+            init_r2attu_unet as init,
+            r2attu_unet_apply as apply,
+        )
+    else:
+        raise ValueError(f"unknown arch {arch!r}; one of {ARCHS}")
+    return init, apply
+
+
 def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
                train: bool = False, compute_dtype: torch.dtype | None = None,
                remat: bool = False, axis_name: str | None = None,
                kernels: str | None = None) -> tuple[torch.Tensor, State]:
-    """Forward pass. x: [N,H,W,n_channels] -> (fp32 logits
-    [N,H,W,n_classes], new BN state).
+    """Forward pass of any family (``config.arch``). x: [N,H,W,n_channels]
+    -> (fp32 logits [N,H,W,n_classes], new BN state).
 
     ``compute_dtype=torch.bfloat16`` is the JAX package's AMP: the input and
     every parameter are cast to bf16 (explicitly, not through autocast), the
     convs accumulate in fp32, BN statistics are fp32, the logits fp32.
     ``kernels="cuda"`` in train mode runs every DoubleConv on the train
     kernels, as JAX's ``kernels="pallas"``; eval mode and ``kernels=None``
-    run library convs and ``batch_norm``.
+    run library convs and ``batch_norm``. The other families have no kernel
+    route: ``kernels`` with them raises, as JAX's ``kernels="pallas"`` does.
 
     ``remat`` recomputes each block in the backward pass instead of keeping
     its activations (``torch.utils.checkpoint``, non-reentrant), the blocks
-    JAX wraps in ``jax.checkpoint``: every DoubleConv and decoder block. The
-    forward is functional (BN running stats come back as new tensors), so a
-    recomputation cannot update them twice; it does launch a block's
-    forward kernels a second time."""
-    if config.arch != "unet":
-        raise ValueError(f"tpu_unet_torch ports arch='unet' only, not {config.arch!r}")
-    if kernels not in (None, "cuda"):
-        raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
+    JAX wraps in ``jax.checkpoint``: every DoubleConv (RRCNN) and decoder
+    block. The forward is functional (BN running stats come back as new
+    tensors), so a recomputation cannot update them twice; it does launch a
+    block's forward kernels a second time."""
+    check_kernels(config, kernels)
     if axis_name is not None:
         raise NotImplementedError("unet_apply: axis_name (data parallelism) is not ported yet")
     if config.s2d_level0:
@@ -202,22 +300,12 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
         x = x.to(compute_dtype)
         params = tree_map(lambda p: p.to(compute_dtype), params)
     x = x.contiguous()
+    if config.arch != "unet":
+        return _family(config.arch)[1](params, state, x, config=config, train=train,
+                                          remat=remat)
 
     dc = functools.partial(_double_conv_apply, train=train, kernels=kernels)
-    up = functools.partial(_up_apply, bilinear=config.bilinear, train=train, kernels=kernels)
-    if remat:
-        dc, up = _remat(dc), _remat(up)
-
-    new_state: State = {}
-    x1, new_state["inc"] = dc(params["inc"], state["inc"], x, first=True)
-    skips = [x1]
-    h = x1
-    for i in range(1, 5):
-        name = f"down{i}"
-        h, new_state[name] = dc(params[name], state[name], max_pool2d(h))
-        skips.append(h)
-    for i, skip in zip(range(1, 5), skips[-2::-1]):
-        name = f"up{i}"
-        h, new_state[name] = up(params[name], state[name], h, skip)
-    logits = conv2d(h, params["outc"]["w"], stride=1, padding=0)
-    return logits.float() + params["outc"]["b"].float(), new_state
+    up = functools.partial(_up_apply, bilinear=config.bilinear, block=dc)
+    # inc is the only block whose input (the image) needs no gradient.
+    return encoder_decoder(params, state, x, block=dc, up=up, remat=remat,
+                           inc_kwargs={"first": True})

@@ -15,6 +15,13 @@ probabilities) -> threshold (sigmoid > t) or argmax -> the checkpoint's
 ``mask_values`` palette. Models load from the JAX package's ``.npz`` or the
 reference's torch ``.pth``.
 
+Every model family runs (``--arch``, or the family a ``.npz`` stores in its
+config): the default path, ``--tile`` (with the family's halo), TTA and CRF
+go through ``unet_apply``. The folded forward is the U-Net's and Attention
+U-Net's: ``--kernels torch`` folds both, ``--kernels cuda`` is the U-Net's
+only, and the other families refuse ``--kernels``, as the JAX package
+refuses them. ``.pth`` is the U-Net's layout only.
+
 Run:
     python -m tpu_unet_torch.predict -m ckpt.npz|model.pth -i a.png b.png \
         [--batch-size N] [--tta [--tta-mode hflip]] [--tile 512] [--crf] [--viz] \
@@ -24,6 +31,7 @@ Run:
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 from pathlib import Path
@@ -35,16 +43,15 @@ from PIL import Image
 from tpu_unet_torch.data.device_pipeline import device_preprocess_images, raw_u8_for_device
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
-from tpu_unet_torch.models.infer import BACKENDS
+from tpu_unet_torch.models.infer import BACKENDS, check_backend
 from tpu_unet_torch.models.tta import TTA_MODES, tta_logits
-from tpu_unet_torch.models.unet import tree_map, unet_apply
+from tpu_unet_torch.models.unet import ARCHS, Refused, tree_map, unet_apply
 from tpu_unet_torch.ops import full_fp32, resize_bilinear
 
 logger = logging.getLogger(__name__)
 
 # Flags of the JAX CLIs that this port does not run yet.
 UNPORTED_FLAGS = ("tile_sharded",)
-ARCHS = ("unet", "unetpp", "attention", "r2u", "r2attu")
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
@@ -60,15 +67,25 @@ def resolve_device(name: str | torch.device) -> torch.device:
 
 
 def refuse_unported(args: argparse.Namespace, prog: str, flags=UNPORTED_FLAGS) -> None:
-    """Exit with a clear message when a flag the port lacks was given, or a
-    model family other than ``unet``."""
+    """Exit with a clear message when a flag the port lacks was given."""
     asked = ["--" + name.replace("_", "-") for name in flags if getattr(args, name, None)]
-    arch = getattr(args, "arch", "unet")
-    if arch != "unet":
-        asked.append(f"--arch {arch}")
     if asked:
         raise SystemExit(f"{prog}: {asked[0]} is not ported to tpu_unet_torch yet; "
                          f"use the JAX package (tpu_unet) for it")
+
+
+def exit_on_refusal(prog: str):
+    """Decorate a CLI entry point: a route the library refuses as the JAX
+    package does (``Refused``) exits with its message, not a traceback."""
+    def wrap(entry):
+        @functools.wraps(entry)
+        def run(*args, **kwargs):
+            try:
+                return entry(*args, **kwargs)
+            except Refused as e:
+                raise SystemExit(f"{prog}: {e}") from None
+        return run
+    return wrap
 
 
 def logits_to_mask(logits: torch.Tensor, n_classes: int, threshold: float) -> np.ndarray:
@@ -238,10 +255,11 @@ def mask_to_image(mask: np.ndarray, mask_values) -> Image.Image:
 def load_model(path: str | Path, config: UNetConfig, device: torch.device):
     """(params, state, config, mask_values) from a ``.npz`` checkpoint or a
     torch ``.pth`` state dict. A ``.npz``'s stored config, when present,
-    wins over ``config``; a stored config without ``recur_bn`` predates the
-    per-step layout, so its arrays are in the shared layout: it loads as
-    ``recur_bn="shared"``. A ``.pth`` is read with ``config`` (its classes
-    and decoder), as the JAX package reads one."""
+    wins over ``config`` (its family too); a stored config without
+    ``recur_bn`` predates the per-step layout, so its arrays are in the
+    shared layout: it loads as ``recur_bn="shared"``. A ``.pth`` is read with
+    ``config`` (its classes and decoder), as the JAX package reads one, and
+    only for ``arch="unet"``."""
     from tpu_unet_torch.checkpoint import import_pth, load_checkpoint, read_checkpoint_meta
 
     if str(path).endswith(".jaxexp"):
@@ -281,7 +299,7 @@ def get_args(argv=None):
     p.add_argument("--tile", type=int, default=None,
                    help="Tiled sliding-window inference with this tile size (large images)")
     p.add_argument("--arch", choices=ARCHS, default="unet",
-                   help="Model family of the checkpoint (the port runs unet)")
+                   help="Model family of the checkpoint (a .npz's stored config wins)")
     p.add_argument("--crf", action="store_true", default=False,
                    help="Mean-field CRF refinement of the probabilities")
     p.add_argument("--batch-size", type=int, default=1, metavar="N",
@@ -294,8 +312,9 @@ def get_args(argv=None):
                    help="TTA views: all four flips, or identity + left-right only")
     p.add_argument("--kernels", choices=BACKENDS, default=None,
                    help="the folded-BN forward on cuda: the hand-written kernels (plain "
-                        "versions for CPU tensors), or torch: their plain PyTorch versions; "
-                        "without it, the unfolded eval-mode forward")
+                        "versions for CPU tensors; unet only), or torch: their plain PyTorch "
+                        "versions (unet, attention); without it, the unfolded eval-mode "
+                        "forward")
     p.add_argument("--device-preprocess", action="store_true", default=False,
                    help="Resize and normalise on the device (Pillow-bit-exact int32 "
                         "resample, the same mask; the host keeps only the decode)")
@@ -311,6 +330,7 @@ def get_output_filenames(args) -> list[str]:
     return args.output or [f"{os.path.splitext(f)[0]}_OUT.png" for f in args.input]
 
 
+@exit_on_refusal("tpu_unet_torch.predict")
 def main(argv=None):
     args = get_args(argv)
     refuse_unported(args, "tpu_unet_torch.predict")
@@ -330,9 +350,12 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     device = resolve_device(args.device)
     out_files = get_output_filenames(args)
-    config = UNetConfig(n_channels=3, n_classes=args.classes, bilinear=args.bilinear)
+    config = UNetConfig(n_channels=3, n_classes=args.classes, bilinear=args.bilinear,
+                        arch=args.arch)
     logger.info("Loading model %s", args.model)
     params, state, config, mask_values = load_model(args.model, config, device)
+    if args.kernels:
+        check_backend(config, args.kernels)
     common = dict(scale_factor=args.scale, out_threshold=args.mask_threshold, amp=args.amp,
                   device=device)
     views = dict(tta=args.tta, tta_mode=args.tta_mode)

@@ -21,7 +21,14 @@ Endpoints:
   GET  /metrics   request and error counts, end-to-end latency p50/p90/p99
                   over a sliding window, dispatches and their mean batch
 
+Every model family is served (``--arch``, or the family a ``.npz`` stores
+in its config) on the eval forward, with ``--tile`` at the family's halo
+(``min_halo``); Attention U-Net also on the folded forward with
+``--kernels torch``. ``--kernels cuda`` is the U-Net's only, and ``--kernels``
+with unetpp, r2u or r2attu exits, as the JAX package refuses them.
+
 Run: ``python -m tpu_unet_torch.serve -m ckpt.npz|model.pth --port 8000
+[--arch unet|unetpp|attention|r2u|r2attu]
 [--kernels cuda|torch | --tile 512 [--halo 128]] [--tta [--tta-mode hflip]]
 [--[no-]device-preprocess]``
 """
@@ -47,9 +54,9 @@ from PIL import Image
 from tpu_unet_torch.data.device_pipeline import raw_u8_for_device
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models import UNetConfig, fold_bn, unet_infer_apply
-from tpu_unet_torch.models.infer import BACKENDS
+from tpu_unet_torch.models.infer import BACKENDS, check_backend
 from tpu_unet_torch.models.tta import TTA_MODES, tta_merge, tta_views
-from tpu_unet_torch.models.unet import tree_map, unet_apply
+from tpu_unet_torch.models.unet import ARCHS, tree_map, unet_apply
 from tpu_unet_torch.ops import resize_bilinear
 from tpu_unet_torch.parallel.tiling import (
     DEFAULT_HALO,
@@ -59,10 +66,10 @@ from tpu_unet_torch.parallel.tiling import (
 )
 from tpu_unet_torch.predict import (
     _device_resized,
+    exit_on_refusal,
     load_model,
     logits_to_mask,
     mask_to_image,
-    refuse_unported,
     resolve_device,
 )
 
@@ -130,8 +137,8 @@ class BatchedPredictor:
                  timeout_s: float = 300.0, tile: int | None = None,
                  halo: int = DEFAULT_HALO, tta: bool = False, tta_mode: str = "flips",
                  device_preprocess: bool | None = None):
-        if kernels is not None and kernels not in BACKENDS:
-            raise ValueError(f"kernels must be None or one of {BACKENDS}, got {kernels!r}")
+        if kernels is not None:
+            check_backend(config, kernels)
         if tile is not None and (tile % 16 or halo % 16):
             # Window starts must stay 16-aligned for exact stitching: refuse
             # at startup, not with a 500 on every large request.
@@ -403,7 +410,7 @@ def build_predictor(model_path: str, args) -> BatchedPredictor:
     """A predictor for a ``.npz`` checkpoint or a ``.pth`` state dict, warmed
     up when asked."""
     device = resolve_device(args.device)
-    config = UNetConfig(3, args.classes, bilinear=args.bilinear)
+    config = UNetConfig(3, args.classes, bilinear=args.bilinear, arch=args.arch)
     params, state, config, mask_values = load_model(model_path, config, device)
     predictor = BatchedPredictor(
         params, state, config, mask_values,
@@ -428,6 +435,8 @@ def get_args(argv=None):
     p.add_argument("--mask-threshold", "-t", type=float, default=0.5)
     p.add_argument("--classes", "-c", type=int, default=1)
     p.add_argument("--bilinear", action="store_true")
+    p.add_argument("--arch", choices=ARCHS, default="unet",
+                   help="Model family of the checkpoint (a .npz's stored config wins)")
     p.add_argument("--amp", action=argparse.BooleanOptionalAction, default=True,
                    help="bf16 inference (default on; --no-amp for fp32)")
     p.add_argument("--max-batch", type=int, default=8)
@@ -460,11 +469,11 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+@exit_on_refusal("tpu_unet_torch.serve")
 def make_server(argv=None) -> tuple[ThreadingHTTPServer, BatchedPredictor]:
     """Parse the CLI, load the model and bind the server (not yet serving).
     ``--port 0`` binds a free port: read it from ``server.server_address``."""
     args = get_args(argv)
-    refuse_unported(args, "tpu_unet_torch.serve", ())
     predictor = build_predictor(args.model, args)
     handler = make_handler(predictor, max_body_bytes=args.max_body_mb << 20)
     server = ThreadingHTTPServer((args.host, args.port), handler)

@@ -39,7 +39,13 @@ from tpu_unet_torch.data.device_cache import DeviceResidentData
 from tpu_unet_torch.data.device_pipeline import DevicePipeline
 from tpu_unet_torch.evaluate import evaluate
 from tpu_unet_torch.losses import bce_with_logits, cross_entropy, dice_loss
-from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, tree_map, unet_apply
+from tpu_unet_torch.models.unet import (
+    UNetConfig,
+    check_kernels,
+    tree_leaves,
+    tree_map,
+    unet_apply,
+)
 from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
 from tpu_unet_torch.train_checkpoints import CheckpointPolicy
 from tpu_unet_torch.train_logging import LossDrain
@@ -98,8 +104,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
                                   "is not ported yet")
     if vmem_limit_kib is not None:
         raise ValueError("make_train_step: vmem_limit_kib is a TPU compiler option")
-    if kernels not in (None, "cuda"):
-        raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
+    check_kernels(config, kernels)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     compute_dtype = torch.bfloat16 if amp else None
@@ -135,6 +140,23 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
         return out + (grads,) if return_grads else out
 
     return step
+
+
+def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
+                           learning_rate: float) -> None:
+    """Warn where the JAX package measured r2u/r2attu diverge: RMSprop with
+    momentum >= 0.99 at lr >= 1e-4. The t=2 recurrence doubles the
+    effective conv depth, and momentum 0.999 integrates about 1000
+    normalised steps (``tpu_unet/train.py``; BENCH_NOTES r4, on a TPU)."""
+    if (arch in ("r2u", "r2attu") and optimizer == "rmsprop"
+            and (momentum is None or momentum >= 0.99) and learning_rate >= 1e-4):
+        logger.warning(
+            "--arch %s at lr %g under RMSprop(momentum>=0.99) diverged in the "
+            "JAX package's TPU measurements (stable at ~3e-5); drop -l ~10x — or "
+            "use --optimizer adam, measured there at this lr to beat the "
+            "calibrated RMSprop recipe by +0.09-0.10 held-out Dice "
+            "(ARCH_DEMOS.json r5).",
+            arch, learning_rate)
 
 
 def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels):
@@ -267,10 +289,12 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     train_loader, val_loader = _build_loaders(
         dataset, train_idx, val_idx, batch_size=batch_size, seed=seed, device=device,
         device_dataset=device_dataset, device_preprocess=device_preprocess)
-    logger.info("Starting training: epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
-                "device=%s kernels=%s device_preprocess=%s device_dataset=%s augment=%s",
-                epochs, batch_size, learning_rate, n_train, n_val, amp, device, kernels,
-                device_preprocess, device_dataset, augment)
+    logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
+                "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
+                "device_preprocess=%s device_dataset=%s augment=%s", config.arch, epochs,
+                batch_size, learning_rate, n_train, n_val, amp, optimizer, lr_scheduler,
+                dice_weight, device, kernels, device_preprocess, device_dataset, augment)
+    warn_recurrent_rmsprop(config.arch, optimizer, momentum, learning_rate)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
                                 nesterov=nesterov)

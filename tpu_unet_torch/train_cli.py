@@ -4,9 +4,14 @@ JAX package's additions, over ``train.train_model``.
 Run:
     python -m tpu_unet_torch.train_cli -e 5 -b 4 -s 0.5 --amp --kernels cuda \
         --data-dir data [--device cuda|cpu] [--history-out history.json]
+    python -m tpu_unet_torch.train_cli --arch unetpp|attention|r2u|r2attu \
+        [--deep-supervision] [--recur-t T] -e 5 -b 4 -s 0.5 --amp --data-dir data
 
 ``--kernels cuda`` runs the train step's convs on the hand-written kernels,
-``torch`` (the default) on library convs under autograd.
+``torch`` (the default) on library convs under autograd. ``--arch`` picks
+the model family; the families other than ``unet`` train on library convs
+only, and ``--kernels cuda`` with one exits, as the JAX package refuses
+``kernels="pallas"`` for them.
 ``--device-preprocess`` decodes on the host and resizes on the device (a
 ``RawDataset``); ``--device-dataset`` stages the preprocessed corpus on the
 device (the two exclude each other); ``--augment`` (flips and photometric
@@ -17,10 +22,9 @@ again once with ``remat`` (activation recomputation) from the initial
 weights, as the reference falls back to checkpointing.
 
 The JAX flags this port does not run yet are refused with an error, never
-ignored: data parallelism and multi-host, ZeRO, W&B, the profiler,
-``--debug-nans``, and the other model families and deep supervision.
-``--load`` takes a ``.npz`` checkpoint or the reference's torch ``.pth``
-state dict.
+ignored: data parallelism and multi-host, ZeRO, W&B, the profiler and
+``--debug-nans``. ``--load`` takes a ``.npz`` checkpoint or, for
+``--arch unet``, the reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
 """
 
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 
 import tpu_unet_torch.train as train_mod
+from tpu_unet_torch.models.unet import ARCHS, check_kernels
+from tpu_unet_torch.predict import exit_on_refusal
 
 logger = logging.getLogger(__name__)
 
@@ -80,10 +86,14 @@ def get_args(argv=None):
                    help="StepLR period in epochs")
     p.add_argument("--lr-gamma", type=float, default=0.1, help="StepLR decay factor")
     p.add_argument("--lr-min", type=float, default=0.0, help="Cosine annealing floor")
-    p.add_argument("--arch", choices=["unet", "unetpp", "attention", "r2u", "r2attu"],
-                   default="unet", help="Model family (the port runs unet)")
+    p.add_argument("--arch", choices=ARCHS, default="unet",
+                   help="Model family: unet (the reference), unetpp (nested dense skips), "
+                        "attention (gated skips), r2u (recurrent residual blocks), r2attu "
+                        "(both)")
+    p.add_argument("--deep-supervision", action="store_true", default=False,
+                   help="unetpp: average the per-column heads (the paper's accurate mode)")
     p.add_argument("--recur-t", type=int, default=2, metavar="T",
-                   help="r2u/r2attu recurrence depth (carried in the config)")
+                   help="r2u/r2attu recurrence depth of each shared conv unit")
     p.add_argument("--ema-decay", type=float, default=None,
                    help="Keep an exponential moving average of the weights (e.g. 0.999), "
                         "validated beside them and saved as checkpoint_epochN_ema.npz")
@@ -134,8 +144,7 @@ def get_args(argv=None):
                    help="Full-state resume from a checkpoint (params, BN, optimizer, epoch)")
     p.add_argument("--seed", type=int, default=0)
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--data-parallel", "--multihost", "--zero", "--wandb", "--debug-nans",
-                 "--deep-supervision"):
+    for flag in ("--data-parallel", "--multihost", "--zero", "--wandb", "--debug-nans"):
         p.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
     for flag in ("--coordinator", "--profile"):
         p.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
@@ -158,7 +167,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--pipeline-parallel": args.pipeline_parallel > 1, "--zero": args.zero,
         "--wandb": args.wandb,
         "--profile": args.profile is not None, "--debug-nans": args.debug_nans,
-        f"--arch {args.arch}": args.arch != "unet", "--deep-supervision": args.deep_supervision,
     }
     for flag, given in asked.items():
         if given:
@@ -181,6 +189,7 @@ def _build_augment(args: argparse.Namespace):
                          scale_jitter=args.augment_scale, shift_px=args.augment_shift)
 
 
+@exit_on_refusal("tpu_unet_torch.train_cli")
 def main(argv=None):
     from tpu_unet_torch.checkpoint import import_pth, load_checkpoint
     from tpu_unet_torch.data import BasicDataset, CarvanaDataset, RawCarvanaDataset, RawDataset
@@ -192,7 +201,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     device = resolve_device(args.device)
     config = UNetConfig(n_channels=3, n_classes=args.classes, bilinear=args.bilinear,
-                        arch=args.arch, recur_t=args.recur_t)
+                        arch=args.arch, deep_supervision=args.deep_supervision,
+                        recur_t=args.recur_t)
+    check_kernels(config, KERNELS[args.kernels])
     logger.info("Network:\n\t%d input channels\n\t%d output channels (classes)\n\t%s upscaling",
                 config.n_channels, config.n_classes,
                 "Bilinear" if config.bilinear else "Transposed conv")
