@@ -128,6 +128,23 @@ Phases, each of which exits non-zero on failure, each with its time:
    run's validation images within ``CLI_DICE_TOL`` of its last validation;
    ``predict_img_tiled`` for r2u at 2048² with tile 512 taking ``min_halo``
    (352), its logits within 1e-3 of the full image's range.
+10. Training quality and observability (after phase 6, whose files it
+   uses): ``tools/train_demo.run(preset="arch", arch="unet")``, the JAX
+   package's gate at full width (320x480, batch 8, 280 steps, bf16, the
+   corpus on the card, deterministic algorithms, so a run repeats bit for
+   bit), once with ``kernels=None`` and once with
+   ``kernels="cuda"``, each held to the frozen floors (val Dice 0.947,
+   held-out 0.939), the second launching only ``.tc`` train kernels, as
+   many as its steps need, and the Dice gap between the two printed;
+   ``train_cli --wandb --profile DIR --debug-nans --kernels cuda`` for 2
+   steps and 1 validation with a stub ``wandb``, whose logs must hold the
+   per-step and validation logs with ``Weights/`` and ``Gradients/``
+   histograms of at most 2·``_HIST_CAP`` elements, whose trace must name the
+   three train kernels (``tools/profile_step.parse_trace``), whose NaN mode
+   must have checked backward ops, and whose losses must equal the same
+   run's without the flags (cuDNN deterministic for the pair); a
+   NaN-poisoned batch through the ``kernels="cuda"`` step under
+   ``DebugNans``, in bf16 and fp32, must raise ``FloatingPointError``.
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -157,6 +174,8 @@ from tpu_unet_torch import native
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 from tpu_unet_torch.ops import full_fp32
+from tpu_unet_torch.tools.profile_step import profile_step
+from tpu_unet_torch.utils.determinism import Deterministic
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1043,68 +1062,6 @@ def phase_train() -> tuple[dict[str, int], dict]:
     if failures:
         raise SystemExit(f"chip_smoke: train checks failed: {failures}")
     return launches, timing
-
-
-# Kernel-name groups of the step profile, first match wins. The three
-# tensor-core kernels of a bf16 step: dx is tc_conv_kernel with the DzLoad
-# loader (a template argument in the profiler's name), the fwd the others.
-# An fp32 step's: dx is tc_conv_kernel with the DzLoadF32 loader and the fwd
-# the other tc_conv_kernel with the Tf32x3Op operands, each after its
-# weight split; dw is tc_dw_f32_kernel. "dzloadf32" comes before "dzload",
-# which it contains, and before "tf32x3op", which its name also holds.
-PROFILE_GROUPS = (
-    ("tc_conv_kernel<DzLoadF32> (conv3x3_dx fp32, 3xTF32)", "dzloadf32"),
-    ("tc_conv_kernel<DzLoad> (conv3x3_dx, tensor cores)", "dzload"),
-    ("tc_conv_kernel<Tf32x3Op> (conv3x3_fwd fp32, 3xTF32)", "tf32x3op"),
-    ("split_dx_weights_kernel (conv3x3_dx fp32)", "split_dx_weights_kernel"),
-    ("split_weights_kernel (conv3x3_fwd fp32)", "split_weights_kernel"),
-    ("tc_dw_f32_kernel (conv3x3_dw fp32, 3xTF32)", "tc_dw_f32_kernel"),
-    ("tc_dw_kernel (conv3x3_dw, tensor cores)", "tc_dw_kernel"),
-    ("tc_conv_kernel (conv3x3_fwd, tensor cores)", "tc_conv_kernel"),
-    ("reduce_rows", "reduce_rows"),
-    ("cuDNN / cutlass (ConvTranspose, 1x1)", ("cudnn", "cutlass", "sm90_", "sm80_", "xmma")),
-    ("reductions", "reduce"),
-    ("elementwise / copies", ("elementwise", "vectorized", "copy", "fill")),
-)
-
-
-def profile_step(step, trees, images, masks, dt: str = "bf16") -> dict:
-    """Device time of one step by kernel group (``torch.profiler``, after the
-    caller's warm-ups), the step's wall time between synchronisations and
-    the device's idle share of it (1 - summed kernel time / wall; streams
-    other than the default one are not used by the step)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*trees, images, masks, 1e-4)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups: dict[str, float] = {}
-    top = []
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        top.append((us, ev.key, ev.count))
-        name = ev.key.lower()
-        group = next((g for g, pats in PROFILE_GROUPS
-                      if any(pt.lower() in name for pt in ((pats,) if isinstance(pats, str) else pats))),
-                     "other")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
-    busy = sum(groups.values())
-    out = {"wall_ms": wall_ms, "kernel_ms": busy, "idle_share": 1 - busy / wall_ms,
-           "groups_ms": groups}
-    log(f"profile, one {list(images.shape)} {dt} kernels=cuda step: wall {wall_ms:.2f} ms, "
-        f"kernels {busy:.2f} ms, device idle {out['idle_share']:.1%}; "
-        + "; ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})"
-                    for g, ms in sorted(groups.items(), key=lambda t: -t[1])))
-    log("profile, top kernels: " + "; ".join(
-        f"{k[:60]} x{n} {us / 1e3:.2f} ms" for us, k, n in sorted(top, reverse=True)[:8]))
-    return out
 
 
 # Phase 6: the train CLI at full width on synthetic Carvana-layout data at
@@ -2272,36 +2229,6 @@ def family_config(arch: str):
                       recur_t=2, recur_bn="per_step")
 
 
-class _Deterministic:
-    """cuDNN deterministic, torch's deterministic algorithms in warn-only
-    mode; the warnings of ops without a deterministic form are recorded in
-    ``self.reasons``. Restores every setting on exit."""
-
-    def __enter__(self):
-        import warnings
-
-        self._prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-                      torch.are_deterministic_algorithms_enabled(),
-                      torch.is_deterministic_algorithms_warn_only_enabled())
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        self._catch = warnings.catch_warnings(record=True)
-        self._caught = self._catch.__enter__()
-        warnings.simplefilter("always")
-        return self
-
-    @property
-    def reasons(self) -> list[str]:
-        return sorted({str(w.message).split("\n")[0][:160] for w in self._caught})
-
-    def __exit__(self, *exc):
-        self._catch.__exit__(*exc)
-        det, bench, algos, warn_only = self._prev
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
-        torch.use_deterministic_algorithms(algos, warn_only=warn_only)
-        return False
-
-
 def _family_step(arch: str, images, masks) -> tuple[dict, list[str]]:
     """One family's make_train_step (kernels=None) at [4,640,959] in fp32 and
     bf16: loss finite, the repeat check, ms per step (CUDA events, median of
@@ -2345,7 +2272,7 @@ def _family_step(arch: str, images, masks) -> tuple[dict, list[str]]:
             # modes says why (torch names each op without a deterministic form).
             repeat = _repeat_errors(host[0], host[1])
             tol = {k: STEP_TOL[dt]["grad_norm" if k == "grads" else k] for k in repeat}
-            with _Deterministic() as det:
+            with Deterministic() as det:
                 a, b = (_step_leaves(step(params, state, opt, images, masks, 1e-5))
                         for _ in range(2))
             bitwise_det = all(torch.equal(v, b[k]) for k, v in a.items())
@@ -2591,6 +2518,199 @@ def phase_families(workdir: Path, train_data: Path) -> dict:
     return numbers
 
 
+# Phase 10: the quality gate of the JAX package's arch preset for the U-Net
+# (320x480, batch 8, 280 steps, bf16, the corpus on the device; floors
+# ARCH_FLOORS["unet"]), run once on library convs and once on the train
+# kernels, then the observability flags of the train CLI on phase 6's
+# files: 2 steps and 1 validation (8 train images at batch 4, 2 held out),
+# the same run without the flags beside it.
+QUALITY_KERNELS = (None, "cuda")
+OBS_ARGS = ("-s", "0.5", "-b", "4", "--amp", "--epochs", "1", "--validation", "20",
+            "--val-per-epoch", "1", "--kernels", "cuda")
+OBS_STEPS = 2
+# The profile groups (tools/profile_step.py) of the three bf16 train kernels.
+TRAIN_KERNEL_GROUPS = {
+    "conv3x3_fwd": "tc_conv_kernel (conv3x3_fwd, tensor cores)",
+    "conv3x3_dx": "tc_conv_kernel<DzLoad> (conv3x3_dx, tensor cores)",
+    "conv3x3_dw": "tc_dw_kernel (conv3x3_dw, tensor cores)",
+}
+# Phase 10's share of the run's wall time.
+QUALITY_BUDGET_S = 120.0
+
+
+class _StubWandb:
+    """A ``wandb`` module in ``sys.modules`` that records every ``log`` call
+    (histograms as their sizes); restores the previous entry on exit."""
+
+    def __enter__(self):
+        import types
+
+        self.logs: list[dict] = []
+        mod = types.ModuleType("wandb")
+
+        class Experiment:
+            config = types.SimpleNamespace(update=lambda *a, **k: None)
+
+            def log(_, d):
+                self.logs.append(d)
+
+        mod.init = lambda **k: Experiment()
+        mod.Histogram = lambda v: ("hist", int(np.asarray(v).size))
+        mod.Image = lambda v: ("img", np.asarray(v).shape)
+        self._prev = sys.modules.get("wandb")
+        sys.modules["wandb"] = mod
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = self._prev
+        return False
+
+
+def phase_quality(workdir: Path, train_dir: Path) -> dict:
+    """Phase 10: ``train_demo.run(preset="arch", arch="unet")`` with
+    ``kernels=None`` and ``"cuda"``, each held to both frozen floors;
+    ``train_cli --wandb --profile DIR --debug-nans`` with a stub ``wandb``
+    against the same run without the flags (``train_dir``: phase 6's data
+    and initial checkpoint); a NaN-poisoned batch under ``DebugNans``.
+    Returns its numbers."""
+    from tpu_unet_torch import train_cli
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.tools import train_demo
+    from tpu_unet_torch.tools.profile_step import parse_trace
+    from tpu_unet_torch.train import make_train_step
+    from tpu_unet_torch.train_logging import _HIST_CAP
+    from tpu_unet_torch.utils.debug_nans import DebugNans
+
+    failures: list[str] = []
+    numbers: dict = {"demo": {}}
+
+    # (a) the quality gate, on library convs and on the train kernels.
+    floors = train_demo.ARCH_FLOORS["unet"]
+    for kernels in QUALITY_KERNELS:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = train_demo.run(preset="arch", arch="unet", kernels=kernels, data_dir=workdir / "demo")
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        numbers["demo"][str(kernels)] = {**r, "run_s": wall, "launches": launches}
+        log(f"train_demo arch unet kernels={kernels}: val Dice {r['final_val_dice']} "
+            f"(floor {r['dice_floor']}), held-out {r['heldout_dice']} (floor "
+            f"{r['heldout_floor']}), TTA {r['heldout_dice_tta']}, hflip TTA "
+            f"{r['heldout_dice_tta_hflip']}, loss {r['first_loss']} -> {r['last_loss']} over "
+            f"{r['steps']} steps, train {r['train_wall_s']} s, run {wall:.1f} s; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        if not (r["passed"] and (r["dice_floor"], r["heldout_floor"]) == floors
+                and r["final_val_dice"] >= floors[0] and r["heldout_dice"] >= floors[1]):
+            failures.append(f"kernels={kernels}: the arch/unet gate failed: {r}")
+        for name, count in launches.items():
+            want = expected_launches(name, kernels, True, r["steps"])
+            if count != want:
+                failures.append(f"train_demo kernels={kernels}: {name} launched {count} times, "
+                                f"expected {want}")
+    d0, d1 = (numbers["demo"][str(k)] for k in QUALITY_KERNELS)
+    gap = {"val": d1["final_val_dice"] - d0["final_val_dice"],
+           "heldout": d1["heldout_dice"] - d0["heldout_dice"]}
+    numbers["demo_gap"] = gap
+    log(f"train_demo Dice, kernels=cuda minus kernels=None: val {gap['val']:+.4f}, held-out "
+        f"{gap['heldout']:+.4f}")
+
+    # (b) the observability flags on phase 6's files, beside the same run
+    # without them; cuDNN deterministic so the two can be compared bitwise.
+    common = [*OBS_ARGS, "--data-dir", str(train_dir / "data"), "--load",
+              str(train_dir / "init.npz")]
+    trace_dir = workdir / "trace"
+    modes: list = []
+
+    def recording_mode():
+        modes.append(DebugNans())
+        return modes[-1]
+
+    runs = {}
+    with Deterministic():
+        for tag, flags in (("flags", ["--wandb", "--profile", str(trace_dir), "--debug-nans"]),
+                           ("plain", [])):
+            with _StubWandb() as stub:
+                train_cli.DebugNans = recording_mode
+                try:
+                    history, launches, stats = _cli_run(
+                        common + ["--checkpoint-dir", str(workdir / f"ck_{tag}")] + flags,
+                        f"observability {tag}")
+                finally:
+                    train_cli.DebugNans = DebugNans
+            runs[tag] = (history, launches, stats, stub.logs)
+    history, launches, stats, logs = runs["flags"]
+    step_logs = [d for d in logs if "train loss" in d]
+    val_logs = [d for d in logs if "validation Dice" in d]
+    hists = {k: v[1] for d in val_logs for k, v in d.items()
+             if isinstance(v, tuple) and v[0] == "hist"}
+    w_keys = {k.split("/", 1)[1] for k in hists if k.startswith("Weights/")}
+    g_keys = {k.split("/", 1)[1] for k in hists if k.startswith("Gradients/")}
+    n_w, n_g = len(w_keys), len(g_keys)
+    checked = modes[0].checked if modes else {}
+    backward_ops = sorted(k for k in checked if "backward" in k)
+    trace = parse_trace(trace_dir)
+    in_trace = {name: sum(ms for g, ms in trace["groups_ms"].items() if g == group)
+                for name, group in TRAIN_KERNEL_GROUPS.items()}
+    same = runs["plain"][0]["train_loss"] == history["train_loss"]
+    numbers["observability"] = {
+        "wall_s": {t: r[2]["wall_s"] for t, r in runs.items()}, "step_logs": len(step_logs),
+        "val_logs": len(val_logs), "weights_hists": n_w, "gradients_hists": n_g,
+        "largest_hist": max(hists.values(), default=0), "ops_checked": sum(checked.values()),
+        "backward_ops_checked": len(backward_ops), "trace_ms": in_trace,
+        "losses_equal": same, "launches": launches}
+    log(f"observability: {len(step_logs)} step logs, {len(val_logs)} validation logs with "
+        f"{n_w} Weights/ and {n_g} Gradients/ histograms, largest {numbers['observability']['largest_hist']} "
+        f"elements (cap 2 x {_HIST_CAP}); --debug-nans checked {sum(checked.values())} ops, "
+        f"{len(backward_ops)} backward kinds ({', '.join(backward_ops[:4])}); trace "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in in_trace.items())
+        + f"; losses {history['train_loss']} vs without the flags "
+        f"{runs['plain'][0]['train_loss']}: equal={same}; wall {stats['wall_s']:.2f} vs "
+        f"{runs['plain'][2]['wall_s']:.2f} s")
+    if not (len(step_logs) == OBS_STEPS and len(val_logs) == 1 and w_keys and g_keys == w_keys
+            and max(hists.values()) <= 2 * _HIST_CAP):
+        failures.append(f"W&B logs: {len(step_logs)} step, {len(val_logs)} validation, "
+                        f"{n_w}/{n_g} histograms")
+    if not all(ms > 0 for ms in in_trace.values()):
+        failures.append(f"the --profile trace lacks a train kernel: {in_trace}")
+    if not (checked and backward_ops):
+        failures.append(f"--debug-nans checked no op of the backward pass: {sorted(checked)[:8]}")
+    if not same:
+        failures.append("the losses with --wandb --profile --debug-nans differ from the run's "
+                        "without them")
+    for name, count in launches.items():
+        if count != expected_launches(name, "cuda", True, OBS_STEPS):
+            failures.append(f"observability run: {name} launched {count} times")
+
+    # (c) a NaN-poisoned batch through the kernel step under DebugNans: it
+    # must raise, in bf16 (NaN in the image) and in fp32, where the image
+    # goes into conv3x3_fwd's kernel without an aten op before it.
+    config = UNetConfig(**TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+    imgs, msks = synth_batch(np.random.default_rng(3), 2, 320, 480)
+    imgs[1, 100, 200, 1] = np.nan
+    images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+    numbers["nan"] = {}
+    for amp, dt in ((True, "bf16"), (False, "fp32")):
+        step = make_train_step(config, amp=amp, kernels="cuda")
+        try:
+            with DebugNans():
+                step(params, state, rmsprop_init(params), images, masks, 1e-4)
+            failures.append(f"{dt}: a NaN-poisoned batch raised nothing under DebugNans")
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+        numbers["nan"][dt] = msg
+        log(f"--debug-nans, NaN-poisoned batch, {dt} kernels=cuda: FloatingPointError: {msg}")
+    if failures:
+        raise SystemExit(f"chip_smoke: quality and observability checks failed: {failures}")
+    return numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -2674,6 +2794,14 @@ def main(argv=None) -> int:
         log(f"families numbers: {json.dumps(families)}")
         torch.cuda.empty_cache()
         phase_done("9 (families)", t0)
+        # Phase 10: training quality and observability, on phase 6's files.
+        t0 = time.perf_counter()
+        quality = phase_quality(workdir / "quality", workdir / "train")
+        log(f"quality numbers: {json.dumps(quality)}")
+        torch.cuda.empty_cache()
+        phase_done("10 (training quality and observability)", t0)
+        if time.perf_counter() - t0 > QUALITY_BUDGET_S:
+            log(f"phase 10 took over its {QUALITY_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

@@ -328,14 +328,17 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 @pytest.mark.parametrize("flag", [
     ["--data-parallel"], ["--multihost"], ["--coordinator", "h:1"], ["--num-processes", "2"],
     ["--process-id", "0"], ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
-    ["--pipeline-parallel", "2"], ["--zero"], ["--wandb"], ["--profile", "p"],
-    ["--debug-nans"], ["--arch", "unetpp", "--kernels", "cuda"],
+    ["--pipeline-parallel", "2"], ["--zero"], ["--wandb", "--data-parallel"],
+    ["--profile", "p", "--zero"], ["--debug-nans", "--multihost"],
+    ["--arch", "unetpp", "--kernels", "cuda"],
     ["--arch", "unetpp", "--deep-supervision", "--load", "x.pth"],
     ["--arch", "r2u", "--kernels", "cuda"],
 ])
 def test_train_cli_refuses_unported_flags(flag):
     # The families train; what the JAX package refuses for them stays
-    # refused: the kernel route (kernels="pallas" there) and a .pth.
+    # refused: the kernel route (kernels="pallas" there) and a .pth. The
+    # observability flags are ported: beside a refused flag the refusal
+    # stands.
     match = ("kernels='cuda' is not implemented for arch=" if "--kernels" in flag
              else r"\.pth import is reference-layout" if "--load" in flag else "is not ported")
     with pytest.raises(SystemExit, match=match):

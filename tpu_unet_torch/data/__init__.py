@@ -13,9 +13,22 @@ from tpu_unet_torch.data.loading import (
     unique_mask_values,
 )
 from tpu_unet_torch.data.prefetch import DataLoader, collate, prefetch_to_device
-from tpu_unet_torch.data.synthetic import make_synthetic_carvana, synth_batch, synth_sample
+from tpu_unet_torch.data.synthetic import (
+    HELDOUT_GEN,
+    OVERHEAD_GEN,
+    OVERHEAD_HELDOUT_GEN,
+    TRAIN_GEN,
+    make_synthetic_carvana,
+    make_synthetic_voc,
+    synth_batch,
+    synth_sample,
+)
 
 __all__ = [
+    "HELDOUT_GEN",
+    "OVERHEAD_GEN",
+    "OVERHEAD_HELDOUT_GEN",
+    "TRAIN_GEN",
     "BasicDataset",
     "CarvanaDataset",
     "DataLoader",
@@ -24,6 +37,7 @@ __all__ = [
     "collate",
     "load_image",
     "make_synthetic_carvana",
+    "make_synthetic_voc",
     "prefetch_to_device",
     "preprocess",
     "preprocess_mask",

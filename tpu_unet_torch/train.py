@@ -48,7 +48,7 @@ from tpu_unet_torch.models.unet import (
 )
 from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
 from tpu_unet_torch.train_checkpoints import CheckpointPolicy
-from tpu_unet_torch.train_logging import LossDrain
+from tpu_unet_torch.train_logging import LossDrain, WandbValidationPanel, init_wandb
 from tpu_unet_torch.train_signals import StopSignal
 
 logger = logging.getLogger(__name__)
@@ -229,11 +229,11 @@ def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, o
 
 
 def _validation_pass(*, params, bn_state, opt_state, val_loader, config, amp, scheduler,
-                     history, ema, early_stopping, es_best, es_bad, policy, epoch,
-                     global_step):
+                     history, ema, early_stopping, es_best, es_bad, policy, panel, epoch,
+                     global_step, images, masks, hist_batch):
     """One validation: evaluate, step the schedule, early-stopping
-    bookkeeping, the EMA weights' own validation, the best checkpoint.
-    Returns (es_best, es_bad, early_stopped)."""
+    bookkeeping, the EMA weights' own validation, the best checkpoint, the
+    W&B panel. Returns (es_best, es_bad, early_stopped)."""
     val_dice, val_iou = evaluate(params, bn_state, val_loader, config, amp)
     lr_now = scheduler.step(val_dice)
     history["val_dice"].append(val_dice)
@@ -255,6 +255,9 @@ def _validation_pass(*, params, bn_state, opt_state, val_loader, config, amp, sc
         logger.info("Validation Dice (EMA): %f", ema_dice)
     policy.maybe_save_best(val_dice, epoch=epoch, step=global_step, lr=scheduler.lr,
                            params=params, bn_state=bn_state, opt_state=opt_state)
+    panel.log(lr_now=lr_now, val_dice=val_dice, val_iou=val_iou, step=global_step, epoch=epoch,
+              params=params, bn_state=bn_state, images=images, masks=masks,
+              hist_batch=hist_batch)
     return es_best, es_bad, early_stopped
 
 
@@ -265,7 +268,7 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 momentum: float | None = None, gradient_clipping: float = 1.0,
                 optimizer: str = "rmsprop", nesterov: bool = False, dice_weight: float = 1.0,
                 lr_scheduler: str = "plateau", lr_step_size: int = 10, lr_gamma: float = 0.1,
-                lr_min: float = 0.0, remat: bool = False,
+                lr_min: float = 0.0, remat: bool = False, use_wandb: bool = False,
                 checkpoint_dir: Path = dir_checkpoint, seed: int = 0,
                 save_optimizer: bool = False, resume: str | None = None,
                 kernels: str | None = None, accum_steps: int = 1,
@@ -274,7 +277,9 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 device_dataset: bool = False, augment=None):
     """The reference's train loop on the port's step, with the JAX
     ``train_model``'s arguments but those of what the port does not have
-    yet (data parallelism, W&B). Trains on the device the params lie on.
+    yet (data parallelism). Trains on the device the params lie on.
+    ``use_wandb`` logs to W&B (``train_logging.py``): each step's loss and,
+    at each validation, the scalars, a sample triplet and histograms.
     ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
     ``device_dataset`` stages the preprocessed corpus on the device (the two
     exclude each other); ``augment`` (an ``AugmentConfig``) augments each
@@ -289,6 +294,11 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     train_loader, val_loader = _build_loaders(
         dataset, train_idx, val_idx, batch_size=batch_size, seed=seed, device=device,
         device_dataset=device_dataset, device_preprocess=device_preprocess)
+    experiment = init_wandb(
+        use_wandb,
+        dict(epochs=epochs, batch_size=batch_size, learning_rate=learning_rate,
+             val_percent=val_percent, amp=amp, optimizer=optimizer, lr_scheduler=lr_scheduler,
+             dice_weight=dice_weight, arch=config.arch))
     logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
                 "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
                 "device_preprocess=%s device_dataset=%s augment=%s", config.arch, epochs,
@@ -311,6 +321,8 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
         config, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
         grad_clip=gradient_clipping, kernels=kernels, accum_steps=accum_steps,
         optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight)
+    panel = WandbValidationPanel(experiment, config=config, amp=amp, remat=remat,
+                                 dice_weight=dice_weight, accum_steps=accum_steps)
     ema = train_ema.maybe_create(ema_decay, params,
                                  total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
     if ema is not None and resume:
@@ -320,6 +332,7 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     if ema is not None:
         history["val_dice_ema"] = []
     global_step = 0
+    hist_batch = None  # the last full-size batch, for the W&B gradient histograms
     # The reference validates 5 times an epoch: division_step = n_train // (5·B).
     division_step = n_train // (max(1, val_per_epoch) * batch_size)
     policy = CheckpointPolicy(
@@ -332,7 +345,7 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
         es_best = float(resume_es.get("best", es_best))
         es_bad = int(resume_es.get("bad", es_bad))
     last_epoch = start_epoch - 1
-    drain = LossDrain(history)
+    drain = LossDrain(history, experiment)
 
     with StopSignal() as stop:
         for epoch in range(start_epoch, epochs + 1):
@@ -352,15 +365,20 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 if ema is not None:
                     ema.update(params)
                 global_step += 1
-                drain.append(loss)
+                if experiment is not None and images.shape[0] == batch_size:
+                    # The histograms sample the last full batch, as the JAX
+                    # package's do: never a trailing partial one.
+                    hist_batch = (images, masks)
+                drain.append(loss, global_step, epoch)
                 if division_step > 0 and global_step % division_step == 0:
                     drain.drain()
                     es_best, es_bad, stopped = _validation_pass(
                         params=params, bn_state=bn_state, opt_state=opt_state,
                         val_loader=val_loader, config=config, amp=amp, scheduler=scheduler,
                         history=history, ema=ema, early_stopping=early_stopping,
-                        es_best=es_best, es_bad=es_bad, policy=policy, epoch=epoch,
-                        global_step=global_step)
+                        es_best=es_best, es_bad=es_bad, policy=policy, panel=panel,
+                        epoch=epoch, global_step=global_step, images=images, masks=masks,
+                        hist_batch=hist_batch)
                     early_stopped = early_stopped or stopped
                 if early_stopped:
                     break

@@ -21,16 +21,27 @@ otherwise; with no GPU it raises. On an out-of-memory error the run starts
 again once with ``remat`` (activation recomputation) from the initial
 weights, as the reference falls back to checkpointing.
 
+``--wandb`` logs to W&B (offline by default; without the ``wandb`` module
+the run warns and trains on): each step's loss and, at each validation,
+the scalars, a sample triplet and weight and gradient histograms.
+``--profile DIR`` traces the whole run, the out-of-memory retry included,
+with ``torch.profiler`` (CPU and, on a GPU, CUDA activities) and writes a
+Chrome trace into ``DIR`` (``python -m tpu_unet_torch.tools.profile_step
+--parse DIR`` sums it by kernel). ``--debug-nans`` raises
+``FloatingPointError`` at the first op that meets a NaN
+(``utils/debug_nans.py``), as JAX's ``jax_debug_nans``.
+
 The JAX flags this port does not run yet are refused with an error, never
-ignored: data parallelism and multi-host, ZeRO, W&B, the profiler and
-``--debug-nans``. ``--load`` takes a ``.npz`` checkpoint or, for
-``--arch unet``, the reference's torch ``.pth`` state dict.
+ignored: data parallelism and multi-host, and ZeRO. ``--load`` takes a
+``.npz`` checkpoint or, for ``--arch unet``, the reference's torch ``.pth``
+state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 from pathlib import Path
@@ -41,6 +52,7 @@ import torch
 import tpu_unet_torch.train as train_mod
 from tpu_unet_torch.models.unet import ARCHS, check_kernels
 from tpu_unet_torch.predict import exit_on_refusal
+from tpu_unet_torch.utils.debug_nans import DebugNans
 
 logger = logging.getLogger(__name__)
 
@@ -143,11 +155,16 @@ def get_args(argv=None):
     p.add_argument("--resume", type=str, default=None,
                    help="Full-state resume from a checkpoint (params, BN, optimizer, epoch)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--wandb", action="store_true", default=False,
+                   help="Enable W&B logging (offline by default)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="Write a torch.profiler Chrome trace of the whole run to this directory")
+    p.add_argument("--debug-nans", action="store_true", default=False,
+                   help="Raise FloatingPointError at the first op that meets a NaN")
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--data-parallel", "--multihost", "--zero", "--wandb", "--debug-nans"):
+    for flag in ("--data-parallel", "--multihost", "--zero"):
         p.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
-    for flag in ("--coordinator", "--profile"):
-        p.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", type=str, default=None, help=argparse.SUPPRESS)
     for flag in ("--num-processes", "--process-id"):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     for flag in ("--spatial-parallel", "--tensor-parallel", "--pipeline-parallel"):
@@ -165,13 +182,23 @@ def refuse_unported(args: argparse.Namespace) -> None:
         "--spatial-parallel": args.spatial_parallel > 1,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-parallel": args.pipeline_parallel > 1, "--zero": args.zero,
-        "--wandb": args.wandb,
-        "--profile": args.profile is not None, "--debug-nans": args.debug_nans,
     }
     for flag, given in asked.items():
         if given:
             raise SystemExit(f"tpu_unet_torch.train_cli: {flag} is not ported to tpu_unet_torch "
                              "yet; use the JAX package (tpu_unet) for it")
+
+
+def _profiler(trace_dir: str):
+    """``torch.profiler`` over CPU ops and, with a GPU, CUDA kernels; on
+    exit it writes a Chrome trace (``<host>_<pid>.<time>.pt.trace.json``)
+    into ``trace_dir``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def _build_augment(args: argparse.Namespace):
@@ -245,16 +272,24 @@ def main(argv=None):
             ema_decay=args.ema_decay, val_per_epoch=args.val_per_epoch,
             early_stopping=args.early_stopping, keep_checkpoints=args.keep_checkpoints,
             save_best=args.save_best, device_preprocess=args.device_preprocess,
-            device_dataset=args.device_dataset, augment=_build_augment(args))
+            device_dataset=args.device_dataset, augment=_build_augment(args),
+            use_wandb=args.wandb)
 
-    try:
-        result = run(remat=False)
-    except torch.cuda.OutOfMemoryError:
-        logger.error("Detected OOM! Enabling activation checkpointing (remat) and retrying. "
-                     "Consider reducing --batch-size or --scale.")
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        result = run(remat=True)
+    with contextlib.ExitStack() as stack:
+        if args.profile:
+            stack.enter_context(_profiler(args.profile))
+        if args.debug_nans:
+            stack.enter_context(DebugNans())
+        try:
+            result = run(remat=False)
+        except torch.cuda.OutOfMemoryError:
+            logger.error("Detected OOM! Enabling activation checkpointing (remat) and retrying. "
+                         "Consider reducing --batch-size or --scale.")
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            result = run(remat=True)
+    if args.profile:
+        logger.info("Profiler trace written to %s", args.profile)
     if args.history_out:
         Path(args.history_out).write_text(json.dumps(result[2]))
         logger.info("Training history written to %s", args.history_out)
