@@ -146,6 +146,26 @@ Phases, each of which exits non-zero on failure, each with its time:
    NaN-poisoned batch through the ``kernels="cuda"`` step under
    ``DebugNans``, in bf16 and fp32, must raise ``FloatingPointError``.
 
+11. Data parallelism (``tpu_unet_torch/parallel/mesh.py``) at full width,
+   on phase 6's files and phase 5's parity batch (959x640, global batch 4),
+   in at most ``DP_BUDGET_S``: (a) ``torchrun --standalone --nproc-per-node
+   1 -m tpu_unet_torch.train_cli --data-parallel --deterministic --kernels
+   cuda --amp`` (NCCL, world size 1) for 2 steps and 1 validation, its
+   losses, validation and checkpoint bitwise those of the same CLI without
+   ``--data-parallel`` in this process, its ``--profile`` trace naming the
+   three train kernels; (b) two ranks sharing the card over gloo (NCCL
+   takes one rank per device), each running the data-parallel step on its
+   2 rows, in fp32 and bf16 on both kernel routes, against the
+   single-process full-batch step (loss, grad norm and BN running stats
+   within ``STEP_TOL``; each gradient's distance from the float64 step
+   within ``GRAD_RATIO`` times the larger of the two routes' full-batch
+   distances, plus the floor), the ranks' params
+   equal bit for bit after two steps, each rank launching the train kernels
+   as often as a plain step does; the data-parallel step's time beside the
+   full-batch step's (two ranks on one card share its SMs: no speed claim);
+   (c) ``evaluate`` split over the two ranks against the single-process
+   ``evaluate`` on (a)'s checkpoint, Dice and IoU within ``DP_EVAL_TOL``.
+
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
 """
@@ -154,14 +174,19 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import io
 import json
+import multiprocessing as mp
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
 from http.client import HTTPConnection
 from pathlib import Path
 
@@ -2710,6 +2735,301 @@ def phase_quality(workdir: Path, train_dir: Path) -> dict:
         raise SystemExit(f"chip_smoke: quality and observability checks failed: {failures}")
     return numbers
 
+# Phase 11: data parallelism at full width. (a) the train CLI under
+# torchrun at world size 1 (NCCL) against the same CLI without
+# --data-parallel, both deterministic, on phase 6's files; (b) and (c) two
+# ranks on the one card over gloo: the data-parallel step on phase 5's
+# parity batch, and the split evaluation on (a)'s checkpoint.
+DP_RANKS = 2
+DP_ARGS = ("-s", "0.5", "-b", "4", "--amp", "--epochs", "1", "--validation", "20",
+           "--val-per-epoch", "1", "--kernels", "cuda", "--save-optimizer", "--deterministic")
+DP_STEPS = 2
+# Phase 6's first 9 images at batch 4: batches of 4, 4 (split over the two
+# ranks) and 1 (whole on each).
+DP_EVAL_IMAGES = 9
+DP_EVAL_TOL = 1e-6
+DP_TIMING_REPS = 3
+DP_BUDGET_S = 120.0
+
+
+def _torchrun(args: list[str], log_path: Path, timeout: float) -> int:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1
+    <args>`` from the repository root, its output in ``log_path``; on
+    timeout its whole session (the launcher and its worker) is killed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc-per-node", "1", *args], cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            return proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise SystemExit(f"chip_smoke: torchrun did not finish in {timeout:.0f} s "
+                             f"(log {log_path})") from None
+
+
+def _same_files(a: Path, b: Path) -> list[str]:
+    """The arrays (the metadata included) of two .npz files that differ."""
+    with np.load(a) as za, np.load(b) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return ["<keys>"]
+        return [k for k in za.files if not np.array_equal(za[k], zb[k])]
+
+
+def _dp_cli(workdir: Path, train_dir: Path, failures: list) -> dict:
+    """11a: the train CLI under torchrun (world size 1) against the same
+    CLI without --data-parallel, both deterministic."""
+    from tpu_unet_torch.tools.profile_step import parse_trace
+
+    common = [*DP_ARGS, "--data-dir", str(train_dir / "data"), "--load",
+              str(train_dir / "init.npz")]
+    trace_dir = workdir / "trace"
+    t0 = time.perf_counter()
+    rc = _torchrun(["-m", "tpu_unet_torch.train_cli", *common, "--data-parallel", "--profile",
+                    str(trace_dir), "--checkpoint-dir", str(workdir / "ck_dp"),
+                    "--history-out", str(workdir / "history_dp.json")],
+                   workdir / "torchrun.log", 300)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tail = (workdir / "torchrun.log").read_text().splitlines()[-30:]
+        raise SystemExit("chip_smoke: torchrun train_cli --data-parallel exited "
+                         f"{rc}:\n" + "\n".join(tail))
+    dp_hist = json.loads((workdir / "history_dp.json").read_text())
+    history, launches, _ = _cli_run(common + ["--checkpoint-dir", str(workdir / "ck_plain")],
+                                    "--deterministic without --data-parallel (11a)")
+    for name, count in launches.items():
+        if count != expected_launches(name, "cuda", True, DP_STEPS):
+            failures.append(f"11a plain run: {name} launched {count} times")
+    differ = _same_files(workdir / "ck_dp" / "checkpoint_epoch1.npz",
+                         workdir / "ck_plain" / "checkpoint_epoch1.npz")
+    trace = parse_trace(trace_dir)
+    in_trace = {name: trace["groups_ms"].get(group, 0.0)
+                for name, group in TRAIN_KERNEL_GROUPS.items()}
+    same = dp_hist == history
+    log(f"11a torchrun --nproc-per-node 1 train_cli --data-parallel (NCCL): {wall:.1f} s wall "
+        f"incl. start; losses {dp_hist['train_loss']} val Dice {dp_hist['val_dice']}; without "
+        f"--data-parallel {history['train_loss']} {history['val_dice']}: history bitwise "
+        f"equal={same}; checkpoint arrays differing: {differ or 'none'}; trace "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in in_trace.items()))
+    if not (same and len(history["train_loss"]) == DP_STEPS and len(history["val_dice"]) == 1):
+        failures.append(f"11a: the data-parallel history {dp_hist} is not the plain one "
+                        f"{history}")
+    if differ:
+        failures.append(f"11a: checkpoints differ in {differ[:8]}")
+    if not all(ms > 0 for ms in in_trace.values()):
+        failures.append(f"11a: the --profile trace lacks a train kernel: {in_trace}")
+    return {"wall_s": wall, "history_equal": same, "checkpoint_equal": not differ,
+            "trace_ms": in_trace}
+
+
+def _host_step_ms(step, args, reps: int) -> list[float]:
+    """Host-clock ms of ``reps`` calls of ``step(*args)``, each ending in a
+    device synchronise, after one warm-up call."""
+    step(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _dp_rank(rank: int, rdzv: str, workdir: str, ckpt: str, data_dir: str) -> None:
+    """11b and 11c on one of ``DP_RANKS`` gloo ranks sharing cuda:0. Writes
+    ``dp_rank<r>.json`` into ``workdir``: its numbers and failures."""
+    from datetime import timedelta
+
+    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.data import CarvanaDataset, DataLoader, synth_batch
+    from tpu_unet_torch.evaluate import evaluate
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.models.unet import tree_leaves, tree_map
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.parallel.mesh import broadcast_tree, init_data_parallel
+    from tpu_unet_torch.train import make_train_step
+
+    out: dict = {"rank": rank, "failures": [], "steps": {}, "timing": {}}
+    failures = out["failures"]
+    full_fp32()
+    dp = init_data_parallel(backend="gloo", device="cuda:0", init_method=f"file://{rdzv}",
+                            rank=rank, world_size=DP_RANKS, timeout=timedelta(seconds=600))
+    try:
+        config = UNetConfig(**TRAIN_CONFIG)
+        params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+        params, state = broadcast_tree(params, dp), broadcast_tree(state, dp)
+        imgs, msks = synth_batch(np.random.default_rng(1), *PARITY_BATCH)
+        images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+        rows = (dp.rows(images), dp.rows(masks))
+        g64 = None
+        if rank == 0:  # the float64 full-batch step, the gradients' reference
+            p64 = tree_map(lambda t: t.double(), params)
+            ref = make_train_step(config, return_grads=True)(
+                p64, state, rmsprop_init(p64), images.double(), masks, 1e-4)
+            g64 = _leaves(ref[5])
+            del p64, ref
+            torch.cuda.empty_cache()
+        dp.barrier()
+        for amp, dt in ((False, "fp32"), (True, "bf16")):
+            tol = STEP_TOL[dt]
+            # The single-process full-batch steps of both routes: the
+            # reference of each, and each gradient's distance from float64
+            # on either route, the rounding noise that tensor carries.
+            refs, e_full = {}, {}
+            if rank == 0:
+                for kernels in ("cuda", None):
+                    ref = make_train_step(config, amp=amp, kernels=kernels, return_grads=True)(
+                        params, state, rmsprop_init(params), images, masks, 1e-4)
+                    gr = _leaves(ref[5])
+                    e_full[kernels] = {k: _rel_l2(gr[k], g64[k]) for k in g64}
+                    refs[kernels] = (ref[3].item(), ref[4].item(), _leaves(ref[1]))
+                    del ref, gr
+                torch.cuda.empty_cache()
+            dp.barrier()
+            for kernels in ("cuda", None):
+                tag = f"{dt} kernels={kernels}"
+                step = make_train_step(config, mesh=dp, amp=amp, kernels=kernels,
+                                       return_grads=True)
+                K.reset_launch_counts()
+                o1 = step(params, state, rmsprop_init(params), *rows, 1e-4)
+                o2 = step(*o1[:3], *rows, 1e-4)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                digest = hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                                 for t in tree_leaves(o2[0]))).hexdigest()
+                rec = {"launches": counts, "params_sha256": digest, "loss": o1[3].item(),
+                       "loss2": o2[3].item()}
+                for name, count in counts.items():
+                    if count != expected_launches(name, kernels, amp, 2):
+                        failures.append(f"11b {tag}: {name} launched {count} times in 2 "
+                                        f"steps on rank {rank}")
+                if rank == 0:
+                    loss, gnorm, br = refs[kernels]
+                    bd = _leaves(o1[1])
+                    errs = {"loss": abs(o1[3].item() - loss) / abs(loss),
+                            "grad_norm": abs(o1[4].item() - gnorm) / abs(gnorm),
+                            "bn_state": max(_rel_l2(bd[k], br[k]) for k in br)}
+                    gd = _leaves(o1[5])
+                    e_dp = {k: _rel_l2(gd[k], g64[k]) for k in g64}
+                    bound = {k: GRAD_RATIO * max(e_full["cuda"][k], e_full[None][k])
+                             + tol["grad_floor"] for k in g64}
+                    over = [k for k in g64 if not e_dp[k] <= bound[k]]
+                    ratio = {k: e_dp[k] / bound[k] for k in g64}
+                    rec.update(errs, grads_dp=max(e_dp.values()),
+                               grads_full=max(e_full[kernels].values()), grads_over=over)
+                    log(f"11b {DP_RANKS} gloo ranks on cuda:0, {tag}, 2 of {PARITY_BATCH[0]} "
+                        f"rows each, vs the full-batch step: loss rel err {errs['loss']:.3e} "
+                        f"(tol {tol['loss']:g}), grad norm {errs['grad_norm']:.3e} (tol "
+                        f"{tol['grad_norm']:g}), BN running stats rel L2 max "
+                        f"{errs['bn_state']:.3e} (tol {tol['bn_state']:g}); gradients rel L2 to "
+                        f"float64 max {max(e_dp.values()):.3e} ({_worst(e_dp)}) vs the "
+                        f"full-batch step's {max(e_full[kernels].values()):.3e}; per tensor "
+                        f"tol <= {GRAD_RATIO:g} x the larger of the two routes' full-batch "
+                        f"distance + {tol['grad_floor']:g}, {len(over)} over, nearest "
+                        f"{_worst(ratio)} of the bound; launches in 2 steps "
+                        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+                    failures += [f"11b {tag}: {k} error {e:.3e} > {tol[k]:g}"
+                                 for k, e in errs.items() if not e <= tol[k]]
+                    failures += [f"11b {tag} gradient {k}: {e_dp[k]:.3e} from float64, bound "
+                                 f"{bound[k]:.3e}" for k in over]
+                out["steps"][tag] = rec
+                del step, o1, o2
+                torch.cuda.empty_cache()
+        # The data-parallel step's time beside the full-batch step's (kernels="cuda").
+        for amp, dt in ((True, "bf16"), (False, "fp32")):
+            full = make_train_step(config, amp=amp, kernels="cuda")
+            step = make_train_step(config, amp=amp, kernels="cuda", mesh=dp)
+            trees = (params, state, rmsprop_init(params))
+            full_ms = (_host_step_ms(full, (*trees, images, masks, 1e-4), DP_TIMING_REPS)
+                       if rank == 0 else None)
+            dp.barrier()
+            dp_ms = _host_step_ms(step, (*trees, *rows, 1e-4), DP_TIMING_REPS)
+            out["timing"][dt] = {"dp_ms": dp_ms, "full_ms": full_ms}
+            del full, step
+            torch.cuda.empty_cache()
+        # 11c: evaluate split over the ranks against the single-process one.
+        cp, cs, _, _ = load_checkpoint(ckpt, config, "cuda")
+        ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", 0.5)
+        loader = DataLoader(ds, 4, indices=range(DP_EVAL_IMAGES))
+        out["eval_split"] = evaluate(cp, cs, loader, config, amp=True, mesh=dp)
+        if rank == 0:
+            out["eval_whole"] = evaluate(cp, cs, loader, config, amp=True)
+    except Exception:
+        failures.append(f"rank {rank}: {traceback.format_exc()}")
+    finally:
+        (Path(workdir) / f"dp_rank{rank}.json").write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+
+
+def phase_data_parallel(workdir: Path, train_dir: Path, card: str) -> dict:
+    """Phase 11 (module docstring). Returns its numbers."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    failures: list = []
+    numbers = {"cli": _dp_cli(workdir, train_dir, failures)}
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    rdzv = workdir / "rdzv"
+    ckpt = workdir / "ck_dp" / "checkpoint_epoch1.npz"
+    procs = [ctx.Process(target=_dp_rank, args=(r, str(rdzv), str(workdir), str(ckpt),
+                                                str(train_dir / "data")))
+             for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            failures.append(f"11b: rank process {p.pid} still running after 300 s: killed")
+    log(f"11b/11c: {DP_RANKS} rank processes in {time.perf_counter() - t0:.1f} s, exit codes "
+        f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        path = workdir / f"dp_rank{r}.json"
+        if not path.exists():
+            failures.append(f"11b: rank {r} wrote no result")
+            continue
+        ranks.append(json.loads(path.read_text()))
+        failures += ranks[-1]["failures"]
+    if len(ranks) == DP_RANKS:
+        r0, r1 = ranks
+        for tag, rec in r0["steps"].items():
+            if rec["params_sha256"] != r1["steps"].get(tag, {}).get("params_sha256"):
+                failures.append(f"11b {tag}: the ranks' params differ after two steps")
+        log("11b ranks' params after two steps bitwise equal: "
+            + ", ".join(f"{t}={rec['params_sha256'] == r1['steps'].get(t, {}).get('params_sha256')}"
+                        for t, rec in r0["steps"].items()))
+    if len(ranks) == DP_RANKS and all("eval_split" in rk for rk in ranks):
+        r0, r1 = ranks
+        for dt, tm in r0["timing"].items():
+            dp_ms, full_ms = statistics.median(tm["dp_ms"]), statistics.median(tm["full_ms"])
+            log(f"11b step time {dt} kernels=cuda at {list(PARITY_BATCH)} ({card}): "
+                f"{DP_RANKS} ranks on one card, 2 rows each, {dp_ms:.2f} ms (median of "
+                f"{' '.join(f'{t:.2f}' for t in tm['dp_ms'])}), the full-batch step "
+                f"{full_ms:.2f} ms ({' '.join(f'{t:.2f}' for t in tm['full_ms'])}), ratio "
+                f"{dp_ms / full_ms:.3f} (host clock, synchronised; the ranks share the SMs: "
+                "not a speed claim)")
+            tm.update(dp_median_ms=dp_ms, full_median_ms=full_ms)
+        split, whole = r0["eval_split"], r0["eval_whole"]
+        err = max(abs(a - b) for a, b in zip(split, whole))
+        log(f"11c evaluate over {DP_RANKS} ranks (batches 4, 4 split, 1 whole) vs one process, "
+            f"bf16, {DP_EVAL_IMAGES} images: Dice/IoU {split} vs {whole}, max abs err "
+            f"{err:.3e} (tol {DP_EVAL_TOL:g}); rank 1 {r1['eval_split']}")
+        if not (err <= DP_EVAL_TOL and r1["eval_split"] == split):
+            failures.append(f"11c: split evaluation {split} (rank 1 {r1['eval_split']}) vs "
+                            f"{whole}")
+        numbers.update(steps=r0["steps"], timing=r0["timing"], eval_split=split,
+                       eval_whole=whole)
+    if failures:
+        raise SystemExit(f"chip_smoke: data parallelism checks failed: {failures}")
+    return numbers
+
 
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
@@ -2802,6 +3122,14 @@ def main(argv=None) -> int:
         phase_done("10 (training quality and observability)", t0)
         if time.perf_counter() - t0 > QUALITY_BUDGET_S:
             log(f"phase 10 took over its {QUALITY_BUDGET_S:.0f} s budget")
+        # Phase 11: data parallelism, on phase 6's files.
+        t0 = time.perf_counter()
+        dp_numbers = phase_data_parallel(workdir / "data_parallel", workdir / "train", card)
+        log(f"data parallelism numbers: {json.dumps(dp_numbers)}")
+        torch.cuda.empty_cache()
+        phase_done("11 (data parallelism)", t0)
+        if time.perf_counter() - t0 > DP_BUDGET_S:
+            log(f"phase 11 took over its {DP_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

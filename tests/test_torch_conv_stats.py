@@ -126,8 +126,10 @@ def test_double_conv_train_fused_matches_jax(rng, cin, cmid, cout, first):
 
 
 def test_double_conv_train_fused_refuses_axis_name():
+    # JAX's axis_name is the port's group (a ProcessGroup, tested in
+    # tests/test_torch_data_parallel.py): a name is refused.
     params, state = _block(np.random.default_rng(1), 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    with pytest.raises(TypeError, match="axis_name"):
         double_conv_train_fused(tree_from_numpy(params), tree_from_numpy(state),
                                 torch.zeros(1, 4, 4, 3), axis_name="data")
 

@@ -146,8 +146,11 @@ def test_resident_float_fallback_and_class_limit():
     np.testing.assert_array_equal(b["mask"].numpy(), masks[[2, 0]])
     with pytest.raises(ValueError, match="<256 classes"):
         DeviceResidentData(_Samples(imgs, masks + 254), device="cpu")
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        DeviceResidentData(_Samples(imgs, masks), device="cpu", data_sharding=object())
+    # Data parallelism: each rank gathers its contiguous rows of each batch.
+    rows = [b["mask"].numpy() for b in dd.batches([0, 1, 2], 2, drop_last=True, shard=(1, 2))]
+    assert len(rows) == 1 and np.array_equal(rows[0], masks[[1]])
+    with pytest.raises(ValueError, match="does not divide over 2"):
+        list(dd.batches([0, 1, 2], 3, shard=(0, 2)))
 
 
 def test_build_loaders_feeds_and_exclusion(carvana):

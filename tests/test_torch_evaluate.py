@@ -89,7 +89,8 @@ def test_evaluate_cli_matches_jax(tmp_path, capsys, per_class):
 
 
 def test_evaluate_cli_refuses_and_needs_a_gpu(tmp_path):
-    with pytest.raises(SystemExit, match="is not ported"):
+    # --data-parallel is ported; outside torchrun there is no rank to take.
+    with pytest.raises(SystemExit, match="launch under torchrun"):
         main(["-m", "x.npz", "--data-parallel", "--device", "cpu"])
     # The families evaluate (past the refusals to the missing file); a .pth
     # is the U-Net's layout only, as in the JAX package.

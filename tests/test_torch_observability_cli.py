@@ -99,7 +99,8 @@ def test_profile_wraps_the_oom_retry(cli, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel"], ["--multihost"], ["--coordinator", "h:1"], ["--num-processes", "2"],
+    ["--data-parallel", "--zero"], ["--multihost"], ["--coordinator", "h:1"],
+    ["--num-processes", "2"],
     ["--process-id", "0"], ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
     ["--pipeline-parallel", "2"], ["--zero"],
 ])

@@ -276,8 +276,9 @@ def test_train_step_accum_matches_jax():
 
 def test_make_train_step_refuses_what_is_not_ported():
     cfg = UNetConfig(3, 1, False, BASE)
-    for kwargs, err in [({"mesh": object()}, NotImplementedError),
-                        ({"opt_shardings": {}}, NotImplementedError),
+    # Data parallelism is ported (mesh=, tests/test_torch_data_parallel.py);
+    # ZeRO's optimizer shardings are not.
+    for kwargs, err in [({"opt_shardings": {}}, NotImplementedError),
                         ({"optimizer": "lbfgs"}, ValueError),
                         ({"nesterov": True}, ValueError),  # an SGD option, as in JAX
                         ({"vmem_limit_kib": 65536}, ValueError),
@@ -287,7 +288,8 @@ def test_make_train_step_refuses_what_is_not_ported():
             make_train_step(cfg, **kwargs)
     _, _, params, state = _model(False)
     x = torch.zeros(1, 8, 8, 3)
-    with pytest.raises(NotImplementedError):
+    # JAX's axis_name is the port's group (a ProcessGroup): a name is refused.
+    with pytest.raises(TypeError, match="axis_name"):
         unet_apply(tree_from_numpy(params), tree_from_numpy(state), x, config=cfg,
                    axis_name="data")
     # The families have no kernel route, as JAX's have no kernels="pallas".

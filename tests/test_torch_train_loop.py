@@ -326,9 +326,10 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel"], ["--multihost"], ["--coordinator", "h:1"], ["--num-processes", "2"],
-    ["--process-id", "0"], ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
-    ["--pipeline-parallel", "2"], ["--zero"], ["--wandb", "--data-parallel"],
+    ["--data-parallel", "--zero"], ["--multihost"], ["--coordinator", "h:1"],
+    ["--num-processes", "2"], ["--process-id", "0"], ["--spatial-parallel", "2"],
+    ["--tensor-parallel", "2"], ["--pipeline-parallel", "2"], ["--zero"],
+    ["--wandb", "--data-parallel", "--multihost"],
     ["--profile", "p", "--zero"], ["--debug-nans", "--multihost"],
     ["--arch", "unetpp", "--kernels", "cuda"],
     ["--arch", "unetpp", "--deep-supervision", "--load", "x.pth"],

@@ -170,8 +170,17 @@ def apply_augment(d: AugmentDraws, images: torch.Tensor, masks: torch.Tensor,
 
 
 def augment_batch(images: torch.Tensor, masks: torch.Tensor, *, config: AugmentConfig,
-                  seed: int, step: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The batch augmented with the draws of (seed, step), on its device."""
+                  seed: int, step: int, shard: tuple[int, int] | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batch augmented with the draws of (seed, step), on its device.
+    ``shard`` = (rank, world size): the batch is the rank's contiguous rows
+    of a global batch world size times as large (data parallelism), and
+    gets those rows' draws, as the global batch would."""
     n, h, w, _ = images.shape
-    draws = draw_augment(config, n, h, w, augment_generator(seed, step, images.device))
+    rank, world = shard or (0, 1)
+    draws = draw_augment(config, n * world, h, w, augment_generator(seed, step, images.device))
+    if world > 1:
+        draws = AugmentDraws(**{f.name: None if getattr(draws, f.name) is None
+                                else getattr(draws, f.name)[rank * n:(rank + 1) * n]
+                                for f in dataclasses.fields(draws)})
     return apply_augment(draws, images, masks, config)

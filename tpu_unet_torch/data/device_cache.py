@@ -14,9 +14,12 @@ numpy's float32 ``k / 255``, so a gathered batch is bitwise the host
 ``DataLoader``'s. Masks stage as uint8 class indices (fewer than 256
 classes) and are served as int32, the host loader's mask dtype.
 
-One device only: the JAX package's sharded corpus (``data_sharding``,
-``out_sharding``) and per-process multi-host staging come with data
-parallelism, which the port does not run yet.
+Under data parallelism each rank stages the whole corpus on its own card
+and gathers only its rows of each global batch there, with no collective
+(``batches(shard=)``): W times the JAX package's per-device share of memory
+(its corpus is sharded over the mesh), the same batches. JAX's per-process
+staging for more than one host (``_local_row_range``, ``_gather_u8``,
+``_gather_f32``) is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from tpu_unet_torch.data.device_pipeline import u8_table
+from tpu_unet_torch.data.prefetch import shard_batches
 
 logger = logging.getLogger(__name__)
 
@@ -38,13 +42,14 @@ class _Batches:
     split at every validation)."""
 
     def __init__(self, parent: "DeviceResidentData", indices, batch_size, shuffle, seed,
-                 drop_last):
+                 drop_last, shard):
         self.parent = parent
         self.indices = np.asarray(indices, np.int64)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self):
@@ -58,10 +63,10 @@ class _Batches:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
             self.epoch += 1
         bs = self.batch_size
-        for i in range(0, len(order), bs):
-            b = order[i:i + bs]
-            if self.drop_last and len(b) < bs:
-                break
+        batches = [order[i:i + bs] for i in range(0, len(order), bs)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == bs]
+        for b in shard_batches(batches, self.shard):
             yield self.parent.gather(b)
 
 
@@ -69,12 +74,7 @@ class DeviceResidentData:
     """Stage ``dataset`` (preprocessed samples: HWC float32 images, HW int
     masks) on ``device`` once, decoding on ``num_workers`` threads."""
 
-    def __init__(self, dataset, num_workers: int = 8, device: str | torch.device = "cuda",
-                 data_sharding=None, out_sharding=None):
-        if data_sharding is not None or out_sharding is not None:
-            raise NotImplementedError(
-                "DeviceResidentData: a sharded corpus (data_sharding, out_sharding) comes "
-                "with data parallelism, which is not ported to tpu_unet_torch yet")
+    def __init__(self, dataset, num_workers: int = 8, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         n = len(dataset)
         h, w, c = dataset[0]["image"].shape
@@ -122,5 +122,9 @@ class DeviceResidentData:
         return {"image": x, "mask": self._masks.index_select(0, i).to(torch.int32)}
 
     def batches(self, indices: Sequence[int], batch_size: int, *, shuffle: bool = False,
-                seed: int = 0, drop_last: bool = False) -> _Batches:
-        return _Batches(self, indices, batch_size, shuffle, seed, drop_last)
+                seed: int = 0, drop_last: bool = False,
+                shard: tuple[int, int] | None = None) -> _Batches:
+        """The batches of ``indices``, shuffled per pass as the host
+        ``DataLoader`` does; ``shard`` = (rank, world size) gathers only
+        the rank's rows of each (``shard_batches``)."""
+        return _Batches(self, indices, batch_size, shuffle, seed, drop_last, shard)

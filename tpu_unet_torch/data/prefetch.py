@@ -29,15 +29,30 @@ def collate(samples: Sequence[dict]) -> dict[str, np.ndarray]:
     return {"image": imgs, "mask": masks}
 
 
+def shard_batches(batches: list, shard: tuple[int, int] | None) -> list:
+    """Each batch of sample indices cut to rank r's contiguous rows
+    ``[r·B/W, (r+1)·B/W)`` for ``shard`` = (r, W) (data parallelism: JAX's
+    ``P("data")`` layout of a global batch); unchanged for None. Every
+    batch must divide over the W ranks."""
+    if shard is None:
+        return batches
+    r, w = shard
+    if any(len(b) % w for b in batches):
+        raise ValueError(f"a batch does not divide over {w} data-parallel ranks "
+                         f"(sizes {sorted({len(b) for b in batches})})")
+    return [b[r * len(b) // w:(r + 1) * len(b) // w] for b in batches]
+
+
 class DataLoader:
     """Epoch iterator over an indexable dataset. Each pass shuffles with
     ``numpy.random.default_rng(seed + epoch)``, ``epoch`` counting the
     loader's own passes from 0, and loads samples on ``num_workers``
-    threads, two batches ahead."""
+    threads, two batches ahead. ``shard`` = (rank, world size) loads only
+    the rank's rows of each batch (``shard_batches``)."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8, seed: int = 0,
-                 indices: Sequence[int] | None = None):
+                 indices: Sequence[int] | None = None, shard: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -45,6 +60,7 @@ class DataLoader:
         self.num_workers = num_workers
         self.seed = seed
         self.indices = list(indices) if indices is not None else list(range(len(dataset)))
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self):
@@ -59,6 +75,7 @@ class DataLoader:
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        batches = shard_batches(batches, self.shard)
         if self.num_workers <= 1:
             for b in batches:
                 yield collate([self.dataset[i] for i in b])

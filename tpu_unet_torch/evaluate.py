@@ -13,10 +13,19 @@ host fetches them once.
 Every model family evaluates through the same forward (``--arch``, or the
 family a ``.npz`` stores in its config).
 
+Data parallelism (``mesh``, a ``parallel.mesh.DataParallel`` record; JAX's
+``sharding``): a batch that the world size divides is split over the ranks
+(each its contiguous rows) and its (Dice, IoU) averaged over them, which is
+the global batch's value: both are means of per-image ratios over equal
+shards (``iou_coeff`` is per image, not one batch-wide ratio). A batch the
+world size does not divide runs whole on every rank. Every rank returns the
+same numbers.
+
 Run:
     python -m tpu_unet_torch.evaluate -m ckpt.npz|model.pth --data-dir data -s 0.5 \
         [--arch unetpp|attention|r2u|r2attu] [--per-class] [--tta [--tta-mode hflip]] \
         [--amp] [--device cuda|cpu]
+    torchrun --nproc-per-node N -m tpu_unet_torch.evaluate --data-parallel -m ckpt.npz ...
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from tpu_unet_torch.losses import dice_coeff, iou_coeff, multiclass_dice_coeff
 from tpu_unet_torch.models.tta import TTA_MODES, tta_logits
 from tpu_unet_torch.predict import exit_on_refusal
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, unet_apply
+from tpu_unet_torch.parallel.mesh import DataParallel, pmean
 
 logger = logging.getLogger(__name__)
 
@@ -87,23 +97,37 @@ def eval_step_per_class(params, state, images, masks, *, config: UNetConfig,
     return dice_c, iou_c
 
 
-def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode):
+def _shardable(mesh: DataParallel | None, batch) -> bool:
+    """True when the batch splits evenly over the data-parallel ranks (JAX's
+    ``_shardable`` on a 1-D mesh)."""
+    return mesh is not None and batch["image"].shape[0] % mesh.world_size == 0
+
+
+def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mesh):
     """(sum of stack(step outputs) over the batches, batch count)."""
     device = tree_leaves(params)[0].device
     total, n = None, 0
     for batch in dataloader:
+        split = _shardable(mesh, batch)
+        if split:
+            batch = {k: mesh.rows(batch[k]) for k in ("image", "mask")}
         b = to_device(batch, device)
         pair = torch.stack(step(params, state, b["image"], b["mask"], config=config, amp=amp,
                                 tta=tta, tta_mode=tta_mode))
+        if split:
+            pair, = pmean([pair], mesh.group)
         total = pair if total is None else total + pair
         n += 1
     return total, n
 
 
 def evaluate(params, state, dataloader, config: UNetConfig, amp: bool = False,
-             tta: bool = False, tta_mode: str = "flips") -> tuple[float, float]:
-    """Mean (Dice, IoU) over the loader's batches, on the params' device."""
-    total, n = _accumulate(eval_step, params, state, dataloader, config, amp, tta, tta_mode)
+             tta: bool = False, tta_mode: str = "flips",
+             mesh: DataParallel | None = None) -> tuple[float, float]:
+    """Mean (Dice, IoU) over the loader's batches, on the params' device;
+    each batch split over the ranks of ``mesh`` where it divides."""
+    total, n = _accumulate(eval_step, params, state, dataloader, config, amp, tta, tta_mode,
+                           mesh)
     if total is None:
         return 0.0, 0.0
     dice, iou = total.cpu().tolist()
@@ -111,11 +135,12 @@ def evaluate(params, state, dataloader, config: UNetConfig, amp: bool = False,
 
 
 def evaluate_per_class(params, state, dataloader, config: UNetConfig, amp: bool = False,
-                       tta: bool = False, tta_mode: str = "flips"
-                       ) -> tuple[np.ndarray, np.ndarray]:
-    """Per-class mean (Dice [C], IoU [C]) over the loader's batches."""
+                       tta: bool = False, tta_mode: str = "flips",
+                       mesh: DataParallel | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-class mean (Dice [C], IoU [C]) over the loader's batches (split
+    over the ranks of ``mesh`` as ``evaluate`` splits them)."""
     total, n = _accumulate(eval_step_per_class, params, state, dataloader, config, amp, tta,
-                           tta_mode)
+                           tta_mode, mesh)
     if total is None:
         z = np.zeros(config.n_classes)
         return z, z
@@ -126,9 +151,9 @@ def evaluate_per_class(params, state, dataloader, config: UNetConfig, amp: bool 
 @exit_on_refusal("tpu_unet_torch.evaluate")
 def main(argv=None) -> float:
     """The evaluation CLI: Dice and IoU of a checkpoint on a dataset."""
-    from tpu_unet_torch.data import BasicDataset, CarvanaDataset, DataLoader
     from tpu_unet_torch.models.unet import ARCHS
-    from tpu_unet_torch.predict import load_model, refuse_unported, resolve_device
+    from tpu_unet_torch.parallel.mesh import cli_data_parallel
+    from tpu_unet_torch.predict import resolve_device
 
     p = argparse.ArgumentParser(description="Evaluate a checkpoint on a dataset (PyTorch port)")
     p.add_argument("--model", "-m", required=True)
@@ -149,11 +174,26 @@ def main(argv=None) -> float:
                    help="Flip-ensemble test-time augmentation (one view at a time)")
     p.add_argument("--tta-mode", choices=tuple(TTA_MODES), default="flips",
                    help="TTA views: all four flips, or identity + left-right only")
-    p.add_argument("--data-parallel", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--data-parallel", action="store_true", default=False,
+                   help="Split each eval batch over the ranks that torchrun launches (one "
+                        "process per GPU; batches that don't divide run whole on each)")
     args = p.parse_args(argv)
-    refuse_unported(args, "tpu_unet_torch.evaluate", ("data_parallel",))
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    device = resolve_device(args.device)
+    mesh, formed = None, False
+    if args.data_parallel:
+        mesh, formed = cli_data_parallel(args.device, "tpu_unet_torch.evaluate")
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    try:
+        return _evaluate_cli(args, device, mesh)
+    finally:
+        if formed:
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate_cli(args, device, mesh) -> float:
+    from tpu_unet_torch.data import BasicDataset, CarvanaDataset, DataLoader
+    from tpu_unet_torch.predict import load_model
+
     config = UNetConfig(3, args.classes, bilinear=args.bilinear, arch=args.arch)
     params, state, config, _ = load_model(args.model, config, device)
     data_dir = Path(args.data_dir)
@@ -162,22 +202,25 @@ def main(argv=None) -> float:
     except (RuntimeError, IndexError):
         ds = BasicDataset(data_dir / "imgs", data_dir / "masks", args.scale)
     loader = DataLoader(ds, args.batch_size)
+    show = mesh is None or mesh.primary
     if args.per_class:
         # One sweep: the scalars are the background-excluded means of the
         # per-class vectors.
         dice_c, iou_c = evaluate_per_class(params, state, loader, config, amp=args.amp,
-                                           tta=args.tta, tta_mode=args.tta_mode)
+                                           tta=args.tta, tta_mode=args.tta_mode, mesh=mesh)
         fg = slice(1, None) if config.n_classes > 1 else slice(None)
         dice = float(dice_c[fg].mean()) if len(dice_c) else 0.0
         iou = float(iou_c[fg].mean()) if len(iou_c) else 0.0
-        print(f"Dice: {dice:.6f}  IoU: {iou:.6f}  (n={len(ds)})")
-        for c in range(config.n_classes):
-            tag = " (background)" if config.n_classes > 1 and c == 0 else ""
-            print(f"  class {c}: Dice {dice_c[c]:.6f}  IoU {iou_c[c]:.6f}{tag}")
+        if show:
+            print(f"Dice: {dice:.6f}  IoU: {iou:.6f}  (n={len(ds)})")
+            for c in range(config.n_classes):
+                tag = " (background)" if config.n_classes > 1 and c == 0 else ""
+                print(f"  class {c}: Dice {dice_c[c]:.6f}  IoU {iou_c[c]:.6f}{tag}")
     else:
         dice, iou = evaluate(params, state, loader, config, amp=args.amp, tta=args.tta,
-                             tta_mode=args.tta_mode)
-        print(f"Dice: {dice:.6f}  IoU: {iou:.6f}  (n={len(ds)})")
+                             tta_mode=args.tta_mode, mesh=mesh)
+        if show:
+            print(f"Dice: {dice:.6f}  IoU: {iou:.6f}  (n={len(ds)})")
     return dice
 
 

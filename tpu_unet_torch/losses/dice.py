@@ -5,17 +5,26 @@ inter where it is 0 (two empty masks score 1); dice = (inter + ε) /
 (sets_sum + ε) with ε = 1e-6, averaged; multiclass folds N and C together;
 dice_loss = 1 − dice with the batch reduced first. Binary masks are [N,H,W]
 (or [H,W]), multiclass one-hots [N,H,W,C] (channels last).
+
+``group`` (data parallelism, ``parallel/mesh.py``; JAX's ``axis_name``)
+gives the global batch's value: with the batch reduced first the sums are
+all-reduced before the division (one global ratio); per image, the ranks'
+means are averaged (equal shards). ``iou_coeff`` is per image, so the
+sharded evaluation averages its rank values (``evaluate.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_unet_torch.parallel.mesh import group_size, psum
+
 
 def dice_coeff(input: torch.Tensor, target: torch.Tensor, reduce_batch_first: bool = False,
-               epsilon: float = 1e-6) -> torch.Tensor:
+               epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """Mean Dice over the batch, or over one joint sum with
-    ``reduce_batch_first``. input/target: [H,W] or [N,H,W]."""
+    ``reduce_batch_first``; over every rank of ``group``. input/target:
+    [H,W] or [N,H,W]."""
     if input.shape != target.shape:
         raise ValueError(f"dice_coeff: shapes differ, {tuple(input.shape)} vs {tuple(target.shape)}")
     if reduce_batch_first and input.ndim != 3:
@@ -23,8 +32,13 @@ def dice_coeff(input: torch.Tensor, target: torch.Tensor, reduce_batch_first: bo
     dims = (-1, -2) if input.ndim == 2 or not reduce_batch_first else (-1, -2, -3)
     inter = 2 * (input * target).sum(dims)
     sets_sum = input.sum(dims) + target.sum(dims)
+    if group is not None and reduce_batch_first:
+        inter, sets_sum = psum(torch.stack([inter, sets_sum]), group).unbind(0)
     sets_sum = torch.where(sets_sum == 0, inter, sets_sum)
-    return ((inter + epsilon) / (sets_sum + epsilon)).mean()
+    dice = ((inter + epsilon) / (sets_sum + epsilon)).mean()
+    if group is not None and not reduce_batch_first:
+        dice = psum(dice, group) / group_size(group)
+    return dice
 
 
 def _fold_classes(t: torch.Tensor) -> torch.Tensor:
@@ -35,15 +49,17 @@ def _fold_classes(t: torch.Tensor) -> torch.Tensor:
 
 def multiclass_dice_coeff(input: torch.Tensor, target: torch.Tensor,
                           reduce_batch_first: bool = False,
-                          epsilon: float = 1e-6) -> torch.Tensor:
+                          epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """Mean Dice over all classes. input/target: [N,H,W,C] one-hot."""
-    return dice_coeff(_fold_classes(input), _fold_classes(target), reduce_batch_first, epsilon)
+    return dice_coeff(_fold_classes(input), _fold_classes(target), reduce_batch_first, epsilon,
+                      group)
 
 
-def dice_loss(input: torch.Tensor, target: torch.Tensor, multiclass: bool = False) -> torch.Tensor:
-    """1 − Dice, with the batch reduced first."""
+def dice_loss(input: torch.Tensor, target: torch.Tensor, multiclass: bool = False,
+              group=None) -> torch.Tensor:
+    """1 − Dice, with the batch reduced first (over every rank of ``group``)."""
     fn = multiclass_dice_coeff if multiclass else dice_coeff
-    return 1 - fn(input, target, reduce_batch_first=True)
+    return 1 - fn(input, target, reduce_batch_first=True, group=group)
 
 
 def iou_coeff(input: torch.Tensor, target: torch.Tensor, epsilon: float = 1e-6) -> torch.Tensor:

@@ -26,9 +26,12 @@ def init_r2attu_unet(config: UNetConfig, rng: np.random.Generator,
 
 
 def r2attu_unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
-                      train: bool = False, remat: bool = False) -> tuple[torch.Tensor, State]:
+                      train: bool = False, remat: bool = False, group=None
+                      ) -> tuple[torch.Tensor, State]:
     """Forward on params already in the compute dtype (``unet_apply`` casts
-    them): [N,H,W,C] -> (fp32 logits, new BN state)."""
-    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train)
-    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=rr)
+    them): [N,H,W,C] -> (fp32 logits, new BN state); ``group``: BN over
+    every rank (``unet_apply``)."""
+    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train, group=group)
+    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=rr,
+                           group=group)
     return encoder_decoder(params, state, x, block=rr, up=up, remat=remat)

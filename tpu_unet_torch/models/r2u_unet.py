@@ -57,13 +57,14 @@ def _rec_unit_init(rng, ch: int, *, device, steps: int | None = None):
     return params, {f"bn{i}": init_bn_state(ch, device) for i in range(steps)}
 
 
-def _rec_unit_apply(params, state, x, *, t: int, train: bool):
+def _rec_unit_apply(params, state, x, *, t: int, train: bool, group=None):
     """h = unit(x); then t times h = unit(x + h), the weights shared; BN
     statistics by the state's layout (module docstring)."""
 
     def unit(v, bn_state):
         h = conv2d(v, params["conv"]["w"], stride=1, padding=1)
-        h, bn_state = batch_norm(h.to(v.dtype), params["bn"], bn_state, train=train)
+        h, bn_state = batch_norm(h.to(v.dtype), params["bn"], bn_state, train=train,
+                                 group=group)
         return torch.relu(h), bn_state
 
     if "bn" in state:  # shared: one state stepped t+1 times
@@ -86,12 +87,12 @@ def _rrcnn_init(rng, cin: int, cout: int, *, device, steps: int | None = None):
     return params, state
 
 
-def _rrcnn_apply(params, state, x, *, t: int, train: bool):
+def _rrcnn_apply(params, state, x, *, t: int, train: bool, group=None):
     """The recurrent residual block: x = proj(x); x + rec2(rec1(x))."""
     x = conv2d(x, params["proj"]["w"], stride=1, padding=0)
     x = (x.float() + params["proj"]["b"].float()).to(x.dtype)
-    h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train)
-    h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train)
+    h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train, group=group)
+    h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train, group=group)
     return x + h, {"rec1": s1, "rec2": s2}
 
 
@@ -119,9 +120,11 @@ def init_r2u_unet(config: UNetConfig, rng: np.random.Generator, device="cpu", *,
 
 
 def r2u_unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
-                   train: bool = False, remat: bool = False) -> tuple[torch.Tensor, State]:
+                   train: bool = False, remat: bool = False, group=None
+                   ) -> tuple[torch.Tensor, State]:
     """Forward on params already in the compute dtype (``unet_apply`` casts
-    them): [N,H,W,C] -> (fp32 logits, new BN state)."""
-    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train)
+    them): [N,H,W,C] -> (fp32 logits, new BN state); ``group``: BN over
+    every rank (``unet_apply``)."""
+    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train, group=group)
     up = functools.partial(_up_apply, bilinear=config.bilinear, block=rr)
     return encoder_decoder(params, state, x, block=rr, up=up, remat=remat)

@@ -181,16 +181,18 @@ def param_count(params: Params) -> int:
     return sum(param_count(v) if isinstance(v, dict) else v.numel() for v in params.values())
 
 
-def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bool = False):
+def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bool = False,
+                       group=None):
     """(conv3x3 → BN → ReLU) × 2. ``kernels="cuda"`` in train mode runs it on
     the train kernels (``ops/conv_stats.py``); ``first`` marks the block whose
-    input (the image) needs no gradient."""
+    input (the image) needs no gradient; ``group``: BN over every rank."""
     if kernels == "cuda" and train:
-        return double_conv_train_fused(params, state, x, input_needs_grad=not first)
+        return double_conv_train_fused(params, state, x, input_needs_grad=not first,
+                                       group=group)
     h = conv2d(x, params["conv1"]["w"], stride=1, padding=1)
-    h, bn1 = batch_norm(h.to(x.dtype), params["bn1"], state["bn1"], train=train)
+    h, bn1 = batch_norm(h.to(x.dtype), params["bn1"], state["bn1"], train=train, group=group)
     h = conv2d(torch.relu(h), params["conv2"]["w"], stride=1, padding=1)
-    h, bn2 = batch_norm(h.to(x.dtype), params["bn2"], state["bn2"], train=train)
+    h, bn2 = batch_norm(h.to(x.dtype), params["bn2"], state["bn2"], train=train, group=group)
     return torch.relu(h), {"bn1": bn1, "bn2": bn2}
 
 
@@ -272,7 +274,7 @@ def _family(arch: str):
 
 def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
                train: bool = False, compute_dtype: torch.dtype | None = None,
-               remat: bool = False, axis_name: str | None = None,
+               remat: bool = False, group=None,
                kernels: str | None = None) -> tuple[torch.Tensor, State]:
     """Forward pass of any family (``config.arch``). x: [N,H,W,n_channels]
     -> (fp32 logits [N,H,W,n_classes], new BN state).
@@ -290,10 +292,13 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
     JAX wraps in ``jax.checkpoint``: every DoubleConv (RRCNN) and decoder
     block. The forward is functional (BN running stats come back as new
     tensors), so a recomputation cannot update them twice; it does launch a
-    block's forward kernels a second time."""
+    block's forward kernels a second time.
+
+    ``group`` (a ``ProcessGroup``, or None) is JAX's ``axis_name``: under
+    data parallelism (``parallel/mesh.py``) every train-mode BatchNorm of
+    every family, on both kernel routes, takes the statistics of the global
+    batch, all-reduced over the group's ranks."""
     check_kernels(config, kernels)
-    if axis_name is not None:
-        raise NotImplementedError("unet_apply: axis_name (data parallelism) is not ported yet")
     if config.s2d_level0:
         raise NotImplementedError("unet_apply: s2d_level0 is a TPU experiment, not ported")
     if compute_dtype is not None:
@@ -302,9 +307,9 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
     x = x.contiguous()
     if config.arch != "unet":
         return _family(config.arch)[1](params, state, x, config=config, train=train,
-                                          remat=remat)
+                                          remat=remat, group=group)
 
-    dc = functools.partial(_double_conv_apply, train=train, kernels=kernels)
+    dc = functools.partial(_double_conv_apply, train=train, kernels=kernels, group=group)
     up = functools.partial(_up_apply, bilinear=config.bilinear, block=dc)
     # inc is the only block whose input (the image) needs no gradient.
     return encoder_decoder(params, state, x, block=dc, up=up, remat=remat,

@@ -54,11 +54,13 @@ def init_unetpp(config: UNetConfig, rng: np.random.Generator,
 
 
 def unetpp_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetConfig,
-                 train: bool = False, remat: bool = False) -> tuple[torch.Tensor, State]:
+                 train: bool = False, remat: bool = False, group=None
+                 ) -> tuple[torch.Tensor, State]:
     """Forward on params already in the compute dtype (``unet_apply`` casts
     them): [N,H,W,C] -> (fp32 logits, new BN state). ``remat`` recomputes
-    each node's DoubleConv in the backward pass."""
-    dc = functools.partial(_double_conv_apply, train=train)
+    each node's DoubleConv in the backward pass; ``group``: BN over every
+    rank (``unet_apply``)."""
+    dc = functools.partial(_double_conv_apply, train=train, group=group)
     if remat:
         dc = _remat(dc)
     nodes: dict[tuple[int, int], torch.Tensor] = {}

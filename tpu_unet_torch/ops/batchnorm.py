@@ -7,6 +7,10 @@ sums, mean = Σx/n and var = max(Σx²/n − mean², 0), normalizes by that
 biased variance and puts the unbiased variance var·n/(n−1) into the running
 buffer. ``F.batch_norm`` is not used: its variance is two-pass. The serving
 path folds BN into the conv instead (``models/infer.py``).
+
+``group`` (data parallelism, ``parallel/mesh.py``; JAX's ``axis_name``)
+all-reduces the two sums inside autograd and counts every rank's elements:
+the statistics of the global batch, the between-rank term included.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from tpu_unet_torch.parallel.mesh import group_size, psum
 
 
 class BNState(NamedTuple):
@@ -43,15 +49,21 @@ def update_running(state: BNState, mean: torch.Tensor, var: torch.Tensor, n: int
 
 
 def batch_norm(x: torch.Tensor, params: dict, state: BNState, *, train: bool,
-               momentum: float = 0.1, eps: float = 1e-5) -> tuple[torch.Tensor, BNState]:
+               momentum: float = 0.1, eps: float = 1e-5, group=None
+               ) -> tuple[torch.Tensor, BNState]:
     """x: [N,H,W,C] -> (y in x's dtype, new state). Train mode normalizes by
-    the batch statistics and updates the running ones; eval mode uses the
-    running ones and returns ``state`` unchanged."""
+    the batch statistics (over every rank of ``group``) and updates the
+    running ones; eval mode uses the running ones and returns ``state``
+    unchanged."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if train:
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        mean = xf.sum((0, 1, 2)) / n
-        var = torch.clamp((xf * xf).sum((0, 1, 2)) / n - mean * mean, min=0.0)
+        s1, s2 = xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))
+        if group is not None:
+            s1, s2 = psum(torch.stack([s1, s2]), group).unbind(0)
+            n *= group_size(group)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
         new_state = update_running(state, mean, var, n, momentum)
     else:
         mean, var = state.mean, state.var

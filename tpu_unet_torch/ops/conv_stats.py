@@ -22,6 +22,7 @@ import torch
 
 from tpu_unet_torch.kernels.train_conv import conv3x3_dw, conv3x3_dx, conv3x3_fwd
 from tpu_unet_torch.ops.batchnorm import update_running
+from tpu_unet_torch.parallel.mesh import group_size, psum
 
 BN_EPS = 1e-5
 
@@ -93,20 +94,22 @@ class ConvStatsPro(torch.autograd.Function):
 
 def double_conv_train_fused(params, state, x: torch.Tensor, *, input_needs_grad: bool = True,
                             momentum: float = 0.1, eps: float = BN_EPS,
-                            axis_name: str | None = None):
+                            group=None):
     """(conv3x3 → BN(train) → ReLU) × 2 on the train kernels. Returns
     (y in x's dtype, {"bn1": BNState, "bn2": BNState}).
 
     The same function as ``models/unet.py::_double_conv_apply(train=True)``:
     the biased batch variance (one-pass, clamped at 0) normalizes, the
     unbiased one goes into the running buffers. ``input_needs_grad=False``
-    computes no dx for the first conv."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "double_conv_train_fused: axis_name (cross-device BN sums) is not ported yet")
-    m = x.shape[0] * x.shape[1] * x.shape[2]
+    computes no dx for the first conv. ``group`` (data parallelism, JAX's
+    ``axis_name``) all-reduces each conv's ``[2, C]`` sums outside the
+    kernels and inside autograd, and counts every rank's elements: global
+    batch statistics, and global sum cotangents into ``_dz_coef``. The
+    kernels are the same."""
+    m = x.shape[0] * x.shape[1] * x.shape[2] * group_size(group)
 
     def finalize(s):
+        s = psum(s, group)
         mean = s[0] / m
         return mean, torch.clamp(s[1] / m - mean * mean, min=0.0)
 

@@ -21,6 +21,16 @@ the raw loader with the resize on the device, ``device_preprocess``; or the
 corpus staged on the device, ``device_dataset``), augmentation on the
 device, validation ``val_per_epoch`` times an epoch, the LR schedule, early
 stopping, EMA and the checkpoint policy. Its CLI is ``train_cli.py``.
+
+Data parallelism (``data_parallel``, ``parallel/mesh.py``) runs one
+process per GPU, each with the same trees (broadcast from rank 0) and its
+rows of each global batch, and the step's collectives make every rank's
+result the global batch's. What the loop does once it does on every rank
+in step or on rank 0 alone: every rank validates (the evaluation is
+collective, so the schedule, EMA and early stopping decide alike); rank 0
+alone writes checkpoints, the loss log and W&B, and the ranks meet at a
+barrier before returning; a stop signal on any rank stops every rank at
+the same batch (one host-side all-reduced flag a step).
 """
 
 from __future__ import annotations
@@ -47,6 +57,14 @@ from tpu_unet_torch.models.unet import (
     unet_apply,
 )
 from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
+from tpu_unet_torch.parallel.mesh import (
+    DataParallel,
+    broadcast_tree,
+    group_size,
+    init_data_parallel,
+    pmean,
+    psum,
+)
 from tpu_unet_torch.train_checkpoints import CheckpointPolicy
 from tpu_unet_torch.train_logging import LossDrain, WandbValidationPanel, init_wandb
 from tpu_unet_torch.train_signals import StopSignal
@@ -57,20 +75,27 @@ dir_checkpoint = Path("./checkpoints/")
 
 
 def compute_loss(logits: torch.Tensor, masks: torch.Tensor, n_classes: int,
-                 dice_weight: float = 1.0) -> torch.Tensor:
+                 dice_weight: float = 1.0, group=None) -> torch.Tensor:
     """The reference's criterion: BCE-with-logits + binary Dice on the
     squeezed channel (one class), else cross-entropy + multiclass Dice over
-    the softmax. ``dice_weight`` scales the Dice term; 0 drops it."""
+    the softmax. ``dice_weight`` scales the Dice term; 0 drops it.
+
+    With ``group`` (data parallelism; JAX's ``axis_name``) it is the global
+    batch's loss, the same on every rank: the CE means averaged over the
+    ranks (equal shards), the Dice sums all-reduced before the division.
+    Its gradients are then averaged over the ranks by the caller."""
     if n_classes == 1:
         logit = logits[..., 0]
         mask_f = masks.float()
         ce = bce_with_logits(logit, mask_f)
-        dl = dice_loss(torch.sigmoid(logit), mask_f) if dice_weight else None
+        dl = dice_loss(torch.sigmoid(logit), mask_f, group=group) if dice_weight else None
     else:
         mask_oh = torch.nn.functional.one_hot(masks.long(), n_classes).float()
         ce = cross_entropy(logits, masks)
-        dl = (dice_loss(torch.softmax(logits, dim=-1), mask_oh, multiclass=True)
+        dl = (dice_loss(torch.softmax(logits, dim=-1), mask_oh, multiclass=True, group=group)
               if dice_weight else None)
+    if group is not None:
+        ce = psum(ce, group) / group_size(group)
     return ce if dl is None else ce + dice_weight * dl
 
 
@@ -87,8 +112,8 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
                     optimizer: str = "rmsprop", nesterov: bool = False,
                     dice_weight: float = 1.0):
     """Build the train step. The arguments are the JAX ``make_train_step``'s;
-    what the port does not have yet is refused, not ignored: ``mesh`` and
-    ``opt_shardings`` (data parallelism) and ``vmem_limit_kib`` (TPU-only).
+    what the port does not have yet is refused, not ignored:
+    ``opt_shardings`` (ZeRO) and ``vmem_limit_kib`` (TPU-only).
     ``optimizer`` names the update rule (``optim/optimizers.py``), whose
     state the caller makes with the matching init; ``momentum`` None takes
     the optimizer's default. ``remat`` recomputes each block in the backward
@@ -98,16 +123,28 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     the batch as that many microbatches, microbatch j taking rows ``j::A``,
     with BN statistics per microbatch (the running stats thread through in
     order) and the gradients and loss averaged; a batch that ``accum_steps``
-    does not divide runs unaccumulated."""
-    if mesh is not None or opt_shardings is not None:
-        raise NotImplementedError("make_train_step: data parallelism (mesh, opt_shardings) "
-                                  "is not ported yet")
+    does not divide runs unaccumulated.
+
+    ``mesh`` (a ``parallel.mesh.DataParallel`` record, JAX's 1-D mesh) makes
+    it JAX's ``shard_map`` step on both kernel routes: each rank passes the
+    same trees and its rows of the global batch (``mesh.rows``); the BN and
+    Dice sums are all-reduced inside autograd and the CE mean averaged
+    (``group``), and the gradients of that replicated loss are averaged in
+    one all-reduce before the clip, so every rank returns the same new
+    trees, the global batch's loss and grad norm. With ``accum_steps``,
+    microbatch j is each rank's rows ``j::A``, which are the global batch's
+    rows ``j::A`` only when A divides each rank's rows: any other rank batch
+    raises ValueError."""
+    if opt_shardings is not None:
+        raise NotImplementedError("make_train_step: opt_shardings (ZeRO) is not ported to "
+                                  "tpu_unet_torch yet")
     if vmem_limit_kib is not None:
         raise ValueError("make_train_step: vmem_limit_kib is a TPU compiler option")
     check_kernels(config, kernels)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     compute_dtype = torch.bfloat16 if amp else None
+    group = None if mesh is None else mesh.group
     _, opt_update = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
                                   nesterov=nesterov)
 
@@ -115,13 +152,17 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         logits, new_bn = unet_apply(_unflatten(params, leaves), bn_state, images, config=config,
                                     train=True, compute_dtype=compute_dtype, remat=remat,
-                                    kernels=kernels)
-        loss = compute_loss(logits, masks, config.n_classes, dice_weight=dice_weight)
+                                    kernels=kernels, group=group)
+        loss = compute_loss(logits, masks, config.n_classes, dice_weight=dice_weight,
+                            group=group)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), new_bn, _unflatten(params, grads)
+        return loss.detach(), new_bn, list(grads)
 
     def step(params, bn_state, opt_state, images, masks, lr):
         n = images.shape[0]
+        if group is not None and accum_steps > 1 and n % accum_steps:
+            raise ValueError(f"accum_steps {accum_steps} must divide each rank's {n} rows "
+                             "under data parallelism")
         if accum_steps == 1 or n % accum_steps:
             loss, new_bn, grads = grads_and_loss(params, bn_state, images, masks)
         else:
@@ -129,12 +170,14 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
             for j in range(accum_steps):
                 loss_j, new_bn, g = grads_and_loss(params, new_bn, images[j::accum_steps],
                                                    masks[j::accum_steps])
-                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+                gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
                 lsum = lsum + loss_j
             inv = 1.0 / accum_steps
-            grads = tree_map(lambda g: g * inv, gsum)
+            grads = [g * inv for g in gsum]
             loss = lsum * inv
-        grads, gnorm = clip_grad_norm(grads, grad_clip)
+        if group is not None:
+            grads = pmean(grads, group)
+        grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip)
         new_params, new_opt = opt_update(grads, opt_state, params, lr)
         out = (new_params, new_bn, new_opt, loss, gnorm)
         return out + (grads,) if return_grads else out
@@ -159,31 +202,79 @@ def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
             arch, learning_rate)
 
 
-def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels):
-    """Refuse invalid settings up front, with one clear error each."""
+def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, world_size=None):
+    """Refuse invalid settings up front, with one clear error each.
+    ``world_size``: the data-parallel ranks (None without data parallelism)."""
     if kernels not in (None, "cuda"):
         raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
     if accum_steps > 1 and batch_size % accum_steps:
         raise ValueError(f"--accum-steps {accum_steps} must divide --batch-size {batch_size}")
     if early_stopping is not None and early_stopping < 1:
         raise ValueError(f"--early-stopping must be >= 1, got {early_stopping}")
+    if world_size is not None:
+        if batch_size % world_size:
+            raise ValueError(f"--batch-size {batch_size} must divide over the {world_size} "
+                             "data-parallel ranks")
+        if accum_steps > 1 and (batch_size // world_size) % accum_steps:
+            # Rank rows j::A are the global rows j::A only then (make_train_step).
+            raise ValueError(f"--accum-steps {accum_steps} must divide each rank's "
+                             f"{batch_size // world_size} rows (--batch-size {batch_size} over "
+                             f"{world_size} data-parallel ranks)")
+
+
+def _build_mesh(params, bn_state, *, data_parallel):
+    """Data parallelism's set-up (JAX's ``_build_mesh``, 1-D): form or join
+    the process group (``data_parallel`` True, on ``cuda:LOCAL_RANK`` for
+    CUDA trees and the CPU for CPU ones) or take the record given, put the
+    trees on its device and replicate rank 0's. Returns (params, bn_state,
+    the record or None)."""
+    if not data_parallel:
+        return params, bn_state, None
+    if isinstance(data_parallel, DataParallel):
+        dp = data_parallel
+    else:
+        device = tree_leaves(params)[0].device
+        dp = init_data_parallel(device=None if device.type == "cuda" else device)
+    params, bn_state = (broadcast_tree(tree_map(lambda t: t.to(dp.device), tree), dp)
+                        for tree in (params, bn_state))
+    return params, bn_state, dp
+
+
+def _place_opt_state(opt_state, dp: DataParallel | None):
+    """The optimizer state, replicated from rank 0 under data parallelism
+    (JAX's ``_place_opt_state``, replicated case; ZeRO is not ported)."""
+    return opt_state if dp is None else broadcast_tree(opt_state, dp)
+
+
+def _build_stepper(config, *, dp, **step_kw):
+    """The train step, over the ranks of ``dp`` when it is given (JAX's
+    ``_build_stepper``; the GPipe runner is not ported)."""
+    return make_train_step(config, mesh=dp, **step_kw)
 
 
 def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
-                   device_dataset, device_preprocess):
+                   device_dataset, device_preprocess, dp=None):
     """The train and val feeds: host loaders (decode threads), the corpus
     staged on the device, and/or the raw loaders' batches resized on the
-    device (``dataset`` then a ``RawDataset``)."""
+    device (``dataset`` then a ``RawDataset``).
+
+    Under data parallelism (``dp``) every rank draws the same seeded global
+    order and loads only its rows of each global train batch, whole batches
+    only (``drop_last``); the val feed gives global batches, which
+    ``evaluate`` splits over the ranks. With ``device_dataset`` every rank
+    stages the whole corpus on its own card and gathers its rows there."""
+    shard = None if dp is None else (dp.rank, dp.world_size)
     if device_dataset:
         if device_preprocess:
             raise ValueError("--device-dataset already preprocesses on host once; it is "
                              "mutually exclusive with --device-preprocess")
         dd = DeviceResidentData(dataset, device=device)
-        train_loader = dd.batches(train_idx, batch_size, shuffle=True, seed=seed)
+        train_loader = dd.batches(train_idx, batch_size, shuffle=True, seed=seed,
+                                  drop_last=dp is not None, shard=shard)
         val_loader = dd.batches(val_idx, batch_size)
     else:
         train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx,
-                                  seed=seed)
+                                  seed=seed, drop_last=dp is not None, shard=shard)
         val_loader = DataLoader(dataset, batch_size, shuffle=False, indices=val_idx)
     if device_preprocess:
         train_loader, val_loader = (
@@ -194,12 +285,13 @@ def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
 
 
 def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, optimizer,
-                    lr_scheduler, learning_rate):
+                    lr_scheduler, learning_rate, dp=None):
     """Full-state resume: weights, BN state, optimizer state (when the file
     has it and was written by the same optimizer; otherwise weights only,
     with a warning), the schedule and the early-stopping bookkeeping.
     Returns (params, bn_state, opt_state, start_epoch, early_stop extra);
-    the scheduler is updated in place."""
+    the scheduler is updated in place. Every rank reads the file; rank 0's
+    trees are then replicated (``dp``)."""
     _, prev_extra = read_checkpoint_meta(resume)
     saved_opt = prev_extra.get("optimizer", "rmsprop")
     opt_like = opt_state
@@ -225,16 +317,20 @@ def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, o
     else:  # a checkpoint with the lr only
         scheduler.lr = float(extra.get("lr", learning_rate))
     logger.info("Resumed from %s at epoch %d (lr %g)", resume, start_epoch, scheduler.lr)
+    if dp is not None:
+        params, bn_state = broadcast_tree(params, dp), broadcast_tree(bn_state, dp)
     return params, bn_state, opt_state, start_epoch, extra.get("early_stop")
 
 
 def _validation_pass(*, params, bn_state, opt_state, val_loader, config, amp, scheduler,
                      history, ema, early_stopping, es_best, es_bad, policy, panel, epoch,
-                     global_step, images, masks, hist_batch):
+                     global_step, images, masks, hist_batch, dp=None):
     """One validation: evaluate, step the schedule, early-stopping
     bookkeeping, the EMA weights' own validation, the best checkpoint, the
-    W&B panel. Returns (es_best, es_bad, early_stopped)."""
-    val_dice, val_iou = evaluate(params, bn_state, val_loader, config, amp)
+    W&B panel. Returns (es_best, es_bad, early_stopped). Under data
+    parallelism (``dp``) every rank runs it: the evaluation is split over
+    the ranks and gives every rank the same Dice."""
+    val_dice, val_iou = evaluate(params, bn_state, val_loader, config, amp, mesh=dp)
     lr_now = scheduler.step(val_dice)
     history["val_dice"].append(val_dice)
     history["lr"].append(lr_now)
@@ -250,7 +346,7 @@ def _validation_pass(*, params, bn_state, opt_state, val_loader, config, amp, sc
                 logger.info("Early stopping: no val Dice improvement in %d validations "
                             "(best %.4f)", early_stopping, es_best)
     if ema is not None:
-        ema_dice, _ = evaluate(ema.params, bn_state, val_loader, config, amp)
+        ema_dice, _ = evaluate(ema.params, bn_state, val_loader, config, amp, mesh=dp)
         history["val_dice_ema"].append(ema_dice)
         logger.info("Validation Dice (EMA): %f", ema_dice)
     policy.maybe_save_best(val_dice, epoch=epoch, step=global_step, lr=scheduler.lr,
@@ -274,10 +370,14 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 kernels: str | None = None, accum_steps: int = 1,
                 ema_decay: float | None = None, val_per_epoch: int = 5,
                 early_stopping: int | None = None, device_preprocess: bool = False,
-                device_dataset: bool = False, augment=None):
+                device_dataset: bool = False, augment=None,
+                data_parallel: bool | DataParallel | None = False):
     """The reference's train loop on the port's step, with the JAX
     ``train_model``'s arguments but those of what the port does not have
-    yet (data parallelism). Trains on the device the params lie on.
+    yet (spatial, tensor and pipeline parallelism, ZeRO, multi-host).
+    Trains on the device the params lie on; under ``data_parallel`` (True:
+    form or join the process group; or a ``DataParallel`` record), on the
+    rank's device with ``batch_size`` the global batch (module docstring).
     ``use_wandb`` logs to W&B (``train_logging.py``): each step's loss and,
     at each validation, the scalars, a sample triplet and histograms.
     ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
@@ -286,24 +386,33 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     batch on the device with the draws of (``seed``, global step). Returns
     (params, bn_state, history) with history's ``train_loss`` per step and
     ``val_dice`` and ``lr`` per validation (``val_dice_ema`` with EMA)."""
-    _check_train_flags(accum_steps=accum_steps, batch_size=batch_size,
-                       early_stopping=early_stopping, kernels=kernels)
+    flags = dict(accum_steps=accum_steps, batch_size=batch_size,
+                 early_stopping=early_stopping, kernels=kernels)
+    _check_train_flags(**flags)
+    params, bn_state, dp = _build_mesh(params, bn_state, data_parallel=data_parallel)
+    world = 1 if dp is None else dp.world_size
+    if dp is not None:
+        _check_train_flags(**flags, world_size=world)
+    primary = dp is None or dp.primary
     device = tree_leaves(params)[0].device
     train_idx, val_idx = random_split_indices(len(dataset), val_percent, seed=seed)
     n_train, n_val = len(train_idx), len(val_idx)
     train_loader, val_loader = _build_loaders(
         dataset, train_idx, val_idx, batch_size=batch_size, seed=seed, device=device,
-        device_dataset=device_dataset, device_preprocess=device_preprocess)
+        device_dataset=device_dataset, device_preprocess=device_preprocess, dp=dp)
     experiment = init_wandb(
-        use_wandb,
+        use_wandb and primary,
         dict(epochs=epochs, batch_size=batch_size, learning_rate=learning_rate,
              val_percent=val_percent, amp=amp, optimizer=optimizer, lr_scheduler=lr_scheduler,
              dice_weight=dice_weight, arch=config.arch))
+    # Every rank runs the W&B panel's collective gradient pass when rank 0 logs.
+    panel_on = experiment is not None if dp is None else dp.any(experiment is not None)
     logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
                 "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
-                "device_preprocess=%s device_dataset=%s augment=%s", config.arch, epochs,
-                batch_size, learning_rate, n_train, n_val, amp, optimizer, lr_scheduler,
-                dice_weight, device, kernels, device_preprocess, device_dataset, augment)
+                "device_preprocess=%s device_dataset=%s augment=%s data_parallel_ranks=%d",
+                config.arch, epochs, batch_size, learning_rate, n_train, n_val, amp, optimizer,
+                lr_scheduler, dice_weight, device, kernels, device_preprocess, device_dataset,
+                augment, world)
     warn_recurrent_rmsprop(config.arch, optimizer, momentum, learning_rate)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
@@ -316,13 +425,15 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     if resume:
         params, bn_state, opt_state, start_epoch, resume_es = _restore_resume(
             resume, params, bn_state, opt_state, scheduler, config=config, optimizer=optimizer,
-            lr_scheduler=lr_scheduler, learning_rate=learning_rate)
-    train_step = make_train_step(
-        config, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
+            lr_scheduler=lr_scheduler, learning_rate=learning_rate, dp=dp)
+    opt_state = _place_opt_state(opt_state, dp)
+    train_step = _build_stepper(
+        config, dp=dp, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
         grad_clip=gradient_clipping, kernels=kernels, accum_steps=accum_steps,
         optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight)
     panel = WandbValidationPanel(experiment, config=config, amp=amp, remat=remat,
-                                 dice_weight=dice_weight, accum_steps=accum_steps)
+                                 dice_weight=dice_weight, accum_steps=accum_steps,
+                                 group=None if dp is None else dp.group, enabled=panel_on)
     ema = train_ema.maybe_create(ema_decay, params,
                                  total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
     if ema is not None and resume:
@@ -336,7 +447,7 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     # The reference validates 5 times an epoch: division_step = n_train // (5·B).
     division_step = n_train // (max(1, val_per_epoch) * batch_size)
     policy = CheckpointPolicy(
-        checkpoint_dir, enabled=save_checkpoint_flag, keep=keep_checkpoints,
+        checkpoint_dir, enabled=save_checkpoint_flag, primary=primary, keep=keep_checkpoints,
         save_best=save_best, save_optimizer=save_optimizer, optimizer=optimizer,
         lr_scheduler=lr_scheduler, config=config, dataset=dataset, ema_decay=ema_decay)
     interrupted = early_stopped = False
@@ -353,19 +464,22 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
             feed = (train_loader if device_dataset or device_preprocess
                     else prefetch_to_device(train_loader, buffer_size=2, device=device))
             for batch in feed:
-                if stop.requested:
-                    interrupted = True  # act at this batch boundary
+                # Act at this batch boundary, on every rank when any was signalled.
+                if stop.requested if dp is None else dp.any(stop.requested):
+                    interrupted = True
                     break
                 images, masks = batch["image"], batch["mask"]
                 if augment is not None:
+                    # Under data parallelism: the draws of the rank's global rows.
+                    shard = {} if dp is None else {"shard": (dp.rank, dp.world_size)}
                     images, masks = augment_batch(images, masks, config=augment, seed=seed,
-                                                  step=global_step)
+                                                  step=global_step, **shard)
                 params, bn_state, opt_state, loss, _ = train_step(
                     params, bn_state, opt_state, images, masks, scheduler.lr)
                 if ema is not None:
                     ema.update(params)
                 global_step += 1
-                if experiment is not None and images.shape[0] == batch_size:
+                if panel_on and images.shape[0] == batch_size // world:
                     # The histograms sample the last full batch, as the JAX
                     # package's do: never a trailing partial one.
                     hist_batch = (images, masks)
@@ -378,7 +492,7 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                         history=history, ema=ema, early_stopping=early_stopping,
                         es_best=es_best, es_bad=es_bad, policy=policy, panel=panel,
                         epoch=epoch, global_step=global_step, images=images, masks=masks,
-                        hist_batch=hist_batch)
+                        hist_batch=hist_batch, dp=dp)
                     early_stopped = early_stopped or stopped
                 if early_stopped:
                     break
@@ -388,8 +502,9 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                     epoch=epoch, step=global_step, scheduler=scheduler, es_best=es_best,
                     es_bad=es_bad, params=params, bn_state=bn_state, opt_state=opt_state,
                     ema_params=ema.params if ema is not None else None)
-                logger.info("Training interrupted: resumable checkpoint saved to %s "
-                            "(continue with --resume %s)", path, path)
+                if path is not None:
+                    logger.info("Training interrupted: resumable checkpoint saved to %s "
+                                "(continue with --resume %s)", path, path)
                 break
             epoch_losses = history["train_loss"][-len(train_loader):]
             logger.info("Epoch %d finished, mean loss %f", epoch,
@@ -405,4 +520,6 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 logger.info("Stopped early during epoch %d.", epoch)
                 break
     policy.finish(last_epoch, start_epoch, epochs)
+    if dp is not None:
+        dp.barrier()  # rank 0's files are written before any rank returns
     return params, bn_state, history

@@ -3,7 +3,8 @@ per-epoch files carrying ``mask_values`` (the reference's contract: predict
 needs the palette), retention (``--keep-checkpoints``), best-model tracking
 (``--save-best``), EMA siblings and the resumable ``INTERRUPTED.npz``. The
 file names and ``extra`` fields are the JAX package's, so either package
-resumes from the other's files.
+resumes from the other's files. Under data parallelism only the primary
+rank (rank 0) writes; the others keep the same bookkeeping.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ class CheckpointPolicy:
 
     def __init__(self, checkpoint_dir: Path, *, enabled: bool, keep: int | None,
                  save_best: bool, save_optimizer: bool, optimizer: str, lr_scheduler: str,
-                 config, dataset, ema_decay: float | None):
+                 config, dataset, ema_decay: float | None, primary: bool = True):
         self.dir = Path(checkpoint_dir)
         self.enabled = enabled
+        self.primary = primary
         self.keep = keep
         self.save_best = save_best
         self.save_optimizer = save_optimizer
@@ -67,6 +69,8 @@ class CheckpointPolicy:
         return {"early_stop": {"best": es_best, "bad": es_bad}} if es_best != -float("inf") else {}
 
     def _save(self, name: str, params, bn_state, extra: dict, opt_state=None) -> None:
+        if not self.primary:
+            return
         self.dir.mkdir(parents=True, exist_ok=True)
         self.checkpointer.save(self.dir / name, params, bn_state, mask_values=self.mask_values,
                                extra={**extra, "config": self.config._asdict()},
@@ -88,12 +92,13 @@ class CheckpointPolicy:
                    {"epoch": epoch, "step": step, "val_dice": val_dice, "lr": lr,
                     "optimizer": self.optimizer},
                    opt_state if self.save_optimizer else None)
-        logger.info("New best val Dice %.4f: checkpoint_best.npz updated", val_dice)
+        if self.primary:
+            logger.info("New best val Dice %.4f: checkpoint_best.npz updated", val_dice)
         return True
 
     def save_epoch(self, epoch: int, *, params, bn_state, opt_state, scheduler, es_best: float,
                    es_bad: int, ema_params=None) -> None:
-        if not self.enabled:
+        if not (self.enabled and self.primary):
             return
         self._save(f"checkpoint_epoch{epoch}.npz", params, bn_state,
                    {"epoch": epoch, **self._schedule_extra(scheduler),
@@ -109,10 +114,14 @@ class CheckpointPolicy:
             prune_checkpoints(self.dir, epoch, self.keep)
 
     def save_interrupted(self, *, epoch: int, step: int, scheduler, es_best: float,
-                         es_bad: int, params, bn_state, opt_state, ema_params=None) -> Path:
+                         es_bad: int, params, bn_state, opt_state, ema_params=None
+                         ) -> Path | None:
         """``INTERRUPTED.npz`` with the whole resumable state, optimizer
         included. It records epoch − 1: the interrupted epoch is incomplete,
-        so ``--resume`` runs it again from its start."""
+        so ``--resume`` runs it again from its start. Returns its path (None
+        on a rank that does not write)."""
+        if not self.primary:
+            return None
         self._save("INTERRUPTED.npz", params, bn_state,
                    {"epoch": epoch - 1, "step": step, "interrupted": True,
                     **self._schedule_extra(scheduler), **self._es_extra(es_best, es_bad)},
@@ -126,5 +135,5 @@ class CheckpointPolicy:
         """Wait for the write in flight, then prune once more: an epoch whose
         write was still queued when its prune ran lands afterwards."""
         self.checkpointer.wait()
-        if self.enabled and self.keep and epochs >= start_epoch:
+        if self.enabled and self.primary and self.keep and epochs >= start_epoch:
             prune_checkpoints(self.dir, last_epoch, self.keep)

@@ -31,10 +31,28 @@ Chrome trace into ``DIR`` (``python -m tpu_unet_torch.tools.profile_step
 ``FloatingPointError`` at the first op that meets a NaN
 (``utils/debug_nans.py``), as JAX's ``jax_debug_nans``.
 
+``--data-parallel`` trains over the ranks that torchrun launches, one
+process per GPU on one host, with the global batch ``-b`` split over them
+and the JAX package's global-batch semantics (``parallel/mesh.py``,
+``train.py``): NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``.
+At world size 1 the group is still formed and the step is the data-parallel
+one, with the plain step's numbers. Rank 0 alone writes checkpoints,
+``--history-out`` and W&B. An out-of-memory error under ``--data-parallel``
+is raised, not retried with ``remat``: a rank that retried alone would
+leave the others waiting in the step's collectives, and torchrun stops
+every rank when one fails.
+
+    torchrun --nproc-per-node 2 -m tpu_unet_torch.train_cli --data-parallel \
+        -b 8 --data-dir data [--device cpu]
+
+``--deterministic`` runs with cuDNN's and torch's deterministic algorithms
+(``utils/determinism.py``), so a seeded run repeats bit for bit, and logs
+the ops that have no deterministic form.
+
 The JAX flags this port does not run yet are refused with an error, never
-ignored: data parallelism and multi-host, and ZeRO. ``--load`` takes a
-``.npz`` checkpoint or, for ``--arch unet``, the reference's torch ``.pth``
-state dict.
+ignored: multi-host, ZeRO, and spatial, tensor and pipeline parallelism.
+``--load`` takes a ``.npz`` checkpoint or, for ``--arch unet``, the
+reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
 """
 
@@ -53,6 +71,7 @@ import tpu_unet_torch.train as train_mod
 from tpu_unet_torch.models.unet import ARCHS, check_kernels
 from tpu_unet_torch.predict import exit_on_refusal
 from tpu_unet_torch.utils.debug_nans import DebugNans
+from tpu_unet_torch.utils.determinism import Deterministic
 
 logger = logging.getLogger(__name__)
 
@@ -161,8 +180,14 @@ def get_args(argv=None):
                    help="Write a torch.profiler Chrome trace of the whole run to this directory")
     p.add_argument("--debug-nans", action="store_true", default=False,
                    help="Raise FloatingPointError at the first op that meets a NaN")
+    p.add_argument("--deterministic", action="store_true", default=False,
+                   help="cuDNN's and torch's deterministic algorithms, so a seeded run "
+                        "repeats bit for bit")
+    p.add_argument("--data-parallel", action="store_true", default=False,
+                   help="Shard the batch across the ranks that torchrun launches (one "
+                        "process per GPU)")
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--data-parallel", "--multihost", "--zero"):
+    for flag in ("--multihost", "--zero"):
         p.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
     p.add_argument("--coordinator", type=str, default=None, help=argparse.SUPPRESS)
     for flag in ("--num-processes", "--process-id"):
@@ -175,7 +200,7 @@ def get_args(argv=None):
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with a clear message when a flag the port lacks was given."""
     asked = {
-        "--data-parallel": args.data_parallel, "--multihost": args.multihost,
+        "--multihost": args.multihost,
         "--coordinator": args.coordinator is not None,
         "--num-processes": args.num_processes is not None,
         "--process-id": args.process_id is not None,
@@ -218,15 +243,28 @@ def _build_augment(args: argparse.Namespace):
 
 @exit_on_refusal("tpu_unet_torch.train_cli")
 def main(argv=None):
+    from tpu_unet_torch.parallel.mesh import cli_data_parallel
+
+    args = get_args(argv)
+    refuse_unported(args)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
+    dp, formed = None, False
+    if args.data_parallel:
+        dp, formed = cli_data_parallel(args.device, "tpu_unet_torch.train_cli")
+    try:
+        return _train(args, dp)
+    finally:
+        if formed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, dp):
     from tpu_unet_torch.checkpoint import import_pth, load_checkpoint
     from tpu_unet_torch.data import BasicDataset, CarvanaDataset, RawCarvanaDataset, RawDataset
     from tpu_unet_torch.models.unet import UNetConfig, init_unet, param_count, tree_map
     from tpu_unet_torch.predict import resolve_device
 
-    args = get_args(argv)
-    refuse_unported(args)
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if dp is None else dp.device)
     config = UNetConfig(n_channels=3, n_classes=args.classes, bilinear=args.bilinear,
                         arch=args.arch, deep_supervision=args.deep_supervision,
                         recur_t=args.recur_t)
@@ -273,24 +311,33 @@ def main(argv=None):
             early_stopping=args.early_stopping, keep_checkpoints=args.keep_checkpoints,
             save_best=args.save_best, device_preprocess=args.device_preprocess,
             device_dataset=args.device_dataset, augment=_build_augment(args),
-            use_wandb=args.wandb)
+            use_wandb=args.wandb, data_parallel=dp)
 
     with contextlib.ExitStack() as stack:
         if args.profile:
             stack.enter_context(_profiler(args.profile))
         if args.debug_nans:
             stack.enter_context(DebugNans())
+        det = stack.enter_context(Deterministic()) if args.deterministic else None
         try:
             result = run(remat=False)
         except torch.cuda.OutOfMemoryError:
+            if dp is not None:
+                logger.error("Out of memory under --data-parallel: not retried with remat "
+                             "(the other ranks wait in the step's collectives). Reduce "
+                             "--batch-size or --scale.")
+                raise
             logger.error("Detected OOM! Enabling activation checkpointing (remat) and retrying. "
                          "Consider reducing --batch-size or --scale.")
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
             result = run(remat=True)
+    if det is not None:
+        logger.info("Deterministic algorithms; ops without a deterministic form: %s",
+                    det.reasons or "none")
     if args.profile:
         logger.info("Profiler trace written to %s", args.profile)
-    if args.history_out:
+    if args.history_out and (dp is None or dp.primary):
         Path(args.history_out).write_text(json.dumps(result[2]))
         logger.info("Training history written to %s", args.history_out)
     return result

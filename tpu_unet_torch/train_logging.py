@@ -15,6 +15,10 @@ warns and trains on.
   fetch every leaf's sample in one copy. Gradients are recomputed at the
   current params on the last full train batch with the library-conv route,
   as the JAX package's ``hist_sample_step`` does.
+- Under data parallelism that gradient pass is the global batch's (BN and
+  the loss over ``group``, the gradients averaged over the ranks), so every
+  rank runs it and rank 0 alone logs. The JAX package's scalars-only panel
+  for more than one host is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from tpu_unet_torch.models.unet import tree_leaves, unet_apply
+from tpu_unet_torch.parallel.mesh import pmean
 
 logger = logging.getLogger(__name__)
 
@@ -96,11 +101,17 @@ class LossDrain:
 
 class WandbValidationPanel:
     """The W&B log of one validation: the scalars, the sample triplet from
-    the eval forward and the subsampled weight and gradient histograms."""
+    the eval forward and the subsampled weight and gradient histograms.
+
+    Under data parallelism (``group``) ``enabled`` says whether rank 0 logs:
+    then every rank takes part in the gradient pass, and only the rank with
+    the ``experiment`` logs."""
 
     def __init__(self, experiment, *, config, amp: bool, remat: bool, dice_weight: float,
-                 accum_steps: int):
+                 accum_steps: int, group=None, enabled: bool | None = None):
         self.experiment = experiment
+        self.group = group
+        self.enabled = experiment is not None if enabled is None else enabled
         self.config = config
         self.compute_dtype = torch.bfloat16 if amp else None
         self.remat = remat
@@ -115,19 +126,21 @@ class WandbValidationPanel:
 
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         logits, _ = unet_apply(_unflatten(params, leaves), bn_state, images, config=self.config,
-                               train=True, compute_dtype=self.compute_dtype, remat=self.remat)
-        loss = compute_loss(logits, masks, self.config.n_classes, dice_weight=self.dice_weight)
+                               train=True, compute_dtype=self.compute_dtype, remat=self.remat,
+                               group=self.group)
+        loss = compute_loss(logits, masks, self.config.n_classes, dice_weight=self.dice_weight,
+                            group=self.group)
         grads = torch.autograd.grad(loss, leaves)
+        if self.group is not None:
+            grads = pmean(list(grads), self.group)
         keyed = _keyed_leaves(params)
         return ([(k, _subsample_leaf(p)) for k, p in keyed],
                 [(k, _subsample_leaf(g)) for (k, _), g in zip(keyed, grads)])
 
     def log(self, *, lr_now, val_dice, val_iou, step: int, epoch: int, params, bn_state,
             images, masks, hist_batch) -> None:
-        if self.experiment is None:
+        if not self.enabled:
             return
-        import wandb
-
         h_imgs, h_masks = hist_batch if hist_batch else (images, masks)
         if self.accum_steps > 1:
             # The train step ran this batch as microbatches: keep the
@@ -135,6 +148,10 @@ class WandbValidationPanel:
             mb = max(1, h_imgs.shape[0] // self.accum_steps)
             h_imgs, h_masks = h_imgs[:mb], h_masks[:mb]
         w_sub, g_sub = self._hist_sample(params, bn_state, h_imgs, h_masks)
+        if self.experiment is None:
+            return  # a data-parallel rank that does not log
+        import wandb
+
         # One copy to the host for every sample.
         subs = [t for _, t in w_sub + g_sub]
         host = torch.cat([t.float() for t in subs]).cpu().numpy()
