@@ -165,6 +165,34 @@ Phases, each of which exits non-zero on failure, each with its time:
    full-batch step's (two ranks on one card share its SMs: no speed claim);
    (c) ``evaluate`` split over the two ranks against the single-process
    ``evaluate`` on (a)'s checkpoint, Dice and IoU within ``DP_EVAL_TOL``.
+12. ZeRO, multi-host and halo-sharded predict (``parallel/zero.py``,
+   ``parallel/multihost.py``, ``parallel/tiling.py``) at full width, in at
+   most ``MH_BUDGET_S``, two "hosts" sharing the card over gloo (each a
+   process with ``LOCAL_WORLD_SIZE`` 1 at an explicit TCP rendezvous): (a)
+   ``ZERO_STEPS`` steps of the ZeRO step beside the plain data-parallel
+   step on phase 5's parity batch, fp32 and bf16, RMSprop and Adam, library
+   route, deterministic algorithms: params, BN state, losses, grad norms
+   and the gathered optimizer state bitwise equal, each rank's
+   optimizer-state MB against the replicated MB (and, printed, whether
+   two plain fp32 runs with cuDNN's default algorithms repeat); (b)
+   ``train_model`` across the two hosts with ``kernels="cuda"`` and bf16
+   on phase 6's files for one epoch (2 steps, 1 validation; deterministic
+   algorithms), once with the multi-host host feed (each rank decoding its
+   rows, validation on shard-marked batches) and once with
+   ``device_dataset``: each history bitwise the ``device_dataset`` run's
+   as one host's two ranks, each rank staging about half the corpus and
+   launching the train kernels as a plain step does; then
+   ``GATHER_PASSES`` passes of gather and train step at 959x640 with the
+   corpus staged over the ranks beside the whole corpus staged on each
+   rank (host-clock ms, printed); and ``train_cli --data-parallel
+   --multihost --coordinator 127.0.0.1:<p>
+   --num-processes 1 --process-id 0`` (NCCL) bitwise 11a's run without
+   ``--data-parallel``; (c) ``predict_img_halo_sharded`` over the two ranks
+   on a 2048² image at scale 0.5 (bands of 512, halo 128), fp32 logits
+   within ``RANGE_TOL`` of the range of the one-process full forward's
+   (bitwise or not, printed), masks in fp32 and bf16 at least
+   ``MASK_AGREEMENT`` equal to ``predict_img``'s, and ``predict
+   --tile-sharded`` as one process warning and writing ``predict``'s mask.
 
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
@@ -2799,6 +2827,7 @@ def _dp_cli(workdir: Path, train_dir: Path, failures: list) -> dict:
     dp_hist = json.loads((workdir / "history_dp.json").read_text())
     history, launches, _ = _cli_run(common + ["--checkpoint-dir", str(workdir / "ck_plain")],
                                     "--deterministic without --data-parallel (11a)")
+    (workdir / "history_plain.json").write_text(json.dumps(history))  # 12b's reference
     for name, count in launches.items():
         if count != expected_launches(name, "cuda", True, DP_STEPS):
             failures.append(f"11a plain run: {name} launched {count} times")
@@ -3031,6 +3060,487 @@ def phase_data_parallel(workdir: Path, train_dir: Path, card: str) -> dict:
     return numbers
 
 
+# Phase 12: ZeRO, multi-host and halo-sharded predict at full width, two
+# "hosts" sharing the card over gloo (each a process with LOCAL_WORLD_SIZE
+# 1 at an explicit TCP rendezvous); (a) the ZeRO step beside the plain
+# data-parallel step; (b) the multi-host trainer with the corpus staged
+# over the ranks, and the train CLI's explicit rendezvous through NCCL at
+# world size 1; (c) the halo-sharded forward and predict.
+MH_RANKS = 2
+ZERO_OPTIMIZERS = ("rmsprop", "adam")
+ZERO_STEPS = 2
+MH_TRAIN = dict(epochs=1, batch_size=4, val_percent=0.2, val_per_epoch=1, amp=True,
+                kernels="cuda", device_dataset=True, save_checkpoint_flag=False, seed=0)
+HALO_SIDE, HALO_SCALE = 2048, 0.5  # H = W = 1024 at scale 0.5: bands of 512, halo 128
+HALO_REPS = 3
+GATHER_PASSES = 3  # the first untimed
+MH_BUDGET_S = 120.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(tree) -> str:
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                   for t in tree_leaves(tree))).hexdigest()
+
+
+def _zero_steps(dp, out: dict) -> None:
+    """12a: ``ZERO_STEPS`` steps of the plain data-parallel step and of the
+    ZeRO step (``kernels=None``) from the same trees, per dtype and
+    optimizer, on the rank's rows of phase 5's parity batch, under
+    deterministic algorithms (with cuDNN's default ones two plain fp32 runs
+    need not repeat: the control, printed)."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.parallel.zero import gather_opt_state_zero, state_bytes
+    from tpu_unet_torch.train import _place_opt_state, make_train_step
+
+    config = UNetConfig(**TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device=dp.device)
+    imgs, msks = synth_batch(np.random.default_rng(1), *PARITY_BATCH)
+    rows = tuple(dp.rows(torch.from_numpy(a).to(dp.device)) for a in (imgs, msks))
+
+    def run(amp, opt, zero):
+        """(params, BN state and the whole optimizer state as one leaf list,
+        losses, grad norms, the state MB this rank holds)."""
+        o, sh = _place_opt_state(get_optimizer(opt)[0](params), params, dp, zero=zero)
+        step = make_train_step(config, mesh=dp, amp=amp, optimizer=opt, opt_shardings=sh)
+        p, s, losses, norms = params, state, [], []
+        for _ in range(ZERO_STEPS):
+            p, s, o, loss, gnorm = step(p, s, o, *rows, 1e-4)
+            losses.append(loss.item())
+            norms.append(gnorm.item())
+        held = state_bytes(o) / 1e6
+        full = gather_opt_state_zero(o, sh) if zero else o
+        return tree_leaves((p, s, full)), losses, norms, held
+
+    def same(a, b) -> bool:  # compared on the card
+        return (a[1:3] == b[1:3] and len(a[0]) == len(b[0])
+                and all(torch.equal(x, y) for x, y in zip(a[0], b[0])))
+
+    control = run(False, "rmsprop", False)  # cuDNN's default algorithms
+    out["zero_control_bitwise"] = same(control, run(False, "rmsprop", False))
+    del control
+    for amp, dt in ((False, "fp32"), (True, "bf16")):
+        for opt in ZERO_OPTIMIZERS:
+            with Deterministic():
+                plain = run(amp, opt, False)
+                zero = run(amp, opt, True)
+            equal = same(plain, zero)
+            n_params = len(tree_leaves(params))
+            out["zero"][f"{dt} {opt}"] = {"bitwise": equal, "plain_mb": plain[3],
+                                          "zero_mb": zero[3], "loss": zero[1],
+                                          "params_sha256": _digest(tuple(zero[0][:n_params]))}
+            if not equal:
+                out["failures"].append(f"12a {dt} {opt}: the ZeRO step is not bitwise the "
+                                       f"plain data-parallel step (losses {plain[1]} vs "
+                                       f"{zero[1]}, grad norms {plain[2]} vs {zero[2]})")
+            if not zero[3] < 0.55 * plain[3]:
+                out["failures"].append(f"12a {dt} {opt}: rank {dp.rank} holds "
+                                       f"{zero[3]:.1f} MB of {plain[3]:.1f}")
+            del plain, zero
+            torch.cuda.empty_cache()
+
+
+def _multihost_train(dp, train_dir: str, out: dict) -> None:
+    """12b: ``train_model`` across the two "hosts" with the host feed and
+    with the corpus staged over them, beside the staged run as one host's
+    two ranks; then the cost of the staged corpus's gather (``_gather_cost``)."""
+    import dataclasses
+
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.data import CarvanaDataset, DataLoader
+    from tpu_unet_torch.models import UNetConfig
+
+    config = UNetConfig(**TRAIN_CONFIG)
+    data = Path(train_dir) / "data"
+    ds = CarvanaDataset(data / "imgs", data / "masks", 0.5)
+    real_build = train_mod._build_loaders
+    feeds = {}
+
+    def build_loaders(*a, **k):
+        train, val = real_build(*a, **k)
+        if isinstance(train, DataLoader):
+            feeds.update(feed="host", train_shard=train.shard, val_shard=val.shard,
+                         val_batch=val.batch_size)
+        else:
+            dd = train.parent
+            feeds.update(feed="device", staged_mb=dd.staged_bytes / 1e6, rows=[dd.lo, dd.hi])
+        return train, val
+
+    train_mod._build_loaders = build_loaders
+    try:
+        for tag, mh, device_dataset in (("multihost_host", True, False),
+                                        ("multihost", True, True), ("one_host", False, True)):
+            params, state, _, _ = load_checkpoint(Path(train_dir) / "init.npz", config, dp.device)
+            feeds.clear()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with Deterministic():
+                _, _, hist = train_mod.train_model(
+                    params, state, config, dataset=ds,
+                    data_parallel=dataclasses.replace(dp, multihost=mh),
+                    **{**MH_TRAIN, "device_dataset": device_dataset})
+            torch.cuda.synchronize()
+            out["train"][tag] = {"history": hist, "launches": K.launch_counts(),
+                                 "wall_s": time.perf_counter() - t0, **feeds}
+    finally:
+        train_mod._build_loaders = real_build
+    n = len(ds)
+    h, w, c = ds[0]["image"].shape
+    out["train"]["whole_mb"] = n * (h * w * c + h * w) / 1e6
+    one = out["train"]["one_host"]
+    host = out["train"]["multihost_host"]
+    if host["feed"] != "host" or host["val_shard"] != (dp.rank, dp.world_size):
+        out["failures"].append(f"12b: the multi-host run without device_dataset fed "
+                               f"{host['feed']} batches, val shard {host.get('val_shard')}")
+    for tag in ("multihost_host", "multihost"):
+        rec = out["train"][tag]
+        for name, count in rec["launches"].items():
+            if count != expected_launches(name, "cuda", True, ZERO_STEPS):
+                out["failures"].append(f"12b {tag}: {name} launched {count} times in "
+                                       f"{ZERO_STEPS} steps on rank {dp.rank}")
+        if rec["history"] != one["history"]:
+            out["failures"].append(f"12b {tag}: the history {rec['history']} is not the one "
+                                   f"host's {one['history']}")
+    if not out["train"]["multihost"]["staged_mb"] <= 0.55 * out["train"]["whole_mb"]:
+        out["failures"].append(f"12b: rank {dp.rank} staged "
+                               f"{out['train']['multihost']['staged_mb']:.1f} MB of "
+                               f"{out['train']['whole_mb']:.1f}")
+    _gather_cost(dp, ds, config, Path(train_dir) / "init.npz", out)
+
+
+def _gather_cost(dp, ds, config, init: Path, out: dict) -> None:
+    """12b: host-clock ms of each train batch's gather and of the step on
+    it, over ``GATHER_PASSES`` passes of the shuffled corpus (b4, each rank
+    its 2 rows, ``kernels="cuda"``, bf16), with the corpus staged over the
+    ranks (a global batch by one all-reduce) and whole on each rank (a
+    local gather, the layout before per-rank staging). The ranks share the card and gloo moves
+    the batch through the host: an upper bound on an NCCL world's cost."""
+    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.data.device_cache import DeviceResidentData
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.train import make_train_step
+
+    params, state, _, _ = load_checkpoint(init, config, dp.device)
+    opt = get_optimizer("rmsprop")[0](params)
+    step = make_train_step(config, mesh=dp, amp=True, kernels="cuda")
+    idx = list(range(len(ds)))
+    shard = (dp.rank, dp.world_size)
+    for tag, staged in (("per_rank", DeviceResidentData(ds, device=dp.device, dp=dp)),
+                        ("whole", DeviceResidentData(ds, device=dp.device))):
+        batches = staged.batches(idx, MH_TRAIN["batch_size"], shuffle=True, seed=0,
+                                 drop_last=True, shard=shard)
+        gather_ms, step_ms = [], []
+        for k in range(GATHER_PASSES):
+            it = iter(batches)
+            while True:
+                dp.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = next(it, None)
+                if b is None:
+                    break
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(params, state, opt, b["image"], b["mask"], 1e-5)
+                torch.cuda.synchronize()
+                if k:
+                    gather_ms.append((t1 - t0) * 1e3)
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+        out["gather"][tag] = {"gather_ms": gather_ms, "step_ms": step_ms,
+                              "staged_mb": staged.staged_bytes / 1e6}
+        del staged, batches
+        torch.cuda.empty_cache()
+
+
+def _halo_sharded(dp, ckpt: str, image: str, out: dict) -> None:
+    """12c: the halo-sharded forward and ``predict_img_halo_sharded`` on the
+    two ranks against the one-process full-image forward and
+    ``predict_img``, fp32 and bf16."""
+    from tpu_unet_torch.checkpoint import load_checkpoint
+    from tpu_unet_torch.data.loading import preprocess
+    from tpu_unet_torch.models import UNetConfig
+    from tpu_unet_torch.models.unet import unet_apply
+    from tpu_unet_torch.parallel.tiling import make_halo_sharded_forward, min_halo
+    from tpu_unet_torch.predict import predict_img, predict_img_halo_sharded
+
+    config = UNetConfig(**TRAIN_CONFIG)
+    params, state, _, _ = load_checkpoint(ckpt, config, dp.device)
+    img = Image.open(image)
+    x = torch.from_numpy(preprocess(img, HALO_SCALE))[None].to(dp.device)
+    band = x.shape[1] // dp.world_size
+    xb = x[:, dp.rank * band:(dp.rank + 1) * band]
+    for amp, dt in ((False, "fp32"), (True, "bf16")):
+        fwd = make_halo_sharded_forward(dp, config, halo=min_halo(config), amp=amp)
+        with torch.inference_mode():
+            sharded = fwd(params, state, xb)
+            ms = []
+            for _ in range(HALO_REPS):
+                dp.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fwd(params, state, xb)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            rec = {"sharded_ms": ms, "band": band, "halo": min_halo(config)}
+            mask = predict_img_halo_sharded(params, state, config, img, dp=dp,
+                                            scale_factor=HALO_SCALE, amp=amp, device=dp.device)
+            if dp.rank == 0:
+                full, _ = unet_apply(params, state, x, config=config, train=False,
+                                     compute_dtype=torch.bfloat16 if amp else None)
+                rng = (full.max() - full.min()).item()
+                rec.update(max_abs_err=(sharded - full).abs().max().item(), range=rng,
+                           bitwise=bool(torch.equal(sharded, full)),
+                           full_ms=_host_ms_sync(lambda: unet_apply(
+                               params, state, x, config=config, train=False,
+                               compute_dtype=torch.bfloat16 if amp else None)))
+                ref = predict_img(params, state, config, img, scale_factor=HALO_SCALE, amp=amp,
+                                  device=dp.device)
+                rec["mask_agreement"] = float((mask == ref).mean())
+                if dt == "fp32" and not rec["max_abs_err"] <= RANGE_TOL * rng:
+                    out["failures"].append(f"12c fp32: sharded logits {rec['max_abs_err']:.3e} "
+                                           f"from the full forward's (range {rng:.3f})")
+                if not rec["mask_agreement"] >= MASK_AGREEMENT:
+                    out["failures"].append(f"12c {dt}: masks {rec['mask_agreement']:.5f} equal")
+        out["halo"][dt] = rec
+
+
+def _host_ms_sync(fn) -> list[float]:
+    """Host-clock ms of ``HALO_REPS`` synchronised calls of ``fn`` after one."""
+    with torch.inference_mode():
+        fn()
+        times = []
+        for _ in range(HALO_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _mh_rank(rank: int, coordinator: str, workdir: str, train_dir: str, ckpt: str,
+             image: str, device: str = "cuda:0") -> None:
+    """12a-12c on one of ``MH_RANKS`` "hosts" sharing ``device`` over gloo.
+    Writes ``mh_rank<r>.json`` into ``workdir``: its numbers and failures."""
+    from datetime import timedelta
+
+    from tpu_unet_torch.parallel import multihost
+    from tpu_unet_torch.parallel.mesh import init_data_parallel
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(MH_RANKS), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1")
+    out: dict = {"rank": rank, "failures": [], "zero": {}, "train": {}, "gather": {},
+                 "halo": {}}
+    full_fp32()
+    multihost.initialize(coordinator, MH_RANKS, rank, backend="gloo", device=device,
+                         timeout=timedelta(seconds=600))
+    try:
+        dp = init_data_parallel(device=device)
+        out["multihost"] = dp.multihost
+        for name, part in (("12a", lambda: _zero_steps(dp, out)),
+                           ("12b", lambda: _multihost_train(dp, train_dir, out)),
+                           ("12c", lambda: _halo_sharded(dp, ckpt, image, out))):
+            t0 = time.perf_counter()
+            part()
+            torch.cuda.empty_cache()
+            out[f"{name}_s"] = time.perf_counter() - t0
+    except Exception:
+        out["failures"].append(f"rank {rank}: {traceback.format_exc()}")
+    finally:
+        (Path(workdir) / f"mh_rank{rank}.json").write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+
+
+def _mh_cli(workdir: Path, dp_dir: Path, train_dir: Path, failures: list) -> dict:
+    """12b: ``train_cli --data-parallel --multihost`` with the explicit
+    rendezvous flags at world size 1 (NCCL), against 11a's run without
+    ``--data-parallel``: history and checkpoint bitwise."""
+    cmd = [sys.executable, "-m", "tpu_unet_torch.train_cli", *DP_ARGS, "--data-dir",
+           str(train_dir / "data"), "--load", str(train_dir / "init.npz"), "--data-parallel",
+           "--multihost", "--coordinator", f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+           "--process-id", "0", "--checkpoint-dir", str(workdir / "ck_mh"), "--history-out",
+           str(workdir / "history_mh.json")]
+    log_path = workdir / "cli_mh.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise SystemExit(f"chip_smoke: train_cli --multihost did not finish in 300 s "
+                             f"(log {log_path})") from None
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        tail = log_path.read_text().splitlines()[-30:]
+        raise SystemExit(f"chip_smoke: train_cli --multihost exited {rc}:\n" + "\n".join(tail))
+    hist = json.loads((workdir / "history_mh.json").read_text())
+    plain = json.loads((dp_dir / "history_plain.json").read_text())
+    differ = _same_files(workdir / "ck_mh" / "checkpoint_epoch1.npz",
+                         dp_dir / "ck_plain" / "checkpoint_epoch1.npz")
+    log(f"12b train_cli --data-parallel --multihost --coordinator 127.0.0.1:<port> "
+        f"--num-processes 1 --process-id 0 (NCCL): {wall:.1f} s wall incl. start; losses "
+        f"{hist['train_loss']} val Dice {hist['val_dice']}; 11a's run without "
+        f"--data-parallel {plain['train_loss']} {plain['val_dice']}: history bitwise equal="
+        f"{hist == plain}; checkpoint arrays differing: {differ or 'none'}")
+    if hist != plain:
+        failures.append(f"12b: the --multihost CLI history {hist} is not the plain one {plain}")
+    if differ:
+        failures.append(f"12b: --multihost checkpoint differs in {differ[:8]}")
+    return {"wall_s": wall, "history_equal": hist == plain, "checkpoint_equal": not differ}
+
+
+def _tile_sharded_cli(workdir: Path, ckpt: Path, image: Path, failures: list) -> dict:
+    """12c: ``predict --tile-sharded`` as one process: JAX's fallback warning
+    and ``predict``'s mask."""
+    import logging
+
+    from tpu_unet_torch import predict
+
+    warned = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    grab = Grab(level=logging.WARNING)
+    logging.getLogger("tpu_unet_torch.predict").addHandler(grab)
+    try:
+        outs = {}
+        for tag, flags in (("tile_sharded", ["--tile-sharded"]), ("plain", [])):
+            outs[tag] = workdir / f"{tag}.png"
+            predict.main(["-m", str(ckpt), "-i", str(image), "-o", str(outs[tag]), "-s",
+                          str(HALO_SCALE), *flags])
+    finally:
+        logging.getLogger("tpu_unet_torch.predict").removeHandler(grab)
+    warn = any("halo-sharded constraints not met (devices=1" in m for m in warned)
+    same = np.array_equal(np.asarray(Image.open(outs["tile_sharded"])),
+                          np.asarray(Image.open(outs["plain"])))
+    log(f"12c predict --tile-sharded as one process: fallback warning={warn}, mask equal to "
+        f"predict's={same}")
+    if not (warn and same):
+        failures.append(f"12c: one-process --tile-sharded warned={warn}, mask equal={same}")
+    return {"warned": warn, "mask_equal": same}
+
+
+def phase_multihost(workdir: Path, train_dir: Path, dp_dir: Path, ckpt: Path, card: str) -> dict:
+    """Phase 12 (module docstring). Returns its numbers."""
+    from tpu_unet_torch.data import make_synthetic_carvana
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    failures: list = []
+    numbers = {"cli": _mh_cli(workdir, dp_dir, train_dir, failures)}
+    torch.cuda.empty_cache()
+    img_dir, _ = make_synthetic_carvana(workdir / "big", n=1, h=HALO_SIDE, w=HALO_SIDE, seed=3)
+    image = sorted(Path(img_dir).glob("*.png"))[0]
+    numbers["predict_cli"] = _tile_sharded_cli(workdir, ckpt, image, failures)
+    ctx = mp.get_context("spawn")
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=_mh_rank, args=(r, coordinator, str(workdir), str(train_dir),
+                                                str(ckpt), str(image)))
+             for r in range(MH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            failures.append(f"12: rank process {p.pid} still running after 300 s: killed")
+    log(f"12a-12c: {MH_RANKS} host processes in {time.perf_counter() - t0:.1f} s, exit codes "
+        f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(MH_RANKS):
+        path = workdir / f"mh_rank{r}.json"
+        if not path.exists():
+            failures.append(f"12: rank {r} wrote no result")
+            continue
+        ranks.append(json.loads(path.read_text()))
+        failures += ranks[-1]["failures"]
+    if len(ranks) == MH_RANKS and all("12c_s" in rk for rk in ranks):
+        r0, r1 = ranks
+        log(f"12 ranks' world spans hosts: {[rk['multihost'] for rk in ranks]}; parts "
+            + ", ".join(f"{p} {r0[p + '_s']:.1f} s" for p in ("12a", "12b", "12c")))
+        log(f"12a control: two plain fp32 RMSprop runs with cuDNN's default algorithms "
+            f"bitwise equal={r0['zero_control_bitwise']} (rank 1 "
+            f"{r1['zero_control_bitwise']}); the runs below use deterministic algorithms")
+        for tag, rec in r0["zero"].items():
+            other = r1["zero"][tag]
+            log(f"12a {tag}, kernels=None, {ZERO_STEPS} steps, 2 of {PARITY_BATCH[0]} rows a "
+                f"rank: ZeRO bitwise the plain data-parallel step={rec['bitwise']} (rank 1 "
+                f"{other['bitwise']}); optimizer state a rank {rec['zero_mb']:.1f} / "
+                f"{other['zero_mb']:.1f} MB against {rec['plain_mb']:.1f} MB replicated; "
+                f"losses {rec['loss']}")
+            if rec["params_sha256"] != other["params_sha256"]:
+                failures.append(f"12a {tag}: the ranks' params differ")
+        one = r0["train"]["one_host"]
+        for tag, what in (("multihost_host", "the host feed (shard-marked val batches)"),
+                          ("multihost", "--device-dataset")):
+            mh, mh1 = r0["train"][tag], r1["train"][tag]
+            staged = (f"rows staged {mh['rows']} / {mh1['rows']}, {mh['staged_mb']:.1f} / "
+                      f"{mh1['staged_mb']:.1f} MB a rank of {r0['train']['whole_mb']:.1f} MB"
+                      if mh["feed"] == "device" else
+                      f"train / val shards {mh['train_shard']} / {mh1['train_shard']}, val "
+                      f"batch {mh['val_batch']}")
+            log(f"12b train_model across 2 hosts, kernels=cuda, bf16, {what}, "
+                f"{len(mh['history']['train_loss'])} steps: losses "
+                f"{mh['history']['train_loss']} val Dice {mh['history']['val_dice']}; bitwise "
+                f"the --device-dataset run as one host's 2 ranks={mh['history'] == one['history']}"
+                f"; {staged}; launches rank 0 "
+                f"{json.dumps({k: v for k, v in mh['launches'].items() if v})}, rank 1 "
+                f"{json.dumps({k: v for k, v in mh1['launches'].items() if v})}; wall "
+                f"{mh['wall_s']:.1f} s (one host {one['wall_s']:.1f} s)")
+            if mh["history"] != mh1["history"]:
+                failures.append(f"12b {tag}: the two hosts' histories differ")
+        for tag, rec in r0["gather"].items():
+            layout = ("staged over the ranks (all-reduce)" if tag == "per_rank"
+                      else "whole on each rank (local gather)")
+            log(f"12b gather + step at 959x640 b4 (2 rows a rank), corpus {layout}, "
+                f"{rec['staged_mb']:.1f} MB a rank ({card}, 2 gloo ranks on one card, host "
+                f"clock): gather median {statistics.median(rec['gather_ms']):.2f} ms "
+                f"(rank 1 {statistics.median(r1['gather'][tag]['gather_ms']):.2f}), step median "
+                f"{statistics.median(rec['step_ms']):.2f} ms, {len(rec['gather_ms'])} batches")
+        for dt, rec in r0["halo"].items():
+            log(f"12c predict_img_halo_sharded {dt} at {HALO_SIDE}² scale {HALO_SCALE} "
+                f"({card}): {MH_RANKS} ranks, band {rec['band']}, halo {rec['halo']}; logits "
+                f"max abs err {rec['max_abs_err']:.3e} against the full forward's (range "
+                f"{rec['range']:.3f}, tol {RANGE_TOL:g} x range in fp32), bitwise="
+                f"{rec['bitwise']}; masks {rec['mask_agreement']:.5f} equal to predict_img's "
+                f"(>= {MASK_AGREEMENT}); sharded forward "
+                f"{statistics.median(rec['sharded_ms']):.2f} ms vs full "
+                f"{statistics.median(rec['full_ms']):.2f} ms (host clock, ranks share the "
+                "card: not a speed claim)")
+        numbers.update(zero=r0["zero"], train={k: {kk: vv for kk, vv in v.items()
+                                                   if kk != "launches"}
+                                               if isinstance(v, dict) else v
+                                               for k, v in r0["train"].items()},
+                       gather=r0["gather"], halo=r0["halo"],
+                       parts_s={p: r0[p + "_s"] for p in ("12a", "12b", "12c")})
+    if failures:
+        raise SystemExit(f"chip_smoke: ZeRO / multi-host / halo-sharded checks failed: "
+                         f"{failures}")
+    return numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -3130,6 +3640,17 @@ def main(argv=None) -> int:
         phase_done("11 (data parallelism)", t0)
         if time.perf_counter() - t0 > DP_BUDGET_S:
             log(f"phase 11 took over its {DP_BUDGET_S:.0f} s budget")
+        # Phase 12: ZeRO, multi-host, halo-sharded predict, on phase 6's
+        # files, 11a's run and phase 3's checkpoint.
+        t0 = time.perf_counter()
+        mh_numbers = phase_multihost(workdir / "multihost", workdir / "train",
+                                     workdir / "data_parallel",
+                                     workdir / "serve" / "unet_base64.npz", card)
+        log(f"ZeRO / multi-host / halo-sharded numbers: {json.dumps(mh_numbers)}")
+        torch.cuda.empty_cache()
+        phase_done("12 (ZeRO, multi-host and halo-sharded predict)", t0)
+        if time.perf_counter() - t0 > MH_BUDGET_S:
+            log(f"phase 12 took over its {MH_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

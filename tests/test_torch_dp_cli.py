@@ -209,11 +209,17 @@ def test_augment_draws_follow_the_global_rows():
 
 
 def test_multi_host_and_bare_launches_are_refused(monkeypatch):
+    # A world over hosts is ported (tests/test_torch_multihost.py): a process
+    # of one with no rank to take is refused, and --zero across hosts is, as
+    # JAX refuses it.
     monkeypatch.setenv("WORLD_SIZE", "4")
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.delenv("RANK", raising=False)
     for main, argv in ((train_cli.main, []), (t_evaluate.main, ["-m", "x.npz"])):
-        with pytest.raises(SystemExit, match="multi-host data parallelism .* not ported"):
+        with pytest.raises(SystemExit, match="needs RANK and WORLD_SIZE"):
             main(argv + ["--data-parallel", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--zero is single-host for now"):
+        train_cli.main(["--data-parallel", "--zero", "--multihost", "--device", "cpu"])
     for name in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK"):
         monkeypatch.delenv(name, raising=False)
     with pytest.raises(SystemExit, match="launch under torchrun"):
@@ -221,8 +227,12 @@ def test_multi_host_and_bare_launches_are_refused(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-@pytest.mark.parametrize("flag", [["--multihost"], ["--zero"], ["--spatial-parallel", "2"],
-                                  ["--tensor-parallel", "2"], ["--pipeline-parallel", "2"]])
+# --multihost and --zero are ported: beside them the unported flags stay refused.
+@pytest.mark.parametrize("flag", [["--multihost", "--spatial-parallel", "2"],
+                                  ["--zero", "--tensor-parallel", "2"],
+                                  ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
+                                  ["--pipeline-parallel", "2"]])
 def test_other_parallel_flags_stay_refused_beside_data_parallel(flag):
-    with pytest.raises(SystemExit, match=f"{flag[0]} is not ported to tpu_unet_torch"):
+    refused = next(f for f in flag if f.endswith("-parallel"))
+    with pytest.raises(SystemExit, match=f"{refused} is not ported to tpu_unet_torch"):
         train_cli.main(["--device", "cpu", "--data-parallel", *flag])

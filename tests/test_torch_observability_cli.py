@@ -98,15 +98,30 @@ def test_profile_wraps_the_oom_retry(cli, tmp_path, monkeypatch):
     assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
+def _refusal(flag: list) -> str:
+    """The message that refuses ``flag`` before any training: the unported
+    parallel flags, and JAX's refusals of the ported --zero and --multihost
+    (with the rendezvous flags that need --multihost)."""
+    if "--kernels" in flag:
+        return "--zero requires the library route"
+    if flag[0] == "--multihost":
+        return "multi-host training requires --data-parallel"
+    if flag[0] in ("--coordinator", "--num-processes", "--process-id"):
+        return f"{flag[0]} applies with --multihost"
+    if flag == ["--zero"]:
+        return "--zero requires --data-parallel"
+    return "is not ported to tpu_unet_torch"
+
+
 @pytest.mark.parametrize("flag", [
-    ["--data-parallel", "--zero"], ["--multihost"], ["--coordinator", "h:1"],
-    ["--num-processes", "2"],
+    ["--data-parallel", "--zero", "--kernels", "cuda"], ["--multihost", "--num-processes", "2"],
+    ["--coordinator", "h:1"], ["--num-processes", "2"],
     ["--process-id", "0"], ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
     ["--pipeline-parallel", "2"], ["--zero"],
 ])
 def test_other_flags_stay_refused(cli, tmp_path, flag):
     argv, logs, modes = cli
-    with pytest.raises(SystemExit, match="is not ported to tpu_unet_torch"):
+    with pytest.raises(SystemExit, match=_refusal(flag)):
         train_cli.main(argv + _with_trace(FLAGS, tmp_path / "trace") + flag)
     assert not logs and not modes and not (tmp_path / "trace").exists()
 

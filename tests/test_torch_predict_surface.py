@@ -139,7 +139,8 @@ def test_predict_cli_equals_jax(ckpt, tmp_path, flags, sizes):
 @pytest.mark.parametrize("flags,match,jax_flags", [
     (["--device-preprocess", "--tile", "128"], "--device-preprocess applies to the default",
      ["--device-preprocess", "--tile", "128"]),
-    (["--tile-sharded"], "--tile-sharded is not ported", None),
+    (["--tile-sharded", "--kernels", "torch"], "--tile-sharded does not compose with --kernels",
+     None),
     (["-m", "x.pth", "--arch", "unetpp"], "pth import is reference-layout", None),
     (["--tta", "--kernels", "torch"], "--tta does not compose with --kernels",
      ["--tta", "--kernels", "xla"]),

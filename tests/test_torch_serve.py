@@ -265,7 +265,8 @@ def test_predict_cli_refuses_unported_flags_and_missing_gpu(ckpt, tmp_path):
     img_path = tmp_path / "in.png"
     _img(31).save(img_path)
     # Every family predicts; a family's .pth is refused, as in the JAX package.
-    for flag, match in ((["--tile-sharded"], "is not ported"),
+    for flag, match in ((["--tile-sharded", "--batch-size", "2"],
+                         "--batch-size composes with the default"),
                         (["-m", "x.pth", "--arch", "unetpp"], "pth import is reference-layout")):
         with pytest.raises(SystemExit, match=match):
             t_predict_main(["-m", str(ckpt), "-i", str(img_path), "--device", "cpu", *flag])

@@ -276,9 +276,10 @@ def test_train_step_accum_matches_jax():
 
 def test_make_train_step_refuses_what_is_not_ported():
     cfg = UNetConfig(3, 1, False, BASE)
-    # Data parallelism is ported (mesh=, tests/test_torch_data_parallel.py);
-    # ZeRO's optimizer shardings are not.
-    for kwargs, err in [({"opt_shardings": {}}, NotImplementedError),
+    # Data parallelism and ZeRO are ported (mesh=, opt_shardings=;
+    # tests/test_torch_data_parallel.py, test_torch_zero.py): ZeRO's
+    # shardings need the mesh whose ranks hold them.
+    for kwargs, err in [({"opt_shardings": {}}, ValueError),
                         ({"optimizer": "lbfgs"}, ValueError),
                         ({"nesterov": True}, ValueError),  # an SGD option, as in JAX
                         ({"vmem_limit_kib": 65536}, ValueError),

@@ -1,8 +1,10 @@
 """The port's quality-gate tool (``tpu_unet_torch/tools/train_demo.py``)
 against the JAX package's (``tools/train_demo.py``): the frozen recipe
 tables are JAX's, ``resolve_recipe`` agrees on every preset, family and
-override, a run below its floor exits 1, and a toy-size run on the CPU
-writes JAX's data and returns JAX's result keys."""
+override, a run below its floor exits 1, a toy-size run on the CPU
+writes JAX's data and returns JAX's result keys, and a run trains on its
+ids sorted (not in the filesystem's ``os.listdir`` order) or in the order
+of ``id_seed``'s permutation."""
 
 import itertools
 
@@ -101,3 +103,25 @@ def test_toy_run_writes_jaxs_data_and_returns_jaxs_keys(tmp_path, monkeypatch):
                         lambda *a, **k: made.append(a))
     again = train_demo.run("toy", data_dir=tmp_path / "t", device="cpu")
     assert not made and again["heldout_n"] == got["heldout_n"]
+
+
+class _Trained(Exception):
+    pass
+
+
+@pytest.mark.parametrize("id_seed", [None, 5])
+def test_run_orders_the_ids(tmp_path, monkeypatch, id_seed):
+    monkeypatch.setitem(train_demo.PRESETS, "toy", TOY)
+    seen = []
+
+    def train_model(*a, dataset, **k):
+        seen.append(list(dataset.ids))
+        raise _Trained
+
+    monkeypatch.setattr(t_train, "train_model", train_model)
+    with pytest.raises(_Trained):
+        train_demo.run("toy", data_dir=tmp_path, device="cpu", id_seed=id_seed)
+    names = sorted(p.stem for p in (tmp_path / "data" / "imgs").iterdir())
+    want = names if id_seed is None else [
+        names[i] for i in np.random.default_rng(id_seed).permutation(len(names))]
+    assert seen == [want] and len(names) == TOY[2]

@@ -6,6 +6,9 @@ rendezvous file (no port to race for), runs a worker function of this
 module in each and returns each rank's result. A rank that fails, or a
 group that does not finish within its time limit, fails the test; nothing
 waits longer than the limit. The workers import torch and the port only.
+``run_ranks(multihost=True)`` forms the group as two hosts would instead:
+each process sees ``LOCAL_WORLD_SIZE=1`` and joins an explicit TCP
+rendezvous on a free localhost port (``parallel.multihost.initialize``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import signal
+import socket
 import sys
 import time
 import traceback
@@ -25,14 +29,24 @@ import torch
 GROUP_TIMEOUT_S = 60
 
 
-def _child(fn, rank: int, world: int, rdzv: str, out: str, args: tuple) -> None:
+def _child(fn, rank: int, world: int, rdzv: str, out: str, args: tuple,
+           coordinator: str | None = None) -> None:
     torch.set_num_threads(1)  # ranks share the machine's cores with other tests
+    from tpu_unet_torch.parallel import multihost
     from tpu_unet_torch.parallel.mesh import init_data_parallel
 
     try:
-        dp = init_data_parallel(backend="gloo", device="cpu", init_method=f"file://{rdzv}",
-                                rank=rank, world_size=world,
-                                timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+        timeout = timedelta(seconds=GROUP_TIMEOUT_S)
+        if coordinator is not None:
+            # One process a "host": torchrun's env as two nodes would set it.
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                              LOCAL_WORLD_SIZE="1")
+            multihost.initialize(coordinator, world, rank, backend="gloo", device="cpu",
+                                 timeout=timeout)
+            dp = init_data_parallel(device="cpu")
+        else:
+            dp = init_data_parallel(backend="gloo", device="cpu", init_method=f"file://{rdzv}",
+                                    rank=rank, world_size=world, timeout=timeout)
         result = fn(dp, *args)
         if "jax" in sys.modules or "tpu_unet" in sys.modules:
             raise RuntimeError("a data-parallel worker imported the JAX package; pass it the "
@@ -46,15 +60,35 @@ def _child(fn, rank: int, world: int, rdzv: str, out: str, args: tuple) -> None:
             torch.distributed.destroy_process_group()
 
 
-def run_ranks(fn, world: int, workdir: Path, *args, timeout: float = 120.0) -> list:
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(fn, world: int, workdir: Path, *args, timeout: float = 120.0,
+              multihost: bool = False) -> list:
     """``fn(dp, *args)`` on ``world`` gloo ranks on the CPU; the ranks'
-    results, in rank order."""
+    results, in rank order. ``multihost``: one process a host, over an
+    explicit TCP rendezvous (retried once on a fresh port if the first was
+    taken between its choice and the bind)."""
+    try:
+        return _run_ranks(fn, world, workdir, args, timeout, multihost)
+    except AssertionError as e:
+        if not (multihost and "ddress already in use" in str(e)):
+            raise
+    return _run_ranks(fn, world, workdir, args, timeout, multihost)
+
+
+def _run_ranks(fn, world, workdir, args, timeout, multihost) -> list:
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     tag = f"{fn.__name__}{world}_{time.monotonic_ns()}"
     rdzv, out = workdir / f"{tag}.rdzv", workdir / tag
+    coordinator = f"127.0.0.1:{_free_port()}" if multihost else None
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_child, args=(fn, r, world, str(rdzv), str(out), args))
+    procs = [ctx.Process(target=_child,
+                         args=(fn, r, world, str(rdzv), str(out), args, coordinator))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -194,8 +228,8 @@ def train_model_worker(dp, data_dir, kwargs, stop_rank=None, stop_after=None):
     ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", scale=1.0)
     cfg = UNetConfig(3, 1, bilinear=True, base_channels=8)
     params, state = init_unet(cfg, np.random.default_rng(dp.rank))  # rank 0's win
+    make = train_mod.make_train_step
     if stop_rank == dp.rank:
-        make = train_mod.make_train_step
 
         def make_signalling(*a, **k):
             step, calls = make(*a, **k), [0]
@@ -209,8 +243,11 @@ def train_model_worker(dp, data_dir, kwargs, stop_rank=None, stop_after=None):
             return wrapped
 
         train_mod.make_train_step = make_signalling
-    p, _, hist = train_mod.train_model(params, state, cfg, dataset=ds, data_parallel=dp,
-                                       **kwargs)
+    try:
+        p, _, hist = train_mod.train_model(params, state, cfg, dataset=ds, data_parallel=dp,
+                                           **kwargs)
+    finally:
+        train_mod.make_train_step = make  # a later job in this process steps unsignalled
     ck = Path(kwargs.get("checkpoint_dir", "."))
     return {"history": hist, "params": torch.cat([t.reshape(-1) for t in tree_leaves(p)]).numpy(),
             "files": sorted(f.name for f in ck.glob("*.npz")) if ck.exists() else []}
@@ -236,3 +273,154 @@ def cli_worker(dp, argv, prog, base_channels, rank_dir=None):
         unet_mod.UNetConfig = cfg
     return out[2] if prog == "train" else out
 
+
+
+def zero_step_worker(dp, params, state, images, masks, lr, steps):
+    """For RMSprop and Adam: ``steps`` data-parallel steps on the rank's rows
+    from the given trees, plain and with ZeRO (``opt_shardings``). Returns,
+    per optimizer, each run's params, BN state, losses and grad norms, the
+    ZeRO state as this rank holds it and gathered, and the plain state."""
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.models.unet import UNetConfig
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.parallel.zero import gather_opt_state_zero
+    from tpu_unet_torch.train import _place_opt_state, make_train_step
+
+    cfg = UNetConfig(3, 1, bilinear=True, base_channels=8)
+    xs, ms = (torch.from_numpy(dp.rows(a)) for a in (images, masks))
+    out = {}
+    for opt in ("rmsprop", "adam"):
+        runs = {}
+        for zero in (False, True):
+            p, s = tree_from_numpy(params), tree_from_numpy(state)
+            o, sh = _place_opt_state(get_optimizer(opt)[0](p), p, dp, zero=zero)
+            step = make_train_step(cfg, mesh=dp, optimizer=opt, opt_shardings=sh)
+            losses, norms = [], []
+            for _ in range(steps):
+                p, s, o, loss, gnorm = step(p, s, o, xs, ms, lr)
+                losses.append(loss.item())
+                norms.append(gnorm.item())
+            rec = {"params": _numpy_tree(p), "bn": _numpy_tree(s), "loss": losses,
+                   "gnorm": norms, "opt": _numpy_tree(o)}
+            if zero:
+                rec["opt_full"] = _numpy_tree(gather_opt_state_zero(o, sh))
+            runs["zero" if zero else "plain"] = rec
+        out[opt] = runs
+    return out
+
+
+def train_cli_worker(dp, argv, base_channels, env=None):
+    """``train_cli.main(argv)`` in the rank's formed group at
+    ``base_channels`` (``cli_worker``), "{rank}" in ``argv`` replaced by the
+    rank, with ``env`` set for the call. Returns the history."""
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        return cli_worker(dp, [a.format(rank=dp.rank) for a in argv], "train", base_channels)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def multihost_worker(dp, params, state, data_dir, ck_dir, kwargs_list):
+    """The multi-host trainer on the CarvanaDataset in ``data_dir`` (JAX's
+    ``tests/test_multihost.py`` configuration), once per kwargs in
+    ``kwargs_list``: the histories and the files each rank wrote
+    (``ck_dir/rank<r>``). Then the device-resident corpus staged over the
+    ranks: its staged bytes beside the whole corpus's, and its train (the
+    rank's rows) and val (whole) batches beside the host loader's, bitwise."""
+    import dataclasses
+
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.data import CarvanaDataset, DataLoader, random_split_indices
+    from tpu_unet_torch.data.device_cache import DeviceResidentData
+    from tpu_unet_torch.models.unet import UNetConfig
+
+    ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", scale=1.0)
+    cfg = UNetConfig(3, 1, bilinear=True, base_channels=8)
+    out = {"multihost": dp.multihost, "runs": []}
+    for kw in kwargs_list:
+        kw = dict(kw)
+        rank_dir = Path(ck_dir) / kw.pop("tag") / f"rank{dp.rank}"
+        record = dataclasses.replace(dp, multihost=kw.pop("multihost", dp.multihost))
+        _, _, hist = train_mod.train_model(tree_from_numpy(params), tree_from_numpy(state), cfg,
+                                           dataset=ds, data_parallel=record,
+                                           checkpoint_dir=rank_dir, **kw)
+        out["runs"].append({"history": hist, "files": sorted(
+            str(f.relative_to(rank_dir)) for f in rank_dir.rglob("*")) if rank_dir.exists()
+            else None})
+    train_idx, val_idx = random_split_indices(len(ds), 0.2, seed=0)
+    dd = DeviceResidentData(ds, device="cpu", dp=dp, num_workers=2)
+    whole = DeviceResidentData(ds, device="cpu", num_workers=2)
+    shard = (dp.rank, dp.world_size)
+    same = []
+    for got, ref in ((dd.batches(train_idx, 8, shuffle=True, seed=0, drop_last=True,
+                                 shard=shard),
+                      DataLoader(ds, 8, shuffle=True, indices=train_idx, seed=0,
+                                 drop_last=True, shard=shard, num_workers=1)),
+                     (dd.batches(val_idx, 8), DataLoader(ds, 8, indices=val_idx,
+                                                         num_workers=1))):
+        for _ in range(2):  # two passes: the second shuffles anew
+            pairs = list(zip(got, ref))
+            same.append(len(pairs) == len(ref) and all(
+                np.array_equal(a["image"].numpy(), b["image"])
+                and np.array_equal(a["mask"].numpy(), b["mask"]) for a, b in pairs))
+    out.update(staged=dd.staged_bytes, whole=whole.staged_bytes, rows=(dd.lo, dd.hi),
+               batches_equal=same)
+    return out
+
+
+def tile_worker(dp, params, state, xs, ckpt, images, out_dir):
+    """``make_halo_sharded_forward`` on the rank's band of each of ``xs`` (the
+    whole logits, every rank), the fallbacks of ``predict_img_halo_sharded`` with
+    their warnings beside ``predict_img``, its flip-ensembled mask of the
+    first image (``tta=True``), and ``predict --tile-sharded``
+    (as under torchrun) writing ``out_dir/rank<r>_k.png`` for each image."""
+    import logging
+
+    from PIL import Image
+
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.models.unet import UNetConfig
+    from tpu_unet_torch.parallel.tiling import make_halo_sharded_forward
+    from tpu_unet_torch.predict import main, predict_img, predict_img_halo_sharded
+
+    cfg = UNetConfig(3, 1, bilinear=False, base_channels=8)
+    p, s = tree_from_numpy(params), tree_from_numpy(state)
+    fwd = make_halo_sharded_forward(dp, cfg, halo=128)
+    logits = []
+    with torch.inference_mode():
+        for x in xs:
+            band = x.shape[1] // dp.world_size
+            logits.append(fwd(p, s, torch.from_numpy(x[:, dp.rank * band:(dp.rank + 1) * band]))
+                          .numpy())
+    warned = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    grab = Grab(level=logging.WARNING)
+    logging.getLogger("tpu_unet_torch.predict").addHandler(grab)
+    fallbacks = []
+    rng = np.random.default_rng(3)
+    for hw in ((48, 64), (528, 64), (320, 64)):  # too small; H not 32-aligned; band < 256
+        img = Image.fromarray(rng.integers(0, 255, (*hw, 3), np.uint8))
+        n = len(warned)
+        got = predict_img_halo_sharded(p, s, cfg, img, dp=dp, scale_factor=1.0, device="cpu")
+        fallbacks.append({"hw": hw, "equal": bool(np.array_equal(
+            got, predict_img(p, s, cfg, img, scale_factor=1.0, device="cpu"))),
+            "warned": any("halo-sharded constraints not met" in m for m in warned[n:])})
+    logging.getLogger("tpu_unet_torch.predict").removeHandler(grab)
+    tta = predict_img_halo_sharded(p, s, cfg, Image.open(images[0]), dp=dp, scale_factor=1.0,
+                                   tta=True, device="cpu")
+    outs = [str(Path(out_dir) / f"rank{dp.rank}_{k}.png") for k in range(len(images))]
+    os.environ.update(WORLD_SIZE=str(dp.world_size), RANK=str(dp.rank))
+    main(["-m", ckpt, "-i", *images, "-o", *outs, "-s", "1.0", "--tile-sharded",
+          "--device", "cpu"])
+    return {"logits": logits, "fallbacks": fallbacks, "tta": tta,
+            "written": [Path(o).exists() for o in outs]}

@@ -48,7 +48,9 @@ class DataLoader:
     ``numpy.random.default_rng(seed + epoch)``, ``epoch`` counting the
     loader's own passes from 0, and loads samples on ``num_workers``
     threads, two batches ahead. ``shard`` = (rank, world size) loads only
-    the rank's rows of each batch (``shard_batches``)."""
+    the rank's rows of each batch (``shard_batches``); such a batch carries
+    ``"shard"``, which ``evaluate`` reads as one rank's rows of a global
+    batch."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8, seed: int = 0,
@@ -76,9 +78,10 @@ class DataLoader:
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
         batches = shard_batches(batches, self.shard)
+        tag = {} if self.shard is None else {"shard": self.shard}
         if self.num_workers <= 1:
             for b in batches:
-                yield collate([self.dataset[i] for i in b])
+                yield {**collate([self.dataset[i] for i in b]), **tag}
             return
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: collections.deque = collections.deque()
@@ -92,17 +95,20 @@ class DataLoader:
                 futures = pending.popleft()
                 if k + 2 < len(batches):
                     pending.append(submit(batches[k + 2]))
-                yield collate([f.result() for f in futures])
+                yield {**collate([f.result() for f in futures]), **tag}
 
 
 def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
     """A batch as tensors on ``device``. Host arrays go through pinned memory
     with a non-blocking copy on a CUDA device (the copy is ordered on the
     current stream before any later kernel), as they are on the CPU; tensors
-    (a batch made on the device) are moved only if they lie elsewhere."""
+    (a batch made on the device) are moved only if they lie elsewhere; other
+    values (a sharded batch's ``"shard"``) pass as they are."""
     def one(v):
         if isinstance(v, torch.Tensor):
             return v.to(device)
+        if not isinstance(v, np.ndarray):
+            return v
         t = torch.from_numpy(v)
         return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 

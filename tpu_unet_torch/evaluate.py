@@ -18,8 +18,11 @@ Data parallelism (``mesh``, a ``parallel.mesh.DataParallel`` record; JAX's
 (each its contiguous rows) and its (Dice, IoU) averaged over them, which is
 the global batch's value: both are means of per-image ratios over equal
 shards (``iou_coeff`` is per image, not one batch-wide ratio). A batch the
-world size does not divide runs whole on every rank. Every rank returns the
-same numbers.
+world size does not divide runs whole on every rank. A batch that carries
+``"shard"`` (a sharded ``data.prefetch.DataLoader``'s, as multi-host
+validation feeds) holds this rank's rows of a global batch already, and is
+averaged as a split one. Every rank
+returns the same numbers.
 
 Run:
     python -m tpu_unet_torch.evaluate -m ckpt.npz|model.pth --data-dir data -s 0.5 \
@@ -108,8 +111,12 @@ def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mes
     device = tree_leaves(params)[0].device
     total, n = None, 0
     for batch in dataloader:
-        split = _shardable(mesh, batch)
-        if split:
+        split = batch.get("shard") is not None
+        if split and mesh is None:
+            raise ValueError("a batch of one rank's rows (\"shard\") needs the mesh its "
+                             "ranks form")
+        if not split and _shardable(mesh, batch):
+            split = True
             batch = {k: mesh.rows(batch[k]) for k in ("image", "mask")}
         b = to_device(batch, device)
         pair = torch.stack(step(params, state, b["image"], b["mask"], config=config, amp=amp,

@@ -19,8 +19,9 @@ no collective). Rank r holds the contiguous rows ``[r·B/W, (r+1)·B/W)`` of
 a global batch of B (``rows``: JAX's ``P("data")``); the trees are
 replicated by one broadcast from rank 0 (``broadcast_tree``).
 
-``make_mesh_2d`` and ``image_sharding`` (spatial parallelism) are not
-ported yet, nor is more than one host.
+A world may span hosts (``multihost``; ``parallel/multihost.py`` forms it
+from explicit flags or torchrun's env). ``make_mesh_2d`` and
+``image_sharding`` (spatial parallelism) are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,21 +38,25 @@ _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
 
 class DataParallelRefused(RuntimeError):
-    """A data-parallel launch the port does not run: more than one host, or
-    no rank to take (not under torchrun). The CLIs exit with its message."""
+    """A data-parallel launch with no rank to take (not under torchrun, and
+    no explicit rendezvous). The CLIs exit with its message."""
 
 
 @dataclass(frozen=True)
 class DataParallel:
     """One rank's view of the data-parallel group: ``group`` carries the
     step's collectives on ``device``; ``host_group`` (gloo) carries the
-    host's flags and barriers without waiting for the device."""
+    host's flags and barriers without waiting for the device. ``multihost``:
+    the world spans more than one host (JAX's ``jax.process_count() > 1``),
+    which selects the per-process loader, the scalars-only W&B panel and
+    the refusals that key on it."""
 
     group: dist.ProcessGroup
     host_group: dist.ProcessGroup
     rank: int
     world_size: int
     device: torch.device
+    multihost: bool = False
 
     @property
     def primary(self) -> bool:
@@ -85,25 +90,20 @@ def _env_int(name: str) -> int | None:
 def init_data_parallel(backend: str | None = None, device=None, init_method: str | None = None,
                        *, rank: int | None = None, world_size: int | None = None,
                        timeout: timedelta | None = None) -> DataParallel:
-    """Form the process group, or join the one this process has formed, and
-    return the rank's record.
+    """Form the process group, or join the one this process has formed
+    (``parallel.multihost.initialize``, or an earlier call), and return the
+    rank's record.
 
     ``rank`` and ``world_size`` default to torchrun's ``RANK`` and
     ``WORLD_SIZE``, ``init_method`` to ``env://`` (torchrun's rendezvous).
     ``device`` None is ``cuda:LOCAL_RANK`` (raises without a GPU); the
     backend is NCCL on a CUDA device and gloo on the CPU unless ``backend``
     names one (gloo also carries CUDA tensors, e.g. two ranks on one card).
-    A world larger than its host (``WORLD_SIZE != LOCAL_WORLD_SIZE``) is
-    multi-host, which is not ported: ``DataParallelRefused``, as is a
-    process with no rank to take."""
+    A process with no rank to take raises ``DataParallelRefused``. Whether
+    the world spans hosts is ``multihost.spans_hosts()``."""
+    from tpu_unet_torch.parallel.multihost import spans_hosts  # it imports this module
+
     env = {k: _env_int(k) for k in _ENV}
-    if (env["WORLD_SIZE"] is not None and env["LOCAL_WORLD_SIZE"] is not None
-            and env["WORLD_SIZE"] != env["LOCAL_WORLD_SIZE"]):
-        raise DataParallelRefused(
-            f"multi-host data parallelism (WORLD_SIZE {env['WORLD_SIZE']} over "
-            f"LOCAL_WORLD_SIZE {env['LOCAL_WORLD_SIZE']} on this host) is not ported to "
-            "tpu_unet_torch yet; run one host's ranks, or use the JAX package (tpu_unet) "
-            "with --multihost")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("data parallelism on cuda:LOCAL_RANK, but no CUDA device is "
@@ -124,14 +124,15 @@ def init_data_parallel(backend: str | None = None, device=None, init_method: str
                                 world_size=world_size, **kw)
     group = dist.group.WORLD
     return DataParallel(group=group, host_group=dist.new_group(backend="gloo"),
-                        rank=dist.get_rank(), world_size=dist.get_world_size(), device=device)
+                        rank=dist.get_rank(), world_size=dist.get_world_size(), device=device,
+                        multihost=spans_hosts())
 
 
 def cli_data_parallel(device: str, prog: str) -> tuple[DataParallel, bool]:
     """The CLIs' ``--data-parallel``: the rank's record (``device`` 'cuda' is
     ``cuda:LOCAL_RANK``) and whether this call formed the process group (the
-    CLI then destroys it). Multi-host exits with its refusal; ranks other
-    than 0 log warnings only."""
+    CLI then destroys it). A process with no rank to take exits with its
+    refusal; ranks other than 0 log warnings only."""
     formed = not dist.is_initialized()
     try:
         dp = init_data_parallel(device=None if device == "cuda" else device)

@@ -17,7 +17,13 @@ full-image logits:
 The sweep stays on the device: windows are slices of the input tensor,
 ``window_batch`` of them go through one forward, and their cores are written
 into one preallocated logits tensor. Nothing is fetched to the host inside
-the loop. The halo-sharded multi-device forward is not ported.
+the loop.
+
+``make_halo_sharded_forward`` spreads one image over the ranks of a
+``parallel.mesh.DataParallel`` group in horizontal bands instead: rank i
+holds rows ``[iB, (i+1)B)``, takes 2·halo rows on each side from its
+neighbours, runs the window ``clip(iB - halo, 0, H - win)`` of B + 2·halo
+rows and keeps its band's core; the cores are gathered into the logits.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from PIL import Image
+
+import torch.distributed as dist
 
 from tpu_unet_torch.data.loading import preprocess
 from tpu_unet_torch.models.tta import tta_merge, tta_views
@@ -169,3 +177,51 @@ def predict_img_tiled(params, state, config: UNetConfig, full_img: Image.Image, 
         full_w, full_h = full_img.size
         logits = resize_bilinear(logits, full_h, full_w, align_corners=False)
         return logits_to_mask(logits[0], config.n_classes, out_threshold)
+
+
+def make_halo_sharded_forward(dp, config: UNetConfig, *, halo: int = DEFAULT_HALO,
+                              amp: bool = False):
+    """The multi-rank eval forward (JAX's ``make_halo_sharded_forward`` over a
+    'spatial' mesh axis, here the ranks of ``dp``). Returns
+    ``fn(params, state, xb) -> logits``: ``xb`` [N, B, W, C] is this rank's
+    band, rows ``[iB, (i+1)B)`` of an image of H = B·W_ranks rows; the
+    result is the whole image's fp32 logits [N, H, W, classes] on every rank.
+
+    The halo rows travel in one all-gather of each rank's first and last
+    2·halo rows (every rank takes its neighbours'); rank 0 has no rows
+    before it and the last rank none after, where JAX's ring wraps rows
+    round that its window then clips away, so the windows are JAX's. The
+    cores travel in a second all-gather."""
+    d, i = dp.world_size, dp.rank
+    compute_dtype = torch.bfloat16 if amp else None
+
+    def fn(params, state, xb: torch.Tensor) -> torch.Tensor:
+        n, b, w, c = xb.shape
+        h, win = b * d, b + 2 * halo
+        for name, v in (("band", b), ("halo", halo), ("W", w)):
+            if v % 16 != 0:
+                raise ValueError(f"{name}={v} must be a multiple of 16 for exact tiling")
+        if win > h:
+            raise ValueError(f"window {win} exceeds image height {h}")
+        if 2 * halo > b:
+            raise ValueError(f"band {b} must be >= 2*halo={2 * halo} (each rank exchanges "
+                             "2*halo rows with each neighbour); use fewer ranks or a taller "
+                             "image")
+        edges = torch.cat([xb[:, :2 * halo], xb[:, -2 * halo:]], dim=1).contiguous()
+        got = [torch.empty_like(edges) for _ in range(d)]
+        dist.all_gather(got, edges, group=dp.group)
+        zeros = xb.new_zeros((n, 2 * halo, w, c))
+        prev = got[i - 1][:, 2 * halo:] if i > 0 else zeros  # rows [iB - 2h, iB)
+        nxt = got[i + 1][:, :2 * halo] if i < d - 1 else zeros  # rows [(i+1)B, (i+1)B + 2h)
+        ext = torch.cat([prev, xb, nxt], dim=1)  # rows [iB - 2h, (i+1)B + 2h)
+        band_start = i * b
+        win_start = min(max(band_start - halo, 0), h - win)
+        offset = win_start - (band_start - 2 * halo)
+        logits, _ = unet_apply(params, state, ext[:, offset:offset + win], config=config,
+                               train=False, compute_dtype=compute_dtype)
+        core = logits[:, band_start - win_start:band_start - win_start + b].float().contiguous()
+        cores = [torch.empty_like(core) for _ in range(d)]
+        dist.all_gather(cores, core, group=dp.group)
+        return torch.cat(cores, dim=1)
+
+    return fn

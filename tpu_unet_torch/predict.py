@@ -2,7 +2,10 @@
 eval-mode forward (``predict_img``, the reference's path without
 ``--kernels``), with ``--kernels cuda|torch`` through the folded-BN forward
 (``predict_img_fused``), with ``--tile`` through the tiled sweep
-(``parallel/tiling.py``), and with ``--batch-size N`` through
+(``parallel/tiling.py``), with ``--tile-sharded`` through the halo-sharded
+forward over the ranks that torchrun launches (``predict_img_halo_sharded``;
+rank 0 writes the masks; one process falls back to the full-image forward,
+with JAX's warning), and with ``--batch-size N`` through
 ``iter_predicted_masks``, which runs up to N same-sized inputs as one batch.
 ``--device-preprocess`` (default path only) decodes on the host and resizes
 and normalises on the device (``data/device_pipeline.py``), bitwise the host
@@ -26,6 +29,8 @@ Run:
     python -m tpu_unet_torch.predict -m ckpt.npz|model.pth -i a.png b.png \
         [--batch-size N] [--tta [--tta-mode hflip]] [--tile 512] [--crf] [--viz] \
         [--kernels cuda|torch] [--device-preprocess] [--device cuda|cpu] [--amp]
+    torchrun --nproc-per-node N -m tpu_unet_torch.predict --tile-sharded -m ckpt.npz \
+        -i big.png [--tta] [--device cpu]
 """
 
 from __future__ import annotations
@@ -50,9 +55,6 @@ from tpu_unet_torch.ops import full_fp32, resize_bilinear
 
 logger = logging.getLogger(__name__)
 
-# Flags of the JAX CLIs that this port does not run yet.
-UNPORTED_FLAGS = ("tile_sharded",)
-
 
 def resolve_device(name: str | torch.device) -> torch.device:
     """The requested device; a CUDA device must exist (no CPU fallback). On a
@@ -64,14 +66,6 @@ def resolve_device(name: str | torch.device) -> torch.device:
                                "(pass --device cpu to run on the CPU)")
         full_fp32()
     return device
-
-
-def refuse_unported(args: argparse.Namespace, prog: str, flags=UNPORTED_FLAGS) -> None:
-    """Exit with a clear message when a flag the port lacks was given."""
-    asked = ["--" + name.replace("_", "-") for name in flags if getattr(args, name, None)]
-    if asked:
-        raise SystemExit(f"{prog}: {asked[0]} is not ported to tpu_unet_torch yet; "
-                         f"use the JAX package (tpu_unet) for it")
 
 
 def exit_on_refusal(prog: str):
@@ -237,6 +231,46 @@ def predict_img_fused(params, state, config: UNetConfig, full_img: Image.Image, 
         return logits_to_mask(logits[0], config.n_classes, out_threshold)
 
 
+def predict_img_halo_sharded(params, state, config: UNetConfig, full_img: Image.Image, *,
+                             dp=None, scale_factor: float = 0.5, out_threshold: float = 0.5,
+                             amp: bool = False, tta: bool = False, tta_mode: str = "flips",
+                             device: str | torch.device = "cuda") -> np.ndarray:
+    """``predict_img`` with the image cut into horizontal bands over the
+    ranks of ``dp`` (a ``parallel.mesh.DataParallel``), halos exchanged
+    between neighbours (``parallel.tiling.make_halo_sharded_forward``, at
+    the family's ``min_halo``), on ``dp.device``. Falls back to the
+    single-device forward, with JAX's warning, when there are fewer than 2
+    ranks, H is not a multiple of 16 · ranks, W not of 16, or a band is
+    shorter than 2·halo. ``tta``'s flip views ride as batch rows. Every
+    rank returns the mask."""
+    from tpu_unet_torch.parallel.tiling import make_halo_sharded_forward, min_halo
+
+    device = resolve_device(device if dp is None else dp.device)
+    x = torch.from_numpy(preprocess(full_img, scale_factor))[None]
+    h, w = x.shape[1], x.shape[2]
+    d = 1 if dp is None else dp.world_size
+    band = h // d
+    full_w, full_h = full_img.size
+    halo = min_halo(config)  # r2u's receptive field outgrows the default 128
+    with torch.inference_mode():
+        params, state = _on(device, params, state)
+        if d < 2 or h % (16 * d) or w % 16 or band < 2 * halo:
+            logger.warning("halo-sharded constraints not met (devices=%d, H=%d, W=%d) — "
+                           "falling back to single-device forward", d, h, w)
+            logits = _forward_full(params, state, x.to(device), config=config, full_h=full_h,
+                                   full_w=full_w, amp=amp, tta=tta, tta_mode=tta_mode)
+        else:
+            from tpu_unet_torch.models.tta import tta_merge, tta_views
+
+            fwd = make_halo_sharded_forward(dp, config, halo=halo, amp=amp)
+            views = tta_views(x, tta_mode) if tta else x  # views of the whole image
+            logits = fwd(params, state, views[:, dp.rank * band:(dp.rank + 1) * band].to(device))
+            if tta:
+                logits = tta_merge(logits, 1, tta_mode)
+            logits = resize_bilinear(logits, full_h, full_w, align_corners=False)
+        return logits_to_mask(logits[0], config.n_classes, out_threshold)
+
+
 def mask_to_image(mask: np.ndarray, mask_values) -> Image.Image:
     """Map class indices back through the stored palette (reference parity)."""
     if isinstance(mask_values[0], list):
@@ -318,11 +352,12 @@ def get_args(argv=None):
     p.add_argument("--device-preprocess", action="store_true", default=False,
                    help="Resize and normalise on the device (Pillow-bit-exact int32 "
                         "resample, the same mask; the host keeps only the decode)")
+    p.add_argument("--tile-sharded", action="store_true", default=False,
+                   help="Cut each image into horizontal bands over the ranks that torchrun "
+                        "launches, halos exchanged between neighbours (large images, several "
+                        "GPUs); one process runs the full-image forward")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
-    for name in UNPORTED_FLAGS:
-        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -333,7 +368,20 @@ def get_output_filenames(args) -> list[str]:
 @exit_on_refusal("tpu_unet_torch.predict")
 def main(argv=None):
     args = get_args(argv)
-    refuse_unported(args, "tpu_unet_torch.predict")
+    dp, formed = None, False
+    if args.tile_sharded and "WORLD_SIZE" in os.environ:
+        from tpu_unet_torch.parallel.mesh import cli_data_parallel
+
+        # Under torchrun: the ranks the bands are cut over.
+        dp, formed = cli_data_parallel(args.device, "tpu_unet_torch.predict")
+    try:
+        return _predict(args, dp)
+    finally:
+        if formed:
+            torch.distributed.destroy_process_group()
+
+
+def _predict(args, dp):
     if args.tta and args.kernels:
         raise SystemExit("--tta does not compose with --kernels")
     if args.tile and args.kernels:
@@ -344,11 +392,14 @@ def main(argv=None):
     if args.device_preprocess and (args.tile or args.tile_sharded or args.kernels):
         raise SystemExit("--device-preprocess applies to the default predict path "
                          "(not --tile/--tile-sharded/--kernels)")
-    if args.batch_size > 1 and (args.tile or args.kernels or args.crf):
+    if args.tile_sharded and args.kernels:
+        raise SystemExit("--tile-sharded does not compose with --kernels (the halo-sharded "
+                         "forward runs the eval forward)")
+    if args.batch_size > 1 and (args.tile or args.tile_sharded or args.kernels or args.crf):
         raise SystemExit("--batch-size composes with the default predict path only "
                          "(not --tile/--tile-sharded/--kernels/--crf)")
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if dp is None else dp.device)
     out_files = get_output_filenames(args)
     config = UNetConfig(n_channels=3, n_classes=args.classes, bilinear=args.bilinear,
                         arch=args.arch)
@@ -366,7 +417,10 @@ def main(argv=None):
         for filename in args.input:
             logger.info("Predicting image %s ...", filename)
             img = Image.open(filename)
-            if args.tile:
+            if args.tile_sharded:
+                mask = predict_img_halo_sharded(params, state, config, img, dp=dp, **views,
+                                                **common)
+            elif args.tile:
                 mask = predict_img_tiled(params, state, config, img, tile=args.tile,
                                          **views, **common)
             elif args.kernels:
@@ -384,7 +438,10 @@ def main(argv=None):
                                         **common)
     else:
         produced = one_at_a_time()
+    primary = dp is None or dp.primary  # rank 0 alone writes and shows
     for i, (filename, img, mask) in enumerate(produced):
+        if not primary:
+            continue
         if not args.no_save:
             mask_to_image(mask, mask_values).save(out_files[i])
             logger.info("Mask saved to %s", out_files[i])

@@ -175,7 +175,8 @@ def run(preset: str = "full", data_dir: str | Path | None = None,
         augment: bool = False, augment_mode: str = "full",
         epochs_override: int | None = None, arch: str = "unet",
         optimizer: str | None = None, lr_override: float | None = None,
-        kernels: str | None = None, device: str = "cuda") -> dict:
+        kernels: str | None = None, device: str = "cuda",
+        id_seed: int | None = None) -> dict:
     """One demo run; returns the JAX package's result dict. ``data_dir``
     keeps the generated data (default: a temporary directory, removed
     after), and a second run of the preset there reuses it. ``kernels`` passes to ``train_model`` ("cuda": the hand-written
@@ -183,21 +184,24 @@ def run(preset: str = "full", data_dir: str | Path | None = None,
     bf16 default to on for a GPU, as the JAX demo's do off the CPU. The run
     uses deterministic algorithms (``utils/determinism.py``), so a seeded
     run repeats bit for bit, as the JAX package's do on its TPU: the
-    floors' margins were set on that premise."""
+    floors' margins were set on that premise. The datasets' ids are sorted
+    (``CarvanaDataset`` keeps ``os.listdir``'s order, which differs between
+    filesystems, and with it the seeded split), or with ``id_seed`` put in
+    the order of that seed's permutation, another filesystem's stand-in."""
     from tpu_unet_torch.predict import resolve_device
 
     device = resolve_device(device)
     where = tempfile.TemporaryDirectory() if data_dir is None else contextlib.nullcontext(data_dir)
     with where as tmp, Deterministic() as det:
         result = _run(preset, Path(tmp), device, device_data, ema_decay, augment, augment_mode,
-                      epochs_override, arch, optimizer, lr_override, kernels)
+                      epochs_override, arch, optimizer, lr_override, kernels, id_seed)
     if det.reasons:
         logger.warning("ops without a deterministic form ran: %s", det.reasons)
     return result
 
 
 def _run(preset, tmp, device, device_data, ema_decay, augment, augment_mode,
-         epochs_override, arch, optimizer, lr_override, kernels) -> dict:
+         epochs_override, arch, optimizer, lr_override, kernels, id_seed) -> dict:
     import tpu_unet_torch.data as data
     from tpu_unet_torch.checkpoint import load_checkpoint
     from tpu_unet_torch.data import CarvanaDataset, DataLoader, random_split_indices
@@ -224,6 +228,9 @@ def _run(preset, tmp, device, device_data, ema_decay, augment, augment_mode,
                                     gen=heldout_gen)
         marker.write_text(made)
     ds = CarvanaDataset(tmp / "data" / "imgs", tmp / "data" / "masks", scale=1.0, cache=True)
+    ds.ids = sorted(ds.ids)
+    if id_seed is not None:
+        ds.ids = [ds.ids[i] for i in np.random.default_rng(id_seed).permutation(len(ds.ids))]
 
     # The families other than the U-Net take their papers' bilinear decoder
     # (UNet++ has no other).
@@ -257,6 +264,7 @@ def _run(preset, tmp, device, device_data, ema_decay, augment, augment_mode,
     dice, iou = evaluate(params, state, val_loader, config, amp=amp)
     held_ds = CarvanaDataset(tmp / "heldout" / "imgs", tmp / "heldout" / "masks", scale=1.0,
                              cache=True)
+    held_ds.ids = sorted(held_ds.ids)
     held_loader = DataLoader(held_ds, batch)
     held_dice, held_iou = evaluate(params, state, held_loader, config, amp=amp)
     # Flip-ensemble TTA on the held-out set, and its hflip half alone (the
@@ -337,11 +345,15 @@ def main(argv=None):
                     help="cuda: train on the hand-written train kernels (the U-Net only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' raises when no GPU is present")
+    ap.add_argument("--id-seed", type=int, default=None,
+                    help="Order the training ids by this seed's permutation instead of "
+                         "sorting them (the split's spread over filesystems' orders)")
     args = ap.parse_args(argv)
     result = run(args.preset, ema_decay=args.ema_decay, augment=args.augment,
                  augment_mode=args.augment_mode, epochs_override=args.epochs, arch=args.arch,
                  optimizer=args.optimizer, lr_override=args.lr_override,
-                 kernels=None if args.kernels == "torch" else args.kernels, device=args.device)
+                 kernels=None if args.kernels == "torch" else args.kernels, device=args.device,
+                 id_seed=args.id_seed)
     print(json.dumps(result))
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=2))

@@ -30,7 +30,13 @@ in step or on rank 0 alone: every rank validates (the evaluation is
 collective, so the schedule, EMA and early stopping decide alike); rank 0
 alone writes checkpoints, the loss log and W&B, and the ranks meet at a
 barrier before returning; a stop signal on any rank stops every rank at
-the same batch (one host-side all-reduced flag a step).
+the same batch (one host-side all-reduced flag a step). With ``zero``
+(ZeRO-1, ``parallel/zero.py``) each rank holds 1/W of the optimizer state
+and every rank gathers it whole before rank 0 writes a checkpoint. A world
+that spans hosts (``parallel/multihost.py``) loads each process's rows of
+each global batch, keeps whole val batches only, and logs W&B scalars
+only.
+Spatial, tensor and pipeline parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -64,6 +70,12 @@ from tpu_unet_torch.parallel.mesh import (
     init_data_parallel,
     pmean,
     psum,
+)
+from tpu_unet_torch.parallel.multihost import spans_hosts
+from tpu_unet_torch.parallel.zero import (
+    gather_opt_state_zero,
+    shard_opt_state_zero,
+    zero_opt_shardings,
 )
 from tpu_unet_torch.train_checkpoints import CheckpointPolicy
 from tpu_unet_torch.train_logging import LossDrain, WandbValidationPanel, init_wandb
@@ -112,8 +124,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
                     optimizer: str = "rmsprop", nesterov: bool = False,
                     dice_weight: float = 1.0):
     """Build the train step. The arguments are the JAX ``make_train_step``'s;
-    what the port does not have yet is refused, not ignored:
-    ``opt_shardings`` (ZeRO) and ``vmem_limit_kib`` (TPU-only).
+    ``vmem_limit_kib`` (a TPU compiler option) is refused, not ignored.
     ``optimizer`` names the update rule (``optim/optimizers.py``), whose
     state the caller makes with the matching init; ``momentum`` None takes
     the optimizer's default. ``remat`` recomputes each block in the backward
@@ -134,10 +145,16 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     trees, the global batch's loss and grad norm. With ``accum_steps``,
     microbatch j is each rank's rows ``j::A``, which are the global batch's
     rows ``j::A`` only when A divides each rank's rows: any other rank batch
-    raises ValueError."""
-    if opt_shardings is not None:
-        raise NotImplementedError("make_train_step: opt_shardings (ZeRO) is not ported to "
-                                  "tpu_unet_torch yet")
+    raises ValueError.
+
+    ``opt_shardings`` (ZeRO-1: a ``parallel.zero.ZeroShardings`` of
+    ``mesh``'s ranks; the state passed and returned is this rank's slice,
+    ``shard_opt_state_zero``): after the same averaged, clipped gradients,
+    each rank updates its slice of the params and the state, and one
+    all-gather rebuilds the params, bitwise the plain step's."""
+    if opt_shardings is not None and mesh is None:
+        raise ValueError("make_train_step: opt_shardings (ZeRO) shards the optimizer state "
+                         "over the ranks of a mesh; pass mesh")
     if vmem_limit_kib is not None:
         raise ValueError("make_train_step: vmem_limit_kib is a TPU compiler option")
     check_kernels(config, kernels)
@@ -178,7 +195,12 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
         if group is not None:
             grads = pmean(grads, group)
         grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip)
-        new_params, new_opt = opt_update(grads, opt_state, params, lr)
+        if opt_shardings is None:
+            new_params, new_opt = opt_update(grads, opt_state, params, lr)
+        else:
+            mine, new_opt = opt_update(opt_shardings.shard(grads), opt_state,
+                                       opt_shardings.shard(params), lr)
+            new_params = opt_shardings.gather(mine)
         out = (new_params, new_bn, new_opt, loss, gnorm)
         return out + (grads,) if return_grads else out
 
@@ -202,9 +224,38 @@ def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
             arch, learning_rate)
 
 
-def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, world_size=None):
-    """Refuse invalid settings up front, with one clear error each.
-    ``world_size``: the data-parallel ranks (None without data parallelism)."""
+def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, world_size=None,
+                       zero=False, data_parallel=False, multihost=False,
+                       device_preprocess=False, tensor_parallel=1, pipeline_parallel=1):
+    """Refuse invalid settings up front, with one clear error each (JAX's
+    ``_check_train_flags`` and ``_build_loaders``' multi-host refusals).
+    ``world_size``: the data-parallel ranks (None without data parallelism);
+    ``multihost``: the world spans hosts. ``tensor_parallel`` and
+    ``pipeline_parallel`` are not ported (the CLI refuses their flags);
+    ``--zero``'s refusals of them stand here as in JAX."""
+    if zero:
+        # ZeRO-1 slices the optimizer state over the data-parallel ranks.
+        if not data_parallel:
+            raise ValueError("--zero requires --data-parallel")
+        if kernels == "cuda":
+            # JAX's "requires the XLA backend": its shard_map Pallas step pins
+            # replicated state.
+            raise ValueError("--zero requires the library route (--kernels torch, the JAX "
+                             "package's XLA backend)")
+        if multihost:
+            raise ValueError("--zero is single-host for now (sharded optimizer state cannot be "
+                             "fetched for checkpointing across processes)")
+        if tensor_parallel > 1:
+            raise ValueError("--zero is redundant with --tensor-parallel (tp already shards "
+                             "the optimizer state)")
+        if pipeline_parallel > 1:
+            raise ValueError("--zero does not compose with --pipeline-parallel (stages hold "
+                             "1/S of the state already)")
+    if multihost:
+        if not data_parallel:
+            raise ValueError("multi-host training requires --data-parallel")
+        if device_preprocess:
+            raise ValueError("--device-preprocess is not supported under multi-host yet")
     if kernels not in (None, "cuda"):
         raise ValueError(f"kernels must be None or 'cuda', got {kernels!r}")
     if accum_steps > 1 and batch_size % accum_steps:
@@ -240,10 +291,18 @@ def _build_mesh(params, bn_state, *, data_parallel):
     return params, bn_state, dp
 
 
-def _place_opt_state(opt_state, dp: DataParallel | None):
-    """The optimizer state, replicated from rank 0 under data parallelism
-    (JAX's ``_place_opt_state``, replicated case; ZeRO is not ported)."""
-    return opt_state if dp is None else broadcast_tree(opt_state, dp)
+def _place_opt_state(opt_state, params, dp: DataParallel | None, *, zero: bool = False):
+    """The optimizer state's placement (JAX's ``_place_opt_state``): rank
+    0's, replicated under data parallelism; with ``zero``, each rank keeps
+    its 1/W slice of it. Returns (opt_state, opt_shardings), the latter a
+    ``ZeroShardings`` with ``zero`` and None otherwise."""
+    if dp is None:
+        return opt_state, None
+    opt_state = broadcast_tree(opt_state, dp)
+    if not zero:
+        return opt_state, None
+    return (shard_opt_state_zero(dp, opt_state, params),
+            zero_opt_shardings(dp, opt_state, params))
 
 
 def _build_stepper(config, *, dp, **step_kw):
@@ -261,14 +320,37 @@ def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
     Under data parallelism (``dp``) every rank draws the same seeded global
     order and loads only its rows of each global train batch, whole batches
     only (``drop_last``); the val feed gives global batches, which
-    ``evaluate`` splits over the ranks. With ``device_dataset`` every rank
-    stages the whole corpus on its own card and gathers its rows there."""
+    ``evaluate`` splits over the ranks. With ``device_dataset`` each rank
+    stages its share of the corpus and every global batch is assembled by a
+    collective (``DeviceResidentData(dp=)``). A world that spans hosts
+    without ``device_dataset`` shards both feeds (JAX's ``MultiHostBatches``
+    semantics): whole batches only, each rank loading its rows, the val
+    batches marked ``"shard"`` for ``evaluate``; the val batch shrinks to
+    ``min(batch_size, (n_val // W) · W)``, and a val split smaller than the
+    world is refused."""
     shard = None if dp is None else (dp.rank, dp.world_size)
-    if device_dataset:
+    if dp is not None and dp.multihost and not device_dataset:
+        n_val, nproc = len(val_idx), dp.world_size
+        val_batch = min(batch_size, (n_val // nproc) * nproc)
+        if n_val and val_batch == 0:
+            raise ValueError(f"validation split ({n_val} samples) is smaller than the process "
+                             f"count ({nproc}); raise --validation or the dataset size for "
+                             "multi-host training")
+        val_batch = val_batch or batch_size
+        for name, idx, bs in (("train", train_idx, batch_size), ("val", val_idx, val_batch)):
+            if len(idx) % bs:
+                logger.warning("multihost %s loader drops a trailing partial batch of %d "
+                               "samples each epoch (all processes must agree on batch "
+                               "shapes)", name, len(idx) % bs)
+        train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx,
+                                  seed=seed, drop_last=True, shard=shard)
+        val_loader = DataLoader(dataset, val_batch, indices=val_idx, drop_last=True,
+                                shard=shard)
+    elif device_dataset:
         if device_preprocess:
             raise ValueError("--device-dataset already preprocesses on host once; it is "
                              "mutually exclusive with --device-preprocess")
-        dd = DeviceResidentData(dataset, device=device)
+        dd = DeviceResidentData(dataset, device=device, dp=dp)
         train_loader = dd.batches(train_idx, batch_size, shuffle=True, seed=seed,
                                   drop_last=dp is not None, shard=shard)
         val_loader = dd.batches(val_idx, batch_size)
@@ -371,13 +453,16 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 ema_decay: float | None = None, val_per_epoch: int = 5,
                 early_stopping: int | None = None, device_preprocess: bool = False,
                 device_dataset: bool = False, augment=None,
-                data_parallel: bool | DataParallel | None = False):
+                data_parallel: bool | DataParallel | None = False, zero: bool = False):
     """The reference's train loop on the port's step, with the JAX
     ``train_model``'s arguments but those of what the port does not have
-    yet (spatial, tensor and pipeline parallelism, ZeRO, multi-host).
+    yet (spatial, tensor and pipeline parallelism).
     Trains on the device the params lie on; under ``data_parallel`` (True:
     form or join the process group; or a ``DataParallel`` record), on the
-    rank's device with ``batch_size`` the global batch (module docstring).
+    rank's device with ``batch_size`` the global batch (module docstring),
+    and with ``zero`` the optimizer state sliced over the ranks. A world
+    that spans hosts (``multihost.spans_hosts``, or the record's
+    ``multihost``) requires ``data_parallel``.
     ``use_wandb`` logs to W&B (``train_logging.py``): each step's loss and,
     at each validation, the scalars, a sample triplet and histograms.
     ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
@@ -386,8 +471,12 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     batch on the device with the draws of (``seed``, global step). Returns
     (params, bn_state, history) with history's ``train_loss`` per step and
     ``val_dice`` and ``lr`` per validation (``val_dice_ema`` with EMA)."""
+    multihost = (data_parallel.multihost if isinstance(data_parallel, DataParallel)
+                 else spans_hosts())
     flags = dict(accum_steps=accum_steps, batch_size=batch_size,
-                 early_stopping=early_stopping, kernels=kernels)
+                 early_stopping=early_stopping, kernels=kernels, zero=zero,
+                 data_parallel=bool(data_parallel), multihost=multihost,
+                 device_preprocess=device_preprocess)
     _check_train_flags(**flags)
     params, bn_state, dp = _build_mesh(params, bn_state, data_parallel=data_parallel)
     world = 1 if dp is None else dp.world_size
@@ -409,10 +498,11 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     panel_on = experiment is not None if dp is None else dp.any(experiment is not None)
     logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
                 "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
-                "device_preprocess=%s device_dataset=%s augment=%s data_parallel_ranks=%d",
+                "device_preprocess=%s device_dataset=%s augment=%s data_parallel_ranks=%d "
+                "zero=%s multihost=%s",
                 config.arch, epochs, batch_size, learning_rate, n_train, n_val, amp, optimizer,
                 lr_scheduler, dice_weight, device, kernels, device_preprocess, device_dataset,
-                augment, world)
+                augment, world, zero, multihost)
     warn_recurrent_rmsprop(config.arch, optimizer, momentum, learning_rate)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
@@ -426,14 +516,16 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
         params, bn_state, opt_state, start_epoch, resume_es = _restore_resume(
             resume, params, bn_state, opt_state, scheduler, config=config, optimizer=optimizer,
             lr_scheduler=lr_scheduler, learning_rate=learning_rate, dp=dp)
-    opt_state = _place_opt_state(opt_state, dp)
+    opt_state, opt_shardings = _place_opt_state(opt_state, params, dp, zero=zero)
     train_step = _build_stepper(
         config, dp=dp, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
         grad_clip=gradient_clipping, kernels=kernels, accum_steps=accum_steps,
-        optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight)
+        optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight,
+        opt_shardings=opt_shardings)
     panel = WandbValidationPanel(experiment, config=config, amp=amp, remat=remat,
                                  dice_weight=dice_weight, accum_steps=accum_steps,
-                                 group=None if dp is None else dp.group, enabled=panel_on)
+                                 group=None if dp is None else dp.group, enabled=panel_on,
+                                 multihost=multihost)
     ema = train_ema.maybe_create(ema_decay, params,
                                  total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
     if ema is not None and resume:
@@ -449,7 +541,10 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     policy = CheckpointPolicy(
         checkpoint_dir, enabled=save_checkpoint_flag, primary=primary, keep=keep_checkpoints,
         save_best=save_best, save_optimizer=save_optimizer, optimizer=optimizer,
-        lr_scheduler=lr_scheduler, config=config, dataset=dataset, ema_decay=ema_decay)
+        lr_scheduler=lr_scheduler, config=config, dataset=dataset, ema_decay=ema_decay,
+        full_opt=(None if opt_shardings is None
+                  else lambda o: gather_opt_state_zero(o, opt_shardings)),
+        agree=None if dp is None else dp.any)
     interrupted = early_stopped = False
     es_best, es_bad = -float("inf"), 0
     if resume_es:

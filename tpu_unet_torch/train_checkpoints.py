@@ -4,7 +4,11 @@ needs the palette), retention (``--keep-checkpoints``), best-model tracking
 (``--save-best``), EMA siblings and the resumable ``INTERRUPTED.npz``. The
 file names and ``extra`` fields are the JAX package's, so either package
 resumes from the other's files. Under data parallelism only the primary
-rank (rank 0) writes; the others keep the same bookkeeping.
+rank (rank 0) writes; the others keep the same bookkeeping. Under ZeRO
+(``full_opt``) a file holds the whole optimizer state: every rank gathers
+it (a collective) before rank 0 writes, at every save that carries it, so
+the decision to save is the same on every rank (``agree`` for the best
+model, whose bar each rank reads from its own directory).
 """
 
 from __future__ import annotations
@@ -33,14 +37,19 @@ def prune_checkpoints(checkpoint_dir: Path, epoch: int, keep: int) -> None:
 class CheckpointPolicy:
     """Owns the async writer and every file the trainer writes. A save
     copies the trees to the host at once and writes on a thread while
-    training goes on."""
+    training goes on. ``full_opt`` maps this rank's optimizer state to the
+    whole one (ZeRO's gather, called on every rank); ``agree`` makes a flag
+    true on every rank when it is on any (``DataParallel.any``)."""
 
     def __init__(self, checkpoint_dir: Path, *, enabled: bool, keep: int | None,
                  save_best: bool, save_optimizer: bool, optimizer: str, lr_scheduler: str,
-                 config, dataset, ema_decay: float | None, primary: bool = True):
+                 config, dataset, ema_decay: float | None, primary: bool = True,
+                 full_opt=None, agree=None):
         self.dir = Path(checkpoint_dir)
         self.enabled = enabled
         self.primary = primary
+        self.full_opt = full_opt
+        self.agree = agree
         self.keep = keep
         self.save_best = save_best
         self.save_optimizer = save_optimizer
@@ -76,6 +85,10 @@ class CheckpointPolicy:
                                extra={**extra, "config": self.config._asdict()},
                                opt_state=opt_state)
 
+    def _opt(self, opt_state):
+        """The whole optimizer state; every rank calls it at the same saves."""
+        return opt_state if self.full_opt is None else self.full_opt(opt_state)
+
     def _schedule_extra(self, scheduler) -> dict:
         return {"lr": scheduler.lr,
                 "scheduler": {"name": self.lr_scheduler, **scheduler.state_dict()},
@@ -85,7 +98,11 @@ class CheckpointPolicy:
                         bn_state, opt_state) -> bool:
         """Write ``checkpoint_best.npz`` when ``val_dice`` beats the best so
         far (never pruned). Returns whether it wrote."""
-        if not (self.save_best and val_dice > self.best_dice):
+        better = self.save_best and val_dice > self.best_dice
+        if self.save_best and self.save_optimizer and self.full_opt is not None:
+            if self.agree(better):
+                opt_state = self._opt(opt_state)
+        if not better:
             return False
         self.best_dice = val_dice
         self._save("checkpoint_best.npz", params, bn_state,
@@ -98,6 +115,8 @@ class CheckpointPolicy:
 
     def save_epoch(self, epoch: int, *, params, bn_state, opt_state, scheduler, es_best: float,
                    es_bad: int, ema_params=None) -> None:
+        if self.enabled and self.save_optimizer:
+            opt_state = self._opt(opt_state)
         if not (self.enabled and self.primary):
             return
         self._save(f"checkpoint_epoch{epoch}.npz", params, bn_state,
@@ -120,6 +139,7 @@ class CheckpointPolicy:
         included. It records epoch − 1: the interrupted epoch is incomplete,
         so ``--resume`` runs it again from its start. Returns its path (None
         on a rank that does not write)."""
+        opt_state = self._opt(opt_state)
         if not self.primary:
             return None
         self._save("INTERRUPTED.npz", params, bn_state,

@@ -45,12 +45,26 @@ every rank when one fails.
     torchrun --nproc-per-node 2 -m tpu_unet_torch.train_cli --data-parallel \
         -b 8 --data-dir data [--device cpu]
 
+``--zero`` (with ``--data-parallel``, the library route) is ZeRO-1: each
+rank keeps 1/W of the optimizer state (``parallel/zero.py``); the steps
+and checkpoints are the plain ``--data-parallel`` run's.
+
+``--multihost`` trains over a world that spans hosts, one process a GPU
+(``parallel/multihost.py``): torchrun across nodes, or explicit flags with
+one process a host. The rendezvous comes before anything touches a
+device; each process loads only its rows of each global batch.
+
+    torchrun --nnodes 2 --node-rank R --nproc-per-node 8 --rdzv-endpoint H:P \
+        -m tpu_unet_torch.train_cli --multihost --data-parallel -b 64 ...
+    python -m tpu_unet_torch.train_cli --multihost --coordinator H:P \
+        --num-processes 2 --process-id R --data-parallel -b 8 ...
+
 ``--deterministic`` runs with cuDNN's and torch's deterministic algorithms
 (``utils/determinism.py``), so a seeded run repeats bit for bit, and logs
 the ops that have no deterministic form.
 
 The JAX flags this port does not run yet are refused with an error, never
-ignored: multi-host, ZeRO, and spatial, tensor and pipeline parallelism.
+ignored: spatial, tensor and pipeline parallelism.
 ``--load`` takes a ``.npz`` checkpoint or, for ``--arch unet``, the
 reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
@@ -186,12 +200,23 @@ def get_args(argv=None):
     p.add_argument("--data-parallel", action="store_true", default=False,
                    help="Shard the batch across the ranks that torchrun launches (one "
                         "process per GPU)")
+    p.add_argument("--multihost", action="store_true", default=False,
+                   help="Multi-host data parallelism: form the world before any device use "
+                        "(torchrun's env across nodes, or --coordinator/--num-processes/"
+                        "--process-id); one process per GPU, each loading only its rows of "
+                        "every global batch; requires --data-parallel")
+    p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
+                   help="With --multihost: the rendezvous address of rank 0's host")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="With --coordinator: the world size")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="With --coordinator: this process's rank")
+    p.add_argument("--zero", action="store_true", default=False,
+                   help="With --data-parallel: ZeRO-1, each rank keeps 1/N of the fp32 "
+                        "optimizer state instead of all of it (about 248 MB at 31M params "
+                        "for RMSprop); one all-gather of the updated params a step, the same "
+                        "steps and checkpoints")
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--multihost", "--zero"):
-        p.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
-    p.add_argument("--coordinator", type=str, default=None, help=argparse.SUPPRESS)
-    for flag in ("--num-processes", "--process-id"):
-        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     for flag in ("--spatial-parallel", "--tensor-parallel", "--pipeline-parallel"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -200,18 +225,36 @@ def get_args(argv=None):
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with a clear message when a flag the port lacks was given."""
     asked = {
-        "--multihost": args.multihost,
-        "--coordinator": args.coordinator is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
         "--spatial-parallel": args.spatial_parallel > 1,
         "--tensor-parallel": args.tensor_parallel > 1,
-        "--pipeline-parallel": args.pipeline_parallel > 1, "--zero": args.zero,
+        "--pipeline-parallel": args.pipeline_parallel > 1,
     }
     for flag, given in asked.items():
         if given:
             raise SystemExit(f"tpu_unet_torch.train_cli: {flag} is not ported to tpu_unet_torch "
                              "yet; use the JAX package (tpu_unet) for it")
+
+
+def check_flags(args: argparse.Namespace) -> None:
+    """The flag compositions that ``train_model`` refuses, refused before the
+    rendezvous and the dataset (a ``SystemExit`` with the same message), and
+    the rendezvous flags without ``--multihost``."""
+    from tpu_unet_torch.parallel.multihost import spans_hosts
+
+    given = [f for f, v in (("--coordinator", args.coordinator),
+                            ("--num-processes", args.num_processes),
+                            ("--process-id", args.process_id)) if v is not None]
+    if given and not args.multihost:
+        raise SystemExit(f"tpu_unet_torch.train_cli: {given[0]} applies with --multihost")
+    try:
+        train_mod._check_train_flags(
+            accum_steps=args.accum_steps, batch_size=args.batch_size,
+            early_stopping=args.early_stopping, kernels=KERNELS[args.kernels], zero=args.zero,
+            data_parallel=args.data_parallel,
+            multihost=args.multihost and spans_hosts(args.num_processes),
+            device_preprocess=args.device_preprocess)
+    except ValueError as e:
+        raise SystemExit(f"tpu_unet_torch.train_cli: {e}") from None
 
 
 def _profiler(trace_dir: str):
@@ -243,15 +286,27 @@ def _build_augment(args: argparse.Namespace):
 
 @exit_on_refusal("tpu_unet_torch.train_cli")
 def main(argv=None):
-    from tpu_unet_torch.parallel.mesh import cli_data_parallel
+    from tpu_unet_torch.parallel import multihost
+    from tpu_unet_torch.parallel.mesh import DataParallelRefused, cli_data_parallel
 
     args = get_args(argv)
     refuse_unported(args)
+    check_flags(args)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    dp, formed = None, False
-    if args.data_parallel:
-        dp, formed = cli_data_parallel(args.device, "tpu_unet_torch.train_cli")
+    formed = False
+    if args.multihost and not torch.distributed.is_initialized():
+        # The rendezvous, before anything touches a device.
+        try:
+            multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                                 device=None if args.device == "cuda" else args.device)
+        except DataParallelRefused as e:
+            raise SystemExit(f"tpu_unet_torch.train_cli: {e}") from None
+        formed = True
+    dp = None
     try:
+        if args.data_parallel:
+            dp, formed_here = cli_data_parallel(args.device, "tpu_unet_torch.train_cli")
+            formed = formed or formed_here
         return _train(args, dp)
     finally:
         if formed:
@@ -311,7 +366,7 @@ def _train(args: argparse.Namespace, dp):
             early_stopping=args.early_stopping, keep_checkpoints=args.keep_checkpoints,
             save_best=args.save_best, device_preprocess=args.device_preprocess,
             device_dataset=args.device_dataset, augment=_build_augment(args),
-            use_wandb=args.wandb, data_parallel=dp)
+            use_wandb=args.wandb, data_parallel=dp, zero=args.zero)
 
     with contextlib.ExitStack() as stack:
         if args.profile:

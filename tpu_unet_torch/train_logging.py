@@ -17,8 +17,9 @@ warns and trains on.
   as the JAX package's ``hist_sample_step`` does.
 - Under data parallelism that gradient pass is the global batch's (BN and
   the loss over ``group``, the gradients averaged over the ranks), so every
-  rank runs it and rank 0 alone logs. The JAX package's scalars-only panel
-  for more than one host is not ported.
+  rank runs it and rank 0 alone logs. When the world spans hosts the panel
+  logs the scalars only and no rank runs the gradient pass, as the JAX
+  package's does under ``--multihost``.
 """
 
 from __future__ import annotations
@@ -105,11 +106,14 @@ class WandbValidationPanel:
 
     Under data parallelism (``group``) ``enabled`` says whether rank 0 logs:
     then every rank takes part in the gradient pass, and only the rank with
-    the ``experiment`` logs."""
+    the ``experiment`` logs. ``multihost``: the scalars only, no gradient
+    pass on any rank."""
 
     def __init__(self, experiment, *, config, amp: bool, remat: bool, dice_weight: float,
-                 accum_steps: int, group=None, enabled: bool | None = None):
+                 accum_steps: int, group=None, enabled: bool | None = None,
+                 multihost: bool = False):
         self.experiment = experiment
+        self.multihost = multihost
         self.group = group
         self.enabled = experiment is not None if enabled is None else enabled
         self.config = config
@@ -141,6 +145,12 @@ class WandbValidationPanel:
             images, masks, hist_batch) -> None:
         if not self.enabled:
             return
+        scalars = {"learning rate": lr_now, "validation Dice": val_dice,
+                   "validation IoU": val_iou, "step": step, "epoch": epoch}
+        if self.multihost:
+            if self.experiment is not None:
+                self.experiment.log(scalars)
+            return
         h_imgs, h_masks = hist_batch if hist_batch else (images, masks)
         if self.accum_steps > 1:
             # The train step ran this batch as microbatches: keep the
@@ -169,8 +179,7 @@ class WandbValidationPanel:
             else:
                 pred0 = torch.sigmoid(lg[0, ..., 0]) > 0.5
         self.experiment.log({
-            "learning rate": lr_now, "validation Dice": val_dice, "validation IoU": val_iou,
-            "step": step, "epoch": epoch,
+            **scalars,
             "images": wandb.Image(images[0].float().cpu().numpy()),  # HWC, as the JAX package
             "masks": {
                 "true": wandb.Image(masks[0].cpu().numpy().astype(np.float32)),
