@@ -194,6 +194,28 @@ Phases, each of which exits non-zero on failure, each with its time:
    ``MASK_AGREEMENT`` equal to ``predict_img``'s, and ``predict
    --tile-sharded`` as one process warning and writing ``predict``'s mask.
 
+13. Spatial parallelism (``parallel/halo.py``, ``parallel/mesh.py::Grid``)
+   at full width, in at most ``SP_BUDGET_S``, gloo ranks sharing the card
+   at an explicit TCP rendezvous (NCCL takes one rank per device), on the
+   library route (JAX refuses its kernels on a spatial mesh), as a 1 x 2
+   and a 2 x 2 (data x spatial) grid: (a) one ``make_train_step`` step of
+   the flagship (ConvT decoder) at 959x640 global batch 4 in fp32 and bf16,
+   each rank on its rows' height bands, against the one-process step from
+   the same seeded trees and batch: fp32 loss within 1e-5 relative, grad
+   norm 1e-3, BN state 1e-3 absolute, params by JAX's rule (median |diff|
+   < 1e-5, at most 1% of a leaf off by more than 1e-3, none by 0.1); bf16
+   within ``STEP_TOL``; the ranks' params bitwise equal; (b) the same in
+   fp32 for the bilinear U-Net and R2U-Net at batch 2 (R2U-Net's params,
+   whose first RMSprop step flips signs on rounding, by PR 17's
+   float64-distance rule where JAX's fails: at most twice the one-process
+   fp32 step's distance from the float64 step); (c) ``train_cli
+   --data-parallel --spatial-parallel 2`` for one epoch on phase 6's pairs
+   (the 1 x 2 grid's ranks joining their group), writing
+   ``checkpoint_epoch1.npz``; (d) each step's peak device memory a rank
+   beside the one-process step's (each in a fresh process), and the conv
+   with the largest transient allocation in each (a cuDNN workspace can
+   outweigh the activations). No time: the ranks share the card.
+
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
 """
@@ -3541,6 +3563,308 @@ def phase_multihost(workdir: Path, train_dir: Path, dp_dir: Path, ckpt: Path, ca
     return numbers
 
 
+# Phase 13: spatial parallelism at full width (module docstring): gloo ranks
+# sharing the card at an explicit TCP rendezvous, as 1 x 2 and 2 x 2 (data x
+# spatial) grids; the one-process references in the first grid's rank 0
+# before its grid steps, so that the peaks compare fresh processes.
+SP_GRIDS = ((2, 2), (4, 2))  # (ranks, S)
+# (model, amp, global batch). R2U-Net's fp32 gradients are ill-conditioned
+# (PERF.md §6, PR 1-14): RMSprop's first step, 10·lr·sign(g), flips more than
+# 1% of some leaves on any change of sum order, so its params are held by
+# the float64-distance rule (``SP_FLOAT64``) where JAX's element rule fails.
+SP_CASES = (("unet", False, PARITY_BATCH), ("unet", True, PARITY_BATCH),
+            ("bilinear", False, (2, 640, 959)), ("r2u", False, (2, 640, 959)))
+SP_FLOAT64 = ("r2u",)
+SP_LR = 1e-4
+SP_CLI_ARGS = ("-s", "0.5", "-b", "4", "--epochs", "1", "--validation", "20",
+               "--val-per-epoch", "1", "--data-parallel", "--spatial-parallel", "2",
+               "--device", "cuda:0")
+SP_BUDGET_S = 120.0
+
+
+def _sp_tag(model: str, amp: bool) -> str:
+    return f"{model} {'bf16' if amp else 'fp32'}"
+
+
+def _sp_case(model: str, batch, device):
+    """(config, params, state, images, masks) of a phase-13 case, from seeds."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+
+    fields = dict(TRAIN_CONFIG)
+    if model == "bilinear":
+        fields["bilinear"] = True
+    elif model == "r2u":
+        fields["arch"] = "r2u"
+    config = UNetConfig(**fields)
+    params, state = init_unet(config, np.random.default_rng(0), device=device)
+    imgs, msks = synth_batch(np.random.default_rng(1), *batch)
+    return config, params, state, torch.from_numpy(imgs), torch.from_numpy(msks)
+
+
+def _sp_step(step, trees, images, masks) -> tuple[tuple, float, list]:
+    """(outputs, peak GiB, the conv with the largest transient) of one step.
+    Around each conv of it, forward and backward (the ops that take cuDNN
+    workspaces), the caching allocator's counters, kept on the host as
+    memory is requested: its transient is its peak above the memory
+    allocated before it; the step's peak takes every op's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    convs = (torch.ops.aten.convolution, torch.ops.aten.convolution_backward)
+    top = [0, "", []]
+    peak = [0]
+
+    class ConvPeaks(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket not in convs:
+                return func(*args, **(kwargs or {}))
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = func(*args, **(kwargs or {}))
+            high = torch.cuda.max_memory_allocated()
+            if high - base > top[0]:
+                top[:] = [high - base, str(func),
+                          [list(a.shape) for a in args if isinstance(a, torch.Tensor)][:2]]
+            return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with ConvPeaks():
+        out = step(*trees, images, masks, SP_LR)
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+    return out, peak[0] / 2**30, [top[0] / 2**30, *top[1:]]
+
+
+def _float64_step(config, params, state, images, masks):
+    """The one-process step in float64: the trees and images as float64, and
+    ``Tensor.float`` keeping float64 tensors (the logits and the loss cast
+    to fp32 by name)."""
+    from unittest import mock
+
+    from tpu_unet_torch.models.unet import tree_map
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    fp32 = torch.Tensor.float
+    with mock.patch.object(torch.Tensor, "float",
+                           lambda t: t if t.dtype == torch.float64 else fp32(t)):
+        p64, s64 = (tree_map(lambda t: t.double(), tree) for tree in (params, state))
+        return make_train_step(config)(p64, s64, rmsprop_init(p64), images.double(), masks,
+                                       SP_LR)
+
+
+def _sp_references(workdir: Path, out: dict) -> None:
+    """13a/b's one-process steps (``SP_CASES``), each in this fresh process:
+    loss, grad norm, BN state and params to ``sp_ref<i>.pt``, peak and time
+    into ``out``; for ``SP_FLOAT64``, the float64 step's params too, and the
+    fp32 step's largest per-tensor relative L2 distance from them."""
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    for i, (model, amp, batch) in enumerate(SP_CASES):
+        config, params, state, images, masks = _sp_case(model, batch, "cuda")
+        images, masks = images.cuda(), masks.cuda()
+        step = make_train_step(config, amp=amp)
+        o, peak, top = _sp_step(step, (params, state, rmsprop_init(params)), images, masks)
+        ref = {"loss": o[3].item(), "gnorm": o[4].item(),
+               "bn": [t.cpu() for t in tree_leaves(o[1])],
+               "params": [t.cpu() for t in tree_leaves(o[0])]}
+        del step, o
+        torch.cuda.empty_cache()
+        if model in SP_FLOAT64:
+            ref["params64"] = [t.float().cpu() for t in tree_leaves(
+                _float64_step(config, params, state, images, masks)[0])]
+            ref["e_one"] = max(_rel_l2(a, b) for a, b in zip(ref["params"], ref["params64"]))
+            torch.cuda.empty_cache()
+        torch.save(ref, workdir / f"sp_ref{i}.pt")
+        out["ref"][_sp_tag(model, amp)] = {"peak_gib": peak, "top_op": top,
+                                           **({"e_one": ref["e_one"]} if "e_one" in ref
+                                              else {})}
+        del config, params, state, images, masks, ref
+
+
+def _sp_compare(o, ref: dict, amp: bool) -> dict:
+    """A grid step's outputs ``o`` against the one-process step's: loss and
+    grad norm relative errors, the BN state's largest absolute and
+    per-tensor relative L2 errors, and the params by JAX's rule
+    (``tests/test_parallel.py``): median |diff| per leaf, the share of a
+    leaf's elements off by more than 1e-3, the largest |diff|; with the
+    float64 step's params in ``ref``, PR 17's rule beside it: the largest
+    per-tensor relative L2 distance from them at most twice the fp32
+    one-process step's, plus 1e-7."""
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    bn = tree_leaves(o[1])
+    rec = {"loss": abs(o[3].item() - ref["loss"]) / abs(ref["loss"]),
+           "grad_norm": abs(o[4].item() - ref["gnorm"]) / abs(ref["gnorm"]),
+           "bn_abs": max((a.float().cpu() - b).abs().max().item() for a, b in zip(bn, ref["bn"])),
+           "bn_state": max(_rel_l2(a.float().cpu(), b) for a, b in zip(bn, ref["bn"]))}
+    med = off = big = 0.0
+    for a, b in zip(tree_leaves(o[0]), ref["params"]):
+        d = (a.float() - b.to(a.device).float()).abs().reshape(-1)
+        med = max(med, d.median().item())
+        off = max(off, (d > 1e-3).float().mean().item() if d.numel() > 300 else 0.0)
+        big = max(big, d.max().item())
+    rec.update(params_median=med, params_off_share=off, params_max=big)
+    if amp:
+        tol = STEP_TOL["bf16"]
+        rec["ok"] = all(rec[k] <= tol[k] for k in ("loss", "grad_norm", "bn_state"))
+        return rec
+    jax_rule = med < 1e-5 and off <= 0.01 and big < 0.1
+    if "params64" in ref:
+        rec["e_grid"] = max(_rel_l2(a.cpu(), b) for a, b in
+                            zip(tree_leaves(o[0]), ref["params64"]))
+        rec["e_one"] = ref["e_one"]
+        jax_rule = jax_rule or rec["e_grid"] <= 2 * ref["e_one"] + 1e-7
+    rec["ok"] = (rec["loss"] <= 1e-5 and rec["grad_norm"] <= 1e-3 and rec["bn_abs"] <= 1e-3
+                 and jax_rule)
+    return rec
+
+
+def _sp_rank(rank: int, world: int, spatial: int, coordinator: str, workdir: str,
+             train_dir: str) -> None:
+    """13a-13d on one rank of a (world / spatial) x spatial grid sharing
+    cuda:0 over gloo. Writes ``sp<world>_rank<r>.json`` into ``workdir``."""
+    from datetime import timedelta
+
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.parallel.mesh import init_data_parallel, make_grid
+    from tpu_unet_torch.train import make_train_step
+
+    workdir = Path(workdir)
+    out: dict = {"rank": rank, "failures": [], "ref": {}, "grid": {}}
+    full_fp32()
+    dp = init_data_parallel(backend="gloo", device="cuda:0", init_method=f"tcp://{coordinator}",
+                            rank=rank, world_size=world, timeout=timedelta(seconds=600))
+    try:
+        t0 = time.perf_counter()
+        grid = make_grid(dp, spatial)
+        if world == SP_GRIDS[0][0] and rank == 0:
+            _sp_references(workdir, out)
+        dp.barrier()
+        for i, (model, amp, batch) in enumerate(SP_CASES):
+            config, params, state, images, masks = _sp_case(model, batch, "cuda")
+            step = make_train_step(config, amp=amp, mesh=grid)
+            bands = (grid.bands(images).cuda(), grid.bands(masks).cuda())
+            o, peak, top = _sp_step(step, (params, state, rmsprop_init(params)), *bands)
+            rec = {"peak_gib": peak, "top_op": top, "params_sha256": _digest(o[0]),
+                   "band": list(bands[0].shape)}
+            if rank == 0:
+                rec.update(_sp_compare(o, torch.load(workdir / f"sp_ref{i}.pt"), amp))
+            out["grid"][_sp_tag(model, amp)] = rec
+            del config, params, state, step, o, bands
+            torch.cuda.empty_cache()
+        out["steps_s"] = time.perf_counter() - t0
+        if world == SP_GRIDS[0][0]:
+            # 13c: the train CLI on the grid, joining this group (gloo).
+            from tpu_unet_torch import train_cli
+
+            t0 = time.perf_counter()
+            ck = workdir / "ck_spatial"
+            hist = train_cli.main([*SP_CLI_ARGS, "--data-dir", str(Path(train_dir) / "data"),
+                                   "--load", str(Path(train_dir) / "init.npz"),
+                                   "--checkpoint-dir", str(ck)])[2]
+            out["cli"] = {"history": hist, "wall_s": time.perf_counter() - t0,
+                          "written": sorted(f.name for f in ck.glob("*.npz"))
+                          if ck.exists() else []}
+    except Exception:
+        out["failures"].append(f"rank {rank} of {world}: {traceback.format_exc()}")
+    finally:
+        (workdir / f"sp{world}_rank{rank}.json").write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+
+
+def _top(op) -> str:
+    gib, name, shapes = op
+    return f"{gib:.3f} GiB ({name} on {shapes})"
+
+
+def phase_spatial(workdir: Path, train_dir: Path, card: str) -> dict:
+    """Phase 13 (module docstring). Returns its numbers."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    failures: list = []
+    ctx = mp.get_context("spawn")
+    grids = {}
+    for world, spatial in SP_GRIDS:
+        coordinator = f"127.0.0.1:{_free_port()}"
+        procs = [ctx.Process(target=_sp_rank, args=(r, world, spatial, coordinator,
+                                                    str(workdir), str(train_dir)))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+                failures.append(f"13: rank process {p.pid} still running after 300 s: killed")
+        shape = f"{world // spatial}x{spatial}"
+        log(f"13 {shape} grid: {world} rank processes in {time.perf_counter() - t0:.1f} s, "
+            f"exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(world):
+            path = workdir / f"sp{world}_rank{r}.json"
+            if not path.exists():
+                failures.append(f"13 {shape}: rank {r} wrote no result")
+                continue
+            ranks.append(json.loads(path.read_text()))
+            failures += ranks[-1]["failures"]
+        if len(ranks) == world and all(len(rk["grid"]) == len(SP_CASES) for rk in ranks):
+            grids[shape] = ranks
+    if len(grids) == len(SP_GRIDS):
+        ref = grids[f"{SP_GRIDS[0][0] // SP_GRIDS[0][1]}x{SP_GRIDS[0][1]}"][0]["ref"]
+        for shape, ranks in grids.items():
+            for model, amp, batch in SP_CASES:
+                tag = _sp_tag(model, amp)
+                rec, one = ranks[0]["grid"][tag], ref[tag]
+                same = all(rk["grid"][tag]["params_sha256"] == rec["params_sha256"]
+                           for rk in ranks)
+                peaks = [rk["grid"][tag]["peak_gib"] for rk in ranks]
+                tol = ("loss 1e-5, grad norm 1e-3, BN 1e-3 abs, params median < 1e-5, <= 1% "
+                       "off by > 1e-3, max < 0.1" if not amp else
+                       "STEP_TOL bf16 on loss, grad norm, BN (params printed)")
+                f64 = (f"; params' largest rel L2 from the float64 step {rec['e_grid']:.3e}, "
+                       f"the one-process fp32 step's {rec['e_one']:.3e} (tol 2x + 1e-7, where "
+                       "JAX's rule fails)" if "e_grid" in rec else "")
+                log(f"13a/b {shape} grid, {tag}, global batch {list(batch)}, band "
+                    f"{rec['band']} a rank, vs the one-process step: loss rel err "
+                    f"{rec['loss']:.3e}, grad norm {rec['grad_norm']:.3e}, BN max abs "
+                    f"{rec['bn_abs']:.3e} (rel L2 {rec['bn_state']:.3e}), params median "
+                    f"{rec['params_median']:.3e} max {rec['params_max']:.3e} off-share "
+                    f"{rec['params_off_share']:.4%} (tol: {tol}){f64}; ok={rec['ok']}; ranks' "
+                    f"params bitwise equal={same}; 13d peak a rank "
+                    f"{' '.join(f'{p:.3f}' for p in peaks)} GiB vs one process "
+                    f"{one['peak_gib']:.3f} GiB (ratio {max(peaks) / one['peak_gib']:.3f}; "
+                    f"{card}); the largest conv transient, rank 0 {_top(rec['top_op'])}, "
+                    f"one process {_top(one['top_op'])}")
+                if not rec["ok"]:
+                    failures.append(f"13 {shape} {tag}: the grid step is off the one-process "
+                                    f"step: {rec}")
+                if not same:
+                    failures.append(f"13 {shape} {tag}: the ranks' params differ")
+        cli = grids[f"{SP_GRIDS[0][0] // SP_GRIDS[0][1]}x{SP_GRIDS[0][1]}"][0].get("cli")
+        if cli is None:
+            failures.append("13c: no train CLI result")
+        else:
+            h = cli["history"]
+            log(f"13c train_cli {' '.join(SP_CLI_ARGS)} on phase 6's pairs (1x2 grid, gloo): "
+                f"losses {h['train_loss']} val Dice {h['val_dice']}, wrote {cli['written']}, "
+                f"{cli['wall_s']:.1f} s")
+            if not ("checkpoint_epoch1.npz" in cli["written"] and h["train_loss"]
+                    and all(np.isfinite(h["train_loss"])) and len(h["val_dice"]) == 1):
+                failures.append(f"13c: the spatial train CLI run {cli}")
+    if failures:
+        raise SystemExit(f"chip_smoke: spatial parallelism checks failed: {failures}")
+    return {shape: {"ref": ranks[0]["ref"] if shape == "1x2" else None,
+                    "grid": [rk["grid"] for rk in ranks], "steps_s": ranks[0]["steps_s"]}
+            for shape, ranks in grids.items()}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -3651,6 +3975,14 @@ def main(argv=None) -> int:
         phase_done("12 (ZeRO, multi-host and halo-sharded predict)", t0)
         if time.perf_counter() - t0 > MH_BUDGET_S:
             log(f"phase 12 took over its {MH_BUDGET_S:.0f} s budget")
+        # Phase 13: spatial parallelism, on phase 6's files.
+        t0 = time.perf_counter()
+        sp_numbers = phase_spatial(workdir / "spatial", workdir / "train", card)
+        log(f"spatial parallelism numbers: {json.dumps(sp_numbers)}")
+        torch.cuda.empty_cache()
+        phase_done("13 (spatial parallelism)", t0)
+        if time.perf_counter() - t0 > SP_BUDGET_S:
+            log(f"phase 13 took over its {SP_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

@@ -227,12 +227,20 @@ def test_multi_host_and_bare_launches_are_refused(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# --multihost and --zero are ported: beside them the unported flags stay refused.
+# --multihost, --zero and --spatial-parallel are ported: beside them the
+# unported flags stay refused; --spatial-parallel itself, outside torchrun,
+# meets the refusal of the launch it joins (--multihost's, --data-parallel's).
 @pytest.mark.parametrize("flag", [["--multihost", "--spatial-parallel", "2"],
                                   ["--zero", "--tensor-parallel", "2"],
                                   ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
                                   ["--pipeline-parallel", "2"]])
-def test_other_parallel_flags_stay_refused_beside_data_parallel(flag):
-    refused = next(f for f in flag if f.endswith("-parallel"))
-    with pytest.raises(SystemExit, match=f"{refused} is not ported to tpu_unet_torch"):
+def test_other_parallel_flags_stay_refused_beside_data_parallel(flag, monkeypatch):
+    for name in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    refused = next((f for f in flag if f in ("--tensor-parallel", "--pipeline-parallel")), None)
+    match = (f"{refused} is not ported to tpu_unet_torch" if refused
+             else "--multihost needs torchrun's RANK" if "--multihost" in flag
+             else "launch under torchrun")
+    with pytest.raises(SystemExit, match=match):
         train_cli.main(["--device", "cpu", "--data-parallel", *flag])
+    assert not torch.distributed.is_initialized()

@@ -98,10 +98,14 @@ def test_profile_wraps_the_oom_retry(cli, tmp_path, monkeypatch):
     assert list((tmp_path / "trace").glob("*.pt.trace.json"))
 
 
-def _refusal(flag: list) -> str:
+def _refusal(flag: list) -> str | None:
     """The message that refuses ``flag`` before any training: the unported
     parallel flags, and JAX's refusals of the ported --zero and --multihost
-    (with the rendezvous flags that need --multihost)."""
+    (with the rendezvous flags that need --multihost). None for
+    --spatial-parallel without --data-parallel, which JAX trains as the
+    plain run (no mesh)."""
+    if flag[0] == "--spatial-parallel":
+        return None
     if "--kernels" in flag:
         return "--zero requires the library route"
     if flag[0] == "--multihost":
@@ -121,7 +125,14 @@ def _refusal(flag: list) -> str:
 ])
 def test_other_flags_stay_refused(cli, tmp_path, flag):
     argv, logs, modes = cli
-    with pytest.raises(SystemExit, match=_refusal(flag)):
+    match = _refusal(flag)
+    if match is None:
+        # Trains as the plain run: the history bitwise the run without it.
+        got = train_cli.main(argv + flag)[2]
+        assert got == train_cli.main(argv)[2]
+        assert got["train_loss"] and got["val_dice"]
+        return
+    with pytest.raises(SystemExit, match=match):
         train_cli.main(argv + _with_trace(FLAGS, tmp_path / "trace") + flag)
     assert not logs and not modes and not (tmp_path / "trace").exists()
 

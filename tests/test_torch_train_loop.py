@@ -328,7 +328,8 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 @pytest.mark.parametrize("flag", [
     ["--data-parallel", "--zero", "--kernels", "cuda"], ["--multihost", "--num-processes", "2"],
     ["--coordinator", "h:1"],
-    ["--num-processes", "2"], ["--process-id", "0"], ["--spatial-parallel", "2"],
+    ["--num-processes", "2"], ["--process-id", "0"],
+    ["--spatial-parallel", "2", "--tensor-parallel", "2"],
     ["--tensor-parallel", "2"], ["--pipeline-parallel", "2"], ["--zero"],
     ["--wandb", "--data-parallel", "--multihost"],
     ["--profile", "p", "--zero"], ["--debug-nans", "--multihost"],
@@ -339,10 +340,10 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 def test_train_cli_refuses_unported_flags(flag):
     # The families train; what the JAX package refuses for them stays
     # refused: the kernel route (kernels="pallas" there) and a .pth. The
-    # observability flags, --zero and --multihost are ported: beside a
-    # refused flag, or where JAX refuses their composition, the refusal
-    # stands; --multihost outside torchrun and without --coordinator has no
-    # world to form.
+    # observability flags, --zero, --multihost and --spatial-parallel are
+    # ported: beside a refused flag (--tensor-parallel), or where JAX refuses
+    # their composition, the refusal stands; --multihost outside torchrun and
+    # without --coordinator has no world to form.
     match = ("kernels='cuda' is not implemented for arch=" if "--arch" in flag and "--kernels"
              in flag else r"\.pth import is reference-layout" if "--load" in flag
              else "--zero requires the library route" if "--kernels" in flag
@@ -351,7 +352,9 @@ def test_train_cli_refuses_unported_flags(flag):
              and "--multihost" in flag
              else "applies with --multihost" if flag[0] in ("--coordinator", "--num-processes",
                                                            "--process-id")
-             else "needs torchrun's RANK" if "--multihost" in flag else "is not ported")
+             else "needs torchrun's RANK" if "--multihost" in flag
+             else "--tensor-parallel is not ported" if "--tensor-parallel" in flag
+             else "is not ported")
     with pytest.raises(SystemExit, match=match):
         train_cli.main(["--device", "cpu", *flag])
 

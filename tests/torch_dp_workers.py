@@ -424,3 +424,242 @@ def tile_worker(dp, params, state, xs, ckpt, images, out_dir):
           "--device", "cpu"])
     return {"logits": logits, "fallbacks": fallbacks, "tta": tta,
             "written": [Path(o).exists() for o in outs]}
+
+
+# -- spatial parallelism (tests/test_torch_spatial.py, test_torch_spatial_cli.py) --
+
+
+def spatial_ops_worker(dp, spatial, height, width, n, seed):
+    """Each spatial op on this rank's rows and height band of seeded float64
+    inputs, at every level of ``parallel.halo.row_layout(height,
+    spatial)``, on the grid of ``spatial`` over the ranks: the band's
+    outputs and input gradients of Σ(y·wy), and the parameter gradients
+    summed over the world. The Dice is the same on every rank (a
+    replicated loss), so its input gradients are W times the band's share.
+    ``spatial_inputs`` makes the same inputs in the test."""
+    from tpu_unet_torch.ops import (
+        batch_norm,
+        conv2d,
+        conv_transpose2d,
+        max_pool2d,
+        pad_to_match,
+        upsample2x_align_corners,
+    )
+    from tpu_unet_torch.ops.batchnorm import BNState
+    from tpu_unet_torch.losses import dice_coeff, dice_loss
+    from tpu_unet_torch.parallel.halo import Band, row_layout
+    from tpu_unet_torch.parallel.mesh import make_grid, pmean
+
+    grid = make_grid(dp, spatial)
+    layout = row_layout(height, spatial)
+    out = {}
+
+    def band(k):
+        """Level k's band; ("up", k): the upsampled level k + 1's."""
+        if isinstance(k, tuple):
+            return band(k[1] + 1).doubled()
+        return Band(grid, *layout[k])
+
+    def cut(a, k):  # this rank's rows and band of a full level-k array
+        if k is None:
+            return torch.from_numpy(a)
+        b = band(k)
+        return torch.from_numpy(np.ascontiguousarray(grid.rows(a)[:, b.lo:b.hi]))
+
+    def summed(grads):
+        if not grads:
+            return []
+        return [g * dp.world_size for g in pmean(list(grads), dp.group)]
+
+    def run(name, fn, ins, params, wy, k_out):
+        ins = [cut(a, k).requires_grad_(True) for a, k in ins]
+        ps = [torch.from_numpy(p).requires_grad_(True) for p in params]
+        y = fn(*ins, *ps)
+        grads = torch.autograd.grad((y * cut(wy, k_out)).sum(), ins + ps, materialize_grads=True)
+        out[name] = {"y": y.detach().numpy(), "gin": [g.numpy() for g in grads[:len(ins)]],
+                     "gp": [g.numpy() for g in summed(grads[len(ins):])]}
+
+    data = spatial_inputs(height, spatial, width, n, seed, np.float64)
+    for k in range(len(layout)):
+        d = data[k]
+        run(f"conv2d/{k}", lambda x, w, k=k: conv2d(x, w, padding=1, group=band(k)),
+            [(d["x"], k)], [d["w3"]], d["wy"], k)
+        run(f"batch_norm/{k}", lambda x, g, b, k=k: batch_norm(
+            x, {"scale": g, "bias": b}, BNState(*map(torch.from_numpy, d["bn_state"])),
+            train=True, group=band(k))[0], [(d["x"], k)], [d["gamma"], d["beta"]], d["wy4"], k)
+        bn_state = batch_norm(cut(d["x"], k), {"scale": torch.from_numpy(d["gamma"]),
+                                                "bias": torch.from_numpy(d["beta"])},
+                              BNState(*map(torch.from_numpy, d["bn_state"])), train=True,
+                              group=band(k))[1]
+        out[f"bn_state/{k}"] = [t.numpy() for t in bn_state]
+        if k + 1 < len(layout):
+            e = data[k + 1]
+            run(f"max_pool2d/{k}", lambda x, k=k: max_pool2d(x, group=band(k)),
+                [(d["x"], k)], [], e["wy4"], k + 1)
+            run(f"upsample2x_align_corners/{k + 1}",
+                lambda x, k=k: upsample2x_align_corners(x, group=band(k + 1)),
+                [(e["x"], k + 1)], [], d["wy_up"], ("up", k))
+            run(f"conv_transpose2d/{k + 1}",
+                lambda x, w, k=k: conv_transpose2d(x, w, stride=2, group=band(k + 1)),
+                [(e["x"], k + 1)], [d["wt"]], d["wy_up"], ("up", k))
+            run(f"pad_to_match/{k}",
+                lambda x1, x2, k=k: pad_to_match(x1, x2, group=band(k)),
+                [(d["x1"], ("up", k)), (d["x"], k)], [], d["wy4"], k)
+    # The Dice at level 0: the loss (the batch reduced first, over the
+    # world) and the per-image coefficient (over each image's bands).
+    d = data[0]
+    one = np.ones((1, 1, 1))
+    run("dice_loss", lambda p, t: dice_loss(torch.sigmoid(p), t, group=grid).expand(1, 1, 1),
+        [(d["x"][..., 0], 0), (d["mask"], 0)], [], one, None)
+    run("dice_coeff", lambda p, t: dice_coeff(torch.sigmoid(p), t, group=grid).expand(1, 1, 1),
+        [(d["x"][..., 0], 0), (d["mask"], 0)], [], one, None)
+    return out
+
+
+def spatial_inputs(height, spatial, width, n, seed, dtype=np.float32):
+    """The seeded inputs of ``spatial_ops_worker`` at each level: x
+    [n, H_k, W_k, 4], the weights, and the loss weights of each output."""
+    from tpu_unet_torch.parallel.halo import row_layout
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, (h, _) in enumerate(row_layout(height, spatial)):
+        w = max(1, width >> k)
+        f = lambda *s: rng.standard_normal(s).astype(dtype)  # noqa: E731
+        out.append({"x": f(n, h, w, 4), "w3": f(3, 3, 4, 5) * 0.3, "wy": f(n, h, w, 5),
+                    "wy4": f(n, h, w, 4),
+                    "gamma": 1 + 0.3 * f(4), "beta": f(4),
+                    "bn_state": (0.2 * f(4), 1 + rng.random(4).astype(dtype)),
+                    "wt": f(2, 2, 4, 4) * 0.3, "mask": (rng.random((n, h, w)) > 0.5)
+                    .astype(dtype)})
+    for k in range(len(out) - 1):
+        n_, h, w, _ = out[k]["x"].shape
+        h1, w1 = 2 * out[k + 1]["x"].shape[1], 2 * out[k + 1]["x"].shape[2]
+        out[k]["x1"] = rng.standard_normal((n_, h1, w1, 4)).astype(dtype)
+        out[k]["wy_up"] = rng.standard_normal((n_, h1, w1, 4)).astype(dtype)
+    return out
+
+
+def spatial_step_worker(dp, spatial, cases, params, state, images, masks, lr):
+    """For each (name, config fields, step kwargs) case, from the trees
+    ``params[name]``, ``state[name]``: one step on the grid of
+    ``spatial`` (this rank's rows and bands), all its outputs, then a
+    second step; the second step's params as one flat array,
+    to compare across ranks. ``zero`` in the kwargs: ZeRO over the data axis,
+    with the state bytes this rank holds beside the plain state's."""
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.models.unet import UNetConfig, tree_leaves
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.parallel.mesh import make_grid
+    from tpu_unet_torch.parallel.zero import gather_opt_state_zero, state_bytes
+    from tpu_unet_torch.train import _place_opt_state, make_train_step
+
+    grid = make_grid(dp, spatial)
+    xs, ms = (torch.from_numpy(np.ascontiguousarray(grid.bands(a))) for a in (images, masks))
+    out = []
+    for name, fields, kw in cases:
+        kw = dict(kw)
+        zero = kw.pop("zero", False)
+        cfg = UNetConfig(**fields)
+        p, s = tree_from_numpy(params[name]), tree_from_numpy(state[name])
+        opt = get_optimizer(kw.get("optimizer", "rmsprop"))[0](p)
+        full_bytes = state_bytes(opt)
+        opt, sh = _place_opt_state(opt, p, grid, zero=zero)
+        step = make_train_step(cfg, mesh=grid, return_grads=True, opt_shardings=sh, **kw)
+        o1 = step(p, s, opt, xs, ms, lr)
+        o2 = step(*o1[:3], xs, ms, lr)
+        flat = torch.cat([t.reshape(-1) for t in tree_leaves(o2[0])]).numpy()
+        rec = {"params": _numpy_tree(o1[0]), "bn": _numpy_tree(o1[1]),
+               "loss": float(o1[3]), "gnorm": float(o1[4]), "grads": _numpy_tree(o1[5]),
+               "params2": flat, "loss2": float(o2[3]), "bytes": state_bytes(o1[2]),
+               "full_bytes": full_bytes}
+        rec["opt"] = _numpy_tree(gather_opt_state_zero(o1[2], sh) if zero else o1[2])
+        out.append(rec)
+    return out
+
+
+def spatial_data_worker(dp, spatial, data_dir, params, state, batches, config_fields):
+    """On the grid of ``spatial``: the staged corpus's train and val batches
+    (``DeviceResidentData(dp=grid)``, rows per data coordinate) against the
+    host loader's with the same ``shard`` and ``band``, bitwise, and the
+    staged bytes; then ``evaluate`` and ``evaluate_per_class`` over the
+    global ``batches``, without and with ``tta``."""
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.data import CarvanaDataset, DataLoader, random_split_indices
+    from tpu_unet_torch.data.device_cache import DeviceResidentData
+    from tpu_unet_torch.evaluate import evaluate, evaluate_per_class
+    from tpu_unet_torch.models.unet import UNetConfig
+    from tpu_unet_torch.parallel.mesh import make_grid
+
+    grid = make_grid(dp, spatial)
+    ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", scale=1.0)
+    train_idx, _ = random_split_indices(len(ds), 0.2, seed=0)
+    dd = DeviceResidentData(ds, device="cpu", dp=grid, num_workers=2)
+    same = []
+    got = dd.batches(train_idx, 4, shuffle=True, seed=0, drop_last=True, shard=grid.shard,
+                     band=grid.band)
+    ref = DataLoader(ds, 4, shuffle=True, indices=train_idx, seed=0, drop_last=True,
+                     shard=grid.shard, band=grid.band, num_workers=1)
+    for _ in range(2):
+        pairs = list(zip(got, ref))
+        same.append(len(pairs) == len(ref) and all(
+            np.array_equal(a["image"].numpy(), b["image"])
+            and np.array_equal(a["mask"].numpy(), b["mask"]) for a, b in pairs))
+    cfg = UNetConfig(**config_fields)
+    p, s = tree_from_numpy(params), tree_from_numpy(state)
+    return {"batches_equal": same, "rows": (dd.lo, dd.hi), "staged": dd.staged_bytes,
+            "scalar": evaluate(p, s, batches, cfg, mesh=grid),
+            "per_class": evaluate_per_class(p, s, batches, cfg, mesh=grid),
+            "tta": evaluate(p, s, batches, cfg, tta=True, mesh=grid)}
+
+
+class _StubRun:
+    """A ``wandb.init`` run that keeps what it is given."""
+
+    def __init__(self):
+        import types
+
+        self.logs = []
+        self.config = types.SimpleNamespace(update=lambda *a, **k: None)
+
+    def log(self, d):
+        self.logs.append(d)
+
+
+def spatial_train_worker(dp, data_dir, params, state, config_fields, runs):
+    """``train_model`` on the CarvanaDataset in ``data_dir`` once per kwargs
+    of ``runs`` (a ``"tag"``; ``"multihost"`` overrides the record's; with
+    ``use_wandb`` a stub ``wandb`` records the logs): each run's history,
+    final params as one flat array, and for W&B the shapes of the logged
+    sample triplet."""
+    import dataclasses
+    import sys
+    import types
+
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.data import CarvanaDataset
+    from tpu_unet_torch.models.unet import UNetConfig, tree_leaves
+
+    ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", scale=1.0)
+    cfg = UNetConfig(**config_fields)
+    out = {}
+    run_ = _StubRun()
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **k: run_
+    fake.Histogram = lambda v: ("hist", int(np.asarray(v).size))
+    fake.Image = lambda v: ("img", np.asarray(v).shape)
+    sys.modules["wandb"] = fake
+    for kw in runs:
+        kw = dict(kw)
+        tag = kw.pop("tag")
+        record = dataclasses.replace(dp, multihost=kw.pop("multihost", dp.multihost))
+        run_.logs.clear()
+        p, _, hist = train_mod.train_model(tree_from_numpy(params), tree_from_numpy(state), cfg,
+                                           dataset=ds, data_parallel=record,
+                                           save_checkpoint_flag=False, **kw)
+        images = [d["images"] for d in run_.logs if "images" in d]
+        out[tag] = {"history": hist, "images": images,
+                    "params": torch.cat([t.reshape(-1) for t in tree_leaves(p)]).numpy()}
+    del sys.modules["wandb"]
+    return out

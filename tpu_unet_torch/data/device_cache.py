@@ -29,6 +29,12 @@ the class limit are agreed over the ranks before anything is staged; under
 multi-host, float-typed sources are refused, as in the JAX package.
 Without ``dp`` the whole corpus is staged, and ``batches(shard=)`` gathers
 a rank's rows locally.
+
+On a (data x spatial) grid (``dp`` a ``parallel.mesh.Grid``) the rows are
+staged per data coordinate, W above being the data axis: the ranks of one
+data coordinate stage the same rows, replicated over the spatial axis as in
+JAX (``_local_row_range`` dedupes them), and a batch is assembled over the
+data group; ``band`` then serves each rank its height band.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch.distributed as dist
 
 from tpu_unet_torch.data.device_pipeline import u8_table
 from tpu_unet_torch.data.prefetch import shard_batches
+from tpu_unet_torch.parallel.mesh import cut_band
 
 logger = logging.getLogger(__name__)
 
@@ -52,7 +59,7 @@ class _Batches:
     split at every validation)."""
 
     def __init__(self, parent: "DeviceResidentData", indices, batch_size, shuffle, seed,
-                 drop_last, shard):
+                 drop_last, shard, band):
         self.parent = parent
         self.indices = np.asarray(indices, np.int64)
         self.batch_size = batch_size
@@ -60,6 +67,7 @@ class _Batches:
         self.seed = seed
         self.drop_last = drop_last
         self.shard = shard
+        self.band = band
         self.epoch = 0
 
     def __len__(self):
@@ -78,11 +86,11 @@ class _Batches:
             batches = [b for b in batches if len(b) == bs]
         if self.parent.dp is None:
             for b in shard_batches(batches, self.shard):
-                yield self.parent.gather(b)
+                yield self.parent.gather(b, self.band)
             return
         shard_batches(batches, self.shard)  # every batch must divide over the ranks
         for b in batches:
-            yield self.parent.gather_global(b, self.shard)
+            yield self.parent.gather_global(b, self.shard, self.band)
 
 
 class DeviceResidentData:
@@ -100,8 +108,8 @@ class DeviceResidentData:
         if dp is None:
             self.lo, self.hi = 0, n
         else:
-            per = (n + (-n) % dp.world_size) // dp.world_size
-            self.lo, self.hi = dp.rank * per, (dp.rank + 1) * per
+            per = (n + (-n) % dp.data_size) // dp.data_size
+            self.lo, self.hi = dp.data_rank * per, (dp.data_rank + 1) * per
         # Rows past n (the padding) repeat the corpus cyclically.
         src = [r if r < n else (r - n) % n for r in range(self.lo, self.hi)]
         imgs = np.empty((len(src), h, w, c), np.float32)
@@ -149,21 +157,26 @@ class DeviceResidentData:
                     "(%.0f MB as %s)", n, h, w, self.lo, self.hi, self.device,
                     self.staged_bytes / 1e6, "uint8" if self.exact else "float32")
 
-    def _serve(self, x: torch.Tensor, m: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _serve(self, x: torch.Tensor, m: torch.Tensor, band=None) -> dict[str, torch.Tensor]:
+        x, m = cut_band(x, band), cut_band(m, band)
         if self.exact:
             x = self._table[x.long()]
         return {"image": x, "mask": m.to(torch.int32)}
 
-    def gather(self, idx) -> dict[str, torch.Tensor]:
+    def gather(self, idx, band: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
         """The batch of these sample indices, all staged on this rank:
-        float32 NHWC images, int32 NHW masks, on the device."""
+        float32 NHWC images, int32 NHW masks, on the device (``band`` =
+        (s, S): band s of S of each image's height)."""
         i = torch.from_numpy(np.asarray(idx, np.int64) - self.lo).to(self.device)
-        return self._serve(self._images.index_select(0, i), self._masks.index_select(0, i))
+        return self._serve(self._images.index_select(0, i), self._masks.index_select(0, i),
+                           band)
 
-    def gather_global(self, idx, shard: tuple[int, int] | None) -> dict[str, torch.Tensor]:
-        """A global batch of a corpus staged over the ranks (a collective):
-        ``shard`` (rank, W) gives the rank's contiguous rows of it, None the
-        whole batch."""
+    def gather_global(self, idx, shard: tuple[int, int] | None,
+                      band: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+        """A global batch of a corpus staged over the ranks (a collective
+        over the data group): ``shard`` (rank, W) gives the rank's
+        contiguous rows of it, None the whole batch; ``band`` as
+        ``gather``'s."""
         idx = np.asarray(idx, np.int64)
         own = (idx >= self.lo) & (idx < self.hi)
         at = torch.from_numpy(np.flatnonzero(own)).to(self.device)
@@ -173,17 +186,18 @@ class DeviceResidentData:
         x.index_copy_(0, at, self._images.index_select(0, rows))
         m.index_copy_(0, at, self._masks.index_select(0, rows))
         for t in (x, m):
-            dist.all_reduce(t, group=self.dp.group)
+            dist.all_reduce(t, group=self.dp.data_group)
         if shard is not None:
             r, w = shard
             per = len(idx) // w
             x, m = x[r * per:(r + 1) * per], m[r * per:(r + 1) * per]
-        return self._serve(x, m)
+        return self._serve(x, m, band)
 
     def batches(self, indices: Sequence[int], batch_size: int, *, shuffle: bool = False,
-                seed: int = 0, drop_last: bool = False,
-                shard: tuple[int, int] | None = None) -> _Batches:
+                seed: int = 0, drop_last: bool = False, shard: tuple[int, int] | None = None,
+                band: tuple[int, int] | None = None) -> _Batches:
         """The batches of ``indices``, shuffled per pass as the host
         ``DataLoader`` does; ``shard`` = (rank, world size) gives only the
-        rank's rows of each (``shard_batches``), None whole batches."""
-        return _Batches(self, indices, batch_size, shuffle, seed, drop_last, shard)
+        rank's rows of each (``shard_batches``), None whole batches;
+        ``band`` = (s, S) band s of S of each image's height."""
+        return _Batches(self, indices, batch_size, shuffle, seed, drop_last, shard, band)

@@ -15,6 +15,8 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from tpu_unet_torch.parallel.mesh import cut_band
+
 
 def collate(samples: Sequence[dict]) -> dict[str, np.ndarray]:
     """Stack sample dicts into batch arrays (images NHWC, masks NHW). uint8
@@ -33,7 +35,9 @@ def shard_batches(batches: list, shard: tuple[int, int] | None) -> list:
     """Each batch of sample indices cut to rank r's contiguous rows
     ``[r·B/W, (r+1)·B/W)`` for ``shard`` = (r, W) (data parallelism: JAX's
     ``P("data")`` layout of a global batch); unchanged for None. Every
-    batch must divide over the W ranks."""
+    batch must divide over the W ranks. On a (data x spatial) grid, W is
+    the data axis and the loader then cuts each image's height band
+    (``DataLoader(band=)``)."""
     if shard is None:
         return batches
     r, w = shard
@@ -50,11 +54,13 @@ class DataLoader:
     threads, two batches ahead. ``shard`` = (rank, world size) loads only
     the rank's rows of each batch (``shard_batches``); such a batch carries
     ``"shard"``, which ``evaluate`` reads as one rank's rows of a global
-    batch."""
+    batch. ``band`` = (s, S) then keeps band s of S of each image's height
+    (spatial parallelism) and tags the batch ``"band"``."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8, seed: int = 0,
-                 indices: Sequence[int] | None = None, shard: tuple[int, int] | None = None):
+                 indices: Sequence[int] | None = None, shard: tuple[int, int] | None = None,
+                 band: tuple[int, int] | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -63,6 +69,7 @@ class DataLoader:
         self.seed = seed
         self.indices = list(indices) if indices is not None else list(range(len(dataset)))
         self.shard = shard
+        self.band = band
         self.epoch = 0
 
     def __len__(self):
@@ -79,9 +86,15 @@ class DataLoader:
             batches = [b for b in batches if len(b) == self.batch_size]
         batches = shard_batches(batches, self.shard)
         tag = {} if self.shard is None else {"shard": self.shard}
+        if self.band is not None:
+            tag["band"] = self.band
+
+        def batch(samples):
+            return {**{k: cut_band(v, self.band) for k, v in collate(samples).items()}, **tag}
+
         if self.num_workers <= 1:
             for b in batches:
-                yield {**collate([self.dataset[i] for i in b]), **tag}
+                yield batch([self.dataset[i] for i in b])
             return
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending: collections.deque = collections.deque()
@@ -95,7 +108,7 @@ class DataLoader:
                 futures = pending.popleft()
                 if k + 2 < len(batches):
                     pending.append(submit(batches[k + 2]))
-                yield {**collate([f.result() for f in futures]), **tag}
+                yield batch([f.result() for f in futures])
 
 
 def to_device(batch: dict, device: torch.device) -> dict[str, torch.Tensor]:

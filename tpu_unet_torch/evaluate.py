@@ -24,6 +24,15 @@ validation feeds) holds this rank's rows of a global batch already, and is
 averaged as a split one. Every rank
 returns the same numbers.
 
+On a (data x spatial) grid (``mesh`` a ``parallel.mesh.Grid``, JAX's 2-D
+``sharding``) a batch splits when its rows divide over the data axis and
+its height over the spatial one: each rank runs the forward on its rows'
+height bands (halo rows exchanged), each image's Dice and IoU sums are
+summed over its bands before the ratio, and the ratios averaged over the
+ranks. With ``tta`` the flips need whole images: such a batch splits by
+rows only. A batch that does not divide runs whole on every rank, as in
+JAX.
+
 Run:
     python -m tpu_unet_torch.evaluate -m ckpt.npz|model.pth --data-dir data -s 0.5 \
         [--arch unetpp|attention|r2u|r2attu] [--per-class] [--tta [--tta-mode hflip]] \
@@ -46,41 +55,48 @@ from tpu_unet_torch.losses import dice_coeff, iou_coeff, multiclass_dice_coeff
 from tpu_unet_torch.models.tta import TTA_MODES, tta_logits
 from tpu_unet_torch.predict import exit_on_refusal
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, unet_apply
-from tpu_unet_torch.parallel.mesh import DataParallel, pmean
+from tpu_unet_torch.parallel.mesh import DataParallel, pmean, psum
 
 logger = logging.getLogger(__name__)
 
 
-def _logits(params, state, images, config, amp, tta, tta_mode):
+def _logits(params, state, images, config, amp, tta, tta_mode, group=None):
     compute_dtype = torch.bfloat16 if amp else None
     with torch.no_grad():
         if tta:
+            if group is not None:
+                raise ValueError("flip TTA needs whole images: split the batch by rows")
             return tta_logits(params, state, images, config=config,
                               compute_dtype=compute_dtype, mode=tta_mode, batched=False)
         logits, _ = unet_apply(params, state, images, config=config, train=False,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, group=group)
     return logits
 
 
 def eval_step(params, state, images, masks, *, config: UNetConfig, amp: bool = False,
-              tta: bool = False, tta_mode: str = "flips"):
-    """(Dice, IoU) of one batch as device scalars. images NHWC, masks NHW."""
-    logits = _logits(params, state, images, config, amp, tta, tta_mode)
+              tta: bool = False, tta_mode: str = "flips", group=None):
+    """(Dice, IoU) of one batch as device scalars. images NHWC, masks NHW;
+    ``group`` a grid: this rank's height bands of its rows (the Dice then
+    the data axis's mean, the IoU this rank's rows')."""
+    logits = _logits(params, state, images, config, amp, tta, tta_mode, group)
     if config.n_classes == 1:
         pred = (torch.sigmoid(logits[..., 0]) > 0.5).float()
         tgt = masks.float()
-        return dice_coeff(pred, tgt, reduce_batch_first=False), iou_coeff(pred, tgt)
+        return (dice_coeff(pred, tgt, reduce_batch_first=False, group=group),
+                iou_coeff(pred, tgt, group=group))
     pred_oh = F.one_hot(logits.argmax(dim=-1), config.n_classes).float()[..., 1:]
     mask_oh = F.one_hot(masks.long(), config.n_classes).float()[..., 1:]
-    return (multiclass_dice_coeff(pred_oh, mask_oh, reduce_batch_first=False),
-            iou_coeff(pred_oh, mask_oh))
+    return (multiclass_dice_coeff(pred_oh, mask_oh, reduce_batch_first=False, group=group),
+            iou_coeff(pred_oh, mask_oh, group=group))
 
 
 def eval_step_per_class(params, state, images, masks, *, config: UNetConfig,
-                        amp: bool = False, tta: bool = False, tta_mode: str = "flips"):
+                        amp: bool = False, tta: bool = False, tta_mode: str = "flips",
+                        group=None):
     """Per-class (Dice [C], IoU [C]) of one batch, each the batch mean of the
-    per-image ratio; the mean over classes 1.. of Dice is ``eval_step``'s."""
-    logits = _logits(params, state, images, config, amp, tta, tta_mode)
+    per-image ratio; the mean over classes 1.. of Dice is ``eval_step``'s.
+    ``group`` a grid: each image's sums over its bands first."""
+    logits = _logits(params, state, images, config, amp, tta, tta_mode, group)
     if config.n_classes == 1:
         pred_oh = (torch.sigmoid(logits[..., :1]) > 0.5).float()
         mask_oh = masks.float()[..., None]
@@ -91,6 +107,9 @@ def eval_step_per_class(params, state, images, masks, *, config: UNetConfig,
     inter = (pred_oh * mask_oh).sum((1, 2))  # [N, C]
     s_pred = pred_oh.sum((1, 2))
     s_mask = mask_oh.sum((1, 2))
+    if group is not None:
+        inter, s_pred, s_mask = psum(torch.stack([inter, s_pred, s_mask]),
+                                     group.spatial_group).unbind(0)
     sets = s_pred + s_mask
     sets = torch.where(sets == 0, 2 * inter, sets)  # two empty masks score 1
     dice_c = ((2 * inter + eps) / (sets + eps)).mean(0)
@@ -101,9 +120,12 @@ def eval_step_per_class(params, state, images, masks, *, config: UNetConfig,
 
 
 def _shardable(mesh: DataParallel | None, batch) -> bool:
-    """True when the batch splits evenly over the data-parallel ranks (JAX's
-    ``_shardable`` on a 1-D mesh)."""
-    return mesh is not None and batch["image"].shape[0] % mesh.world_size == 0
+    """True when the batch splits evenly over the mesh: its rows over the
+    data ranks and, on a grid, its height over the spatial ones (JAX's
+    ``_shardable``)."""
+    shape = batch["image"].shape
+    return (mesh is not None and shape[0] % mesh.data_size == 0
+            and shape[1] % mesh.spatial_size == 0)
 
 
 def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mesh):
@@ -112,15 +134,18 @@ def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mes
     total, n = None, 0
     for batch in dataloader:
         split = batch.get("shard") is not None
+        banded = batch.get("band") is not None
         if split and mesh is None:
             raise ValueError("a batch of one rank's rows (\"shard\") needs the mesh its "
                              "ranks form")
         if not split and _shardable(mesh, batch):
             split = True
-            batch = {k: mesh.rows(batch[k]) for k in ("image", "mask")}
+            banded = mesh.spatial_size > 1 and not tta
+            cut = mesh.bands if banded else mesh.rows
+            batch = {k: cut(batch[k]) for k in ("image", "mask")}
         b = to_device(batch, device)
         pair = torch.stack(step(params, state, b["image"], b["mask"], config=config, amp=amp,
-                                tta=tta, tta_mode=tta_mode))
+                                tta=tta, tta_mode=tta_mode, group=mesh if banded else None))
         if split:
             pair, = pmean([pair], mesh.group)
         total = pair if total is None else total + pair

@@ -11,6 +11,11 @@ gives the global batch's value: with the batch reduced first the sums are
 all-reduced before the division (one global ratio); per image, the ranks'
 means are averaged (equal shards). ``iou_coeff`` is per image, so the
 sharded evaluation averages its rank values (``evaluate.py``).
+
+A ``parallel.mesh.Grid`` (spatial parallelism: each rank holds a height
+band of its rows) sums each image's sums over the spatial group before its
+ratio; with the batch reduced first, the sums go over the whole grid; per
+image, the means over the data group.
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ def dice_coeff(input: torch.Tensor, target: torch.Tensor, reduce_batch_first: bo
     sets_sum = input.sum(dims) + target.sum(dims)
     if group is not None and reduce_batch_first:
         inter, sets_sum = psum(torch.stack([inter, sets_sum]), group).unbind(0)
+    elif hasattr(group, "spatial_group"):  # an image's sums over its bands
+        inter, sets_sum = psum(torch.stack([inter, sets_sum]), group.spatial_group).unbind(0)
     sets_sum = torch.where(sets_sum == 0, inter, sets_sum)
     dice = ((inter + epsilon) / (sets_sum + epsilon)).mean()
     if group is not None and not reduce_batch_first:
-        dice = psum(dice, group) / group_size(group)
+        data = getattr(group, "data_group", group)
+        dice = psum(dice, data) / group_size(data)
     return dice
 
 
@@ -62,12 +70,17 @@ def dice_loss(input: torch.Tensor, target: torch.Tensor, multiclass: bool = Fals
     return 1 - fn(input, target, reduce_batch_first=True, group=group)
 
 
-def iou_coeff(input: torch.Tensor, target: torch.Tensor, epsilon: float = 1e-6) -> torch.Tensor:
+def iou_coeff(input: torch.Tensor, target: torch.Tensor, epsilon: float = 1e-6,
+              group=None) -> torch.Tensor:
     """Mean IoU over the batch (binary [N,H,W] or one-hot [N,H,W,C]); IoU 1
-    when both masks are empty."""
+    when both masks are empty. A grid's ``group`` sums each image's sums
+    over its bands first; the mean is this rank's rows'."""
     if input.ndim == 4:
         input, target = _fold_classes(input), _fold_classes(target)
     inter = (input * target).sum((-1, -2))
-    union = input.sum((-1, -2)) + target.sum((-1, -2)) - inter
+    sums = input.sum((-1, -2)) + target.sum((-1, -2))
+    if hasattr(group, "spatial_group"):
+        inter, sums = psum(torch.stack([inter, sums]), group.spatial_group).unbind(0)
+    union = sums - inter
     union = torch.where(union == 0, inter, union)
     return ((inter + epsilon) / (union + epsilon)).mean()

@@ -53,13 +53,15 @@ def _gate_init(rng, g_ch: int, x_ch: int, *, device) -> tuple[Params, State]:
 
 
 def _gate_apply(params, state, g, x, *, train: bool, group=None):
-    """x gated by g (both at x's spatial size)."""
+    """x gated by g (both at x's spatial size); ``group``: the BNs over every
+    rank (a spatial ``Band``: its level's rows)."""
     bn = functools.partial(batch_norm, train=train, group=group)
-    hg = conv2d(g, params["wg"]["w"], stride=1, padding=0)
+    conv = functools.partial(conv2d, stride=1, padding=0, group=group)
+    hg = conv(g, params["wg"]["w"])
     hg, bn_g = bn(hg.to(g.dtype), params["bn_g"], state["bn_g"])
-    hx = conv2d(x, params["wx"]["w"], stride=1, padding=0)
+    hx = conv(x, params["wx"]["w"])
     hx, bn_x = bn(hx.to(x.dtype), params["bn_x"], state["bn_x"])
-    a = conv2d(torch.relu(hg + hx), params["psi"]["w"], stride=1, padding=0)
+    a = conv(torch.relu(hg + hx), params["psi"]["w"])
     a, bn_psi = bn(a.to(x.dtype), params["bn_psi"], state["bn_psi"])
     return x * torch.sigmoid(a), {"bn_g": bn_g, "bn_x": bn_x, "bn_psi": bn_psi}
 
@@ -94,10 +96,11 @@ def init_attention_unet(config: UNetConfig, rng: np.random.Generator,
 def gated_up_apply(params, state, x1, x2, *, bilinear: bool, train: bool, block, group=None):
     """Decoder block: upsample x1, gate the skip x2 by it, concat [gated, x1],
     then ``block`` (the DoubleConv, or R2AttU-Net's RRCNN) under ``conv``."""
-    x1 = _upsample(params, x1, x2, bilinear=bilinear)
+    x1 = _upsample(params, x1, x2, bilinear=bilinear, group=group)
     gated, att_state = _gate_apply(params["att"], state["att"], x1, x2, train=train,
                                    group=group)
-    out, conv_state = block(params["conv"], state["conv"], torch.cat([gated, x1], dim=-1))
+    out, conv_state = block(params["conv"], state["conv"], torch.cat([gated, x1], dim=-1),
+                            group=group)
     return out, {"att": att_state, "conv": conv_state}
 
 
@@ -107,7 +110,6 @@ def attention_unet_apply(params: Params, state: State, x: torch.Tensor, *, confi
     """Forward on params already in the compute dtype (``unet_apply`` casts
     them): [N,H,W,C] -> (fp32 logits, new BN state); ``group``: BN over
     every rank (``unet_apply``)."""
-    dc = functools.partial(_double_conv_apply, train=train, group=group)
-    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=dc,
-                           group=group)
-    return encoder_decoder(params, state, x, block=dc, up=up, remat=remat)
+    dc = functools.partial(_double_conv_apply, train=train)
+    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=dc)
+    return encoder_decoder(params, state, x, block=dc, up=up, remat=remat, group=group)

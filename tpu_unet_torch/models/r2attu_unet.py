@@ -31,7 +31,6 @@ def r2attu_unet_apply(params: Params, state: State, x: torch.Tensor, *, config: 
     """Forward on params already in the compute dtype (``unet_apply`` casts
     them): [N,H,W,C] -> (fp32 logits, new BN state); ``group``: BN over
     every rank (``unet_apply``)."""
-    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train, group=group)
-    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=rr,
-                           group=group)
-    return encoder_decoder(params, state, x, block=rr, up=up, remat=remat)
+    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train)
+    up = functools.partial(gated_up_apply, bilinear=config.bilinear, train=train, block=rr)
+    return encoder_decoder(params, state, x, block=rr, up=up, remat=remat, group=group)

@@ -62,7 +62,7 @@ def _rec_unit_apply(params, state, x, *, t: int, train: bool, group=None):
     statistics by the state's layout (module docstring)."""
 
     def unit(v, bn_state):
-        h = conv2d(v, params["conv"]["w"], stride=1, padding=1)
+        h = conv2d(v, params["conv"]["w"], stride=1, padding=1, group=group)
         h, bn_state = batch_norm(h.to(v.dtype), params["bn"], bn_state, train=train,
                                  group=group)
         return torch.relu(h), bn_state
@@ -88,8 +88,9 @@ def _rrcnn_init(rng, cin: int, cout: int, *, device, steps: int | None = None):
 
 
 def _rrcnn_apply(params, state, x, *, t: int, train: bool, group=None):
-    """The recurrent residual block: x = proj(x); x + rec2(rec1(x))."""
-    x = conv2d(x, params["proj"]["w"], stride=1, padding=0)
+    """The recurrent residual block: x = proj(x); x + rec2(rec1(x)). Under
+    a spatial ``Band`` each recurrent application exchanges its halo rows."""
+    x = conv2d(x, params["proj"]["w"], stride=1, padding=0, group=group)
     x = (x.float() + params["proj"]["b"].float()).to(x.dtype)
     h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train, group=group)
     h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train, group=group)
@@ -125,6 +126,6 @@ def r2u_unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNe
     """Forward on params already in the compute dtype (``unet_apply`` casts
     them): [N,H,W,C] -> (fp32 logits, new BN state); ``group``: BN over
     every rank (``unet_apply``)."""
-    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train, group=group)
+    rr = functools.partial(_rrcnn_apply, t=config.recur_t, train=train)
     up = functools.partial(_up_apply, bilinear=config.bilinear, block=rr)
-    return encoder_decoder(params, state, x, block=rr, up=up, remat=remat)
+    return encoder_decoder(params, state, x, block=rr, up=up, remat=remat, group=group)

@@ -28,6 +28,7 @@ from tpu_unet_torch.ops import (
 )
 from tpu_unet_torch.ops.batchnorm import init_bn_params, init_bn_state
 from tpu_unet_torch.ops.conv_stats import double_conv_train_fused
+from tpu_unet_torch.parallel.halo import Band, coarser, levels
 
 Params = dict[str, Any]
 State = dict[str, Any]
@@ -185,33 +186,38 @@ def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bo
                        group=None):
     """(conv3x3 → BN → ReLU) × 2. ``kernels="cuda"`` in train mode runs it on
     the train kernels (``ops/conv_stats.py``); ``first`` marks the block whose
-    input (the image) needs no gradient; ``group``: BN over every rank."""
+    input (the image) needs no gradient; ``group``: BN over every rank, and
+    with a spatial ``Band`` the convs' halo rows too."""
     if kernels == "cuda" and train:
+        if isinstance(group, Band):
+            raise Refused("--kernels cuda data parallelism is 1-D (shard_map); "
+                          "--spatial-parallel requires the XLA backend (--kernels torch)")
         return double_conv_train_fused(params, state, x, input_needs_grad=not first,
                                        group=group)
-    h = conv2d(x, params["conv1"]["w"], stride=1, padding=1)
+    h = conv2d(x, params["conv1"]["w"], stride=1, padding=1, group=group)
     h, bn1 = batch_norm(h.to(x.dtype), params["bn1"], state["bn1"], train=train, group=group)
-    h = conv2d(torch.relu(h), params["conv2"]["w"], stride=1, padding=1)
+    h = conv2d(torch.relu(h), params["conv2"]["w"], stride=1, padding=1, group=group)
     h, bn2 = batch_norm(h.to(x.dtype), params["bn2"], state["bn2"], train=train, group=group)
     return torch.relu(h), {"bn1": bn1, "bn2": bn2}
 
 
-def _upsample(params, x1, x2, *, bilinear: bool) -> torch.Tensor:
+def _upsample(params, x1, x2, *, bilinear: bool, group=None) -> torch.Tensor:
     """x1 upsampled 2x (align-corners bilinear, or the block's ConvTranspose
-    plus its bias) and padded to the skip x2's size."""
+    plus its bias) and padded to the skip x2's size; ``group`` is the skip's
+    level (a ``Band``: x1 is on the next one)."""
     if bilinear:
-        x1 = upsample2x_align_corners(x1)
+        x1 = upsample2x_align_corners(x1, group=coarser(group))
     else:
-        up = conv_transpose2d(x1, params["up"]["w"], stride=2)
+        up = conv_transpose2d(x1, params["up"]["w"], stride=2, group=coarser(group))
         x1 = (up.float() + params["up"]["b"].float()).to(x1.dtype)
-    return pad_to_match(x1, x2)
+    return pad_to_match(x1, x2, group=group)
 
 
-def _up_apply(params, state, x1, x2, *, bilinear: bool, block):
+def _up_apply(params, state, x1, x2, *, bilinear: bool, block, group=None):
     """Decoder block: upsample x1, pad it to the skip x2, concat [x2, x1],
     then ``block`` (the DoubleConv, or R2U-Net's RRCNN) under ``conv``."""
-    x = torch.cat([x2, _upsample(params, x1, x2, bilinear=bilinear)], dim=-1)
-    out, conv_state = block(params["conv"], state["conv"], x)
+    x = torch.cat([x2, _upsample(params, x1, x2, bilinear=bilinear, group=group)], dim=-1)
+    out, conv_state = block(params["conv"], state["conv"], x, group=group)
     return out, {"conv": conv_state}
 
 
@@ -227,26 +233,31 @@ ENCODER = ("inc", "down1", "down2", "down3", "down4")
 
 
 def encoder_decoder(params: Params, state: State, x: torch.Tensor, *, block, up,
-                    remat: bool = False, inc_kwargs: dict | None = None
+                    remat: bool = False, inc_kwargs: dict | None = None, group=None
                     ) -> tuple[torch.Tensor, State]:
     """The U-Net topology over a family's blocks: ``block`` on the input
     (inc, with ``inc_kwargs``) and after each 2x2 max pool (down1..4), ``up``
     (up1..4) on the deeper output and its skip, the 1x1 ``outc`` head. Each
-    block is ``fn(params, state, *inputs) -> (out, new state)``; ``remat``
-    recomputes each in the backward pass, the blocks JAX wraps in
-    ``jax.checkpoint``."""
+    block is ``fn(params, state, *inputs, group=) -> (out, new state)``, with
+    ``group`` that of its level (``parallel.halo.levels``: a grid's ``Band``;
+    otherwise ``group`` itself); ``remat`` recomputes each in the backward
+    pass, the blocks JAX wraps in ``jax.checkpoint``, the collectives of a
+    grid again in the same order on every rank."""
     if remat:
         block, up = _remat(block), _remat(up)
+    lv = levels(group, x)
     new_state: State = {}
-    h, new_state["inc"] = block(params["inc"], state["inc"], x, **(inc_kwargs or {}))
+    h, new_state["inc"] = block(params["inc"], state["inc"], x, group=lv[0],
+                                **(inc_kwargs or {}))
     skips = [h]
-    for name in ENCODER[1:]:
-        h, new_state[name] = block(params[name], state[name], max_pool2d(h))
+    for k, name in enumerate(ENCODER[1:], start=1):
+        h, new_state[name] = block(params[name], state[name], max_pool2d(h, group=lv[k - 1]),
+                                   group=lv[k])
         skips.append(h)
     for i, skip in zip(range(1, 5), skips[-2::-1]):
         name = f"up{i}"
-        h, new_state[name] = up(params[name], state[name], h, skip)
-    logits = conv2d(h, params["outc"]["w"], stride=1, padding=0)
+        h, new_state[name] = up(params[name], state[name], h, skip, group=lv[4 - i])
+    logits = conv2d(h, params["outc"]["w"], stride=1, padding=0, group=lv[0])
     return logits.float() + params["outc"]["b"].float(), new_state
 
 
@@ -297,7 +308,11 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
     ``group`` (a ``ProcessGroup``, or None) is JAX's ``axis_name``: under
     data parallelism (``parallel/mesh.py``) every train-mode BatchNorm of
     every family, on both kernel routes, takes the statistics of the global
-    batch, all-reduced over the group's ranks."""
+    batch, all-reduced over the group's ranks. A ``parallel.mesh.Grid``
+    (spatial parallelism, library route only) runs every family on this
+    rank's height band of each image: each level's layer takes the rows it
+    reads from the other ranks (``parallel/halo.py``), and the BN sums go
+    over the whole grid; the logits are the band's."""
     check_kernels(config, kernels)
     if config.s2d_level0:
         raise NotImplementedError("unet_apply: s2d_level0 is a TPU experiment, not ported")
@@ -309,8 +324,8 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
         return _family(config.arch)[1](params, state, x, config=config, train=train,
                                           remat=remat, group=group)
 
-    dc = functools.partial(_double_conv_apply, train=train, kernels=kernels, group=group)
+    dc = functools.partial(_double_conv_apply, train=train, kernels=kernels)
     up = functools.partial(_up_apply, bilinear=config.bilinear, block=dc)
     # inc is the only block whose input (the image) needs no gradient.
     return encoder_decoder(params, state, x, block=dc, up=up, remat=remat,
-                           inc_kwargs={"first": True})
+                           inc_kwargs={"first": True}, group=group)

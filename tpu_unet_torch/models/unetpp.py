@@ -26,6 +26,7 @@ from tpu_unet_torch.models.unet import (
     _remat,
 )
 from tpu_unet_torch.ops import conv2d, max_pool2d, pad_to_match, upsample2x_align_corners
+from tpu_unet_torch.parallel.halo import levels
 
 DEPTH = 5  # levels 0..4, as the U-Net's
 
@@ -59,28 +60,32 @@ def unetpp_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetC
     """Forward on params already in the compute dtype (``unet_apply`` casts
     them): [N,H,W,C] -> (fp32 logits, new BN state). ``remat`` recomputes
     each node's DoubleConv in the backward pass; ``group``: BN over every
-    rank (``unet_apply``)."""
-    dc = functools.partial(_double_conv_apply, train=train, group=group)
+    rank (``unet_apply``; a grid: node X[i][j] on level i's ``Band``)."""
+    dc = functools.partial(_double_conv_apply, train=train)
     if remat:
         dc = _remat(dc)
+    lv = levels(group, x, DEPTH)
     nodes: dict[tuple[int, int], torch.Tensor] = {}
     new_state: State = {}
     h = x
     for i in range(DEPTH):
         name = f"x{i}0"
-        h, new_state[name] = dc(params[name], state[name], max_pool2d(h) if i else h)
+        h, new_state[name] = dc(params[name], state[name],
+                                max_pool2d(h, group=lv[i - 1]) if i else h, group=lv[i])
         nodes[(i, 0)] = h
     for j in range(1, DEPTH):
         for i in range(DEPTH - j):
-            up = pad_to_match(upsample2x_align_corners(nodes[(i + 1, j - 1)]), nodes[(i, 0)])
+            up = pad_to_match(upsample2x_align_corners(nodes[(i + 1, j - 1)], group=lv[i + 1]),
+                              nodes[(i, 0)], group=lv[i])
             name = f"x{i}{j}"
             nodes[(i, j)], new_state[name] = dc(
                 params[name], state[name],
-                torch.cat([nodes[(i, k)] for k in range(j)] + [up], dim=-1))
+                torch.cat([nodes[(i, k)] for k in range(j)] + [up], dim=-1), group=lv[i])
+    head = functools.partial(conv2d, stride=1, padding=0, group=lv[0])
     if config.deep_supervision:
         # The paper's "accurate" mode: the mean of the per-column heads.
-        heads = [conv2d(nodes[(0, j)], params[f"head{j}"]["w"], stride=1, padding=0).float()
+        heads = [head(nodes[(0, j)], params[f"head{j}"]["w"]).float()
                  + params[f"head{j}"]["b"].float() for j in range(1, DEPTH)]
         return sum(heads) / len(heads), new_state
-    logits = conv2d(nodes[(0, DEPTH - 1)], params["outc"]["w"], stride=1, padding=0)
+    logits = head(nodes[(0, DEPTH - 1)], params["outc"]["w"])
     return logits.float() + params["outc"]["b"].float(), new_state

@@ -10,7 +10,11 @@ path folds BN into the conv instead (``models/infer.py``).
 
 ``group`` (data parallelism, ``parallel/mesh.py``; JAX's ``axis_name``)
 all-reduces the two sums inside autograd and counts every rank's elements:
-the statistics of the global batch, the between-rank term included.
+the statistics of the global batch, the between-rank term included. A
+``parallel.halo.Band`` (spatial parallelism) all-reduces them over every
+rank of its grid and counts the level's true global elements from its row
+layout (``Band.elements``), which ``n·W`` is not where a level splits
+unevenly.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ def batch_norm(x: torch.Tensor, params: dict, state: BNState, *, train: bool,
         s1, s2 = xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))
         if group is not None:
             s1, s2 = psum(torch.stack([s1, s2]), group).unbind(0)
-            n *= group_size(group)
+            n = group.elements(x) if hasattr(group, "elements") else n * group_size(group)
         mean = s1 / n
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         new_state = update_running(state, mean, var, n, momentum)

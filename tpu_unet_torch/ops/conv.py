@@ -12,12 +12,19 @@ A float32 convolution on the GPU defaults to TF32 in cuDNN
 digits. The port's fp32 means fp32 on every device, so :func:`full_fp32`
 turns TF32 off; the predictor, the predict CLI and ``chip_smoke.py`` call it
 before running on the card.
+
+``group`` a ``parallel.halo.Band`` (spatial parallelism: this rank's rows
+of each image) runs the conv on the band: a 3x3 conv with padding 1 takes
+one halo row from each neighbour and pads only W; a 1x1 conv and the 2x2
+stride-2 ConvTranspose are row-local. Any other ``group`` is ignored.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from tpu_unet_torch.parallel.halo import Band, halo_rows, local
 
 
 def full_fp32() -> None:
@@ -34,18 +41,64 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0) -> torch.Tensor:
+class _HaloConv3x3(torch.autograd.Function):
+    """conv3x3(window, padding (0, 1)), window = [halo top | x | halo
+    bottom] (one row each): the window is rebuilt in the backward, not kept,
+    so a rank holds only its band. A band of no rows gives none."""
+
+    @staticmethod
+    def forward(ctx, x, halo, w):
+        ctx.save_for_backward(x, halo, w)
+        if x.shape[1] == 0:
+            return x.new_zeros((x.shape[0], 0, x.shape[2], w.shape[3]))
+        win = torch.cat([halo[:, :1], x, halo[:, 1:]], 1)
+        return _nhwc(F.conv2d(_nchw(win), w.permute(3, 2, 0, 1), padding=(0, 1)))
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, halo, w = ctx.saved_tensors
+        if x.shape[1] == 0:
+            return torch.zeros_like(x), torch.zeros_like(halo), torch.zeros_like(w)
+        win = torch.cat([halo[:, :1], x, halo[:, 1:]], 1)
+        need_in = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        gin, gw, _ = torch.ops.aten.convolution_backward(
+            _nchw(gy.contiguous()), _nchw(win), w.permute(3, 2, 0, 1), None, [1, 1], [0, 1],
+            [1, 1], False, [0, 0], 1, [need_in, ctx.needs_input_grad[2], False])
+        gx = ghalo = None
+        if need_in:
+            gin = _nhwc(gin)
+            gx, ghalo = gin[:, 1:-1], torch.cat([gin[:, :1], gin[:, -1:]], 1)
+        return gx, ghalo, None if gw is None else gw.permute(2, 3, 1, 0)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0,
+           group=None) -> torch.Tensor:
     """x: [N,H,W,Cin], w: [kH,kW,Cin,Cout] -> [N,H',W',Cout]; bias-free,
-    zero padding, cross-correlation (``F.conv2d``)."""
+    zero padding, cross-correlation (``F.conv2d``); on a ``Band``'s rows
+    with ``group`` (module docstring)."""
+    if isinstance(group, Band):
+        if tuple(w.shape[:2]) == (3, 3) and stride == 1 and padding == 1:
+            return _HaloConv3x3.apply(x, halo_rows(x, 1, group), w)
+        if tuple(w.shape[:2]) == (1, 1) and stride == 1 and padding == 0:
+            return local(lambda t: conv2d(t, w), x, group)
+        raise ValueError(f"conv2d on a spatial band: a {tuple(w.shape[:2])} kernel at stride "
+                         f"{stride}, padding {padding} is not a layer of the models")
     return _nhwc(F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=padding))
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 2,
-                     padding: int = 0) -> torch.Tensor:
+                     padding: int = 0, group=None) -> torch.Tensor:
     """x: [N,H,W,Cin], w: [kH,kW,Cin,Cout] -> transposed conv, bias-free.
 
     Matches ``torch.nn.ConvTranspose2d(Cin, Cout, k, stride)`` whose weight
-    (Cin, Cout, kH, kW) is ``w.permute(2, 3, 0, 1)``.
+    (Cin, Cout, kH, kW) is ``w.permute(2, 3, 0, 1)``. With a ``Band``
+    ``group``, the kernel k = stride without padding makes it row-local:
+    the band's rows give rows ``[stride·lo, stride·hi)`` of the output.
     """
+    if isinstance(group, Band):
+        if not (w.shape[0] == stride and padding == 0):
+            raise ValueError("conv_transpose2d on a spatial band needs kernel = stride, "
+                             "padding 0")
+        return local(lambda t: conv_transpose2d(t, w, stride=stride), x, group, scale=stride)
     return _nhwc(F.conv_transpose2d(_nchw(x), w.permute(2, 3, 0, 1), stride=stride,
                                     padding=padding))

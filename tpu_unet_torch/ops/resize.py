@@ -8,12 +8,20 @@
 Both are two separable 1-D gathers and lerps with indices and weights
 computed on the host in float64, exactly as the JAX version computes them,
 so the two agree to fp32 rounding.
+
+``upsample2x_align_corners(group=)`` with a ``parallel.halo.Band`` upsamples
+this rank's rows of each image: output row i of the global 2H reads source
+rows ``floor(i·(H−1)/(2H−1))`` and the next, so a band takes a row from each
+neighbour (``fetch_rows``) and clamps only at the global edges. Its rows
+are the unsharded upsample's, value for value.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpu_unet_torch.parallel.halo import Band, fetch_rows
 
 
 def _axis_indices_weights(in_size: int, out_size: int, align_corners: bool):
@@ -58,6 +66,21 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int, *,
     return out[0] if squeeze else out
 
 
-def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """2x bilinear upsample, align_corners=True: the bilinear decoder's Up."""
-    return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners=True)
+def upsample2x_align_corners(x: torch.Tensor, group=None) -> torch.Tensor:
+    """2x bilinear upsample, align_corners=True: the bilinear decoder's Up.
+    With a ``Band`` ``group``: this rank's rows ``group.doubled()`` of the
+    output (module docstring)."""
+    if not isinstance(group, Band):
+        return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2], align_corners=True)
+    out = group.doubled()
+    lo, hi, w_hi = _axis_indices_weights(group.height, out.height, True)
+    want = [(int(lo[a]), int(hi[b - 1]) + 1) if b > a else src
+            for (a, b), src in zip(out.bounds, group.bounds)]
+    xf = fetch_rows(x, group, want).float()
+    a, b = out.lo, out.hi
+    start = want[group.grid.s][0]
+    top = xf.index_select(1, torch.from_numpy(lo[a:b] - start).to(x.device))
+    bottom = xf.index_select(1, torch.from_numpy(hi[a:b] - start).to(x.device))
+    wt = torch.from_numpy(w_hi[a:b]).to(x.device).view(1, -1, 1, 1)
+    y = top + (bottom - top) * wt
+    return _lerp_axis(y, 2, 2 * x.shape[2], True).to(x.dtype)

@@ -1,6 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the 1-D part of
-``tpu_unet/parallel/mesh.py`` (``make_mesh``, ``batch_sharding``,
-``replicated``).
+"""Data and spatial parallelism over ``torch.distributed``
+(``tpu_unet/parallel/mesh.py``: ``make_mesh``, ``batch_sharding``,
+``replicated``, ``make_mesh_2d``, ``image_sharding``).
 
 The JAX package's data parallelism is global-batch: a data-parallel step
 equals the single-device step at the same global batch, BatchNorm's
@@ -20,8 +20,19 @@ a global batch of B (``rows``: JAX's ``P("data")``); the trees are
 replicated by one broadcast from rank 0 (``broadcast_tree``).
 
 A world may span hosts (``multihost``; ``parallel/multihost.py`` forms it
-from explicit flags or torchrun's env). ``make_mesh_2d`` and
-``image_sharding`` (spatial parallelism) are not ported yet.
+from explicit flags or torchrun's env).
+
+Spatial parallelism (``make_grid``, JAX's ``make_mesh_2d``): the W ranks
+form a (W/S) x S grid, rank r at data coordinate d = r // S and spatial
+coordinate s = r % S, as JAX reshapes its devices. A ``Grid`` record holds
+the ``'data'`` group (the ranks of this s), the ``'spatial'`` group (the
+ranks of this d) and the world; rank r takes rows ``[d·B/D, (d+1)·B/D)`` of
+a global batch and the height band ``[s·H/S, (s+1)·H/S)`` of each image
+(``bands``: JAX's ``image_sharding``, ``P("data", "spatial")``). A grid
+threads where ``group`` threads; each level's ``parallel.halo.Band`` carries
+its row layout, and the ops exchange halo rows over the spatial group
+(``parallel/halo.py``). The BN, Dice and CE sums go over the world, so the
+step is still the one-process step at the same global batch.
 """
 
 from __future__ import annotations
@@ -62,6 +73,34 @@ class DataParallel:
     def primary(self) -> bool:
         return self.rank == 0
 
+    # The data axis: all the ranks here; a ``Grid`` narrows it.
+    @property
+    def data_rank(self) -> int:
+        return self.rank
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size
+
+    @property
+    def data_group(self):
+        return self.group
+
+    @property
+    def spatial_size(self) -> int:
+        return 1
+
+    @property
+    def shard(self) -> tuple[int, int]:
+        """(data rank, data size): the rows a loader gives this rank."""
+        return self.data_rank, self.data_size
+
+    @property
+    def band(self) -> tuple[int, int] | None:
+        """(spatial rank, spatial size) of the height band a loader cuts,
+        None without a spatial axis."""
+        return None
+
     def rows(self, x):
         """This rank's contiguous rows of a global batch (a tensor or array
         whose leading dim the world size divides)."""
@@ -80,6 +119,94 @@ class DataParallel:
 
     def barrier(self) -> None:
         dist.barrier(group=self.host_group)
+
+
+@dataclass(frozen=True)
+class Grid(DataParallel):
+    """One rank's view of the (data x spatial) grid (module docstring):
+    ``group`` is the world, ``data_grp`` the ranks of this spatial
+    coordinate, ``spatial_grp`` those of this data coordinate, ``spatial``
+    the spatial size S."""
+
+    data_grp: dist.ProcessGroup | None = None
+    spatial_grp: dist.ProcessGroup | None = None
+    spatial: int = 1
+
+    @property
+    def s(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.spatial
+
+    @property
+    def data_group(self):
+        return self.data_grp
+
+    @property
+    def spatial_group(self):
+        return self.spatial_grp
+
+    @property
+    def spatial_size(self) -> int:
+        return self.spatial
+
+    @property
+    def world_group(self):
+        return self.group
+
+    @property
+    def band(self) -> tuple[int, int]:
+        return self.s, self.spatial
+
+    def rows(self, x):
+        """This rank's rows of a global batch: those of its data coordinate."""
+        n, d = x.shape[0], self.data_size
+        if n % d:
+            raise ValueError(f"a global batch of {n} rows does not divide over "
+                             f"{d} data-parallel ranks")
+        return x[self.data_rank * n // d:(self.data_rank + 1) * n // d]
+
+    def cut_band(self, x):
+        """This rank's height band of each image of ``x`` [N, H, ...]."""
+        return cut_band(x, self.band)
+
+    def bands(self, x):
+        """This rank's rows and height band of a global batch (JAX's
+        ``image_sharding``)."""
+        return self.cut_band(self.rows(x))
+
+
+def cut_band(x, band: tuple[int, int] | None):
+    """Band ``s`` of ``S`` = ``band`` of each image's height (dim 1) of
+    ``x`` [N, H, ...], a tensor or array; ``x`` itself for None."""
+    if band is None:
+        return x
+    s, n = band
+    h = x.shape[1]
+    if h % n:
+        raise ValueError(f"image height {h} does not divide over {n} spatial ranks")
+    return x[:, s * h // n:(s + 1) * h // n]
+
+
+def make_grid(dp: DataParallel, spatial: int) -> Grid:
+    """The (W/S) x S grid over the ranks of ``dp`` (JAX's
+    ``make_mesh_2d(spatial)``): every rank forms every group, the data
+    groups and then the spatial ones, in the same order."""
+    if dp.world_size % spatial:
+        raise ValueError(f"{dp.world_size} devices not divisible by spatial={spatial}")
+    n_data = dp.world_size // spatial
+    data = [dist.new_group([d * spatial + s for d in range(n_data)]) for s in range(spatial)]
+    space = [dist.new_group([d * spatial + s for s in range(spatial)]) for d in range(n_data)]
+    return Grid(group=dp.group, host_group=dp.host_group, rank=dp.rank,
+                world_size=dp.world_size, device=dp.device, multihost=dp.multihost,
+                data_grp=data[dp.rank % spatial], spatial_grp=space[dp.rank // spatial],
+                spatial=spatial)
 
 
 def _env_int(name: str) -> int | None:
@@ -143,9 +270,16 @@ def cli_data_parallel(device: str, prog: str) -> tuple[DataParallel, bool]:
     return dp, formed
 
 
+def world_of(group):
+    """The ``ProcessGroup`` of the world of a ``Grid`` or a
+    ``parallel.halo.Band``; any other ``group`` as it is."""
+    return getattr(group, "world_group", group)
+
+
 def group_size(group) -> int:
-    """The number of ranks of ``group``; 1 for None (no data parallelism)."""
-    return 1 if group is None else dist.get_world_size(group)
+    """The number of ranks of ``group`` (of its world for a grid or band);
+    1 for None (no data parallelism)."""
+    return 1 if group is None else dist.get_world_size(world_of(group))
 
 
 class _PSum(torch.autograd.Function):
@@ -166,14 +300,15 @@ class _PSum(torch.autograd.Function):
 
 
 def psum(t: torch.Tensor, group) -> torch.Tensor:
-    """Σ over the ranks of ``group``, inside autograd (its backward sums the
-    cotangents over the ranks: JAX's ``lax.psum`` and its transpose); ``t``
-    itself when ``group`` is None."""
-    return t if group is None else _PSum.apply(t, group)
+    """Σ over the ranks of ``group`` (over the world of a grid or band),
+    inside autograd (its backward sums the cotangents over the ranks: JAX's
+    ``lax.psum`` and its transpose); ``t`` itself when ``group`` is None."""
+    return t if group is None else _PSum.apply(t, world_of(group))
 
 
 def pmean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
-    """The mean over the ranks of each tensor (no autograd): one all-reduce
+    """The mean over the ranks of each tensor (over the world of a grid;
+    no autograd): one all-reduce
     of one flat bucket (fp32, or the widest float dtype of ``tensors``),
     divided by the world size. Returns new tensors in the inputs' shapes
     and dtypes."""
@@ -181,7 +316,7 @@ def pmean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     for t in tensors:
         dtype = torch.promote_types(dtype, t.dtype)
     flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
-    dist.all_reduce(flat, group=group)
+    dist.all_reduce(flat, group=world_of(group))
     flat /= group_size(group)
     return [c.view(t.shape).to(t.dtype)
             for c, t in zip(flat.split([t.numel() for t in tensors]), tensors)]

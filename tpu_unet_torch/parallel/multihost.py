@@ -20,6 +20,11 @@ with ``shard`` and ``drop_last`` (``train._build_loaders``): every process
 draws the same global order (the same seed), loads only its rows of each
 global batch from local storage, and drops a trailing partial batch, so
 that every process agrees on every batch's shape.
+
+A (data x spatial) grid (``--spatial-parallel``) forms over this world as
+over one host's (``parallel.mesh.make_grid``, rank r at d = r // S, s =
+r % S: JAX's process-major mesh); each process then loads its data
+coordinate's rows and cuts its height band (``DataLoader(shard=, band=)``).
 """
 
 from __future__ import annotations

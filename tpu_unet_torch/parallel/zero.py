@@ -25,6 +25,11 @@ into W contiguous slices, rank r holding slice r; a leaf with no such
 dimension (e.g. the head's ``[n_classes]`` bias) is replicated, each rank
 updating all of it. A state field that mirrors the params tree is sliced
 leaf by leaf; any other field (Adam's scalar ``step``) is replicated.
+
+On a (data x spatial) grid the slices go over the data axis only (JAX's
+``axis="data"``): D = W/S slices, rank r holding slice r // S, the ranks of
+one data coordinate updating the same slice and gathering over the data
+group; 1/D of the state a rank.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_unet_torch.models.unet import tree_leaves, tree_map
+from tpu_unet_torch.parallel.mesh import Grid
 
 
 def zero_state_specs(params, n: int):
@@ -126,12 +132,14 @@ def _dims_list(dims) -> list:
 
 
 def zero_opt_shardings(dp, opt_state, params) -> ZeroShardings:
-    """The ZeRO record of ``opt_state`` over the ranks of ``dp`` (a
-    ``parallel.mesh.DataParallel``): the fields shaped like ``params`` are
-    sliced, the others replicated."""
-    return ZeroShardings(dims=zero_state_specs(params, dp.world_size),
+    """The ZeRO record of ``opt_state`` over the data ranks of ``dp`` (a
+    ``parallel.mesh.DataParallel``, or a ``Grid``'s data axis): the fields
+    shaped like ``params`` are sliced, the others replicated."""
+    rank, size, group = ((dp.data_rank, dp.data_size, dp.data_group) if isinstance(dp, Grid)
+                         else (dp.rank, dp.world_size, dp.group))
+    return ZeroShardings(dims=zero_state_specs(params, size),
                          fields=tuple(_mirrors(f, params) for f in opt_state),
-                         rank=dp.rank, world_size=dp.world_size, group=dp.group)
+                         rank=rank, world_size=size, group=group)
 
 
 def shard_opt_state_zero(dp, opt_state, params):

@@ -36,7 +36,18 @@ and every rank gathers it whole before rank 0 writes a checkpoint. A world
 that spans hosts (``parallel/multihost.py``) loads each process's rows of
 each global batch, keeps whole val batches only, and logs W&B scalars
 only.
-Spatial, tensor and pipeline parallelism are not ported.
+
+Spatial parallelism (``spatial_parallel`` S > 1 with data parallelism over
+more than one rank; JAX's 2-D mesh) forms a (W/S) x S ``parallel.mesh.Grid``:
+each rank trains on its data coordinate's rows of each global batch and its
+height band of each image (the feeds cut both; augmentation, when on, runs
+on whole rows first). The forward exchanges halo rows inside autograd
+(``parallel/halo.py``) and the BN, Dice and CE sums go over the whole grid,
+so the step is still the one-process step at the same global batch; ZeRO
+slices over the data axis only; validation splits batches that divide over
+the grid; the W&B panel's gradient pass runs over the grid and its sample
+triplet is the whole first image. Tensor and pipeline parallelism are not
+ported.
 """
 
 from __future__ import annotations
@@ -65,9 +76,11 @@ from tpu_unet_torch.models.unet import (
 from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
 from tpu_unet_torch.parallel.mesh import (
     DataParallel,
+    Grid,
     broadcast_tree,
     group_size,
     init_data_parallel,
+    make_grid,
     pmean,
     psum,
 )
@@ -95,7 +108,11 @@ def compute_loss(logits: torch.Tensor, masks: torch.Tensor, n_classes: int,
     With ``group`` (data parallelism; JAX's ``axis_name``) it is the global
     batch's loss, the same on every rank: the CE means averaged over the
     ranks (equal shards), the Dice sums all-reduced before the division.
-    Its gradients are then averaged over the ranks by the caller."""
+    Its gradients are then averaged over the ranks by the caller. A
+    ``parallel.mesh.Grid``'s logits are each rank's rows and height band,
+    all the same size (the input's height divides over the spatial ranks):
+    the CE means averaged and the Dice sums all-reduced over the whole grid
+    give the global pixel mean and the global ratio."""
     if n_classes == 1:
         logit = logits[..., 0]
         mask_f = masks.float()
@@ -151,7 +168,17 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     ``mesh``'s ranks; the state passed and returned is this rank's slice,
     ``shard_opt_state_zero``): after the same averaged, clipped gradients,
     each rank updates its slice of the params and the state, and one
-    all-gather rebuilds the params, bitwise the plain step's."""
+    all-gather rebuilds the params, bitwise the plain step's.
+
+    ``mesh`` a ``parallel.mesh.Grid`` (spatial parallelism, library route):
+    each rank passes its rows and height band (``mesh.bands``), and the
+    model exchanges halo rows inside autograd. The loss is still replicated:
+    every rank's copy of the loss (and of each BN's statistics) reaches its
+    local activations through ``psum``, whose backward sums the W equal
+    cotangents, and a halo row's cotangent is added into its owner's, so
+    each rank's parameter gradient is W times its band's share of the
+    global gradient, whatever the split; the mean over the world's W ranks
+    is the global gradient, as in the 1-D step."""
     if opt_shardings is not None and mesh is None:
         raise ValueError("make_train_step: opt_shardings (ZeRO) shards the optimizer state "
                          "over the ranks of a mesh; pass mesh")
@@ -161,7 +188,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     compute_dtype = torch.bfloat16 if amp else None
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh if isinstance(mesh, Grid) else mesh.group
     _, opt_update = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
                                   nesterov=nesterov)
 
@@ -224,15 +251,31 @@ def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
             arch, learning_rate)
 
 
+def check_grid(world_size: int, spatial_parallel: int, kernels) -> bool:
+    """JAX's ``_build_mesh`` refusals of a spatial axis; whether the run
+    forms the (data x spatial) grid: only with more than one rank, as JAX
+    builds no mesh on one device (``--spatial-parallel`` then trains as the
+    plain run)."""
+    if spatial_parallel <= 1 or world_size <= 1:
+        return False
+    if kernels == "cuda":
+        raise ValueError("--kernels cuda data parallelism is 1-D (shard_map); "
+                         "--spatial-parallel requires the XLA backend (--kernels torch)")
+    if world_size % spatial_parallel:
+        raise ValueError(f"{world_size} devices not divisible by spatial={spatial_parallel}")
+    return True
+
+
 def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, world_size=None,
                        zero=False, data_parallel=False, multihost=False,
                        device_preprocess=False, tensor_parallel=1, pipeline_parallel=1):
     """Refuse invalid settings up front, with one clear error each (JAX's
     ``_check_train_flags`` and ``_build_loaders``' multi-host refusals).
-    ``world_size``: the data-parallel ranks (None without data parallelism);
-    ``multihost``: the world spans hosts. ``tensor_parallel`` and
-    ``pipeline_parallel`` are not ported (the CLI refuses their flags);
-    ``--zero``'s refusals of them stand here as in JAX."""
+    ``world_size``: the data-parallel ranks, a grid's data axis (None
+    without data parallelism); ``multihost``: the world spans hosts.
+    ``tensor_parallel`` and ``pipeline_parallel`` are not ported (the CLI
+    refuses their flags); ``--zero``'s refusals of them stand here as in
+    JAX. A spatial axis's refusals are ``check_grid``'s."""
     if zero:
         # ZeRO-1 slices the optimizer state over the data-parallel ranks.
         if not data_parallel:
@@ -273,12 +316,14 @@ def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, worl
                              f"{world_size} data-parallel ranks)")
 
 
-def _build_mesh(params, bn_state, *, data_parallel):
-    """Data parallelism's set-up (JAX's ``_build_mesh``, 1-D): form or join
-    the process group (``data_parallel`` True, on ``cuda:LOCAL_RANK`` for
-    CUDA trees and the CPU for CPU ones) or take the record given, put the
-    trees on its device and replicate rank 0's. Returns (params, bn_state,
-    the record or None)."""
+def _build_mesh(params, bn_state, *, data_parallel, spatial_parallel: int = 1,
+                kernels=None):
+    """Data parallelism's set-up (JAX's ``_build_mesh``): form or join the
+    process group (``data_parallel`` True, on ``cuda:LOCAL_RANK`` for CUDA
+    trees and the CPU for CPU ones) or take the record given, form the
+    (data x spatial) grid over its ranks when ``check_grid`` says so, put
+    the trees on its device and replicate rank 0's over the world. Returns
+    (params, bn_state, the record or None)."""
     if not data_parallel:
         return params, bn_state, None
     if isinstance(data_parallel, DataParallel):
@@ -286,6 +331,8 @@ def _build_mesh(params, bn_state, *, data_parallel):
     else:
         device = tree_leaves(params)[0].device
         dp = init_data_parallel(device=None if device.type == "cuda" else device)
+    if not isinstance(dp, Grid) and check_grid(dp.world_size, spatial_parallel, kernels):
+        dp = make_grid(dp, spatial_parallel)
     params, bn_state = (broadcast_tree(tree_map(lambda t: t.to(dp.device), tree), dp)
                         for tree in (params, bn_state))
     return params, bn_state, dp
@@ -294,8 +341,10 @@ def _build_mesh(params, bn_state, *, data_parallel):
 def _place_opt_state(opt_state, params, dp: DataParallel | None, *, zero: bool = False):
     """The optimizer state's placement (JAX's ``_place_opt_state``): rank
     0's, replicated under data parallelism; with ``zero``, each rank keeps
-    its 1/W slice of it. Returns (opt_state, opt_shardings), the latter a
-    ``ZeroShardings`` with ``zero`` and None otherwise."""
+    its 1/D slice of it, D the data axis (the world, or a grid's data
+    ranks; replicated over the spatial ones). Returns (opt_state,
+    opt_shardings), the latter a ``ZeroShardings`` with ``zero`` and None
+    otherwise."""
     if dp is None:
         return opt_state, None
     opt_state = broadcast_tree(opt_state, dp)
@@ -312,7 +361,7 @@ def _build_stepper(config, *, dp, **step_kw):
 
 
 def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
-                   device_dataset, device_preprocess, dp=None):
+                   device_dataset, device_preprocess, dp=None, whole_rows=False):
     """The train and val feeds: host loaders (decode threads), the corpus
     staged on the device, and/or the raw loaders' batches resized on the
     device (``dataset`` then a ``RawDataset``).
@@ -327,10 +376,17 @@ def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
     semantics): whole batches only, each rank loading its rows, the val
     batches marked ``"shard"`` for ``evaluate``; the val batch shrinks to
     ``min(batch_size, (n_val // W) · W)``, and a val split smaller than the
-    world is refused."""
-    shard = None if dp is None else (dp.rank, dp.world_size)
+    world is refused.
+
+    On a grid the rows are those of the rank's data coordinate (W its data
+    ranks above) and the train batches, and sharded val batches, are cut
+    to the rank's height band too, but with ``whole_rows`` (augmentation,
+    or the resize on the device): the loop cuts the band after those."""
+    shard = None if dp is None else dp.shard
+    band = None if dp is None else dp.band
+    train_band = None if whole_rows else band
     if dp is not None and dp.multihost and not device_dataset:
-        n_val, nproc = len(val_idx), dp.world_size
+        n_val, nproc = len(val_idx), dp.data_size
         val_batch = min(batch_size, (n_val // nproc) * nproc)
         if n_val and val_batch == 0:
             raise ValueError(f"validation split ({n_val} samples) is smaller than the process "
@@ -343,20 +399,21 @@ def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
                                "samples each epoch (all processes must agree on batch "
                                "shapes)", name, len(idx) % bs)
         train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx,
-                                  seed=seed, drop_last=True, shard=shard)
+                                  seed=seed, drop_last=True, shard=shard, band=train_band)
         val_loader = DataLoader(dataset, val_batch, indices=val_idx, drop_last=True,
-                                shard=shard)
+                                shard=shard, band=band)
     elif device_dataset:
         if device_preprocess:
             raise ValueError("--device-dataset already preprocesses on host once; it is "
                              "mutually exclusive with --device-preprocess")
         dd = DeviceResidentData(dataset, device=device, dp=dp)
         train_loader = dd.batches(train_idx, batch_size, shuffle=True, seed=seed,
-                                  drop_last=dp is not None, shard=shard)
+                                  drop_last=dp is not None, shard=shard, band=train_band)
         val_loader = dd.batches(val_idx, batch_size)
     else:
         train_loader = DataLoader(dataset, batch_size, shuffle=True, indices=train_idx,
-                                  seed=seed, drop_last=dp is not None, shard=shard)
+                                  seed=seed, drop_last=dp is not None, shard=shard,
+                                  band=train_band)
         val_loader = DataLoader(dataset, batch_size, shuffle=False, indices=val_idx)
     if device_preprocess:
         train_loader, val_loader = (
@@ -453,16 +510,21 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 ema_decay: float | None = None, val_per_epoch: int = 5,
                 early_stopping: int | None = None, device_preprocess: bool = False,
                 device_dataset: bool = False, augment=None,
-                data_parallel: bool | DataParallel | None = False, zero: bool = False):
+                data_parallel: bool | DataParallel | None = False, zero: bool = False,
+                spatial_parallel: int = 1):
     """The reference's train loop on the port's step, with the JAX
     ``train_model``'s arguments but those of what the port does not have
-    yet (spatial, tensor and pipeline parallelism).
+    yet (tensor and pipeline parallelism).
     Trains on the device the params lie on; under ``data_parallel`` (True:
     form or join the process group; or a ``DataParallel`` record), on the
     rank's device with ``batch_size`` the global batch (module docstring),
-    and with ``zero`` the optimizer state sliced over the ranks. A world
-    that spans hosts (``multihost.spans_hosts``, or the record's
-    ``multihost``) requires ``data_parallel``.
+    and with ``zero`` the optimizer state sliced over the data ranks.
+    ``spatial_parallel`` S > 1 with more than one rank splits each image's
+    height over S of them (a (W/S) x S grid; a ``Grid`` record given as
+    ``data_parallel`` is used as it is); W must divide by S, and the
+    library route is required, as in JAX. A world that spans hosts
+    (``multihost.spans_hosts``, or the record's ``multihost``) requires
+    ``data_parallel``.
     ``use_wandb`` logs to W&B (``train_logging.py``): each step's loss and,
     at each validation, the scalars, a sample triplet and histograms.
     ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
@@ -478,8 +540,10 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                  data_parallel=bool(data_parallel), multihost=multihost,
                  device_preprocess=device_preprocess)
     _check_train_flags(**flags)
-    params, bn_state, dp = _build_mesh(params, bn_state, data_parallel=data_parallel)
-    world = 1 if dp is None else dp.world_size
+    params, bn_state, dp = _build_mesh(params, bn_state, data_parallel=data_parallel,
+                                       spatial_parallel=spatial_parallel, kernels=kernels)
+    world = 1 if dp is None else dp.data_size
+    grid = dp if isinstance(dp, Grid) else None
     if dp is not None:
         _check_train_flags(**flags, world_size=world)
     primary = dp is None or dp.primary
@@ -488,7 +552,8 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     n_train, n_val = len(train_idx), len(val_idx)
     train_loader, val_loader = _build_loaders(
         dataset, train_idx, val_idx, batch_size=batch_size, seed=seed, device=device,
-        device_dataset=device_dataset, device_preprocess=device_preprocess, dp=dp)
+        device_dataset=device_dataset, device_preprocess=device_preprocess, dp=dp,
+        whole_rows=augment is not None or device_preprocess)
     experiment = init_wandb(
         use_wandb and primary,
         dict(epochs=epochs, batch_size=batch_size, learning_rate=learning_rate,
@@ -499,10 +564,10 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
                 "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
                 "device_preprocess=%s device_dataset=%s augment=%s data_parallel_ranks=%d "
-                "zero=%s multihost=%s",
+                "spatial_ranks=%d zero=%s multihost=%s",
                 config.arch, epochs, batch_size, learning_rate, n_train, n_val, amp, optimizer,
                 lr_scheduler, dice_weight, device, kernels, device_preprocess, device_dataset,
-                augment, world, zero, multihost)
+                augment, world, 1 if grid is None else grid.spatial_size, zero, multihost)
     warn_recurrent_rmsprop(config.arch, optimizer, momentum, learning_rate)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
@@ -524,7 +589,8 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
         opt_shardings=opt_shardings)
     panel = WandbValidationPanel(experiment, config=config, amp=amp, remat=remat,
                                  dice_weight=dice_weight, accum_steps=accum_steps,
-                                 group=None if dp is None else dp.group, enabled=panel_on,
+                                 group=None if dp is None else grid or dp.group,
+                                 enabled=panel_on,
                                  multihost=multihost)
     ema = train_ema.maybe_create(ema_decay, params,
                                  total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
@@ -566,9 +632,12 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 images, masks = batch["image"], batch["mask"]
                 if augment is not None:
                     # Under data parallelism: the draws of the rank's global rows.
-                    shard = {} if dp is None else {"shard": (dp.rank, dp.world_size)}
+                    shard = {} if dp is None else {"shard": dp.shard}
                     images, masks = augment_batch(images, masks, config=augment, seed=seed,
                                                   step=global_step, **shard)
+                if grid is not None and (augment is not None or device_preprocess):
+                    # Whole rows augmented or resized: now the rank's band.
+                    images, masks = grid.cut_band(images), grid.cut_band(masks)
                 params, bn_state, opt_state, loss, _ = train_step(
                     params, bn_state, opt_state, images, masks, scheduler.lr)
                 if ema is not None:

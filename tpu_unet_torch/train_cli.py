@@ -59,12 +59,27 @@ device; each process loads only its rows of each global batch.
     python -m tpu_unet_torch.train_cli --multihost --coordinator H:P \
         --num-processes 2 --process-id R --data-parallel -b 8 ...
 
+``--spatial-parallel S`` (with ``--data-parallel`` over more than one
+rank) also splits each image's height over S ranks: the W ranks form a
+(W/S) x S grid, each rank taking its data coordinate's rows of each batch
+and its height band of each image, with halo rows exchanged inside
+autograd (``parallel/halo.py``) and the BN, Dice and CE sums over the grid,
+so the steps are the one-process run's at the same global batch. W must
+divide by S, and it needs the library route (``--kernels torch``), as in
+JAX; on one rank, or without ``--data-parallel``, it trains as the plain
+run. It composes with ``--zero`` (sliced over the data axis),
+``--device-dataset``, ``--multihost``, ``--remat``, ``--accum-steps``,
+``--ema-decay``, ``--wandb`` and every ``--arch``.
+
+    torchrun --nproc-per-node 4 -m tpu_unet_torch.train_cli --data-parallel \
+        --spatial-parallel 2 -b 4 --data-dir data [--device cpu]
+
 ``--deterministic`` runs with cuDNN's and torch's deterministic algorithms
 (``utils/determinism.py``), so a seeded run repeats bit for bit, and logs
 the ops that have no deterministic form.
 
 The JAX flags this port does not run yet are refused with an error, never
-ignored: spatial, tensor and pipeline parallelism.
+ignored: tensor and pipeline parallelism.
 ``--load`` takes a ``.npz`` checkpoint or, for ``--arch unet``, the
 reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
@@ -216,8 +231,13 @@ def get_args(argv=None):
                         "optimizer state instead of all of it (about 248 MB at 31M params "
                         "for RMSprop); one all-gather of the updated params a step, the same "
                         "steps and checkpoints")
+    p.add_argument("--spatial-parallel", type=int, default=1,
+                   help="With --data-parallel: also shard image HEIGHT over this many ranks "
+                        "(a 2-D data x spatial grid; the convs' halo rows are exchanged). Use "
+                        "when ranks outnumber the batch or activations exceed one GPU's "
+                        "memory")
     # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--spatial-parallel", "--tensor-parallel", "--pipeline-parallel"):
+    for flag in ("--tensor-parallel", "--pipeline-parallel"):
         p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
@@ -225,7 +245,6 @@ def get_args(argv=None):
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit with a clear message when a flag the port lacks was given."""
     asked = {
-        "--spatial-parallel": args.spatial_parallel > 1,
         "--tensor-parallel": args.tensor_parallel > 1,
         "--pipeline-parallel": args.pipeline_parallel > 1,
     }
@@ -238,7 +257,10 @@ def refuse_unported(args: argparse.Namespace) -> None:
 def check_flags(args: argparse.Namespace) -> None:
     """The flag compositions that ``train_model`` refuses, refused before the
     rendezvous and the dataset (a ``SystemExit`` with the same message), and
-    the rendezvous flags without ``--multihost``."""
+    the rendezvous flags without ``--multihost``. A spatial axis's
+    refusals need the world size: torchrun's ``WORLD_SIZE`` (explicit
+    ``--num-processes``), when the launch gives it."""
+    from tpu_unet_torch.parallel.mesh import _env_int
     from tpu_unet_torch.parallel.multihost import spans_hosts
 
     given = [f for f, v in (("--coordinator", args.coordinator),
@@ -253,6 +275,9 @@ def check_flags(args: argparse.Namespace) -> None:
             data_parallel=args.data_parallel,
             multihost=args.multihost and spans_hosts(args.num_processes),
             device_preprocess=args.device_preprocess)
+        world = args.num_processes or _env_int("WORLD_SIZE")
+        if args.data_parallel and world is not None:
+            train_mod.check_grid(world, args.spatial_parallel, KERNELS[args.kernels])
     except ValueError as e:
         raise SystemExit(f"tpu_unet_torch.train_cli: {e}") from None
 
@@ -366,7 +391,8 @@ def _train(args: argparse.Namespace, dp):
             early_stopping=args.early_stopping, keep_checkpoints=args.keep_checkpoints,
             save_best=args.save_best, device_preprocess=args.device_preprocess,
             device_dataset=args.device_dataset, augment=_build_augment(args),
-            use_wandb=args.wandb, data_parallel=dp, zero=args.zero)
+            use_wandb=args.wandb, data_parallel=dp, zero=args.zero,
+            spatial_parallel=args.spatial_parallel)
 
     with contextlib.ExitStack() as stack:
         if args.profile:

@@ -19,7 +19,11 @@ warns and trains on.
   the loss over ``group``, the gradients averaged over the ranks), so every
   rank runs it and rank 0 alone logs. When the world spans hosts the panel
   logs the scalars only and no rank runs the gradient pass, as the JAX
-  package's does under ``--multihost``.
+  package's does under ``--multihost``. On a (data x spatial) grid the
+  gradient pass runs over the grid (``group`` the ``Grid``), and the sample
+  triplet is the whole first image, its bands gathered over rank 0's
+  spatial group (JAX's is a global array); the logging rank runs its eval
+  forward alone.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import os
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from tpu_unet_torch.models.unet import tree_leaves, unet_apply
-from tpu_unet_torch.parallel.mesh import pmean
+from tpu_unet_torch.parallel.mesh import pmean, world_of
 
 logger = logging.getLogger(__name__)
 
@@ -136,7 +142,7 @@ class WandbValidationPanel:
                             group=self.group)
         grads = torch.autograd.grad(loss, leaves)
         if self.group is not None:
-            grads = pmean(list(grads), self.group)
+            grads = pmean(list(grads), world_of(self.group))
         keyed = _keyed_leaves(params)
         return ([(k, _subsample_leaf(p)) for k, p in keyed],
                 [(k, _subsample_leaf(g)) for (k, _), g in zip(keyed, grads)])
@@ -158,6 +164,9 @@ class WandbValidationPanel:
             mb = max(1, h_imgs.shape[0] // self.accum_steps)
             h_imgs, h_masks = h_imgs[:mb], h_masks[:mb]
         w_sub, g_sub = self._hist_sample(params, bn_state, h_imgs, h_masks)
+        image, mask = images[0], masks[0]
+        if getattr(self.group, "spatial_size", 1) > 1:
+            image, mask = (_whole(t, self.group.spatial_group) for t in (image, mask))
         if self.experiment is None:
             return  # a data-parallel rank that does not log
         import wandb
@@ -172,7 +181,7 @@ class WandbValidationPanel:
                     if np.all(np.isfinite(v))}  # the reference skips inf/nan
 
         with torch.no_grad():
-            lg, _ = unet_apply(params, bn_state, images[:1], config=self.config, train=False,
+            lg, _ = unet_apply(params, bn_state, image[None], config=self.config, train=False,
                                compute_dtype=self.compute_dtype)
             if self.config.n_classes > 1:
                 pred0 = lg[0].argmax(dim=-1)
@@ -180,11 +189,19 @@ class WandbValidationPanel:
                 pred0 = torch.sigmoid(lg[0, ..., 0]) > 0.5
         self.experiment.log({
             **scalars,
-            "images": wandb.Image(images[0].float().cpu().numpy()),  # HWC, as the JAX package
+            "images": wandb.Image(image.float().cpu().numpy()),  # HWC, as the JAX package
             "masks": {
-                "true": wandb.Image(masks[0].cpu().numpy().astype(np.float32)),
+                "true": wandb.Image(mask.cpu().numpy().astype(np.float32)),
                 "pred": wandb.Image(pred0.cpu().numpy().astype(np.float32)),
             },
             **histograms(w_sub, parts[:len(w_sub)], "Weights/"),
             **histograms(g_sub, parts[len(w_sub):], "Gradients/"),
         })
+
+
+def _whole(band: torch.Tensor, group) -> torch.Tensor:
+    """An image [h, ...] whole again from its height bands on the ranks of
+    ``group`` (a collective), in its dtype."""
+    parts = [torch.empty_like(band, dtype=torch.float32) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, band.float().contiguous(), group=group)
+    return torch.cat(parts).to(band.dtype)
