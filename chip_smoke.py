@@ -216,6 +216,40 @@ Phases, each of which exits non-zero on failure, each with its time:
    with the largest transient allocation in each (a cuDNN workspace can
    outweigh the activations). No time: the ranks share the card.
 
+14. Tensor and pipeline parallelism (``parallel/tensor.py``,
+   ``parallel/pipeline.py``) at full width, in at most ``TP_BUDGET_S``, on
+   the library route (JAX refuses Pallas on either axis): (a) gloo ranks
+   sharing the card as a 1 x 1 x 2 and a 1 x 2 x 2 (data x spatial x model)
+   grid, each rank holding its channel shards: one ``make_train_step``
+   step of the flagship at 959x640 global batch 4 (fp32 and bf16 on the
+   first grid, fp32 on the second) and of R2U-Net at batch 2 fp32 (the
+   first grid), against the one-process step from the same seeded trees:
+   loss by JAX's ``tests/test_tensor_parallel.py`` tolerances (5e-4, bf16
+   2e-2), BN state 2e-2 (bf16 5e-3), the grad norm by ``STEP_TOL``, each
+   gathered clipped gradient by phase 11b's rule (its relative L2 distance
+   from the float64 one-process step's at most ``GRAD_RATIO`` times the
+   one-process step's plus ``STEP_TOL``'s floor) and, for the fp32
+   flagship, every element within 1e-6 + 1e-3 relative of the one-process
+   step's, JAX's fp32 gradient tolerance (``tests/test_pipeline.py``;
+   R2U-Net's recurrent BN amplifies round-off past it), the params within
+   one flipped sign's move (2·10·lr: RMSprop normalises each element, so
+   only the gradients show a sharded gradient scaled or summed over the
+   wrong ranks), the replicated leaves bitwise on every rank, params +
+   RMSprop MB and peak GiB a rank beside one process's; (b)
+   ``PipelineRunner`` with 2 stages (bilinear) and 4 (ConvT) on cuda:0,
+   M = 4, 959x640 b4, fp32 and bf16 (deterministic algorithms), against
+   ``make_train_step(accum_steps=4)`` by JAX's ``tests/test_pipeline.py``
+   tolerances, ``gather`` bitwise the stages' trees, MB a stage, a later
+   step's host ms beside the accumulated step's (a record: the stages
+   share the card), and each of the ten segments' forward +
+   backward ms at one 959x640 image in both dtypes; (c) ``train_cli
+   --data-parallel --tensor-parallel 2`` for one epoch on phase 6's pairs
+   at scale 0.25 (the first grid's ranks; gloo moves each block's
+   activations through host memory, and (a) holds full width), writing the
+   whole model and optimizer state,
+   and ``train_cli --pipeline-parallel 2`` on one card refused in JAX's
+   words ("pipeline needs 2 devices, have 1").
+
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
 """
@@ -224,6 +258,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import hashlib
 import io
 import json
@@ -3602,7 +3637,7 @@ def _sp_case(model: str, batch, device):
     return config, params, state, torch.from_numpy(imgs), torch.from_numpy(msks)
 
 
-def _sp_step(step, trees, images, masks) -> tuple[tuple, float, list]:
+def _sp_step(step, trees, images, masks, lr=SP_LR) -> tuple[tuple, float, list]:
     """(outputs, peak GiB, the conv with the largest transient) of one step.
     Around each conv of it, forward and backward (the ops that take cuDNN
     workspaces), the caching allocator's counters, kept on the host as
@@ -3630,15 +3665,15 @@ def _sp_step(step, trees, images, masks) -> tuple[tuple, float, list]:
 
     torch.cuda.reset_peak_memory_stats()
     with ConvPeaks():
-        out = step(*trees, images, masks, SP_LR)
+        out = step(*trees, images, masks, lr)
     peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
     return out, peak[0] / 2**30, [top[0] / 2**30, *top[1:]]
 
 
 def _float64_step(config, params, state, images, masks):
-    """The one-process step in float64: the trees and images as float64, and
-    ``Tensor.float`` keeping float64 tensors (the logits and the loss cast
-    to fp32 by name)."""
+    """The one-process step in float64, its clipped gradients returned: the
+    trees and images as float64, and ``Tensor.float`` keeping float64
+    tensors (the logits and the loss cast to fp32 by name)."""
     from unittest import mock
 
     from tpu_unet_torch.models.unet import tree_map
@@ -3649,8 +3684,8 @@ def _float64_step(config, params, state, images, masks):
     with mock.patch.object(torch.Tensor, "float",
                            lambda t: t if t.dtype == torch.float64 else fp32(t)):
         p64, s64 = (tree_map(lambda t: t.double(), tree) for tree in (params, state))
-        return make_train_step(config)(p64, s64, rmsprop_init(p64), images.double(), masks,
-                                       SP_LR)
+        return make_train_step(config, return_grads=True)(
+            p64, s64, rmsprop_init(p64), images.double(), masks, SP_LR)
 
 
 def _sp_references(workdir: Path, out: dict) -> None:
@@ -3865,6 +3900,528 @@ def phase_spatial(workdir: Path, train_dir: Path, card: str) -> dict:
             for shape, ranks in grids.items()}
 
 
+# Phase 14: tensor and pipeline parallelism at full width (module docstring).
+TP_GRIDS = ((2, 1, 2), (4, 2, 2))  # (ranks, S, T): 1 x 1 x 2 and 1 x 2 x 2
+TP_CASES = {2: (("unet", False, PARITY_BATCH), ("unet", True, PARITY_BATCH),
+                ("r2u", False, (2, 640, 959))),
+            4: (("unet", False, PARITY_BATCH),)}
+TP_LR = 1e-3  # JAX's tp and pipeline tests' lr, which their params rules assume
+TP_FLIP = 2 * 10 * TP_LR  # one step's params ceiling: a flipped sign's move
+TP_CLI_ARGS = ("-s", "0.25", "-b", "4", "--epochs", "1", "--validation", "20",
+               "--val-per-epoch", "1", "--data-parallel", "--tensor-parallel", "2",
+               "--device", "cuda:0", "--save-optimizer")
+PP_CASES = ((2, True), (4, False))  # (S, bilinear), as JAX's tests/test_pipeline.py
+PP_M = 4
+PP_REPS = 3
+PP_HOST_REPS = 2
+TP_BUDGET_S = 120.0
+
+
+def _tp_tags(world: int) -> list[str]:
+    return [_sp_tag(model, amp) for model, amp, _ in TP_CASES[world]]
+
+
+def _mb(*trees) -> float:
+    from tpu_unet_torch.parallel.zero import state_bytes
+
+    return sum(state_bytes(t) for t in trees) / 1e6
+
+
+def _tp_references(workdir: Path, out: dict) -> None:
+    """14a's one-process steps (``TP_CASES[2]``, which hold ``TP_CASES[4]``'s
+    too), in this process: loss, grad norm, BN state, params, clipped
+    gradients and each gradient's relative L2 distance from the float64
+    step's to ``tp_ref<i>.pt``, each model's float64 gradients to
+    ``tp_g64_<model>.pt``; the peak and the params + optimizer-state MB
+    into ``out``."""
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.train import make_train_step
+
+    g64: dict = {}
+    for i, (model, amp, batch) in enumerate(TP_CASES[2]):
+        config, params, state, images, masks = _sp_case(model, batch, "cuda")
+        if model not in g64:
+            o64 = _float64_step(config, params, state, images.cuda(), masks.cuda())
+            # fp32 copies: _rel_l2 takes the distance in fp32, 1e-3 of the floors
+            g64[model] = {"gnorm": o64[4].item(),
+                          "grads": [t.float().cpu() for t in tree_leaves(o64[5])]}
+            torch.save(g64[model], workdir / f"tp_g64_{model}.pt")
+            del o64
+            torch.cuda.empty_cache()
+        opt = rmsprop_init(params)
+        o, peak, top = _sp_step(make_train_step(config, amp=amp, return_grads=True),
+                                (params, state, opt), images.cuda(), masks.cuda(), TP_LR)
+        torch.save({"loss": o[3].item(), "gnorm": o[4].item(),
+                    "bn": [t.cpu() for t in tree_leaves(o[1])],
+                    "params": [t.cpu() for t in tree_leaves(o[0])],
+                    "grads": [t.cpu() for t in tree_leaves(o[5])],
+                    "e_one": [_rel_l2(a, b.to(a.device))
+                              for a, b in zip(tree_leaves(o[5]), g64[model]["grads"])]},
+                   workdir / f"tp_ref{i}.pt")
+        out["ref"][_sp_tag(model, amp)] = {"peak_gib": peak, "top_op": top,
+                                           "mb": _mb(params, opt)}
+        del config, params, state, images, masks, opt, o
+        gc.collect()  # free what reference cycles still hold before the grid's peaks
+        torch.cuda.empty_cache()
+
+
+def _tp_compare(params, bn, grads, loss: float, gnorm: float, ref: dict, g64: dict,
+                element_rule: bool, amp: bool) -> dict:
+    """A grid step's gathered outputs against the one-process step's: loss
+    within 5e-4 relative (bf16 2e-2) and BN state within 2e-2 (bf16 5e-3),
+    JAX's ``test_tp_train_steps_match_single_device``; the grad norm by
+    ``STEP_TOL``, or at most ``GRAD_RATIO`` times as far from the float64
+    step's as the one-process step's (PR 17's rule); each clipped
+    gradient's relative L2 distance from the float64 step's at most
+    ``GRAD_RATIO`` times the one-process
+    step's plus ``STEP_TOL``'s floor (phase 11b's rule; ``grads_over``
+    names those past it); with ``element_rule``, every element within 1e-6
+    + 1e-3 of the one-process step's magnitude (``grads_excess`` <= 0); no
+    param off by more than one flipped sign's move (``TP_FLIP``)."""
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    tol = STEP_TOL["bf16" if amp else "fp32"]
+    rec = {"loss": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "grad_norm": abs(gnorm - ref["gnorm"]) / abs(ref["gnorm"]),
+           "params_max": 0.0, "grads_excess": -np.inf, "grads_off": 0,
+           "bn_abs": max((a.float().cpu() - b).abs().max().item()
+                         for a, b in zip(tree_leaves(bn), ref["bn"]))}
+    for a, b in zip(tree_leaves(params), ref["params"]):
+        rec["params_max"] = max(rec["params_max"],
+                                (a.float() - b.to(a.device).float()).abs().max().item())
+    names = list(_leaves(grads))
+    e_grid, ratio = {}, {}
+    for k, (a, b, b64, e_one) in enumerate(zip(tree_leaves(grads), ref["grads"],
+                                                g64["grads"], ref["e_one"])):
+        b = b.to(a.device).float()
+        over = (a.float() - b).abs() - 1e-6 - 1e-3 * b.abs()
+        rec["grads_excess"] = max(rec["grads_excess"], over.max().item())
+        rec["grads_off"] += int((over > 0).sum())
+        e_grid[names[k]] = _rel_l2(a, b64.to(a.device))
+        ratio[names[k]] = e_grid[names[k]] / (GRAD_RATIO * e_one + tol["grad_floor"])
+    rec.update(grads_f64=max(e_grid.values()), grads_f64_worst=_worst(e_grid),
+               grads_one_f64=max(ref["e_one"]), grads_nearest=_worst(ratio),
+               grads_over=[k for k, r in ratio.items() if not r <= 1])
+    gn64 = g64["gnorm"]
+    rec["grad_norm_f64"] = [abs(gnorm - gn64) / gn64, abs(ref["gnorm"] - gn64) / gn64]
+    norm_ok = (rec["grad_norm"] <= tol["grad_norm"]
+               or rec["grad_norm_f64"][0] <= GRAD_RATIO * rec["grad_norm_f64"][1] + 1e-6)
+    rec["ok"] = (rec["loss"] <= (2e-2 if amp else 5e-4) and norm_ok
+                 and rec["bn_abs"] <= (5e-3 if amp else 2e-2) and rec["params_max"] <= TP_FLIP
+                 and not rec["grads_over"] and (not element_rule or rec["grads_excess"] <= 0))
+    return rec
+
+
+def _wait_for(path: Path, timeout: float = 600.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def _tp_rank(rank: int, world: int, spatial: int, model: int, coordinator: str,
+             workdir: str, train_dir: str, go: str) -> None:
+    """14a (and on the 1 x 1 x 2 grid 14c) on one rank of a (world / (S·T))
+    x S x T grid sharing cuda:0 over gloo, once the file ``go`` exists (the
+    process starts early, beside the work before it). Compares with the
+    one-process steps in ``tp_ref<i>.pt``. Writes ``tp<world>_rank<r>.json``."""
+    from datetime import timedelta
+
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.parallel.mesh import init_data_parallel, make_grid
+    from tpu_unet_torch.parallel.tensor import (
+        dims_in_order,
+        gather_model,
+        model_specs,
+        shard_model,
+        shard_opt_state,
+    )
+    from tpu_unet_torch.train import make_train_step
+
+    workdir = Path(workdir)
+    out: dict = {"rank": rank, "failures": [], "grid": {}}
+    full_fp32()
+    torch.zeros((), device="cuda:0")  # the CUDA context, while the work before this waits
+    _wait_for(Path(go))
+    dp = init_data_parallel(backend="gloo", device="cuda:0", init_method=f"tcp://{coordinator}",
+                            rank=rank, world_size=world, timeout=timedelta(seconds=600))
+    try:
+        t0 = time.perf_counter()
+        grid = make_grid(dp, spatial, model)
+        for i, (name, amp, batch) in enumerate(TP_CASES[world]):
+            config, params, state, images, masks = _sp_case(name, batch, "cuda")
+            opt = rmsprop_init(params)
+            sp, ss = shard_model(grid, params, state)
+            so = shard_opt_state(grid, opt, params)
+            del params, state, opt
+            torch.cuda.empty_cache()
+            step = make_train_step(config, amp=amp, mesh=grid, return_grads=True)
+            bands = (grid.bands(images).cuda(), grid.bands(masks).cuda())
+            ts = time.perf_counter()
+            o, peak, top = _sp_step(step, (sp, ss, so), *bands, TP_LR)
+            wall = time.perf_counter() - ts
+            dims = model_specs(config, model)[0]
+            rep = [t for t, d in zip(tree_leaves(o[0]), dims_in_order(o[0], dims)) if d is None]
+            rec = {"peak_gib": peak, "top_op": top, "mb": _mb(sp, so), "band": list(bands[0].shape),
+                   "replicated_sha256": _digest(tuple(rep)), "step_s": wall}
+            fp, fs, fg = gather_model(grid, o[0], o[1], config, o[5])
+            if rank == 0:
+                rec.update(_tp_compare(fp, fs, fg, o[3].item(), o[4].item(),
+                                       torch.load(workdir / f"tp_ref{i}.pt"),
+                                       torch.load(workdir / f"tp_g64_{name}.pt"),
+                                       name == "unet" and not amp, amp))
+            out["grid"][_sp_tag(name, amp)] = rec
+            del config, sp, ss, so, step, o, bands, fp, fs, fg
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["steps_s"] = time.perf_counter() - t0
+        if world == TP_GRIDS[0][0]:
+            # 14c: the train CLI on the 1 x 1 x 2 grid, joining this group (gloo).
+            from tpu_unet_torch import train_cli
+
+            t0 = time.perf_counter()
+            ck = workdir / "ck_tensor"
+            hist = train_cli.main([*TP_CLI_ARGS, "--data-dir", str(Path(train_dir) / "data"),
+                                   "--load", str(Path(train_dir) / "init.npz"),
+                                   "--checkpoint-dir", str(ck)])[2]
+            out["cli"] = {"history": hist, "wall_s": time.perf_counter() - t0,
+                          "written": sorted(f.name for f in ck.glob("*.npz"))
+                          if ck.exists() else []}
+            if rank == 0 and (ck / "checkpoint_epoch1.npz").exists():
+                with np.load(ck / "checkpoint_epoch1.npz") as z:
+                    out["cli"]["shapes"] = {k: list(z[k].shape) for k in
+                                            ("params/down2/conv1/w", "opt/square_avg/down2/conv1/w",
+                                             "state/down2/bn1/mean")}
+    except Exception:
+        out["failures"].append(f"rank {rank} of {world}: {traceback.format_exc()}")
+    finally:
+        (workdir / f"tp{world}_rank{rank}.json").write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+
+
+def _pp_tree_bitwise(got, held: list) -> bool:
+    """``got`` (a gathered tree) bitwise the stages' trees ``held``, leaf for
+    leaf in the U-Net's order."""
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    return all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 [t for h in held for t in tree_leaves(h)]))
+
+
+def _host_ms_autograd(fn) -> list[float]:
+    """Host-clock ms of ``PP_HOST_REPS`` synchronised calls of ``fn`` (which
+    runs autograd; the caller has run it once)."""
+    times = []
+    for _ in range(PP_HOST_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _pp_params_rule(got, want, atol: float) -> dict:
+    """tests/test_pipeline.py's params rule as the port's CPU test holds it:
+    no element past one flipped sign's move (2·10·lr) or ``atol``, at most
+    0.05% of a leaf (or 3) past ``atol``."""
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    worst, off = 0.0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, d.max().item())
+        n = int((d > atol).sum())
+        off = max(off, 0 if n <= max(3, 5e-4 * d.numel()) else n)
+    return {"params_max": worst, "params_off": off,
+            "params_ok": worst <= max(atol, 2 * 10 * TP_LR) and off == 0}
+
+
+def _pp_compare(runner, o, loss, gnorm, amp: bool) -> dict:
+    """One pipeline step against ``make_train_step(accum_steps=M)``'s outputs
+    ``o`` by JAX's tolerances (``tests/test_pipeline.py``): fp32 loss 1e-5
+    relative, grad norm 1e-4, gradients 1e-6 + 1e-3 relative, BN state
+    1e-5 + 1e-3, params 1e-4 (the rule above); bf16 loss 2e-2, gradients
+    5e-2, BN 5e-3 + 5e-2, params 5e-2."""
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    params, state, _ = runner.gather()
+    grads = runner.gather_grads()
+    g_atol, g_rtol, s_atol, s_rtol, p_atol = ((5e-2, 0.0, 5e-3, 5e-2, 5e-2) if amp
+                                              else (1e-6, 1e-3, 1e-5, 1e-3, 1e-4))
+
+    def excess(a_tree, b_tree, atol, rtol):
+        return max(((a.float() - b.float()).abs() - atol - rtol * b.float().abs()).max().item()
+                   for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+    rec = {"loss": abs(loss - o[3].item()) / abs(o[3].item()),
+           "grad_norm": abs(gnorm - o[4].item()) / abs(o[4].item()),
+           "grads_excess": excess(grads, o[5], g_atol, g_rtol),
+           "bn_excess": excess(state, o[1], s_atol, s_rtol),
+           **_pp_params_rule(params, o[0], p_atol)}
+    rec["ok"] = (rec["loss"] <= (2e-2 if amp else 1e-5)
+                 and (amp or rec["grad_norm"] <= 1e-4)
+                 and rec["grads_excess"] <= 0 and rec["bn_excess"] <= 0 and rec["params_ok"])
+    return rec
+
+
+def _pp_segment_ms(config, params, state, amp: bool) -> dict[str, float]:
+    """Each segment's forward + backward at one microbatch (one 959x640
+    image), CUDA events, median of ``PP_REPS``: a 10-stage runner on
+    cuda:0, each stage one segment, its input payload from one forward
+    wave."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.parallel.pipeline import SEGMENT_NAMES, PipelineRunner, _put
+
+    runner = PipelineRunner(params, state, config, n_stages=10, microbatches=1, amp=amp,
+                            devices=["cuda:0"] * 10)
+    imgs, masks = synth_batch(np.random.default_rng(1), 1, *PARITY_BATCH[1:])
+    payloads, pl = [], {"x": torch.from_numpy(imgs).cuda()}
+    with torch.no_grad():
+        for s in range(9):
+            payloads.append(pl)
+            pl, _ = runner._forward(s, runner.params[s], pl)
+    payloads.append(pl)
+    _, cots, _, _ = runner._backward(9, payloads[9], masks=torch.from_numpy(masks).cuda())
+    cot_in = [None] * 10
+    cot_in[8] = cots
+    for s in range(8, -1, -1):
+        _, c, _, _ = runner._backward(s, payloads[s], cot_in[s])
+        if s:
+            cot_in[s - 1] = c
+    out = {}
+    for s, name in enumerate(SEGMENT_NAMES):
+        def run(s=s):
+            if s == 9:
+                runner._backward(9, payloads[9], masks=torch.from_numpy(masks).cuda())
+            else:
+                runner._backward(s, payloads[s], _put(cot_in[s], "cuda:0"))
+        out[name] = time_ms(run, reps=PP_REPS)
+    return out
+
+
+def _pp_parity(out: dict, failures: list) -> list:
+    """14b's parity (module docstring), in this process. Returns each case's
+    (tag, runner, accumulated step, its trees) for ``_pp_timing``."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.optim import rmsprop_init
+    from tpu_unet_torch.parallel.pipeline import PipelineRunner
+    from tpu_unet_torch.train import make_train_step
+
+    imgs, msks = synth_batch(np.random.default_rng(1), *PARITY_BATCH)
+    images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+    held = []
+    for n_stages, bilinear in PP_CASES:
+        config = UNetConfig(**{**TRAIN_CONFIG, "bilinear": bilinear})
+        for amp in (False, True):
+            tag = f"S={n_stages} {'bilinear' if bilinear else 'convt'} {'bf16' if amp else 'fp32'}"
+            params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+            with Deterministic():
+                runner = PipelineRunner(params, state, config, n_stages=n_stages,
+                                        microbatches=PP_M, amp=amp,
+                                        devices=["cuda:0"] * n_stages)
+                runner.keep_grads = True
+                loss, gnorm = runner.step(images, masks, TP_LR)
+                acc = make_train_step(config, amp=amp, accum_steps=PP_M, return_grads=True)
+                o = acc(params, state, rmsprop_init(params), images, masks, TP_LR)
+                rec = _pp_compare(runner, o, loss.item(), gnorm.item(), amp)
+            runner.keep_grads = False
+            p, st, opt = runner.gather()
+            rec["gather_bitwise"] = (_pp_tree_bitwise(p, runner.params)
+                                     and _pp_tree_bitwise(st, runner.state)
+                                     and _pp_tree_bitwise(opt.square_avg,
+                                                          [o.square_avg for o in runner.opt])
+                                     and _pp_tree_bitwise(opt.momentum_buf,
+                                                          [o.momentum_buf for o in runner.opt]))
+            rec["stages"] = [f"{seg[0]}..{seg[-1]}" if len(seg) > 1 else seg[0]
+                             for seg in runner.stages]
+            rec["stage_mb"] = [_mb(runner.params[s], runner.state[s], runner.opt[s])
+                               for s in range(n_stages)]
+            rec["whole_mb"] = _mb(p, st, opt)
+            out[tag] = rec
+            if not (rec["ok"] and rec["gather_bitwise"]):
+                failures.append(f"14b {tag}: {rec}")
+            held.append((tag, runner, acc, o[:3]))
+            del p, st, opt, o, params, state
+            torch.cuda.empty_cache()
+    return held
+
+
+def _pp_timing(out: dict, held: list) -> None:
+    """14b's timings, with the card to itself: a later step of each runner
+    and of its accumulated step on the host clock (the stages share one
+    card: a record, not a claim), and the segments' times."""
+    from tpu_unet_torch.data import synth_batch
+    from tpu_unet_torch.models import UNetConfig, init_unet
+
+    imgs, msks = synth_batch(np.random.default_rng(1), *PARITY_BATCH)
+    images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
+    for tag, runner, acc, trees in held:
+        out[tag]["pp_host_ms"] = _host_ms_autograd(
+            lambda: runner.step(images, masks, TP_LR))
+        out[tag]["acc_host_ms"] = _host_ms_autograd(
+            lambda: acc(*trees, images, masks, TP_LR))
+    held.clear()
+    torch.cuda.empty_cache()
+    config = UNetConfig(**TRAIN_CONFIG)
+    params, state = init_unet(config, np.random.default_rng(0), device="cuda")
+    out["segment_ms"] = {dt: _pp_segment_ms(config, params, state, dt == "bf16")
+                         for dt in ("fp32", "bf16")}
+
+
+def phase_tensor_pipeline(workdir: Path, train_dir: Path, card: str) -> dict:
+    """Phase 14 (module docstring). Returns its numbers. Both grids' rank
+    processes start at once and wait: the 1 x 1 x 2 grid's for the
+    one-process references, the 1 x 2 x 2 grid's for the first grid's end;
+    14b's parity runs beside the second grid, its timings after it."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    failures: list = []
+    ctx = mp.get_context("spawn")
+    worlds = []
+    gos = [workdir / "refs.done", workdir / "grid1.done"]
+    for (world, spatial, model), go in zip(TP_GRIDS, gos):
+        coordinator = f"127.0.0.1:{_free_port()}"
+        procs = [ctx.Process(target=_tp_rank, args=(r, world, spatial, model, coordinator,
+                                                    str(workdir), str(train_dir), str(go)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        worlds.append(procs)
+    t0 = time.perf_counter()
+    refs: dict = {"ref": {}}
+    try:
+        _tp_references(workdir, refs)
+    except Exception:
+        failures.append(f"14a references: {traceback.format_exc()}")
+    log(f"14a one-process references in {time.perf_counter() - t0:.1f} s")
+    gos[0].write_text("")
+    pp: dict = {}
+    held: list = []
+    grids = {}
+    for k, ((world, spatial, model), procs) in enumerate(zip(TP_GRIDS, worlds)):
+        t0 = time.perf_counter()
+        if k == 1:
+            try:  # 14b's parity beside the second grid's ranks
+                held = _pp_parity(pp, failures)
+            except Exception:
+                failures.append(f"14b: {traceback.format_exc()}")
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+                failures.append(f"14: rank process {p.pid} still running after 300 s: killed")
+        if k == 0:
+            gos[1].write_text("")
+        shape = f"{world // (spatial * model)}x{spatial}x{model}"
+        log(f"14 {shape} grid: {world} rank processes in {time.perf_counter() - t0:.1f} s "
+            f"after their start signal, exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(world):
+            path = workdir / f"tp{world}_rank{r}.json"
+            if not path.exists():
+                failures.append(f"14 {shape}: rank {r} wrote no result")
+                continue
+            ranks.append(json.loads(path.read_text()))
+            failures += ranks[-1]["failures"]
+        if len(ranks) == world and all(len(rk["grid"]) == len(TP_CASES[world]) for rk in ranks):
+            grids[shape] = ranks
+    if len(grids) == len(TP_GRIDS) and len(refs["ref"]) == len(TP_CASES[2]):
+        ref = refs["ref"]
+        for shape, ranks in grids.items():
+            for (model, amp, batch), tag in zip(TP_CASES[len(ranks)], _tp_tags(len(ranks))):
+                rec, one = ranks[0]["grid"][tag], ref[tag]
+                same = len({rk["grid"][tag]["replicated_sha256"] for rk in ranks}) == 1
+                peaks = [rk["grid"][tag]["peak_gib"] for rk in ranks]
+                mbs = [rk["grid"][tag]["mb"] for rk in ranks]
+                tops = "; ".join(f"rank {rk['rank']} {_top(rk['grid'][tag]['top_op'])}"
+                                 for rk in ranks)
+                log(f"14a {shape} grid, {tag}, global batch {list(batch)}, {rec['band']} a rank, "
+                    f"vs the one-process step: loss rel err {rec['loss']:.3e}, grad norm rel "
+                    f"err {rec['grad_norm']:.3e} (from float64: grid {rec['grad_norm_f64'][0]:.3e},"
+                    f" one process {rec['grad_norm_f64'][1]:.3e}); gradients rel L2 to float64 max "
+                    f"{rec['grads_f64']:.3e} ({rec['grads_f64_worst']}) vs the one-process "
+                    f"step's {rec['grads_one_f64']:.3e}, per tensor tol <= {GRAD_RATIO:g} x "
+                    f"its + {STEP_TOL['bf16' if amp else 'fp32']['grad_floor']:g}, "
+                    f"{len(rec['grads_over'])} over, nearest {rec['grads_nearest']} of the "
+                    f"bound; largest excess over 1e-6 + 1e-3 rel of the one-process "
+                    f"gradients {rec['grads_excess']:.3e} ({rec['grads_off']} elements past "
+                    f"it{', held' if model == 'unet' and not amp else ', a record'}); params "
+                    f"max {rec['params_max']:.3e} (ceiling {TP_FLIP:g}), BN max abs "
+                    f"{rec['bn_abs']:.3e} ({'bf16' if amp else 'fp32'} rule, _tp_compare); "
+                    f"ok={rec['ok']}; replicated leaves bitwise "
+                    f"on every rank={same}; params + RMSprop state a rank "
+                    f"{' '.join(f'{m:.1f}' for m in mbs)} MB vs one process {one['mb']:.1f} MB "
+                    f"(ratio {max(mbs) / one['mb']:.3f}); peak a rank "
+                    f"{' '.join(f'{g:.3f}' for g in peaks)} GiB vs one process "
+                    f"{one['peak_gib']:.3f} GiB ({card}); the largest conv transient: {tops}, "
+                    f"one process {_top(one['top_op'])}; rank 0's step {rec['step_s']:.2f} s "
+                    "(host clock, ranks share the card)")
+                if not rec["ok"]:
+                    failures.append(f"14a {shape} {tag}: off the one-process step: {rec}")
+                if not same:
+                    failures.append(f"14a {shape} {tag}: the replicated leaves differ")
+        cli = grids["1x1x2"][0].get("cli")
+        if cli is None:
+            failures.append("14c: no tensor-parallel train CLI result")
+        else:
+            h = cli["history"]
+            log(f"14c train_cli {' '.join(TP_CLI_ARGS)} on phase 6's pairs (1x1x2 grid, gloo): "
+                f"losses {h['train_loss']} val Dice {h['val_dice']}, wrote {cli['written']}, "
+                f"whole shapes {cli.get('shapes')}, {cli['wall_s']:.1f} s")
+            if not ("checkpoint_epoch1.npz" in cli["written"] and h["train_loss"]
+                    and all(np.isfinite(h["train_loss"])) and len(h["val_dice"]) == 1
+                    and cli.get("shapes", {}).get("params/down2/conv1/w") == [3, 3, 128, 256]
+                    and cli["shapes"].get("opt/square_avg/down2/conv1/w") == [3, 3, 128, 256]):
+                failures.append(f"14c: the tensor-parallel train CLI run {cli}")
+    t0 = time.perf_counter()
+    try:
+        _pp_timing(pp, held)
+    except Exception:
+        failures.append(f"14b timing: {traceback.format_exc()}")
+    del held
+    for tag, rec in pp.items():
+        if tag == "segment_ms":
+            continue
+        log(f"14b PipelineRunner {tag}, M={PP_M}, {list(PARITY_BATCH)}, stages {rec['stages']} "
+            f"on cuda:0, vs make_train_step(accum_steps={PP_M}): loss rel err {rec['loss']:.3e}, "
+            f"grad norm {rec['grad_norm']:.3e}, gradients' excess over tol "
+            f"{rec['grads_excess']:.3e}, BN's {rec['bn_excess']:.3e}, params max "
+            f"{rec['params_max']:.3e} (leaves off {rec['params_off']}) (tol: JAX's "
+            f"tests/test_pipeline.py); ok={rec['ok']}; gather bitwise={rec['gather_bitwise']}; "
+            f"params + BN + RMSprop MB a stage {[round(m, 1) for m in rec['stage_mb']]} of "
+            f"{rec['whole_mb']:.1f}; a later step's host ms pipeline "
+            f"{statistics.median(rec.get('pp_host_ms', [float('nan')])):.1f} vs accumulated "
+            f"{statistics.median(rec.get('acc_host_ms', [float('nan')])):.1f} ({card}; stages "
+            "share the card)")
+    if "segment_ms" in pp:
+        for dt, ms in pp["segment_ms"].items():
+            log(f"14b segment fwd+bwd ms at one 959x640 image, {dt} ({card}): "
+                + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    # 14c: the pipeline CLI on one card meets JAX's device refusal.
+    from tpu_unet_torch import train_cli
+
+    try:
+        train_cli.main(["--pipeline-parallel", "2", "--data-dir", str(train_dir / "data"),
+                        "--checkpoint-dir", str(workdir / "ck_pipeline")])
+        failures.append("14c: train_cli --pipeline-parallel 2 trained on one card")
+    except SystemExit as e:
+        want = f"pipeline needs 2 devices, have {torch.cuda.device_count()}"
+        log(f"14c train_cli --pipeline-parallel 2 on {torch.cuda.device_count()} card: {e}")
+        if want not in str(e):
+            failures.append(f"14c: the pipeline CLI's refusal {e!r}, not {want!r}")
+    log(f"14b timings and 14c's refusal: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise SystemExit(f"chip_smoke: tensor / pipeline parallelism checks failed: {failures}")
+    return {"grids": {shape: [rk["grid"] for rk in ranks] for shape, ranks in grids.items()},
+            "ref": refs["ref"], "pipeline": pp}
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -3983,6 +4540,14 @@ def main(argv=None) -> int:
         phase_done("13 (spatial parallelism)", t0)
         if time.perf_counter() - t0 > SP_BUDGET_S:
             log(f"phase 13 took over its {SP_BUDGET_S:.0f} s budget")
+        # Phase 14: tensor and pipeline parallelism, on phase 6's files.
+        t0 = time.perf_counter()
+        tp_numbers = phase_tensor_pipeline(workdir / "tensor", workdir / "train", card)
+        log(f"tensor / pipeline parallelism numbers: {json.dumps(tp_numbers)}")
+        torch.cuda.empty_cache()
+        phase_done("14 (tensor and pipeline parallelism)", t0)
+        if time.perf_counter() - t0 > TP_BUDGET_S:
+            log(f"phase 14 took over its {TP_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.

@@ -227,9 +227,11 @@ def test_multi_host_and_bare_launches_are_refused(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# --multihost, --zero and --spatial-parallel are ported: beside them the
-# unported flags stay refused; --spatial-parallel itself, outside torchrun,
-# meets the refusal of the launch it joins (--multihost's, --data-parallel's).
+# Every parallel flag is ported: beside --data-parallel, JAX's refusals of
+# their compositions stand (--zero with --tensor-parallel, --pipeline-parallel
+# with any grid axis), and --spatial-parallel and --tensor-parallel, outside
+# torchrun, meet the refusal of the launch they join (--multihost's,
+# --data-parallel's).
 @pytest.mark.parametrize("flag", [["--multihost", "--spatial-parallel", "2"],
                                   ["--zero", "--tensor-parallel", "2"],
                                   ["--spatial-parallel", "2"], ["--tensor-parallel", "2"],
@@ -237,8 +239,9 @@ def test_multi_host_and_bare_launches_are_refused(monkeypatch):
 def test_other_parallel_flags_stay_refused_beside_data_parallel(flag, monkeypatch):
     for name in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK"):
         monkeypatch.delenv(name, raising=False)
-    refused = next((f for f in flag if f in ("--tensor-parallel", "--pipeline-parallel")), None)
-    match = (f"{refused} is not ported to tpu_unet_torch" if refused
+    match = ("--zero is redundant with --tensor-parallel" if "--zero" in flag
+             else "--pipeline-parallel does not compose with --data-parallel"
+             if "--pipeline-parallel" in flag
              else "--multihost needs torchrun's RANK" if "--multihost" in flag
              else "launch under torchrun")
     with pytest.raises(SystemExit, match=match):

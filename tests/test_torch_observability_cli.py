@@ -99,22 +99,23 @@ def test_profile_wraps_the_oom_retry(cli, tmp_path, monkeypatch):
 
 
 def _refusal(flag: list) -> str | None:
-    """The message that refuses ``flag`` before any training: the unported
-    parallel flags, and JAX's refusals of the ported --zero and --multihost
-    (with the rendezvous flags that need --multihost). None for
-    --spatial-parallel without --data-parallel, which JAX trains as the
-    plain run (no mesh)."""
-    if flag[0] == "--spatial-parallel":
+    """The message that refuses ``flag`` before any training: JAX's
+    refusals of --tensor-parallel without --data-parallel and of the ported
+    --zero and --multihost (with the rendezvous flags that need
+    --multihost). None for --spatial-parallel without --data-parallel,
+    which JAX trains as the plain run (no mesh), and for
+    --pipeline-parallel, which trains as the --accum-steps run."""
+    if flag[0] in ("--spatial-parallel", "--pipeline-parallel"):
         return None
+    if flag[0] == "--tensor-parallel":
+        return "--tensor-parallel requires --data-parallel"
     if "--kernels" in flag:
         return "--zero requires the library route"
     if flag[0] == "--multihost":
         return "multi-host training requires --data-parallel"
     if flag[0] in ("--coordinator", "--num-processes", "--process-id"):
         return f"{flag[0]} applies with --multihost"
-    if flag == ["--zero"]:
-        return "--zero requires --data-parallel"
-    return "is not ported to tpu_unet_torch"
+    return "--zero requires --data-parallel"
 
 
 @pytest.mark.parametrize("flag", [
@@ -127,9 +128,17 @@ def test_other_flags_stay_refused(cli, tmp_path, flag):
     argv, logs, modes = cli
     match = _refusal(flag)
     if match is None:
-        # Trains as the plain run: the history bitwise the run without it.
+        # Trains as the plain run: the history bitwise the run without it;
+        # the GPipe stages (both on the CPU) as the --accum-steps S run, by
+        # JAX's tolerances for that pair (tests/test_pipeline.py's e2e).
         got = train_cli.main(argv + flag)[2]
-        assert got == train_cli.main(argv)[2]
+        if flag[0] == "--pipeline-parallel":
+            want = train_cli.main(argv + ["--accum-steps", flag[1]])[2]
+            np.testing.assert_allclose(got["train_loss"], want["train_loss"], rtol=1e-3,
+                                       atol=1e-4)
+            np.testing.assert_allclose(got["val_dice"], want["val_dice"], atol=1e-3)
+        else:
+            assert got == train_cli.main(argv)[2]
         assert got["train_loss"] and got["val_dice"]
         return
     with pytest.raises(SystemExit, match=match):

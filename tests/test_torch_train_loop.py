@@ -330,7 +330,7 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
     ["--coordinator", "h:1"],
     ["--num-processes", "2"], ["--process-id", "0"],
     ["--spatial-parallel", "2", "--tensor-parallel", "2"],
-    ["--tensor-parallel", "2"], ["--pipeline-parallel", "2"], ["--zero"],
+    ["--tensor-parallel", "2"], ["--pipeline-parallel", "2", "--kernels", "cuda"], ["--zero"],
     ["--wandb", "--data-parallel", "--multihost"],
     ["--profile", "p", "--zero"], ["--debug-nans", "--multihost"],
     ["--arch", "unetpp", "--kernels", "cuda"],
@@ -340,11 +340,14 @@ def test_train_cli_oom_retries_with_remat_from_the_initial_weights(world, tmp_pa
 def test_train_cli_refuses_unported_flags(flag):
     # The families train; what the JAX package refuses for them stays
     # refused: the kernel route (kernels="pallas" there) and a .pth. The
-    # observability flags, --zero, --multihost and --spatial-parallel are
-    # ported: beside a refused flag (--tensor-parallel), or where JAX refuses
-    # their composition, the refusal stands; --multihost outside torchrun and
-    # without --coordinator has no world to form.
-    match = ("kernels='cuda' is not implemented for arch=" if "--arch" in flag and "--kernels"
+    # observability flags, --zero, --multihost and the parallel axes are
+    # ported: where JAX refuses their composition (--tensor-parallel without
+    # --data-parallel, --pipeline-parallel on the kernels), the refusal
+    # stands; --multihost outside torchrun and without --coordinator has no
+    # world to form.
+    match = ("--tensor-parallel requires --data-parallel" if "--tensor-parallel" in flag
+             else "--pipeline-parallel requires the XLA backend" if "--pipeline-parallel" in flag
+             else "kernels='cuda' is not implemented for arch=" if "--arch" in flag and "--kernels"
              in flag else r"\.pth import is reference-layout" if "--load" in flag
              else "--zero requires the library route" if "--kernels" in flag
              else "--zero requires --data-parallel" if "--zero" in flag
@@ -352,9 +355,7 @@ def test_train_cli_refuses_unported_flags(flag):
              and "--multihost" in flag
              else "applies with --multihost" if flag[0] in ("--coordinator", "--num-processes",
                                                            "--process-id")
-             else "needs torchrun's RANK" if "--multihost" in flag
-             else "--tensor-parallel is not ported" if "--tensor-parallel" in flag
-             else "is not ported")
+             else "needs torchrun's RANK")
     with pytest.raises(SystemExit, match=match):
         train_cli.main(["--device", "cpu", *flag])
 

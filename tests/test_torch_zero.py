@@ -253,7 +253,9 @@ def test_zero_refusals(kw, match):
     with pytest.raises(ValueError, match=match):
         _check_train_flags(**{**flags, **kw})
     cli = {"data_parallel": ["--data-parallel"], "kernels": ["--kernels", "cuda"],
-           "multihost": ["--multihost", "--num-processes", "2"]}
+           "multihost": ["--multihost", "--num-processes", "2"],
+           "tensor_parallel": ["--tensor-parallel", "2"],
+           "pipeline_parallel": ["--pipeline-parallel", "2"]}
     if set(kw) <= set(cli):  # the CLI refuses them before any rendezvous
         argv = ["--device", "cpu", "--zero"] + [a for k in kw for a in cli[k]]
         with pytest.raises(SystemExit, match=match):

@@ -13,8 +13,10 @@ rendezvous on a free localhost port (``parallel.multihost.initialize``).
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
+import pickle
 import signal
 import socket
 import sys
@@ -29,8 +31,8 @@ import torch
 GROUP_TIMEOUT_S = 60
 
 
-def _child(fn, rank: int, world: int, rdzv: str, out: str, args: tuple,
-           coordinator: str | None = None) -> None:
+def _child(fn, rank: int, world: int, rdzv: str, out: str, coordinator: str | None = None
+           ) -> None:
     torch.set_num_threads(1)  # ranks share the machine's cores with other tests
     from tpu_unet_torch.parallel import multihost
     from tpu_unet_torch.parallel.mesh import init_data_parallel
@@ -47,6 +49,8 @@ def _child(fn, rank: int, world: int, rdzv: str, out: str, args: tuple,
         else:
             dp = init_data_parallel(backend="gloo", device="cpu", init_method=f"file://{rdzv}",
                                     rank=rank, world_size=world, timeout=timeout)
+        with open(f"{out}.args", "rb") as f:
+            args = pickle.load(f)
         result = fn(dp, *args)
         if "jax" in sys.modules or "tpu_unet" in sys.modules:
             raise RuntimeError("a data-parallel worker imported the JAX package; pass it the "
@@ -81,31 +85,51 @@ def run_ranks(fn, world: int, workdir: Path, *args, timeout: float = 120.0,
 
 
 def _run_ranks(fn, world, workdir, args, timeout, multihost) -> list:
+    return _start_ranks(fn, world, workdir, args, timeout, multihost)()
+
+
+def start_ranks(fn, world: int, workdir: Path, *args, timeout: float = 120.0):
+    """``run_ranks`` without waiting: the ranks start, and the returned
+    function waits for them (within ``timeout`` of the start) and returns
+    their results, so that the caller works beside them meanwhile."""
+    return _start_ranks(fn, world, workdir, args, timeout, False)
+
+
+def _start_ranks(fn, world, workdir, args, timeout, multihost):
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     tag = f"{fn.__name__}{world}_{time.monotonic_ns()}"
     rdzv, out = workdir / f"{tag}.rdzv", workdir / tag
     coordinator = f"127.0.0.1:{_free_port()}" if multihost else None
+    # The arguments go through a file: a start() whose pickle outgrows the
+    # pipe's buffer waits for the child to import torch, one rank after
+    # another.
+    with open(f"{out}.args", "wb") as f:
+        pickle.dump(args, f)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_child,
-                         args=(fn, r, world, str(rdzv), str(out), args, coordinator))
+                         args=(fn, r, world, str(rdzv), str(out), coordinator))
              for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    errors = {r: Path(f"{out}.rank{r}.err").read_text() for r in range(world)
-              if Path(f"{out}.rank{r}.err").exists()}
-    assert not hung, f"ranks {hung} of {fn.__name__} still running after {timeout} s; {errors}"
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, f"{fn.__name__} exit codes {codes}: {errors}"
-    return [torch.load(f"{out}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+    def join() -> list:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errors = {r: Path(f"{out}.rank{r}.err").read_text() for r in range(world)
+                  if Path(f"{out}.rank{r}.err").exists()}
+        assert not hung, f"ranks {hung} of {fn.__name__} still running after {timeout} s; {errors}"
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * world, f"{fn.__name__} exit codes {codes}: {errors}"
+        return [torch.load(f"{out}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+    return join
 
 
 def port_numpy(tree):
@@ -662,4 +686,231 @@ def spatial_train_worker(dp, data_dir, params, state, config_fields, runs):
         out[tag] = {"history": hist, "images": images,
                     "params": torch.cat([t.reshape(-1) for t in tree_leaves(p)]).numpy()}
     del sys.modules["wandb"]
+    return out
+
+
+# -- tensor parallelism (tests/test_torch_tensor_parallel.py) -----------------------
+
+
+@contextlib.contextmanager
+def float64_steps():
+    """``Tensor.float`` keeping float64 tensors as they are, for the block:
+    the train step casts its BN statistics, loss and clip to fp32 by name,
+    and a float64 step keeps every part of it in float64."""
+    fp32 = torch.Tensor.float
+    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 else fp32(t)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = fp32
+
+
+def float64_step(cfg, grid, params, state, images, masks, lr, **kw):
+    """One step in float64 on ``grid`` from the full trees ``params`` and
+    ``state`` (each rank its rows and band ``images``, ``masks``): (grad
+    norm, the whole clipped gradients as numpy)."""
+    from tpu_unet_torch.models.unet import tree_map
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.parallel.tensor import gather_model, shard_model, shard_opt_state
+    from tpu_unet_torch.train import make_train_step
+
+    with float64_steps():
+        p, s = (tree_map(torch.Tensor.double, t) for t in (params, state))
+        opt = get_optimizer(kw.get("optimizer", "rmsprop"))[0](p)
+        if getattr(grid, "model_size", 1) > 1:
+            p, s, opt = (*shard_model(grid, p, s), shard_opt_state(grid, opt, p))
+        o = make_train_step(cfg, mesh=grid, return_grads=True, **kw)(
+            p, s, opt, images.double(), masks, lr)
+        grads = (gather_model(grid, o[0], o[1], cfg, o[5])[2]
+                 if getattr(grid, "model_size", 1) > 1 else o[5])
+    return float(o[4]), _numpy_tree(grads)
+
+
+def _replicated_digest(tree, dims) -> str:
+    """A digest of the leaves of ``tree`` that ``dims`` replicates, to hold the
+    model ranks' copies bitwise equal."""
+    import hashlib
+
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.parallel.tensor import dims_in_order
+
+    flat = [t.detach().reshape(-1).double() for t, d in zip(tree_leaves(tree),
+                                                             dims_in_order(tree, dims))
+            if d is None]
+    return hashlib.sha256(torch.cat(flat).numpy().tobytes()).hexdigest()
+
+
+def tp_step_worker(dp, cases, trees, images, masks, lr):
+    """For each (name, config fields, (S, T), steps, step kwargs) case, on the
+    (W/(S·T)) x S x T grid, from the full trees ``trees[name]``: this rank's
+    shard shapes and state bytes, the eval forward on its shards (S = 1:
+    its rows' logits), then ``steps`` steps on its rows and band; the
+    losses and grad norms, the gathered params, BN state and clipped
+    gradients after the first step, the params and BN state after the last,
+    the optimizer state after the last, and the digest of
+    its replicated leaves. ``"pr18"`` in the
+    kwargs: also the step on ``make_grid(dp, S)`` and whether it is
+    bitwise this one, and the two records' coordinates; ``"float64"``: also
+    the first step in float64 (``float64_step``)."""
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.models.unet import UNetConfig, unet_apply
+    from tpu_unet_torch.optim import get_optimizer
+    from tpu_unet_torch.parallel.mesh import make_grid, world_of
+    from tpu_unet_torch.parallel.tensor import (
+        gather_model,
+        gather_opt_state,
+        model_specs,
+        shard_model,
+        shard_opt_state,
+    )
+    from tpu_unet_torch.parallel.zero import state_bytes
+    from tpu_unet_torch.train import make_train_step
+
+    out, grids = [], {}
+    for name, fields, (spatial, model), steps, kw in cases:
+        kw = dict(kw)
+        pr18 = kw.pop("pr18", False)
+        f64 = kw.pop("float64", False)
+        if (spatial, model) not in grids:  # each grid's groups formed once
+            grids[spatial, model] = make_grid(dp, spatial, model)
+        grid = grids[spatial, model]
+        cfg = UNetConfig(**fields)
+        p, s = tree_from_numpy(trees[name][0]), tree_from_numpy(trees[name][1])
+        opt = get_optimizer(kw.get("optimizer", "rmsprop"))[0](p)
+        full_bytes = state_bytes(p) + state_bytes(opt)
+        if model > 1:
+            sp, ss = shard_model(grid, p, s)
+            so = shard_opt_state(grid, opt, p)
+        else:
+            sp, ss, so = p, s, opt
+        xs, ms = (torch.from_numpy(np.ascontiguousarray(grid.bands(a))) for a in (images, masks))
+        rec = {"bytes": state_bytes(sp) + state_bytes(so), "full_bytes": full_bytes,
+               "band": list(xs.shape)}
+        if "conv1" in sp.get("down2", {}):
+            rec["down2_conv1"] = list(sp["down2"]["conv1"]["w"].shape)
+        if spatial == 1:
+            with torch.no_grad():
+                rec["y"] = unet_apply(sp, ss, xs, config=cfg, train=False,
+                                      group=grid)[0].numpy()
+        step = make_train_step(cfg, mesh=grid, return_grads=True, **kw)
+        trees_ = (sp, ss, so)
+        rec["loss"], rec["gnorm"] = [], []
+        for k in range(steps):
+            o = step(*trees_, xs, ms, lr)
+            trees_ = o[:3]
+            rec["loss"].append(float(o[3]))
+            rec["gnorm"].append(float(o[4]))
+            if k in (0, steps - 1):
+                fp, fs, fg = (gather_model(grid, trees_[0], trees_[1], cfg, o[5]) if model > 1
+                              else (*trees_[:2], o[5]))
+                if k == 0:
+                    rec.update(params1=_numpy_tree(fp), bn1=_numpy_tree(fs),
+                               grads1=_numpy_tree(fg))
+                    first = o
+        fo = gather_opt_state(grid, trees_[2], cfg) if model > 1 else trees_[2]
+        if model > 1:
+            rec["digest"] = _replicated_digest(trees_[0], model_specs(cfg, model)[0])
+        rec.update(params=_numpy_tree(fp), bn=_numpy_tree(fs), opt=_numpy_tree(fo))
+        if f64:
+            rec["gnorm64"], rec["grads64"] = float64_step(cfg, grid, p, s, xs, ms, lr, **kw)
+        if pr18:
+            old = make_grid(dp, spatial)
+            o18 = make_train_step(cfg, mesh=old, return_grads=True, **kw)(p, s, opt, xs, ms, lr)
+            rec["pr18_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(_flat_leaves((*o18[:3], o18[5])),
+                                                  _flat_leaves((*first[:3], first[5])))
+            ) and float(o18[3]) == float(first[3]) and float(o18[4]) == float(first[4])
+            rec["pr18_coords"] = [(g.data_rank, g.data_size, g.s, g.band, g.model_size,
+                                   world_of(g) is g.group) for g in (old, grid)]
+        out.append(rec)
+    return out
+
+
+def _flat_leaves(trees) -> list:
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    return [t for tree in trees for t in tree_leaves(tree)]
+
+
+def tp_eval_worker(dp, params, state, batches, config_fields, images):
+    """On the 2 x 1 x 2 and 1 x 2 x 2 grids, the trees sharded: ``evaluate``
+    over the global ``batches`` on each; on the first, ``evaluate`` with
+    TTA, ``evaluate_per_class`` and the eval forward's logits of this
+    rank's rows."""
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.evaluate import evaluate, evaluate_per_class
+    from tpu_unet_torch.models.unet import UNetConfig, unet_apply
+    from tpu_unet_torch.parallel.mesh import make_grid
+    from tpu_unet_torch.parallel.tensor import shard_model
+
+    cfg = UNetConfig(**config_fields)
+    out = {}
+    for spatial in (1, 2):
+        grid = make_grid(dp, spatial, 2)
+        p, s = shard_model(grid, tree_from_numpy(params), tree_from_numpy(state))
+        rec = {"scalar": evaluate(p, s, batches, cfg, mesh=grid)}
+        if spatial == 1:  # TTA and the per-class sweep run whole rows on either grid
+            rec.update(per_class=evaluate_per_class(p, s, batches, cfg, mesh=grid),
+                       tta=evaluate(p, s, batches, cfg, tta=True, mesh=grid))
+            with torch.no_grad():
+                rec["y"] = unet_apply(p, s, torch.from_numpy(grid.rows(images)), config=cfg,
+                                      train=False, group=grid)[0].numpy()
+        out[spatial] = rec
+    return out
+
+
+def tp_train_worker(dp, data_dir, params, state, config_fields, root):
+    """``train_model`` on the CarvanaDataset in ``data_dir``: the
+    data-parallel run and the ``tensor_parallel=4`` run (2 epochs, a
+    validation each, the optimizer state and EMA weights saved, a stub
+    ``wandb``), then each resumed from the tensor-parallel run's epoch 2 for
+    a third; then ``train_cli --data-parallel --tensor-parallel 4`` for an
+    epoch and resumed for a second. Returns each run's history and written
+    files, and the W&B panel's histogram keys and sizes and sample shape of
+    the first two."""
+    import types
+
+    import tpu_unet_torch.train as train_mod
+    from tpu_unet_torch.checkpoint import tree_from_numpy
+    from tpu_unet_torch.data import CarvanaDataset
+    from tpu_unet_torch.models.unet import UNetConfig
+
+    ds = CarvanaDataset(Path(data_dir) / "imgs", Path(data_dir) / "masks", scale=1.0)
+    cfg = UNetConfig(**config_fields)
+    run_ = _StubRun()
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **k: run_
+    fake.Histogram = lambda v: ("hist", int(np.asarray(v).size))
+    fake.Image = lambda v: ("img", np.asarray(v).shape)
+    sys.modules["wandb"] = fake
+    out = {}
+    common = dict(dataset=ds, batch_size=8, learning_rate=1e-3, val_percent=0.25, seed=0,
+                  val_per_epoch=1, save_optimizer=True, ema_decay=0.5, data_parallel=dp)
+    runs = [("dp", dict(epochs=2, use_wandb=True)), ("tp", dict(epochs=2, use_wandb=True,
+                                                                tensor_parallel=4)),
+            ("dp_resumed", dict(epochs=3, resume="tp")),
+            ("tp_resumed", dict(epochs=3, resume="tp", tensor_parallel=4))]
+    try:
+        for tag, kw in runs:
+            ck = Path(root) / tag
+            if "resume" in kw:
+                kw["resume"] = str(Path(root) / kw["resume"] / "checkpoint_epoch2.npz")
+            run_.logs.clear()
+            _, _, hist = train_mod.train_model(tree_from_numpy(params), tree_from_numpy(state),
+                                               cfg, checkpoint_dir=ck, **common, **kw)
+            panel = [{k: v for k, v in d.items() if isinstance(v, tuple)}
+                     for d in run_.logs if "validation Dice" in d]
+            out[tag] = {"history": hist, "panel": panel,
+                        "files": sorted(f.name for f in ck.glob("*.npz")) if ck.exists() else []}
+    finally:
+        del sys.modules["wandb"]
+    # The CLI on the grid, an epoch and then a resumed second one.
+    ck = Path(root) / "cli"
+    argv = ["--device", "cpu", "--data-parallel", "--tensor-parallel", "4", "-b", "8", "-s",
+            "1.0", "-v", "25", "--val-per-epoch", "1", "--data-dir", str(data_dir),
+            "--checkpoint-dir", str(ck), "--save-optimizer"]
+    out["cli"] = [cli_worker(dp, [*argv, *more], "train", config_fields["base_channels"])
+                  for more in (["-e", "1"], ["-e", "2", "--resume",
+                                             str(ck / "checkpoint_epoch1.npz")])]
+    out["cli_files"] = sorted(f.name for f in ck.glob("*.npz"))
     return out

@@ -33,6 +33,12 @@ ranks. With ``tta`` the flips need whole images: such a batch splits by
 rows only. A batch that does not divide runs whole on every rank, as in
 JAX.
 
+A grid with a model axis (tensor parallelism) takes the params and BN
+state as this rank's shards: the T model ranks of one (data, spatial)
+coordinate run the same rows (and band) together, their forward's
+collectives over the model group, and the ratios are averaged over the
+replica group.
+
 Run:
     python -m tpu_unet_torch.evaluate -m ckpt.npz|model.pth --data-dir data -s 0.5 \
         [--arch unetpp|attention|r2u|r2attu] [--per-class] [--tta [--tta-mode hflip]] \
@@ -55,7 +61,7 @@ from tpu_unet_torch.losses import dice_coeff, iou_coeff, multiclass_dice_coeff
 from tpu_unet_torch.models.tta import TTA_MODES, tta_logits
 from tpu_unet_torch.predict import exit_on_refusal
 from tpu_unet_torch.models.unet import UNetConfig, tree_leaves, unet_apply
-from tpu_unet_torch.parallel.mesh import DataParallel, pmean, psum
+from tpu_unet_torch.parallel.mesh import DataParallel, Grid, pmean, psum
 
 logger = logging.getLogger(__name__)
 
@@ -64,21 +70,30 @@ def _logits(params, state, images, config, amp, tta, tta_mode, group=None):
     compute_dtype = torch.bfloat16 if amp else None
     with torch.no_grad():
         if tta:
-            if group is not None:
+            if _band(group) is not None:
                 raise ValueError("flip TTA needs whole images: split the batch by rows")
             return tta_logits(params, state, images, config=config,
-                              compute_dtype=compute_dtype, mode=tta_mode, batched=False)
+                              compute_dtype=compute_dtype, mode=tta_mode, batched=False,
+                              group=group)
         logits, _ = unet_apply(params, state, images, config=config, train=False,
                                compute_dtype=compute_dtype, group=group)
     return logits
+
+
+def _band(group):
+    """``group`` when it splits each image's height (a grid with a spatial
+    axis), else None: the metrics' sums go over a band's ranks only."""
+    return group if getattr(group, "spatial_size", 1) > 1 else None
 
 
 def eval_step(params, state, images, masks, *, config: UNetConfig, amp: bool = False,
               tta: bool = False, tta_mode: str = "flips", group=None):
     """(Dice, IoU) of one batch as device scalars. images NHWC, masks NHW;
     ``group`` a grid: this rank's height bands of its rows (the Dice then
-    the data axis's mean, the IoU this rank's rows')."""
+    the data axis's mean, the IoU this rank's rows'); with a model axis (a
+    grid, or its ``ModelAxis`` for whole rows) the params are shards."""
     logits = _logits(params, state, images, config, amp, tta, tta_mode, group)
+    group = _band(group)
     if config.n_classes == 1:
         pred = (torch.sigmoid(logits[..., 0]) > 0.5).float()
         tgt = masks.float()
@@ -97,6 +112,7 @@ def eval_step_per_class(params, state, images, masks, *, config: UNetConfig,
     per-image ratio; the mean over classes 1.. of Dice is ``eval_step``'s.
     ``group`` a grid: each image's sums over its bands first."""
     logits = _logits(params, state, images, config, amp, tta, tta_mode, group)
+    group = _band(group)
     if config.n_classes == 1:
         pred_oh = (torch.sigmoid(logits[..., :1]) > 0.5).float()
         mask_oh = masks.float()[..., None]
@@ -131,6 +147,8 @@ def _shardable(mesh: DataParallel | None, batch) -> bool:
 def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mesh):
     """(sum of stack(step outputs) over the batches, batch count)."""
     device = tree_leaves(params)[0].device
+    # Under a model axis every forward takes it: the rows run whole with it alone.
+    whole = mesh.model_axis if getattr(mesh, "model_size", 1) > 1 else None
     total, n = None, 0
     for batch in dataloader:
         split = batch.get("shard") is not None
@@ -145,9 +163,9 @@ def _accumulate(step, params, state, dataloader, config, amp, tta, tta_mode, mes
             batch = {k: cut(batch[k]) for k in ("image", "mask")}
         b = to_device(batch, device)
         pair = torch.stack(step(params, state, b["image"], b["mask"], config=config, amp=amp,
-                                tta=tta, tta_mode=tta_mode, group=mesh if banded else None))
+                                tta=tta, tta_mode=tta_mode, group=mesh if banded else whole))
         if split:
-            pair, = pmean([pair], mesh.group)
+            pair, = pmean([pair], mesh if isinstance(mesh, Grid) else mesh.group)
         total = pair if total is None else total + pair
         n += 1
     return total, n

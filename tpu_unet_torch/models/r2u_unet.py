@@ -37,6 +37,13 @@ from tpu_unet_torch.models.unet import (
 )
 from tpu_unet_torch.ops import batch_norm, conv2d
 from tpu_unet_torch.ops.batchnorm import init_bn_params, init_bn_state
+from tpu_unet_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    model_axis_of,
+    reduce_from_model,
+    take_shard,
+)
 
 
 def recur_steps(config: UNetConfig) -> int | None:
@@ -57,25 +64,42 @@ def _rec_unit_init(rng, ch: int, *, device, steps: int | None = None):
     return params, {f"bn{i}": init_bn_state(ch, device) for i in range(steps)}
 
 
-def _rec_unit_apply(params, state, x, *, t: int, train: bool, group=None):
+def _rec_unit_apply(params, state, x, *, t: int, train: bool, group=None, axis=None,
+                    layer=None):
     """h = unit(x); then t times h = unit(x + h), the weights shared; BN
-    statistics by the state's layout (module docstring)."""
-
+    statistics by the state's layout (module docstring). Under a model
+    ``axis`` (``parallel/tensor.py``), ``layer`` "column" (rec1: x
+    replicated, the conv on its Cout shard, h this rank's channels) gathers
+    h before each re-application; "row" (rec2: x this rank's channels, the
+    conv on its Cin shard) reduces each application's partial sums and adds
+    h's slice of this rank's channels."""
     def unit(v, bn_state):
         h = conv2d(v, params["conv"]["w"], stride=1, padding=1, group=group)
+        if layer == "row":
+            h = reduce_from_model(h, axis)
         h, bn_state = batch_norm(h.to(v.dtype), params["bn"], bn_state, train=train,
                                  group=group)
         return torch.relu(h), bn_state
 
+    if layer == "column":
+        x = copy_to_model(x, axis)
+
+    def again(h):  # the input x + h of a re-application
+        if layer == "column":
+            return x + gather_from_model(h, axis)
+        if layer == "row":
+            return x + take_shard(h, axis)
+        return x + h
+
     if "bn" in state:  # shared: one state stepped t+1 times
         h, bn = unit(x, state["bn"])
         for _ in range(t):
-            h, bn = unit(x + h, bn)
+            h, bn = unit(again(h), bn)
         return h, {"bn": bn}
     h, bn0 = unit(x, state["bn0"])
     new_state = {"bn0": bn0}
     for i in range(1, t + 1):
-        h, new_state[f"bn{i}"] = unit(x + h, state[f"bn{i}"])
+        h, new_state[f"bn{i}"] = unit(again(h), state[f"bn{i}"])
     return h, new_state
 
 
@@ -89,11 +113,16 @@ def _rrcnn_init(rng, cin: int, cout: int, *, device, steps: int | None = None):
 
 def _rrcnn_apply(params, state, x, *, t: int, train: bool, group=None):
     """The recurrent residual block: x = proj(x); x + rec2(rec1(x)). Under
-    a spatial ``Band`` each recurrent application exchanges its halo rows."""
+    a spatial ``Band`` each recurrent application exchanges its halo rows;
+    a block sharded over a model axis runs rec1 as its column layer and rec2
+    as its row layer (``_rec_unit_apply``)."""
+    axis = model_axis_of(params, group)
     x = conv2d(x, params["proj"]["w"], stride=1, padding=0, group=group)
     x = (x.float() + params["proj"]["b"].float()).to(x.dtype)
-    h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train, group=group)
-    h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train, group=group)
+    h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train, group=group,
+                            axis=axis, layer=None if axis is None else "column")
+    h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train, group=group,
+                            axis=axis, layer=None if axis is None else "row")
     return x + h, {"rec1": s1, "rec2": s2}
 
 

@@ -48,21 +48,21 @@ def tta_merge(view_logits: torch.Tensor, n: int, mode: str = "flips") -> torch.T
 
 def tta_logits(params, state, x: torch.Tensor, *, config: UNetConfig,
                compute_dtype: torch.dtype | None = None, mode: str = "flips",
-               batched: bool = True) -> torch.Tensor:
+               batched: bool = True, group=None) -> torch.Tensor:
     """Flip-ensembled eval-mode logits of a batch.
 
     ``batched=True`` runs the k views as one k·N forward (predict and serve,
     at batch 1). ``batched=False`` runs one view at a time, so one forward's
     activations are alive at once (evaluate, at its batch sizes): JAX's
     ``lax.scan`` over the views. Both sum the un-flipped views in the same
-    order."""
+    order. ``group``: ``unet_apply``'s (a model axis's, on whole images)."""
     if batched:
         logits, _ = unet_apply(params, state, tta_views(x, mode), config=config, train=False,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, group=group)
         return tta_merge(logits, x.shape[0], mode)
     parts = []
     for fh, fw in TTA_MODES[mode]:
         logits, _ = unet_apply(params, state, flip(x, fh, fw), config=config, train=False,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, group=group)
         parts.append(flip(logits, fh, fw))
     return _mean(parts)

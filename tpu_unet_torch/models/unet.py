@@ -28,6 +28,12 @@ from tpu_unet_torch.ops import (
 )
 from tpu_unet_torch.ops.batchnorm import init_bn_params, init_bn_state
 from tpu_unet_torch.ops.conv_stats import double_conv_train_fused
+from tpu_unet_torch.parallel.collectives import (
+    copy_to_model,
+    mark_shards,
+    model_axis_of,
+    reduce_from_model,
+)
 from tpu_unet_torch.parallel.halo import Band, coarser, levels
 
 Params = dict[str, Any]
@@ -83,6 +89,8 @@ class UNetConfig(NamedTuple):
 
 
 def _uniform(rng: np.random.Generator, shape, bound: float, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # shapes only: no draws
+        return torch.empty(shape, device="meta")
     w = rng.uniform(-bound, bound, size=shape).astype(np.float32)
     return torch.from_numpy(w).to(device)
 
@@ -138,7 +146,8 @@ def init_unet(config: UNetConfig, rng: np.random.Generator,
     drawn from ``rng``, for every family (``config.arch``). The U-Net's
     channel plan is the reference's (``encoder_plan``, ``decoder_plan``).
     The values differ from JAX's ``init_unet`` (another generator); the
-    shapes and keys are the same."""
+    shapes and keys are the same. On the ``meta`` device: the shapes alone,
+    nothing drawn."""
     if config.arch != "unet":
         return _family(config.arch)[0](config, rng, device)
     params: Params = {}
@@ -187,16 +196,27 @@ def _double_conv_apply(params, state, x, *, train: bool, kernels=None, first: bo
     """(conv3x3 → BN → ReLU) × 2. ``kernels="cuda"`` in train mode runs it on
     the train kernels (``ops/conv_stats.py``); ``first`` marks the block whose
     input (the image) needs no gradient; ``group``: BN over every rank, and
-    with a spatial ``Band`` the convs' halo rows too."""
+    with a spatial ``Band`` the convs' halo rows too. A block sharded over a
+    model axis (``parallel.collectives.ModelShard``) runs conv1 on its Cout
+    shard and conv2 on its Cin shard between a copy to and a reduce from the
+    model group (``parallel/tensor.py``)."""
     if kernels == "cuda" and train:
         if isinstance(group, Band):
             raise Refused("--kernels cuda data parallelism is 1-D (shard_map); "
                           "--spatial-parallel requires the XLA backend (--kernels torch)")
+        if getattr(group, "model_size", 1) > 1:
+            raise Refused("--kernels cuda data parallelism is 1-D (shard_map); "
+                          "--tensor-parallel requires the XLA backend (--kernels torch)")
         return double_conv_train_fused(params, state, x, input_needs_grad=not first,
                                        group=group)
+    axis = model_axis_of(params, group)
+    if axis is not None:
+        x = copy_to_model(x, axis)
     h = conv2d(x, params["conv1"]["w"], stride=1, padding=1, group=group)
     h, bn1 = batch_norm(h.to(x.dtype), params["bn1"], state["bn1"], train=train, group=group)
     h = conv2d(torch.relu(h), params["conv2"]["w"], stride=1, padding=1, group=group)
+    if axis is not None:
+        h = reduce_from_model(h, axis)
     h, bn2 = batch_norm(h.to(x.dtype), params["bn2"], state["bn2"], train=train, group=group)
     return torch.relu(h), {"bn1": bn1, "bn2": bn2}
 
@@ -312,13 +332,26 @@ def unet_apply(params: Params, state: State, x: torch.Tensor, *, config: UNetCon
     (spatial parallelism, library route only) runs every family on this
     rank's height band of each image: each level's layer takes the rows it
     reads from the other ranks (``parallel/halo.py``), and the BN sums go
-    over the whole grid; the logits are the band's."""
+    over the whole grid; the logits are the band's.
+
+    A ``group`` with a model axis (a grid at T > 1, or its ``ModelAxis``)
+    takes ``params`` and ``state`` as this rank's shards
+    (``parallel.tensor.shard_model``): every block they shard runs its
+    collectives over the model group, and the BN sums go over the replica
+    group (``parallel/tensor.py``); the logits are whole on every model
+    rank."""
     check_kernels(config, kernels)
     if config.s2d_level0:
         raise NotImplementedError("unet_apply: s2d_level0 is a TPU experiment, not ported")
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         params = tree_map(lambda p: p.to(compute_dtype), params)
+    if getattr(group, "model_size", 1) > 1:
+        # The specs come from a meta-device init_unet, so parallel/tensor.py
+        # imports this module; the import waits for a model axis.
+        from tpu_unet_torch.parallel.tensor import model_specs
+
+        params = mark_shards(params, model_specs(config, group.model_size)[0])
     x = x.contiguous()
     if config.arch != "unet":
         return _family(config.arch)[1](params, state, x, config=config, train=train,

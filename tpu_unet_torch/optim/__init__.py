@@ -15,6 +15,7 @@ from tpu_unet_torch.optim.plateau import ReduceLROnPlateau
 from tpu_unet_torch.optim.rmsprop import (
     RMSpropState,
     clip_grad_norm,
+    clip_to_norm,
     rmsprop_init,
     rmsprop_update,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "adam_init",
     "adam_update",
     "clip_grad_norm",
+    "clip_to_norm",
     "get_optimizer",
     "get_scheduler",
     "rmsprop_init",

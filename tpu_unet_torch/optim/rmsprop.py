@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tpu_unet_torch.models.unet import tree_leaves, tree_map
 
@@ -59,10 +60,32 @@ def pick(tree, i):
     return {k: pick(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
 
 
-def clip_grad_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+def clip_grad_norm(grads: Any, max_norm: float, *, sharded: list[bool] | None = None,
+                   group=None) -> tuple[Any, torch.Tensor]:
     """``torch.nn.utils.clip_grad_norm_`` semantics: coef = max_norm /
     (total_norm + 1e-6), applied only when below 1. Returns (clipped grads,
-    total norm)."""
-    total = torch.sqrt(sum((g.float() * g.float()).sum() for g in tree_leaves(grads)))
+    total norm).
+
+    Under tensor parallelism ``grads`` are this rank's shards, ``sharded``
+    says which leaves are (``tree_leaves`` order) and ``group`` is the model
+    group: the squared sums of the sharded leaves are all-reduced over it
+    and the replicated leaves' added once, so every rank holds the norm of
+    the full gradient."""
+    leaves = tree_leaves(grads)
+    if group is None:
+        total = torch.sqrt(sum((g.float() * g.float()).sum() for g in leaves))
+    else:
+        sq = [(g.float() * g.float()).sum() for g in leaves]
+        zero = leaves[0].new_zeros((), dtype=torch.float32)
+        mine = sum((q for q, f in zip(sq, sharded) if f), zero).reshape(1)
+        dist.all_reduce(mine, group=group)
+        total = torch.sqrt(sum((q for q, f in zip(sq, sharded) if not f), zero) + mine[0])
+    return clip_to_norm(grads, total, max_norm), total
+
+
+def clip_to_norm(grads: Any, total: torch.Tensor, max_norm: float) -> Any:
+    """``grads`` scaled by coef = max_norm / (total + 1e-6) where that is
+    below 1, ``total`` their global norm (``clip_grad_norm``'s rule, shared
+    with the pipeline, which sums the norm over its stages)."""
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
-    return tree_map(lambda g: (g.float() * coef).to(g.dtype), grads), total
+    return tree_map(lambda g: (g.float() * coef).to(g.dtype), grads)

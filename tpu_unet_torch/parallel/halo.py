@@ -70,11 +70,23 @@ class Band:
 
     @property
     def world_group(self):
-        return self.grid.group
+        return self.grid.world_group
 
     @property
     def spatial_group(self):
         return self.grid.spatial_group
+
+    @property
+    def model_group(self):
+        return self.grid.model_group
+
+    @property
+    def model_size(self) -> int:
+        return self.grid.model_size
+
+    @property
+    def model_rank(self) -> int:
+        return self.grid.model_rank
 
     def elements(self, x: torch.Tensor) -> int:
         """The global element count per channel of the level whose band of

@@ -33,6 +33,17 @@ threads where ``group`` threads; each level's ``parallel.halo.Band`` carries
 its row layout, and the ops exchange halo rows over the spatial group
 (``parallel/halo.py``). The BN, Dice and CE sums go over the world, so the
 step is still the one-process step at the same global batch.
+
+Tensor parallelism (``make_grid(dp, spatial, model)``, JAX's
+``make_mesh_3d``) adds a third, innermost axis: rank r sits at d = r //
+(S·T), s = (r // T) % S, m = r % T, as JAX reshapes its devices to
+``(-1, spatial, model)``. The T ranks of one (d, s) (the ``'model'`` group)
+hold the same rows and band and each a channel shard of every sharded block
+(``parallel/tensor.py``). Every sum over the batch (BN, Dice, CE, the
+gradients' mean, ``psum``'s backward) then goes over the *replica* group,
+the ranks of this m, which hold each sample once; summed over the world,
+each sample would count T times. ``world_of`` gives that group. At T = 1
+the grid is the (data x spatial) one, the replica group the world.
 """
 
 from __future__ import annotations
@@ -122,27 +133,45 @@ class DataParallel:
 
 
 @dataclass(frozen=True)
+class ModelAxis:
+    """The model group alone, for a forward that needs no other axis (an
+    evaluation batch that runs whole on its rows): the ``group`` a block
+    takes, with no band and no sums."""
+
+    model_group: dist.ProcessGroup
+    model_size: int
+    model_rank: int
+    spatial_size: int = 1
+
+
+@dataclass(frozen=True)
 class Grid(DataParallel):
-    """One rank's view of the (data x spatial) grid (module docstring):
-    ``group`` is the world, ``data_grp`` the ranks of this spatial
-    coordinate, ``spatial_grp`` those of this data coordinate, ``spatial``
-    the spatial size S."""
+    """One rank's view of the (data x spatial x model) grid (module
+    docstring): ``group`` is the world, ``data_grp`` the ranks of this
+    (spatial, model) coordinate, ``spatial_grp`` those of this (data,
+    model) one, ``model_grp`` those of this (data, spatial) one and
+    ``replica_grp`` those of this model coordinate; ``spatial`` the spatial
+    size S, ``model`` the model size T (the last two groups None at T =
+    1)."""
 
     data_grp: dist.ProcessGroup | None = None
     spatial_grp: dist.ProcessGroup | None = None
     spatial: int = 1
+    model: int = 1
+    model_grp: dist.ProcessGroup | None = None
+    replica_grp: dist.ProcessGroup | None = None
 
     @property
     def s(self) -> int:
-        return self.rank % self.spatial
+        return (self.rank // self.model) % self.spatial
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.spatial
+        return self.rank // (self.spatial * self.model)
 
     @property
     def data_size(self) -> int:
-        return self.world_size // self.spatial
+        return self.world_size // (self.spatial * self.model)
 
     @property
     def data_group(self):
@@ -158,7 +187,25 @@ class Grid(DataParallel):
 
     @property
     def world_group(self):
-        return self.group
+        """The ranks a sum over the batch goes over: the world, or with a
+        model axis this model coordinate's replica group."""
+        return self.group if self.model == 1 else self.replica_grp
+
+    @property
+    def model_group(self):
+        return self.model_grp
+
+    @property
+    def model_size(self) -> int:
+        return self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def model_axis(self) -> ModelAxis:
+        return ModelAxis(self.model_grp, self.model, self.model_rank)
 
     @property
     def band(self) -> tuple[int, int]:
@@ -194,19 +241,37 @@ def cut_band(x, band: tuple[int, int] | None):
     return x[:, s * h // n:(s + 1) * h // n]
 
 
-def make_grid(dp: DataParallel, spatial: int) -> Grid:
-    """The (W/S) x S grid over the ranks of ``dp`` (JAX's
-    ``make_mesh_2d(spatial)``): every rank forms every group, the data
-    groups and then the spatial ones, in the same order."""
-    if dp.world_size % spatial:
-        raise ValueError(f"{dp.world_size} devices not divisible by spatial={spatial}")
-    n_data = dp.world_size // spatial
-    data = [dist.new_group([d * spatial + s for d in range(n_data)]) for s in range(spatial)]
-    space = [dist.new_group([d * spatial + s for s in range(spatial)]) for d in range(n_data)]
+def make_grid(dp: DataParallel, spatial: int, model: int = 1) -> Grid:
+    """The (W/(S·T)) x S x T grid over the ranks of ``dp`` (JAX's
+    ``make_mesh_2d(spatial)``, and with ``model`` T > 1 its
+    ``make_mesh_3d(model, spatial)``): every rank forms every group in the
+    same order, the data groups, the spatial ones and, at T > 1, the model
+    groups and the replica groups."""
+    per = spatial * model
+    if dp.world_size % per:
+        raise ValueError(f"{dp.world_size} devices not divisible by spatial={spatial}"
+                         if model == 1 else f"{dp.world_size} devices not divisible by "
+                         f"spatial·model = {spatial}·{model}")
+    n_data = dp.world_size // per
+
+    def rank(d, s, m):
+        return d * per + s * model + m
+
+    data = {(s, m): dist.new_group([rank(d, s, m) for d in range(n_data)])
+            for s in range(spatial) for m in range(model)}
+    space = {(d, m): dist.new_group([rank(d, s, m) for s in range(spatial)])
+             for d in range(n_data) for m in range(model)}
+    d, s, m = dp.rank // per, (dp.rank // model) % spatial, dp.rank % model
+    extra = {}
+    if model > 1:
+        shards = {(d_, s_): dist.new_group([rank(d_, s_, m_) for m_ in range(model)])
+                  for d_ in range(n_data) for s_ in range(spatial)}
+        replicas = [dist.new_group(list(range(m_, dp.world_size, model)))
+                    for m_ in range(model)]
+        extra = dict(model=model, model_grp=shards[(d, s)], replica_grp=replicas[m])
     return Grid(group=dp.group, host_group=dp.host_group, rank=dp.rank,
                 world_size=dp.world_size, device=dp.device, multihost=dp.multihost,
-                data_grp=data[dp.rank % spatial], spatial_grp=space[dp.rank // spatial],
-                spatial=spatial)
+                data_grp=data[(s, m)], spatial_grp=space[(d, m)], spatial=spatial, **extra)
 
 
 def _env_int(name: str) -> int | None:
@@ -271,14 +336,15 @@ def cli_data_parallel(device: str, prog: str) -> tuple[DataParallel, bool]:
 
 
 def world_of(group):
-    """The ``ProcessGroup`` of the world of a ``Grid`` or a
-    ``parallel.halo.Band``; any other ``group`` as it is."""
+    """The ``ProcessGroup`` a sum over the batch goes over for a ``Grid`` or
+    a ``parallel.halo.Band``: the world, or with a model axis the replica
+    group (module docstring); any other ``group`` as it is."""
     return getattr(group, "world_group", group)
 
 
 def group_size(group) -> int:
-    """The number of ranks of ``group`` (of its world for a grid or band);
-    1 for None (no data parallelism)."""
+    """The number of ranks of ``group`` (of ``world_of`` it for a grid or
+    band); 1 for None (no data parallelism)."""
     return 1 if group is None else dist.get_world_size(world_of(group))
 
 
@@ -300,14 +366,14 @@ class _PSum(torch.autograd.Function):
 
 
 def psum(t: torch.Tensor, group) -> torch.Tensor:
-    """Σ over the ranks of ``group`` (over the world of a grid or band),
+    """Σ over the ranks of ``group`` (over ``world_of`` a grid or band),
     inside autograd (its backward sums the cotangents over the ranks: JAX's
     ``lax.psum`` and its transpose); ``t`` itself when ``group`` is None."""
     return t if group is None else _PSum.apply(t, world_of(group))
 
 
 def pmean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
-    """The mean over the ranks of each tensor (over the world of a grid;
+    """The mean over the ranks of each tensor (over ``world_of`` a grid;
     no autograd): one all-reduce
     of one flat bucket (fp32, or the widest float dtype of ``tensors``),
     divided by the world size. Returns new tensors in the inputs' shapes
@@ -324,7 +390,9 @@ def pmean(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
 
 def broadcast_tree(tree, dp: DataParallel):
     """Rank 0's copy of every tensor of ``tree`` (params, BN state,
-    optimizer state), on every rank: JAX's ``replicated`` placement."""
+    optimizer state), on every rank: JAX's ``replicated`` placement. Under
+    tensor parallelism the full trees are broadcast before any rank takes
+    its shard (``parallel.tensor.shard_model``)."""
     from tpu_unet_torch.models.unet import tree_map  # models import this module's users
 
     def one(t: torch.Tensor) -> torch.Tensor:

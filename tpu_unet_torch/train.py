@@ -46,8 +46,24 @@ on whole rows first). The forward exchanges halo rows inside autograd
 so the step is still the one-process step at the same global batch; ZeRO
 slices over the data axis only; validation splits batches that divide over
 the grid; the W&B panel's gradient pass runs over the grid and its sample
-triplet is the whole first image. Tensor and pipeline parallelism are not
-ported.
+triplet is the whole first image.
+
+Tensor parallelism (``tensor_parallel`` T > 1 with data parallelism over
+more than one rank; JAX's 3-D mesh) adds the model axis to the grid (W/(S·T)
+x S x T): rank 0's full trees are broadcast, then each rank keeps its
+channel shards (``parallel/tensor.py``). The T ranks of one (data, spatial)
+coordinate train on the same rows and band; every sum over the batch goes
+over the replica group. Each rank evaluates its rows with its shards, and
+every rank gathers the full params, BN state, optimizer state and EMA
+weights before rank 0 writes a checkpoint, which is then the file a
+one-process run writes.
+
+Pipeline parallelism (``pipeline_parallel`` S > 1; GPipe,
+``parallel/pipeline.py``) splits the U-Net over S devices in this one
+process: ``cuda:0`` .. ``cuda:S-1``, or the CPU S times for CPU trees. The
+``accum_steps`` is its microbatch count (default S). The full trees are
+gathered onto the first device at each validation, each epoch's end and
+the end. It takes RMSprop only and composes with none of the other axes.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ from tpu_unet_torch.losses import bce_with_logits, cross_entropy, dice_loss
 from tpu_unet_torch.models.unet import (
     UNetConfig,
     check_kernels,
+    init_unet,
     tree_leaves,
     tree_map,
     unet_apply,
@@ -85,6 +102,15 @@ from tpu_unet_torch.parallel.mesh import (
     psum,
 )
 from tpu_unet_torch.parallel.multihost import spans_hosts
+from tpu_unet_torch.parallel.tensor import (
+    dims_in_order,
+    gather_model,
+    gather_opt_state,
+    model_specs,
+    shard_model,
+    shard_opt_state,
+    shard_params,
+)
 from tpu_unet_torch.parallel.zero import (
     gather_opt_state_zero,
     shard_opt_state_zero,
@@ -178,7 +204,19 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     cotangents, and a halo row's cotangent is added into its owner's, so
     each rank's parameter gradient is W times its band's share of the
     global gradient, whatever the split; the mean over the world's W ranks
-    is the global gradient, as in the 1-D step."""
+    is the global gradient, as in the 1-D step.
+
+    A grid with a model axis (tensor parallelism, ``parallel/tensor.py``)
+    takes the trees as this rank's shards (``shard_model``,
+    ``shard_opt_state``) and the rows and band of its (data, spatial)
+    coordinate, the same on each of its model ranks: every sum over the
+    batch and the sharded gradients' mean go over the replica group (the
+    replicated gradients' over the world: ``_pmean_model``), the clip's
+    norm counts each sharded leaf once, and each rank updates its shards."""
+    model = getattr(mesh, "model_size", 1)
+    if model > 1 and kernels == "cuda":
+        raise ValueError("--kernels cuda data parallelism is 1-D (shard_map); "
+                         "--tensor-parallel requires the XLA backend (--kernels torch)")
     if opt_shardings is not None and mesh is None:
         raise ValueError("make_train_step: opt_shardings (ZeRO) shards the optimizer state "
                          "over the ranks of a mesh; pass mesh")
@@ -191,6 +229,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     group = None if mesh is None else mesh if isinstance(mesh, Grid) else mesh.group
     _, opt_update = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
                                   nesterov=nesterov)
+    dims = model_specs(config, model)[0] if model > 1 else None
 
     def grads_and_loss(params, bn_state, images, masks):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -219,9 +258,14 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
             inv = 1.0 / accum_steps
             grads = [g * inv for g in gsum]
             loss = lsum * inv
-        if group is not None:
+        clip = {}
+        if model > 1:
+            sharded = [d is not None for d in dims_in_order(params, dims)]
+            grads = _pmean_model(grads, sharded, mesh)
+            clip = {"sharded": sharded, "group": mesh.model_group}
+        elif group is not None:
             grads = pmean(grads, group)
-        grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip)
+        grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip, **clip)
         if opt_shardings is None:
             new_params, new_opt = opt_update(grads, opt_state, params, lr)
         else:
@@ -232,6 +276,18 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
         return out + (grads,) if return_grads else out
 
     return step
+
+
+def _pmean_model(grads: list, sharded: list[bool], grid) -> list:
+    """The gradients' mean under a model axis: each sharded leaf's over the
+    replica group; each replicated leaf's over the world, the same value
+    (its T model copies are equal but for the order of nondeterministic
+    kernels, e.g. cuDNN's fp32 weight gradients), so that the model ranks'
+    replicated params stay bitwise equal."""
+    parts = [pmean([g for g, f in zip(grads, sharded) if f == want], group)
+             for want, group in ((True, grid), (False, grid.group))]
+    its = [iter(parts[0]), iter(parts[1])]
+    return [next(its[0] if f else its[1]) for f in sharded]
 
 
 def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
@@ -251,16 +307,20 @@ def warn_recurrent_rmsprop(arch: str, optimizer: str, momentum: float | None,
             arch, learning_rate)
 
 
-def check_grid(world_size: int, spatial_parallel: int, kernels) -> bool:
-    """JAX's ``_build_mesh`` refusals of a spatial axis; whether the run
-    forms the (data x spatial) grid: only with more than one rank, as JAX
-    builds no mesh on one device (``--spatial-parallel`` then trains as the
-    plain run)."""
-    if spatial_parallel <= 1 or world_size <= 1:
+def check_grid(world_size: int, spatial_parallel: int, kernels, tensor_parallel: int = 1) -> bool:
+    """JAX's ``_build_mesh`` refusals of a spatial or model axis; whether
+    the run forms the (data x spatial x model) grid: only with more than one
+    rank, as JAX builds no mesh on one device (``--spatial-parallel`` and
+    ``--tensor-parallel`` then train as the plain run)."""
+    if world_size <= 1 or (spatial_parallel <= 1 and tensor_parallel <= 1):
         return False
     if kernels == "cuda":
+        axis = "--tensor-parallel" if tensor_parallel > 1 else "--spatial-parallel"
         raise ValueError("--kernels cuda data parallelism is 1-D (shard_map); "
-                         "--spatial-parallel requires the XLA backend (--kernels torch)")
+                         f"{axis} requires the XLA backend (--kernels torch)")
+    if tensor_parallel > 1 and world_size % (spatial_parallel * tensor_parallel):
+        raise ValueError(f"{world_size} devices not divisible by spatial·model = "
+                         f"{spatial_parallel}·{tensor_parallel}")
     if world_size % spatial_parallel:
         raise ValueError(f"{world_size} devices not divisible by spatial={spatial_parallel}")
     return True
@@ -268,14 +328,14 @@ def check_grid(world_size: int, spatial_parallel: int, kernels) -> bool:
 
 def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, world_size=None,
                        zero=False, data_parallel=False, multihost=False,
-                       device_preprocess=False, tensor_parallel=1, pipeline_parallel=1):
+                       device_preprocess=False, tensor_parallel=1, pipeline_parallel=1,
+                       spatial_parallel=1, optimizer="rmsprop", ema_decay=None, remat=False):
     """Refuse invalid settings up front, with one clear error each (JAX's
     ``_check_train_flags`` and ``_build_loaders``' multi-host refusals).
     ``world_size``: the data-parallel ranks, a grid's data axis (None
-    without data parallelism); ``multihost``: the world spans hosts.
-    ``tensor_parallel`` and ``pipeline_parallel`` are not ported (the CLI
-    refuses their flags); ``--zero``'s refusals of them stand here as in
-    JAX. A spatial axis's refusals are ``check_grid``'s."""
+    without data parallelism); ``multihost``: the world spans hosts. The
+    refusals of a spatial or model axis that need the world size are
+    ``check_grid``'s."""
     if zero:
         # ZeRO-1 slices the optimizer state over the data-parallel ranks.
         if not data_parallel:
@@ -294,6 +354,33 @@ def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, worl
         if pipeline_parallel > 1:
             raise ValueError("--zero does not compose with --pipeline-parallel (stages hold "
                              "1/S of the state already)")
+    if tensor_parallel > 1 and not data_parallel:
+        # The model axis is part of the one grid; a tp-only run is the grid
+        # with data axis 1, reached the same way.
+        raise ValueError("--tensor-parallel requires --data-parallel (the data axis may still "
+                         "end up size 1)")
+    if pipeline_parallel > 1:
+        # GPipe gives whole devices to stages: an alternative to the grid's
+        # axes, not a fourth one.
+        if optimizer != "rmsprop":
+            raise ValueError("--pipeline-parallel supports the reference RMSprop only (the "
+                             "stage runner splits RMSpropState by stage; "
+                             "parallel/pipeline.py)")
+        if data_parallel or spatial_parallel > 1 or tensor_parallel > 1:
+            raise ValueError("--pipeline-parallel does not compose with --data-parallel/"
+                             "--spatial-parallel/--tensor-parallel (depth partitioning claims "
+                             "whole devices; use the dp×sp×tp mesh for those regimes)")
+        if kernels == "cuda":
+            raise ValueError("--pipeline-parallel requires the XLA backend (--kernels torch)")
+        if ema_decay is not None:
+            raise ValueError("--ema-decay is not supported with --pipeline-parallel (the "
+                             "shadow tree would need per-step gathers)")
+        if multihost:
+            raise ValueError("--pipeline-parallel is single-host (stage-placed devices); use "
+                             "--multihost with the GSPMD axes instead")
+        if remat:
+            logger.info("--pipeline-parallel implies per-stage recompute; remat flag is "
+                        "redundant and ignored")
     if multihost:
         if not data_parallel:
             raise ValueError("multi-host training requires --data-parallel")
@@ -317,13 +404,15 @@ def _check_train_flags(*, accum_steps, batch_size, early_stopping, kernels, worl
 
 
 def _build_mesh(params, bn_state, *, data_parallel, spatial_parallel: int = 1,
-                kernels=None):
+                tensor_parallel: int = 1, kernels=None):
     """Data parallelism's set-up (JAX's ``_build_mesh``): form or join the
     process group (``data_parallel`` True, on ``cuda:LOCAL_RANK`` for CUDA
     trees and the CPU for CPU ones) or take the record given, form the
-    (data x spatial) grid over its ranks when ``check_grid`` says so, put
-    the trees on its device and replicate rank 0's over the world. Returns
-    (params, bn_state, the record or None)."""
+    (data x spatial x model) grid over its ranks when ``check_grid`` says
+    so, put the trees on its device and replicate rank 0's over the world;
+    with a model axis, each rank then keeps its shards
+    (``parallel.tensor.shard_model``). Returns (params, bn_state, the record
+    or None)."""
     if not data_parallel:
         return params, bn_state, None
     if isinstance(data_parallel, DataParallel):
@@ -331,10 +420,13 @@ def _build_mesh(params, bn_state, *, data_parallel, spatial_parallel: int = 1,
     else:
         device = tree_leaves(params)[0].device
         dp = init_data_parallel(device=None if device.type == "cuda" else device)
-    if not isinstance(dp, Grid) and check_grid(dp.world_size, spatial_parallel, kernels):
-        dp = make_grid(dp, spatial_parallel)
+    if not isinstance(dp, Grid) and check_grid(dp.world_size, spatial_parallel, kernels,
+                                               tensor_parallel):
+        dp = make_grid(dp, spatial_parallel, tensor_parallel)
     params, bn_state = (broadcast_tree(tree_map(lambda t: t.to(dp.device), tree), dp)
                         for tree in (params, bn_state))
+    if getattr(dp, "model_size", 1) > 1:
+        params, bn_state = shard_model(dp, params, bn_state)
     return params, bn_state, dp
 
 
@@ -342,10 +434,14 @@ def _place_opt_state(opt_state, params, dp: DataParallel | None, *, zero: bool =
     """The optimizer state's placement (JAX's ``_place_opt_state``): rank
     0's, replicated under data parallelism; with ``zero``, each rank keeps
     its 1/D slice of it, D the data axis (the world, or a grid's data
-    ranks; replicated over the spatial ones). Returns (opt_state,
-    opt_shardings), the latter a ``ZeroShardings`` with ``zero`` and None
-    otherwise."""
+    ranks; replicated over the spatial ones); with a model axis, each
+    rank's shards as they come. Returns (opt_state, opt_shardings), the
+    latter a ``ZeroShardings`` with ``zero`` and None otherwise."""
     if dp is None:
+        return opt_state, None
+    if getattr(dp, "model_size", 1) > 1:
+        # Each rank's shards already: the optimizer's init of its shards, or
+        # the resume's (_restore_resume).
         return opt_state, None
     opt_state = broadcast_tree(opt_state, dp)
     if not zero:
@@ -354,10 +450,28 @@ def _place_opt_state(opt_state, params, dp: DataParallel | None, *, zero: bool =
             zero_opt_shardings(dp, opt_state, params))
 
 
-def _build_stepper(config, *, dp, **step_kw):
-    """The train step, over the ranks of ``dp`` when it is given (JAX's
-    ``_build_stepper``; the GPipe runner is not ported)."""
-    return make_train_step(config, mesh=dp, **step_kw)
+def _build_stepper(params, bn_state, opt_state, config, *, dp, pipeline_parallel: int = 1,
+                   devices=None, **step_kw):
+    """The GPipe runner or the train step (JAX's ``_build_stepper``):
+    (pipeline, None) with ``pipeline_parallel`` S > 1, its microbatches
+    ``accum_steps`` (default S) and its stages on ``devices``; otherwise
+    (None, the step over the ranks of ``dp`` when it is given)."""
+    if pipeline_parallel <= 1:
+        return None, make_train_step(config, mesh=dp, **step_kw)
+    from tpu_unet_torch.parallel.pipeline import PipelineRunner
+
+    accum, momentum = step_kw["accum_steps"], step_kw["momentum"]
+    microbatches = accum if accum > 1 else pipeline_parallel
+    pipeline = PipelineRunner(
+        params, bn_state, config, n_stages=pipeline_parallel, microbatches=microbatches,
+        opt_state=opt_state, amp=step_kw["amp"], weight_decay=step_kw["weight_decay"],
+        momentum=0.999 if momentum is None else momentum, grad_clip=step_kw["grad_clip"],
+        dice_weight=step_kw["dice_weight"], devices=devices)
+    logger.info("Pipeline parallelism: %d stages %s over %s, %d microbatches/step",
+                pipeline_parallel,
+                [f"{st[0]}..{st[-1]}" if len(st) > 1 else st[0] for st in pipeline.stages],
+                [str(d) for d in pipeline.devices], microbatches)
+    return pipeline, None
 
 
 def _build_loaders(dataset, train_idx, val_idx, *, batch_size, seed, device,
@@ -430,7 +544,7 @@ def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, o
     with a warning), the schedule and the early-stopping bookkeeping.
     Returns (params, bn_state, opt_state, start_epoch, early_stop extra);
     the scheduler is updated in place. Every rank reads the file; rank 0's
-    trees are then replicated (``dp``)."""
+    trees are then replicated (``dp``) and, with a model axis, re-sharded."""
     _, prev_extra = read_checkpoint_meta(resume)
     saved_opt = prev_extra.get("optimizer", "rmsprop")
     opt_like = opt_state
@@ -440,8 +554,13 @@ def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, o
                        "epoch still restore.", saved_opt, optimizer)
         opt_like = None
     device = tree_leaves(params)[0].device
+    sharded = getattr(dp, "model_size", 1) > 1
+    if sharded and opt_like is not None:  # the file holds the full state
+        opt_like = get_optimizer(optimizer)[0](
+            init_unet(config, np.random.default_rng(0), device="meta")[0])
     params, bn_state, _, extra = load_checkpoint(resume, config, device, opt_like=opt_like)
-    if "opt_state" in extra:
+    loaded_opt = "opt_state" in extra
+    if loaded_opt:
         opt_state = extra.pop("opt_state")
     start_epoch = int(extra.get("epoch", 0)) + 1
     if "scheduler" in extra:
@@ -458,6 +577,10 @@ def _restore_resume(resume, params, bn_state, opt_state, scheduler, *, config, o
     logger.info("Resumed from %s at epoch %d (lr %g)", resume, start_epoch, scheduler.lr)
     if dp is not None:
         params, bn_state = broadcast_tree(params, dp), broadcast_tree(bn_state, dp)
+        if sharded:  # re-shard what the file held whole
+            if loaded_opt:
+                opt_state = shard_opt_state(dp, broadcast_tree(opt_state, dp), params)
+            params, bn_state = shard_model(dp, params, bn_state)
     return params, bn_state, opt_state, start_epoch, extra.get("early_stop")
 
 
@@ -511,20 +634,22 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 early_stopping: int | None = None, device_preprocess: bool = False,
                 device_dataset: bool = False, augment=None,
                 data_parallel: bool | DataParallel | None = False, zero: bool = False,
-                spatial_parallel: int = 1):
+                spatial_parallel: int = 1, tensor_parallel: int = 1,
+                pipeline_parallel: int = 1):
     """The reference's train loop on the port's step, with the JAX
-    ``train_model``'s arguments but those of what the port does not have
-    yet (tensor and pipeline parallelism).
+    ``train_model``'s arguments.
     Trains on the device the params lie on; under ``data_parallel`` (True:
     form or join the process group; or a ``DataParallel`` record), on the
     rank's device with ``batch_size`` the global batch (module docstring),
     and with ``zero`` the optimizer state sliced over the data ranks.
-    ``spatial_parallel`` S > 1 with more than one rank splits each image's
-    height over S of them (a (W/S) x S grid; a ``Grid`` record given as
-    ``data_parallel`` is used as it is); W must divide by S, and the
-    library route is required, as in JAX. A world that spans hosts
-    (``multihost.spans_hosts``, or the record's ``multihost``) requires
-    ``data_parallel``.
+    ``spatial_parallel`` S > 1 and ``tensor_parallel`` T > 1 with more than
+    one rank split each image's height over S of them and each sharded
+    block's channels over T (a (W/(S·T)) x S x T grid; a ``Grid`` record
+    given as ``data_parallel`` is used as it is); W must divide by S·T, and
+    the library route is required, as in JAX. ``pipeline_parallel`` S > 1
+    runs the GPipe stages in this process (module docstring). A world that
+    spans hosts (``multihost.spans_hosts``, or the record's ``multihost``)
+    requires ``data_parallel``.
     ``use_wandb`` logs to W&B (``train_logging.py``): each step's loss and,
     at each validation, the scalars, a sample triplet and histograms.
     ``device_preprocess`` takes a ``RawDataset`` and resizes on the device;
@@ -532,18 +657,23 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     exclude each other); ``augment`` (an ``AugmentConfig``) augments each
     batch on the device with the draws of (``seed``, global step). Returns
     (params, bn_state, history) with history's ``train_loss`` per step and
-    ``val_dice`` and ``lr`` per validation (``val_dice_ema`` with EMA)."""
+    ``val_dice`` and ``lr`` per validation (``val_dice_ema`` with EMA); the
+    params and BN state whole, gathered from a model axis or the stages."""
     multihost = (data_parallel.multihost if isinstance(data_parallel, DataParallel)
                  else spans_hosts())
     flags = dict(accum_steps=accum_steps, batch_size=batch_size,
                  early_stopping=early_stopping, kernels=kernels, zero=zero,
                  data_parallel=bool(data_parallel), multihost=multihost,
-                 device_preprocess=device_preprocess)
+                 device_preprocess=device_preprocess, tensor_parallel=tensor_parallel,
+                 pipeline_parallel=pipeline_parallel, spatial_parallel=spatial_parallel,
+                 optimizer=optimizer, ema_decay=ema_decay, remat=remat)
     _check_train_flags(**flags)
     params, bn_state, dp = _build_mesh(params, bn_state, data_parallel=data_parallel,
-                                       spatial_parallel=spatial_parallel, kernels=kernels)
+                                       spatial_parallel=spatial_parallel,
+                                       tensor_parallel=tensor_parallel, kernels=kernels)
     world = 1 if dp is None else dp.data_size
     grid = dp if isinstance(dp, Grid) else None
+    model = 1 if grid is None else grid.model_size
     if dp is not None:
         _check_train_flags(**flags, world_size=world)
     primary = dp is None or dp.primary
@@ -564,10 +694,11 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     logger.info("Starting training: arch=%s epochs=%d batch=%d lr=%g train=%d val=%d amp=%s "
                 "optimizer=%s lr_scheduler=%s dice_weight=%g device=%s kernels=%s "
                 "device_preprocess=%s device_dataset=%s augment=%s data_parallel_ranks=%d "
-                "spatial_ranks=%d zero=%s multihost=%s",
+                "spatial_ranks=%d model_ranks=%d pipeline_stages=%d zero=%s multihost=%s",
                 config.arch, epochs, batch_size, learning_rate, n_train, n_val, amp, optimizer,
                 lr_scheduler, dice_weight, device, kernels, device_preprocess, device_dataset,
-                augment, world, 1 if grid is None else grid.spatial_size, zero, multihost)
+                augment, world, 1 if grid is None else grid.spatial_size, model,
+                pipeline_parallel, zero, multihost)
     warn_recurrent_rmsprop(config.arch, optimizer, momentum, learning_rate)
 
     opt_init, _ = get_optimizer(optimizer, weight_decay=weight_decay, momentum=momentum,
@@ -582,20 +713,26 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
             resume, params, bn_state, opt_state, scheduler, config=config, optimizer=optimizer,
             lr_scheduler=lr_scheduler, learning_rate=learning_rate, dp=dp)
     opt_state, opt_shardings = _place_opt_state(opt_state, params, dp, zero=zero)
-    train_step = _build_stepper(
-        config, dp=dp, amp=amp, remat=remat, weight_decay=weight_decay, momentum=momentum,
+    pipeline, train_step = _build_stepper(
+        params, bn_state, opt_state, config, dp=dp, pipeline_parallel=pipeline_parallel,
+        devices=[device] * pipeline_parallel if device.type == "cpu" else None, amp=amp,
+        remat=remat, weight_decay=weight_decay, momentum=momentum,
         grad_clip=gradient_clipping, kernels=kernels, accum_steps=accum_steps,
         optimizer=optimizer, nesterov=nesterov, dice_weight=dice_weight,
         opt_shardings=opt_shardings)
+    # Under a model axis every rank gathers the full trees where they leave
+    # the run: checkpoints, the W&B panel's histograms and sample.
+    full = None if model == 1 else (
+        lambda p, s, *more: gather_model(grid, p, s, config, *more))
     panel = WandbValidationPanel(experiment, config=config, amp=amp, remat=remat,
                                  dice_weight=dice_weight, accum_steps=accum_steps,
                                  group=None if dp is None else grid or dp.group,
-                                 enabled=panel_on,
-                                 multihost=multihost)
+                                 enabled=panel_on, multihost=multihost, full=full)
     ema = train_ema.maybe_create(ema_decay, params,
                                  total_steps=(epochs - start_epoch + 1) * max(1, len(train_loader)))
     if ema is not None and resume:
-        ema.resume_from_sibling(resume, params)
+        ema.resume_from_sibling(resume, params,
+                                place=None if model == 1 else lambda t: shard_params(grid, t))
 
     history: dict[str, list] = {"train_loss": [], "val_dice": [], "lr": []}
     if ema is not None:
@@ -604,13 +741,17 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
     hist_batch = None  # the last full-size batch, for the W&B gradient histograms
     # The reference validates 5 times an epoch: division_step = n_train // (5·B).
     division_step = n_train // (max(1, val_per_epoch) * batch_size)
+    if opt_shardings is not None:
+        full_opt = lambda o: gather_opt_state_zero(o, opt_shardings)  # noqa: E731
+    elif model > 1:
+        full_opt = lambda o: gather_opt_state(grid, o, config)  # noqa: E731
+    else:
+        full_opt = None
     policy = CheckpointPolicy(
         checkpoint_dir, enabled=save_checkpoint_flag, primary=primary, keep=keep_checkpoints,
         save_best=save_best, save_optimizer=save_optimizer, optimizer=optimizer,
         lr_scheduler=lr_scheduler, config=config, dataset=dataset, ema_decay=ema_decay,
-        full_opt=(None if opt_shardings is None
-                  else lambda o: gather_opt_state_zero(o, opt_shardings)),
-        agree=None if dp is None else dp.any)
+        full_opt=full_opt, full_model=full, agree=None if dp is None else dp.any)
     interrupted = early_stopped = False
     es_best, es_bad = -float("inf"), 0
     if resume_es:
@@ -638,8 +779,11 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 if grid is not None and (augment is not None or device_preprocess):
                     # Whole rows augmented or resized: now the rank's band.
                     images, masks = grid.cut_band(images), grid.cut_band(masks)
-                params, bn_state, opt_state, loss, _ = train_step(
-                    params, bn_state, opt_state, images, masks, scheduler.lr)
+                if pipeline is not None:
+                    loss, _ = pipeline.step(images, masks, scheduler.lr)
+                else:
+                    params, bn_state, opt_state, loss, _ = train_step(
+                        params, bn_state, opt_state, images, masks, scheduler.lr)
                 if ema is not None:
                     ema.update(params)
                 global_step += 1
@@ -650,6 +794,8 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 drain.append(loss, global_step, epoch)
                 if division_step > 0 and global_step % division_step == 0:
                     drain.drain()
+                    if pipeline is not None:  # the full trees, from the stages
+                        params, bn_state, opt_state = pipeline.gather()
                     es_best, es_bad, stopped = _validation_pass(
                         params=params, bn_state=bn_state, opt_state=opt_state,
                         val_loader=val_loader, config=config, amp=amp, scheduler=scheduler,
@@ -661,6 +807,8 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
                 if early_stopped:
                     break
             drain.drain()
+            if pipeline is not None:  # for the checkpoints and the interrupt save
+                params, bn_state, opt_state = pipeline.gather()
             if interrupted:
                 path = policy.save_interrupted(
                     epoch=epoch, step=global_step, scheduler=scheduler, es_best=es_best,
@@ -683,6 +831,10 @@ def train_model(params, bn_state, config: UNetConfig, *, dataset, epochs: int = 
             if early_stopped:
                 logger.info("Stopped early during epoch %d.", epoch)
                 break
+    if pipeline is not None:
+        params, bn_state, _ = pipeline.gather()
+    elif full is not None:
+        params, bn_state = full(params, bn_state)
     policy.finish(last_epoch, start_epoch, epochs)
     if dp is not None:
         dp.barrier()  # rank 0's files are written before any rank returns

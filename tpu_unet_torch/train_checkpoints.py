@@ -8,7 +8,10 @@ rank (rank 0) writes; the others keep the same bookkeeping. Under ZeRO
 (``full_opt``) a file holds the whole optimizer state: every rank gathers
 it (a collective) before rank 0 writes, at every save that carries it, so
 the decision to save is the same on every rank (``agree`` for the best
-model, whose bar each rank reads from its own directory).
+model, whose bar each rank reads from its own directory). Under tensor
+parallelism (``full_model``) every rank gathers the params, the BN state
+and the EMA weights likewise, at every save, and the file is the one a
+one-process run writes.
 """
 
 from __future__ import annotations
@@ -38,17 +41,20 @@ class CheckpointPolicy:
     """Owns the async writer and every file the trainer writes. A save
     copies the trees to the host at once and writes on a thread while
     training goes on. ``full_opt`` maps this rank's optimizer state to the
-    whole one (ZeRO's gather, called on every rank); ``agree`` makes a flag
-    true on every rank when it is on any (``DataParallel.any``)."""
+    whole one (ZeRO's or tensor parallelism's gather, called on every rank),
+    ``full_model`` (params, BN state, EMA weights or None) to the whole
+    ones; ``agree`` makes a flag true on every rank when it is on any
+    (``DataParallel.any``)."""
 
     def __init__(self, checkpoint_dir: Path, *, enabled: bool, keep: int | None,
                  save_best: bool, save_optimizer: bool, optimizer: str, lr_scheduler: str,
                  config, dataset, ema_decay: float | None, primary: bool = True,
-                 full_opt=None, agree=None):
+                 full_opt=None, full_model=None, agree=None):
         self.dir = Path(checkpoint_dir)
         self.enabled = enabled
         self.primary = primary
         self.full_opt = full_opt
+        self.full_model = full_model
         self.agree = agree
         self.keep = keep
         self.save_best = save_best
@@ -89,6 +95,13 @@ class CheckpointPolicy:
         """The whole optimizer state; every rank calls it at the same saves."""
         return opt_state if self.full_opt is None else self.full_opt(opt_state)
 
+    def _model(self, params, bn_state, ema_params=None):
+        """The whole params, BN state and EMA weights; every rank calls it at
+        the same saves."""
+        if self.full_model is None:
+            return params, bn_state, ema_params
+        return self.full_model(params, bn_state, ema_params)
+
     def _schedule_extra(self, scheduler) -> dict:
         return {"lr": scheduler.lr,
                 "scheduler": {"name": self.lr_scheduler, **scheduler.state_dict()},
@@ -99,9 +112,12 @@ class CheckpointPolicy:
         """Write ``checkpoint_best.npz`` when ``val_dice`` beats the best so
         far (never pruned). Returns whether it wrote."""
         better = self.save_best and val_dice > self.best_dice
-        if self.save_best and self.save_optimizer and self.full_opt is not None:
+        if self.save_best and (self.full_model is not None
+                               or (self.save_optimizer and self.full_opt is not None)):
             if self.agree(better):
-                opt_state = self._opt(opt_state)
+                params, bn_state, _ = self._model(params, bn_state)
+                if self.save_optimizer:
+                    opt_state = self._opt(opt_state)
         if not better:
             return False
         self.best_dice = val_dice
@@ -115,8 +131,10 @@ class CheckpointPolicy:
 
     def save_epoch(self, epoch: int, *, params, bn_state, opt_state, scheduler, es_best: float,
                    es_bad: int, ema_params=None) -> None:
-        if self.enabled and self.save_optimizer:
-            opt_state = self._opt(opt_state)
+        if self.enabled:
+            params, bn_state, ema_params = self._model(params, bn_state, ema_params)
+            if self.save_optimizer:
+                opt_state = self._opt(opt_state)
         if not (self.enabled and self.primary):
             return
         self._save(f"checkpoint_epoch{epoch}.npz", params, bn_state,
@@ -139,6 +157,7 @@ class CheckpointPolicy:
         included. It records epoch − 1: the interrupted epoch is incomplete,
         so ``--resume`` runs it again from its start. Returns its path (None
         on a rank that does not write)."""
+        params, bn_state, ema_params = self._model(params, bn_state, ema_params)
         opt_state = self._opt(opt_state)
         if not self.primary:
             return None

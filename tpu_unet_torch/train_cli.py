@@ -78,8 +78,21 @@ run. It composes with ``--zero`` (sliced over the data axis),
 (``utils/determinism.py``), so a seeded run repeats bit for bit, and logs
 the ops that have no deterministic form.
 
-The JAX flags this port does not run yet are refused with an error, never
-ignored: tensor and pipeline parallelism.
+``--tensor-parallel T`` (with ``--data-parallel``) shards every DoubleConv's
+channels, and RRCNN's recurrent units', over T ranks: the W ranks form a
+(W/(S·T)) x S x T grid, each rank holding 1/T of those weights and of
+their optimizer state (``parallel/tensor.py``), the collectives inside
+autograd. W must divide by S·T and it needs the library route, as in JAX;
+on one rank it trains as the plain run. Checkpoints hold the whole model.
+
+    torchrun --nproc-per-node 2 -m tpu_unet_torch.train_cli --data-parallel \
+        --tensor-parallel 2 -b 4 --data-dir data [--device cpu]
+
+``--pipeline-parallel S`` splits the U-Net's block chain into S GPipe stages
+on ``cuda:0`` .. ``cuda:S-1`` of this host (with ``--device cpu``, the CPU S
+times), ``--accum-steps`` microbatches a step (default S), one process
+(``parallel/pipeline.py``). It takes RMSprop only and composes with no
+other axis, ``--ema-decay`` or ``--kernels cuda``, as in JAX.
 ``--load`` takes a ``.npz`` checkpoint or, for ``--arch unet``, the
 reference's torch ``.pth`` state dict.
 ``--vmem-limit-mb`` (a TPU compiler option) is not a flag here.
@@ -236,30 +249,27 @@ def get_args(argv=None):
                         "(a 2-D data x spatial grid; the convs' halo rows are exchanged). Use "
                         "when ranks outnumber the batch or activations exceed one GPU's "
                         "memory")
-    # The JAX package's flags that the port refuses (refuse_unported).
-    for flag in ("--tensor-parallel", "--pipeline-parallel"):
-        p.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="With --data-parallel: also shard DoubleConv CHANNELS over this many "
+                        "ranks (3-D dp×sp×tp grid; Megatron-style column→row weight "
+                        "shardings, one all-reduce per block). For wide models whose params "
+                        "+ fp32 optimizer state outgrow one GPU's memory")
+    p.add_argument("--pipeline-parallel", type=int, default=1, metavar="S",
+                   help="GPipe depth partitioning: split the U-Net's block chain into S "
+                        "stages, one whole device each (params + fp32 optimizer state 1/S per "
+                        "device; backward recomputes each stage). --accum-steps sets the "
+                        "microbatch count (default: S). An ALTERNATIVE to the grid's axes — "
+                        "does not compose with --data/--spatial/--tensor-parallel")
     return p.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Exit with a clear message when a flag the port lacks was given."""
-    asked = {
-        "--tensor-parallel": args.tensor_parallel > 1,
-        "--pipeline-parallel": args.pipeline_parallel > 1,
-    }
-    for flag, given in asked.items():
-        if given:
-            raise SystemExit(f"tpu_unet_torch.train_cli: {flag} is not ported to tpu_unet_torch "
-                             "yet; use the JAX package (tpu_unet) for it")
 
 
 def check_flags(args: argparse.Namespace) -> None:
     """The flag compositions that ``train_model`` refuses, refused before the
     rendezvous and the dataset (a ``SystemExit`` with the same message), and
-    the rendezvous flags without ``--multihost``. A spatial axis's
+    the rendezvous flags without ``--multihost``. A spatial or model axis's
     refusals need the world size: torchrun's ``WORLD_SIZE`` (explicit
-    ``--num-processes``), when the launch gives it."""
+    ``--num-processes``), when the launch gives it. ``--pipeline-parallel S``
+    on the GPU needs S cards."""
     from tpu_unet_torch.parallel.mesh import _env_int
     from tpu_unet_torch.parallel.multihost import spans_hosts
 
@@ -274,10 +284,18 @@ def check_flags(args: argparse.Namespace) -> None:
             early_stopping=args.early_stopping, kernels=KERNELS[args.kernels], zero=args.zero,
             data_parallel=args.data_parallel,
             multihost=args.multihost and spans_hosts(args.num_processes),
-            device_preprocess=args.device_preprocess)
+            device_preprocess=args.device_preprocess, tensor_parallel=args.tensor_parallel,
+            pipeline_parallel=args.pipeline_parallel, spatial_parallel=args.spatial_parallel,
+            optimizer=args.optimizer, ema_decay=args.ema_decay)
         world = args.num_processes or _env_int("WORLD_SIZE")
         if args.data_parallel and world is not None:
-            train_mod.check_grid(world, args.spatial_parallel, KERNELS[args.kernels])
+            train_mod.check_grid(world, args.spatial_parallel, KERNELS[args.kernels],
+                                 args.tensor_parallel)
+        if args.pipeline_parallel > 1 and not args.device.startswith("cpu"):
+            # The stages take cuda:0..S-1 (train_model): JAX's device refusal.
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if have < args.pipeline_parallel:
+                raise ValueError(f"pipeline needs {args.pipeline_parallel} devices, have {have}")
     except ValueError as e:
         raise SystemExit(f"tpu_unet_torch.train_cli: {e}") from None
 
@@ -315,7 +333,6 @@ def main(argv=None):
     from tpu_unet_torch.parallel.mesh import DataParallelRefused, cli_data_parallel
 
     args = get_args(argv)
-    refuse_unported(args)
     check_flags(args)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
     formed = False
@@ -392,7 +409,8 @@ def _train(args: argparse.Namespace, dp):
             save_best=args.save_best, device_preprocess=args.device_preprocess,
             device_dataset=args.device_dataset, augment=_build_augment(args),
             use_wandb=args.wandb, data_parallel=dp, zero=args.zero,
-            spatial_parallel=args.spatial_parallel)
+            spatial_parallel=args.spatial_parallel, tensor_parallel=args.tensor_parallel,
+            pipeline_parallel=args.pipeline_parallel)
 
     with contextlib.ExitStack() as stack:
         if args.profile:

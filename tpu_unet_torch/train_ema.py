@@ -31,16 +31,19 @@ class EmaTracker:
         self.params = tree_map(lambda e, p: e * self._d + p * self._one_minus,
                                self.params, params)
 
-    def resume_from_sibling(self, resume_path: str, live_params) -> None:
+    def resume_from_sibling(self, resume_path: str, live_params, place=None) -> None:
         """Continue the average from the ``_ema.npz`` beside the resumed
         checkpoint when it exists; else it restarts from the restored
-        params (already its seed)."""
+        params (already its seed). ``place`` maps the file's whole tree to
+        this rank's (its shards under tensor parallelism)."""
         from tpu_unet_torch.checkpoint import load_checkpoint
 
         rp = Path(resume_path)
         ema_path = rp.with_name(rp.name.replace(".npz", "_ema.npz"))
         if ema_path.exists():
             loaded = load_checkpoint(ema_path)[0]
+            if place is not None:
+                loaded = place(loaded)
             self.params = tree_map(lambda e, p: e.to(device=p.device, dtype=p.dtype),
                                    loaded, live_params)
             logger.info("Resumed EMA weights from %s", ema_path)

@@ -23,7 +23,9 @@ warns and trains on.
   gradient pass runs over the grid (``group`` the ``Grid``), and the sample
   triplet is the whole first image, its bands gathered over rank 0's
   spatial group (JAX's is a global array); the logging rank runs its eval
-  forward alone.
+  forward alone. Under tensor parallelism (``full``) every rank gathers
+  the weights, BN state and gradients over its model group, so the
+  histograms and the sample are the whole model's.
 """
 
 from __future__ import annotations
@@ -113,12 +115,14 @@ class WandbValidationPanel:
     Under data parallelism (``group``) ``enabled`` says whether rank 0 logs:
     then every rank takes part in the gradient pass, and only the rank with
     the ``experiment`` logs. ``multihost``: the scalars only, no gradient
-    pass on any rank."""
+    pass on any rank. ``full`` (tensor parallelism) maps (params, BN state,
+    gradients) of this rank's shards to the whole trees, on every rank."""
 
     def __init__(self, experiment, *, config, amp: bool, remat: bool, dice_weight: float,
                  accum_steps: int, group=None, enabled: bool | None = None,
-                 multihost: bool = False):
+                 multihost: bool = False, full=None):
         self.experiment = experiment
+        self.full = full
         self.multihost = multihost
         self.group = group
         self.enabled = experiment is not None if enabled is None else enabled
@@ -131,7 +135,7 @@ class WandbValidationPanel:
     def _hist_sample(self, params, bn_state, images, masks):
         """(weights, gradients) as [(key, subsampled leaf)], the gradients
         of the loss at ``params`` on this batch (library convs, the new BN
-        state dropped)."""
+        state dropped), and the whole (params, BN state)."""
         from tpu_unet_torch.train import _unflatten, compute_loss  # train.py imports this module
 
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -143,9 +147,12 @@ class WandbValidationPanel:
         grads = torch.autograd.grad(loss, leaves)
         if self.group is not None:
             grads = pmean(list(grads), world_of(self.group))
+        if self.full is not None:
+            params, bn_state, tree = self.full(params, bn_state, _unflatten(params, grads))
+            grads = tree_leaves(tree)
         keyed = _keyed_leaves(params)
         return ([(k, _subsample_leaf(p)) for k, p in keyed],
-                [(k, _subsample_leaf(g)) for (k, _), g in zip(keyed, grads)])
+                [(k, _subsample_leaf(g)) for (k, _), g in zip(keyed, grads)], params, bn_state)
 
     def log(self, *, lr_now, val_dice, val_iou, step: int, epoch: int, params, bn_state,
             images, masks, hist_batch) -> None:
@@ -163,7 +170,7 @@ class WandbValidationPanel:
             # histogram pass's activations to one microbatch's too.
             mb = max(1, h_imgs.shape[0] // self.accum_steps)
             h_imgs, h_masks = h_imgs[:mb], h_masks[:mb]
-        w_sub, g_sub = self._hist_sample(params, bn_state, h_imgs, h_masks)
+        w_sub, g_sub, params, bn_state = self._hist_sample(params, bn_state, h_imgs, h_masks)
         image, mask = images[0], masks[0]
         if getattr(self.group, "spatial_size", 1) > 1:
             image, mask = (_whole(t, self.group.spatial_group) for t in (image, mask))
