@@ -250,6 +250,33 @@ Phases, each of which exits non-zero on failure, each with its time:
    and ``train_cli --pipeline-parallel 2`` on one card refused in JAX's
    words ("pipeline needs 2 devices, have 1").
 
+15. The deployment surface, in at most ``DEPLOY_BUDGET_S``, on phase 3's
+   checkpoint, 8 of phase 6's 1918x1280 images and a second full-width
+   model with the Carvana U-Net's two classes: (a) ``python -m
+   tpu_unet_torch.export``, one process a program, running beside (b)-(e):
+   bf16 ``.pt2`` programs at 640x959 (symbolic batch; and with ``--tta
+   --tta-mode hflip``) and an fp32 one with ``--check``; then a fresh
+   process reloads the bf16 ones on the card and holds them against the
+   live folded forward (``backend="torch"``) at batch 1 and 4 within
+   ``export.CHECK_ATOL``, with its load s, and loads the symbolic one on the
+   CPU; the two-class model to ``.pth`` with ``--check``; at the end each
+   program's ms a call beside the live forward's; (b) one server with both
+   checkpoints under ``--kernels cuda --mask-values 0,255``, each
+   ``/predict/<name>`` PNG equal to that model's solo predictor's, the four
+   forward kernels launched per routed request as phase 4's forwards launch
+   them, the nested ``/healthz`` and ``/metrics``, an unknown name 404; a
+   second server with the checkpoint beside the fp32 ``.pt2`` on the
+   default eval forward (``--no-amp``), their masks within
+   ``BATCH_AGREEMENT``; (c) ``submit`` at batch 4 with and without ``--tta
+   --tta-mode hflip``, each RLE row decoding to ``predict_img(amp=False)``'s
+   mask, img/s; (d) ``hub.unet_carvana(pretrained=True)`` on (a)'s
+   ``.pth``, also through ``torch.hub.load(..., source="local")``, bitwise
+   the checkpoint's trees on the card; (e) ``dryrun.entry()`` on the card,
+   ``dryrun_multichip(2)`` with budget 0 (core tier; gloo ranks on the CPU,
+   the card being one), and ``dryrun_multichip(1)`` on the card (NCCL)
+   within ``DRYRUN_CARD_BUDGET_S``, whose extended tier runs the CUDA train
+   kernels under data parallelism.
+
 The last two lines are the card (``nvidia-smi``) and the result JSON; the
 line before them is the per-kernel JSON.
 """
@@ -264,6 +291,7 @@ import io
 import json
 import multiprocessing as mp
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -4422,6 +4450,404 @@ def phase_tensor_pipeline(workdir: Path, train_dir: Path, card: str) -> dict:
     return {"grids": {shape: [rk["grid"] for rk in ranks] for shape, ranks in grids.items()},
             "ref": refs["ref"], "pipeline": pp}
 
+# Phase 15: the deployment surface, in at most DEPLOY_BUDGET_S, on phase 3's
+# checkpoint, phase 6's images and a second full-width model with the
+# Carvana U-Net's two classes (hub.unet_carvana's config).
+DEPLOY_BUDGET_S = 120.0
+DEPLOY_HW = (640, 959)  # 1918x1280 at scale 0.5: the artifacts' static input
+DEPLOY_IMAGES = 8
+DEPLOY_BATCH = 4
+DEPLOY_TTA_MODE = "hflip"
+# The .pt2 programs, exported by the CLI in parallel processes while the
+# checkpoint sub-phases run: name -> flags.
+DEPLOY_EXPORTS = {"bf16": [], "bf16_tta_hflip": ["--tta", "--tta-mode", DEPLOY_TTA_MODE],
+                  "fp32": ["--no-amp", "--check"]}
+# A fresh process's reload of a .pt2 against the live folded forward (the
+# same ATen ops on the same card): export.CHECK_ATOL. The fp32 .pt2 served
+# at its static shape beside the checkpoint's unfolded fp32 eval forward:
+# BATCH_AGREEMENT, phase 7's bound for two fp32 forwards that differ in
+# rounding (in bf16 BN folded and unfolded round differently at each of
+# the 23 convs: 96.8-97.2% agreement on an H100, 700 W, at 1918x1280).
+# dryrun_multichip(1) on the card: NCCL, the extended tier within this budget.
+DRYRUN_CARD_BUDGET_S = 30.0
+
+
+def _deploy_reload(art_dir: str, ckpt: str, out: str) -> None:
+    """Run in a fresh process: the bf16 .pt2 programs of ``art_dir`` loaded on
+    cuda (seconds each) against the live folded forward
+    (``export.folded_forward``) at batch 1 and 4 of seeded inputs; the
+    symbolic one loaded on the CPU too. Writes the numbers to ``out``."""
+    from tpu_unet_torch.export import folded_forward, load_exported, program_shapes
+    from tpu_unet_torch.models import UNetConfig
+    from tpu_unet_torch.predict import load_model
+
+    full_fp32()
+    params, state, config, _ = load_model(ckpt, UNetConfig(), torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((4, *DEPLOY_HW, 3), generator=gen, device="cuda")
+    res = {}
+    for name in ("bf16", "bf16_tta_hflip"):
+        t0 = time.perf_counter()
+        ep = load_exported(Path(art_dir) / f"{name}.pt2", "cuda")
+        fwd = ep.module()
+        load_s = time.perf_counter() - t0
+        live = folded_forward(params, state, config, tta="tta" in name, tta_mode=DEPLOY_TTA_MODE,
+                              device="cuda")
+        with torch.inference_mode():
+            errs = {str(b): (fwd(x[:b]) - live(x[:b])).abs().max().item() for b in (1, 4)}
+        res[name] = {"shapes": list(program_shapes(ep)), "load_s": round(load_s, 3),
+                     "max_abs_err": errs,
+                     "devices": sorted({str(t.device) for t in ep.constants.values()})}
+    t0 = time.perf_counter()
+    ep = load_exported(Path(art_dir) / "bf16.pt2", "cpu")
+    res["cpu"] = {"load_s": round(time.perf_counter() - t0, 3),
+                  "shapes": list(program_shapes(ep)),
+                  "devices": sorted({str(t.device) for t in ep.constants.values()})}
+    Path(out).write_text(json.dumps(res))
+
+
+def _run_logged(cmd: list[str], timeout: float) -> dict:
+    """Run ``cmd`` from the repository root: its exit code, wall s and the end
+    of its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    return {"rc": proc.returncode, "wall_s": round(time.perf_counter() - t0, 2),
+            "log": (proc.stdout + proc.stderr)[-4000:]}
+
+
+def _serve_in_thread(argv: list[str]):
+    from tpu_unet_torch import serve
+
+    server, served = serve.make_server(["--port", "0", *argv])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def close():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        for pr in (served.values() if isinstance(served, dict) else [served]):
+            pr.stop()
+
+    return server.server_address[1], served, close
+
+
+def phase_deploy(workdir: Path, ckpt: Path, image_dir: Path, card: str
+                 ) -> tuple[dict[str, int], dict]:
+    """Phase 15. Returns the forward kernels' launches in 15b's --kernels cuda
+    multi-model server and the phase's numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_unet_torch import export, hub
+    from tpu_unet_torch.checkpoint import flatten, load_checkpoint, save_checkpoint
+    from tpu_unet_torch.data import preprocess
+    from tpu_unet_torch.dryrun import dryrun_multichip, entry
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.models.unet import tree_leaves
+    from tpu_unet_torch.predict import load_model, mask_to_image, predict_img
+    from tpu_unet_torch.submit import rle_decode, submit
+
+    failures: list[str] = []
+    numbers: dict = {"card": card}
+
+    def done(name: str, t0: float) -> None:
+        numbers[f"{name}_s"] = round(time.perf_counter() - t0, 2)
+        log(f"phase {name}: {numbers[f'{name}_s']:.1f} s")
+
+    def attempt(what: str, fn):
+        try:
+            return fn()
+        except (SystemExit, Exception) as e:  # noqa: BLE001 - every sub-phase reports
+            failures.append(f"{what}: {type(e).__name__}: {e}")
+            log(f"{what} failed:\n{traceback.format_exc()}")
+            return None
+
+    # Setup: 8 of phase 6's 1918x1280 images; the two-class model, its BN
+    # state calibrated on one of them.
+    t0 = time.perf_counter()
+    img_dir = workdir / "imgs"
+    img_dir.mkdir(parents=True)
+    for src in sorted(image_dir.glob("*.png"))[:DEPLOY_IMAGES]:
+        (img_dir / src.name).symlink_to(src.resolve())
+    paths = sorted(img_dir.glob("*.png"))
+    bodies = [p.read_bytes() for p in paths]
+    carvana = UNetConfig(n_channels=3, n_classes=2, bilinear=False)
+    p2, s2 = init_unet(carvana, np.random.default_rng(1), device="cuda")
+    with torch.inference_mode():
+        s2 = calibrate_bn(p2, s2, carvana, torch.from_numpy(
+            preprocess(Image.open(paths[0]), 0.5))[None].cuda())
+    ckpt2 = workdir / "carvana2.npz"
+    save_checkpoint(ckpt2, p2, s2, [0, 1], {"config": carvana._asdict()})
+    del p2, s2
+    done("15_setup", t0)
+
+    # 15a, in the background: the export CLI, one process a program; then a
+    # fresh process reloads the bf16 ones and loads one on the CPU.
+    t_export = time.perf_counter()
+    art = workdir / "art"
+    art.mkdir()
+    size = ["--height", str(DEPLOY_HW[0]), "--width", str(DEPLOY_HW[1])]
+    pool = ThreadPoolExecutor(max_workers=len(DEPLOY_EXPORTS) + 1)
+    export_runs = {name: pool.submit(_run_logged, [
+        sys.executable, "-m", "tpu_unet_torch.export", "-m", str(ckpt), "-o",
+        str(art / f"{name}.pt2"), *size, *flags], 300) for name, flags in DEPLOY_EXPORTS.items()}
+    reload_json = workdir / "reload.json"
+
+    def reload_after_exports() -> dict:
+        for f in export_runs.values():
+            f.result()
+        return _run_logged([sys.executable, "-c", f"import chip_smoke as c; c._deploy_reload("
+                            f"{str(art)!r}, {str(ckpt)!r}, {str(reload_json)!r})"], 300)
+
+    reload_run = pool.submit(reload_after_exports)
+    attempt("15a export carvana .pth", lambda: export.main(
+        ["-m", str(ckpt2), "-o", str(art / "carvana.pth"), "--check"]))
+
+    # 15b (1): two checkpoints behind one --kernels cuda server.
+    t0 = time.perf_counter()
+    launches: dict[str, int] = {}
+
+    def server_1():
+        port, preds, close = _serve_in_thread(
+            ["-m", f"unet1={ckpt}", "-m", f"carvana2={ckpt2}", "--kernels", "cuda",
+             "--mask-values", "0,255"])
+        try:
+            K.reset_launch_counts()
+            got = {name: [post(port, b, f"/predict/{name}") for b in bodies[:2]] for name in preds}
+            launches.update(K.launch_counts())
+            health, metrics = get_json(port, "/healthz"), get_json(port, "/metrics")
+            status, body, _ = post(port, b"x", "/predict/nope")
+        finally:
+            close()
+        log(f"15b server 1 healthz: {json.dumps(health)}")
+        log(f"15b server 1 metrics: {json.dumps(metrics)}")
+        n_req = sum(len(v) for v in got.values())
+        if status != 404 or b"unknown model 'nope'" not in body:
+            failures.append(f"15b: an unknown model answered {status}")
+        if set(health.get("models", {})) != {"unet1", "carvana2"} or health["default"] != "unet1":
+            failures.append(f"15b: healthz {health}")
+        elif [health["models"][n]["n_classes"] for n in ("unet1", "carvana2")] != [1, 2]:
+            failures.append(f"15b: healthz classes {health}")
+        if any(metrics.get(n, {}).get("requests") != 2 or metrics[n]["errors"] for n in got):
+            failures.append(f"15b: metrics {metrics}")
+        dispatches = sum(metrics[n].get("dispatches", 0) for n in got)
+        log(f"15b launches in {n_req} routed requests ({dispatches} dispatches): "
+            f"{json.dumps(launches)}; per request "
+            + json.dumps({k: launches.get(k, 0) / n_req for k in PER_FORWARD})
+            + f" (phase 3's per forward: {json.dumps(PER_FORWARD)})")
+        for name, per in {**PER_FORWARD, **TC_PER_FORWARD}.items():
+            if launches.get(name, 0) != per * dispatches or not dispatches:
+                failures.append(f"15b {name}: {launches.get(name, 0)} launches, expected "
+                                f"{per} x {dispatches}")
+        for name, path in (("unet1", ckpt), ("carvana2", ckpt2)):
+            _, solo, close1 = _serve_in_thread(["-m", str(path), "--kernels", "cuda",
+                                                "--mask-values", "0,255"])
+            try:
+                for k, (status, data, secs) in enumerate(got[name]):
+                    want = np.asarray(mask_to_image(solo.predict_one(
+                        Image.open(io.BytesIO(bodies[k]))), [0, 255]))
+                    mask = np.asarray(Image.open(io.BytesIO(data))) if status == 200 else None
+                    same = mask is not None and np.array_equal(mask, want)
+                    fg = "-" if mask is None else f"{(mask > 0).mean():.4f}"
+                    log(f"15b /predict/{name} image {k}: HTTP {status}, {secs * 1e3:.1f} ms, "
+                        f"foreground {fg}, equal to the solo predictor's: {same}")
+                    if not same:
+                        failures.append(f"15b /predict/{name} image {k}: not the solo mask")
+            finally:
+                close1()
+
+    attempt("15b server 1", server_1)
+    numbers["serve_launches"] = launches
+    done("15b_1", t0)
+
+    # 15c: the RLE submission, each row the mask predict_img gives.
+    t0 = time.perf_counter()
+
+    def submission():
+        params, state, config, _ = load_model(ckpt, UNetConfig(), torch.device("cuda"))
+        rates = {}
+        for tta in (False, True):
+            csv = workdir / f"submission_tta{int(tta)}.csv"
+            t = time.perf_counter()
+            submit(ckpt, img_dir, csv, batch_size=DEPLOY_BATCH, tta=tta,
+                   tta_mode=DEPLOY_TTA_MODE)
+            secs = time.perf_counter() - t
+            rates[f"tta_{DEPLOY_TTA_MODE}" if tta else "plain"] = round(DEPLOY_IMAGES / secs, 3)
+            rows = csv.read_text().splitlines()
+            if rows[0] != "img,rle_mask" or len(rows) != 1 + DEPLOY_IMAGES:
+                failures.append(f"15c: {len(rows)} rows")
+                continue
+            for row in rows[1:]:
+                name, rle = row.split(",")
+                img = Image.open(img_dir / name)
+                want = predict_img(params, state, config, img, scale_factor=0.5, amp=False,
+                                   tta=tta, tta_mode=DEPLOY_TTA_MODE)
+                got = rle_decode(rle, (img.height, img.width))
+                if not np.array_equal(got, want.astype(np.uint8)):
+                    failures.append(f"15c tta={tta} {name}: {int((got != want).sum())} pixels "
+                                    "differ from predict_img")
+        numbers["submit_img_s"] = rates
+        log(f"15c submit (fp32, {DEPLOY_IMAGES} images of 1918x1280, batch {DEPLOY_BATCH}, "
+            f"PNG decode and resize included, beside 15a's export processes): img/s "
+            f"{json.dumps(rates)} ({card})")
+
+    attempt("15c submit", submission)
+    done("15c", t0)
+
+    # 15d: the hub entries on 15a's .pth.
+    t0 = time.perf_counter()
+
+    def hub_entries():
+        want = flatten(*load_checkpoint(ckpt2, carvana, "cuda")[:2])
+        pth = str(art / "carvana.pth")
+        for how, load in (
+                ("hub.unet_carvana", lambda: hub.unet_carvana(pretrained=True, weights_path=pth)),
+                ("torch.hub.load", lambda: torch.hub.load(
+                    str(ROOT / "tpu_unet_torch"), "unet_carvana", source="local",
+                    pretrained=True, weights_path=pth))):
+            p, s, cfg, mv = load()
+            got = flatten(p, s)
+            same = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+            devices = sorted({str(t.device) for t in tree_leaves((p, s))})
+            log(f"15d {how}: config {cfg}, palette {mv}, {len(got)} leaves on {devices}, "
+                f"bitwise the checkpoint's: {same}")
+            if not same or devices != ["cuda:0"] or cfg != carvana:
+                failures.append(f"15d {how}: same={same} devices={devices} config={cfg}")
+
+    attempt("15d hub", hub_entries)
+    done("15d", t0)
+
+    # 15e: entry() on the card; dryrun_multichip(2), core only (gloo ranks on
+    # the CPU: one GPU), and dryrun_multichip(1) on the card (NCCL).
+    t0 = time.perf_counter()
+
+    def dry_runs():
+        fn, args = entry()
+        out = fn(*args)
+        log(f"15e entry(): logits {tuple(out.shape)} on {out.device}, finite "
+            f"{bool(torch.isfinite(out).all())}")
+        if tuple(out.shape) != (1, 64, 64, 2) or out.device.type != "cuda":
+            failures.append(f"15e entry: {tuple(out.shape)} on {out.device}")
+        old = os.environ.get("TPU_UNET_DRYRUN_BUDGET_S")
+        try:
+            for n, budget in ((2, 0.0), (1, DRYRUN_CARD_BUDGET_S)):
+                os.environ["TPU_UNET_DRYRUN_BUDGET_S"] = str(budget)
+                t = time.perf_counter()
+                dryrun_multichip(n)
+                numbers[f"dryrun{n}_s"] = round(time.perf_counter() - t, 2)
+                log(f"15e dryrun_multichip({n}) budget {budget:.0f} s: ok in "
+                    f"{numbers[f'dryrun{n}_s']:.1f} s")
+        finally:
+            if old is None:
+                os.environ.pop("TPU_UNET_DRYRUN_BUDGET_S", None)
+            else:
+                os.environ["TPU_UNET_DRYRUN_BUDGET_S"] = old
+
+    attempt("15e dry run", dry_runs)
+    done("15e", t0)
+
+    # 15a's exports: each CLI process's wall and its own export seconds.
+    t0 = time.perf_counter()
+    exports = {}
+    for name, fut in export_runs.items():
+        run = fut.result()
+        pt2 = art / f"{name}.pt2"
+        m = re.search(r"in ([0-9.]+) s \(", run["log"])
+        exports[name] = {"rc": run["rc"], "process_s": run["wall_s"],
+                         "export_s": float(m.group(1)) if m else None,
+                         "mb": round(pt2.stat().st_size / 1e6, 1) if pt2.exists() else None}
+        if run["rc"] != 0:
+            failures.append(f"15a export {name}: rc {run['rc']}: {run['log'][-1500:]}")
+        if name == "fp32":
+            check = re.search(r"Round-trip check OK \(max \|diff\| = ([0-9.e+-]+)\)", run["log"])
+            exports[name]["check_max_abs_err"] = float(check.group(1)) if check else None
+    numbers["export"] = exports
+    log(f"15a exports (the CLI, one process each, beside 15b-15e; all done "
+        f"{time.perf_counter() - t_export:.1f} s after their start): {json.dumps(exports)}")
+
+    # 15b (2): the checkpoint beside the fp32 .pt2, on the default eval forward.
+    def server_2():
+        port, preds, close = _serve_in_thread(["-m", f"ckpt={ckpt}", "-m",
+                                               f"art={art / 'fp32.pt2'}", "--no-amp"])
+        try:
+            art_pred = preds["art"]
+            if art_pred.static_hw != DEPLOY_HW or art_pred.fixed_batch is not None:
+                failures.append(f"15b artifact: static {art_pred.static_hw}, batch "
+                                f"{art_pred.fixed_batch}")
+            for k in range(2):
+                res = {n: post(port, bodies[k], f"/predict/{n}") for n in ("ckpt", "art")}
+                if any(r[0] != 200 for r in res.values()):
+                    failures.append(f"15b server 2 image {k}: HTTP {[r[0] for r in res.values()]}")
+                    continue
+                a, b = (np.asarray(Image.open(io.BytesIO(res[n][1]))) for n in ("ckpt", "art"))
+                agree = float((a == b).mean())
+                log(f"15b server 2 image {k}: fp32 .pt2 vs checkpoint mask agreement "
+                    f"{agree:.6f} (shapes {a.shape} {b.shape}), client ms ckpt "
+                    f"{res['ckpt'][2] * 1e3:.1f} art {res['art'][2] * 1e3:.1f}")
+                if a.shape != (1280, 1918) or b.shape != a.shape or agree < BATCH_AGREEMENT:
+                    failures.append(f"15b server 2 image {k}: agreement {agree:.6f}")
+            health, metrics = get_json(port, "/healthz"), get_json(port, "/metrics")
+        finally:
+            close()
+        log(f"15b server 2 healthz: {json.dumps(health)}; metrics: {json.dumps(metrics)}")
+        if set(metrics) != {"ckpt", "art"} or metrics["art"].get("requests") != 2:
+            failures.append(f"15b server 2 metrics {metrics}")
+
+    attempt("15b server 2", server_2)
+    done("15b_2", t0)
+
+    # 15a's reload in a fresh process, then each program's ms a call beside
+    # the live folded forward's (batch 1, CUDA events, in turns).
+    t0 = time.perf_counter()
+    run = reload_run.result()
+    pool.shutdown()
+    numbers["reload_process_s"] = run["wall_s"]
+    if run["rc"] != 0 or not reload_json.exists():
+        failures.append(f"15a reload process: rc {run['rc']}: {run['log'][-2000:]}")
+    else:
+        reload = json.loads(reload_json.read_text())
+        numbers["reload"] = reload
+        log(f"15a reload in a fresh process ({run['wall_s']:.1f} s with its start): "
+            f"{json.dumps(reload)}")
+        for name in ("bf16", "bf16_tta_hflip"):
+            r = reload[name]
+            if r["shapes"] != [None, *DEPLOY_HW, 1]:
+                failures.append(f"15a {name}: program shapes {r['shapes']}")
+            if r["devices"] != ["cuda:0"]:
+                failures.append(f"15a {name}: constants on {r['devices']}")
+            worst = max(r["max_abs_err"].values())
+            if not worst <= export.CHECK_ATOL:
+                failures.append(f"15a {name}: reload vs live max |diff| {worst:.3e} > "
+                                f"{export.CHECK_ATOL:.0e}")
+        if reload["cpu"]["devices"] != ["cpu"] or reload["cpu"]["shapes"] != [None, *DEPLOY_HW, 1]:
+            failures.append(f"15a CPU load: {reload['cpu']}")
+
+    def timing():
+        params, state, config, _ = load_model(ckpt, UNetConfig(), torch.device("cuda"))
+        x = torch.rand((1, *DEPLOY_HW, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda")
+        ms = {}
+        for name, flags in DEPLOY_EXPORTS.items():
+            fwd = export.load_exported(art / f"{name}.pt2", "cuda").module()
+            live = export.folded_forward(params, state, config, amp="--no-amp" not in flags,
+                                         tta="--tta" in flags, tta_mode=DEPLOY_TTA_MODE,
+                                         device="cuda")
+            with torch.inference_mode():
+                turns = [(k, time_ms(lambda f=f: f(x), reps=5))
+                         for k, f in (("live", live), ("pt2", fwd), ("pt2", fwd), ("live", live))]
+            ms[name] = {k: [round(t, 3) for kk, t in turns if kk == k] for k in ("pt2", "live")}
+        numbers["ms_b1"] = ms
+        log(f"15a ms a batch-1 call at 640x959 (CUDA events, median of 5, in turns live, pt2, "
+            f"pt2, live): {json.dumps(ms)} ({card})")
+
+    if not failures:
+        attempt("15a timing", timing)
+    done("15a_end", t0)
+    if failures:
+        raise SystemExit(f"chip_smoke: deployment checks failed: {failures}")
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -4548,6 +4974,16 @@ def main(argv=None) -> int:
         phase_done("14 (tensor and pipeline parallelism)", t0)
         if time.perf_counter() - t0 > TP_BUDGET_S:
             log(f"phase 14 took over its {TP_BUDGET_S:.0f} s budget")
+        # Phase 15: the deployment surface, on phase 3's checkpoint.
+        t0 = time.perf_counter()
+        deploy_launches, deploy = phase_deploy(workdir / "deploy",
+                                               workdir / "serve" / "unet_base64.npz",
+                                               workdir / "train" / "data" / "imgs", card)
+        log(f"deployment numbers: {json.dumps(deploy)}")
+        torch.cuda.empty_cache()
+        phase_done("15 (deployment surface)", t0)
+        if time.perf_counter() - t0 > DEPLOY_BUDGET_S:
+            log(f"phase 15 took over its {DEPLOY_BUDGET_S:.0f} s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Phase 6b: remat.
@@ -4576,6 +5012,8 @@ def main(argv=None) -> int:
         count, tc = counts[name], counts.get(f"{name}.tc")
         report.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                        "launches": count, "tc_launches": tc,
+                       "deploy_launches": deploy_launches.get(name) if name in PER_FORWARD
+                       else None,
                        "pool_launches": counts.get(f"{name}.pool"), "impl": IMPL[name],
                        "max_abs_err": results[name]["max_abs_err"],
                        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

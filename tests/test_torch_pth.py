@@ -204,7 +204,7 @@ def test_clis_take_a_pth(tmp_path):
     save_checkpoint(npz, params, state, [0, 255], {"config": cfg._asdict()})
     _, _, config, mv = load_model(pth, cfg, torch.device("cpu"))
     assert config == cfg and mv == [0, 255]
-    with pytest.raises(SystemExit, match=".jaxexp artifacts are not ported"):
+    with pytest.raises(SystemExit, match="needs jax; export a .pt2"):
         load_model(tmp_path / "m.jaxexp", cfg, torch.device("cpu"))
     img = tmp_path / "in.png"
     Image.fromarray(np.random.default_rng(5).integers(0, 255, (30, 40, 3), np.uint8)).save(img)

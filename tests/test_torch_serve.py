@@ -316,6 +316,8 @@ def test_port_imports_no_jax():
         " or m == 'tpu_unet')\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
+        "new = {'export', 'submit', 'hub', 'hubconf', 'dryrun', 'tools.collect_arch_demos'}\n"
+        "assert {'tpu_unet_torch.' + m for m in new} <= set(mods), mods\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

@@ -297,8 +297,8 @@ def load_model(path: str | Path, config: UNetConfig, device: torch.device):
     from tpu_unet_torch.checkpoint import import_pth, load_checkpoint, read_checkpoint_meta
 
     if str(path).endswith(".jaxexp"):
-        raise SystemExit(f"{path}: .jaxexp artifacts are not ported to tpu_unet_torch yet; "
-                         "load a .npz or .pth checkpoint")
+        raise SystemExit(f"{path}: a .jaxexp is a StableHLO program, which needs jax; export "
+                         "a .pt2 with python -m tpu_unet_torch.export")
     if str(path).endswith(".pth"):
         params, state, mask_values = import_pth(path, config, device)
     else:

@@ -15,11 +15,23 @@ The model stays resident on the device. Requests that arrive within
 group runs as one batch on a zero-padded canvas whose batch size is the next
 power of two (at most ``max_batch``), so every mask equals a solo prediction.
 
+Several models (``-m name=path``, repeated) are served side by side, each
+with its own predictor on the one ``--device``; every flag applies to each.
+A ``.pt2`` artifact (``export.py``) serves its compiled program: each request
+is resized to the program's static input shape and its mask returned at the
+request's size; a pinned batch fixes every canvas at ``--max-batch``; the
+sidecar gives the config and palette. ``--mask-values`` overrides the
+palette of every model. ``.jaxexp`` needs ``jax`` and is refused.
+
 Endpoints:
-  POST /predict   body: PNG/JPEG bytes -> PNG mask at the image's resolution
-  GET  /healthz   liveness and model metadata JSON
-  GET  /metrics   request and error counts, end-to-end latency p50/p90/p99
-                  over a sliding window, dispatches and their mean batch
+  POST /predict         body: PNG/JPEG bytes -> PNG mask at the image's
+                        resolution (the first model, when there are several)
+  POST /predict/<name>  the same, by the model named <name>
+  GET  /healthz         liveness and model metadata JSON (several models:
+                        nested under "models" by name)
+  GET  /metrics         request and error counts, end-to-end latency
+                        p50/p90/p99 over a sliding window, dispatches and
+                        their mean batch (several models: one per name)
 
 Every model family is served (``--arch``, or the family a ``.npz`` stores
 in its config) on the eval forward, with ``--tile`` at the family's halo
@@ -27,10 +39,10 @@ in its config) on the eval forward, with ``--tile`` at the family's halo
 ``--kernels torch``. ``--kernels cuda`` is the U-Net's only, and ``--kernels``
 with unetpp, r2u or r2attu exits, as the JAX package refuses them.
 
-Run: ``python -m tpu_unet_torch.serve -m ckpt.npz|model.pth --port 8000
-[--arch unet|unetpp|attention|r2u|r2attu]
+Run: ``python -m tpu_unet_torch.serve -m [name=]ckpt.npz|model.pth|model.pt2
+[-m name2=...] --port 8000 [--arch unet|unetpp|attention|r2u|r2attu]
 [--kernels cuda|torch | --tile 512 [--halo 128]] [--tta [--tta-mode hflip]]
-[--[no-]device-preprocess]``
+[--[no-]device-preprocess] [--mask-values 0,255]``
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import argparse
 import io
 import json
 import logging
+import os
 import queue
 import signal
 import threading
@@ -46,6 +59,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -74,6 +88,9 @@ from tpu_unet_torch.predict import (
 )
 
 logger = logging.getLogger(__name__)
+
+# A spec's left half ending in one of these is a path, not a route name.
+MODEL_EXTENSIONS = (".npz", ".pth", ".jaxexp", ".pt2")
 
 
 class ServeMetrics:
@@ -128,7 +145,14 @@ class BatchedPredictor:
     forward on that backend. ``device_preprocess`` (None: on iff ``tile``)
     sends L and RGB requests to the device raw, resized there before
     whichever forward runs. Thread-safe ``predict_one`` entry; ``stop`` ends
-    the worker threads."""
+    the worker threads.
+
+    ``fwd``/``static_hw`` serve a compiled artifact (``export.py``):
+    ``fwd`` (fp32 NHWC in, fp32 logits out, on ``device``) runs in place of
+    a model built from params/state, and every request is resized to the
+    program's static ``(H, W)`` (its mask still comes back at its own size,
+    through the logit upscale). ``fixed_batch``: the program's pinned batch,
+    which every canvas then takes."""
 
     def __init__(self, params, state, config: UNetConfig, mask_values, *,
                  device: str | torch.device = "cuda", kernels: str | None = None,
@@ -136,7 +160,13 @@ class BatchedPredictor:
                  max_batch: int = 8, batch_window_ms: float = 5.0,
                  timeout_s: float = 300.0, tile: int | None = None,
                  halo: int = DEFAULT_HALO, tta: bool = False, tta_mode: str = "flips",
-                 device_preprocess: bool | None = None):
+                 device_preprocess: bool | None = None, fwd=None,
+                 static_hw: tuple[int, int] | None = None, fixed_batch: int | None = None):
+        if fwd is not None and (tile or kernels or tta or device_preprocess):
+            # The artifact is the compiled program: there is no tiler, kernel
+            # backend, ensemble or per-raw-shape resample to choose here.
+            raise ValueError("--tile/--kernels/--tta/--device-preprocess do not apply to a "
+                             "compiled artifact (the artifact is the compiled program)")
         if kernels is not None:
             check_backend(config, kernels)
         if tile is not None and (tile % 16 or halo % 16):
@@ -158,6 +188,7 @@ class BatchedPredictor:
         # The JAX package's default: tiled serving (large images, where the
         # host resize dominates a request) preprocesses on the device.
         self.device_preprocess = bool(tile) if device_preprocess is None else device_preprocess
+        self._fwd, self.static_hw, self.fixed_batch = fwd, static_hw, fixed_batch
         if tile and not self.device_preprocess:
             logger.info("serve --tile with --no-device-preprocess: device preprocess (the "
                         "same masks) is the default for tiled serving")
@@ -179,7 +210,9 @@ class BatchedPredictor:
         # casts nothing: folded once for the kernels; the eval forward's BN
         # state stays fp32, as unet_apply takes it.
         dtype = self._compute_dtype or torch.float32
-        if kernels is None:
+        if fwd is not None:
+            pass  # the artifact holds its own weights
+        elif kernels is None:
             self._params = tree_map(lambda t: t.to(self.device, dtype), params)
             self._state = tree_map(lambda t: t.to(self.device), state)
         else:
@@ -198,7 +231,9 @@ class BatchedPredictor:
         """NHWC float32 batch on the device -> fp32 logits. With ``tile``, a
         batch whose padded H and W hold one window runs the tiled sweep; with
         ``tta``, the flip views of the whole batch run as one and are merged
-        with ``n`` the batch size."""
+        with ``n`` the batch size. An artifact's ``fwd`` runs as it is."""
+        if self._fwd is not None:
+            return self._fwd(x)
         if self.kernels is not None:
             return unet_infer_apply(self._folded, x, config=self.config, backend=self.kernels,
                                     compute_dtype=self._compute_dtype)
@@ -240,7 +275,16 @@ class BatchedPredictor:
     def _preprocess(self, img: Image.Image) -> np.ndarray:
         """The host's part of one request: with ``device_preprocess``, the
         decoded uint8 HWC array of an L or RGB image (the device resizes
-        it); else, or for other modes, the preprocessed float32 array."""
+        it); for an artifact, the image resized to its static shape (BICUBIC)
+        and normalised; else, or for other modes, the preprocessed float32
+        array."""
+        if self.static_hw is not None:
+            h, w = self.static_hw
+            arr = np.asarray(img.resize((w, h), resample=Image.BICUBIC))
+            if arr.ndim == 2:
+                arr = arr[..., None]
+            arr = arr.astype(np.float32)
+            return arr / 255.0 if (arr > 1).any() else arr
         if self.device_preprocess:
             arr = raw_u8_for_device(img)
             if arr is not None:
@@ -297,8 +341,9 @@ class BatchedPredictor:
     def _run_group(self, key, idxs, pre, batch):
         try:
             self.metrics.record_dispatch(len(idxs))
-            # Canvas batch = next power of two >= group size.
-            bsz = min(self.max_batch, 1 << max(0, len(idxs) - 1).bit_length())
+            # Canvas batch = next power of two >= group size; a pinned-batch
+            # artifact takes its one batch shape.
+            bsz = self.fixed_batch or min(self.max_batch, 1 << max(0, len(idxs) - 1).bit_length())
             canvas = np.zeros((bsz, *key[:-1]), pre[idxs[0]].dtype)
             for j, k in enumerate(idxs):
                 canvas[j] = pre[k]
@@ -342,9 +387,26 @@ class BatchedPredictor:
         self._group_pool.shutdown(wait=True)
 
 
-def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
-    """HTTP handler over one predictor. Bodies over ``max_body_bytes`` get
-    413 before any read."""
+def _health(m: BatchedPredictor) -> dict:
+    """One model's /healthz entry: JAX's keys (n_classes, arch, scale, tta)
+    and the port's."""
+    return {"n_classes": m.config.n_classes, "arch": m.config.arch, "scale": m.scale,
+            "kernels": m.kernels, "device": str(m.device), "amp": m.amp, "tta": m.tta,
+            "tile": m.tile, "device_preprocess": m.device_preprocess}
+
+
+def make_handler(predictor, default: str | None = None, max_body_bytes: int = 64 << 20):
+    """HTTP handler over one predictor or a {name: predictor} map.
+
+    One predictor keeps the flat /healthz and /metrics payloads and serves
+    POST /predict. A map nests both payloads by model name and routes POST
+    /predict/<name>; bare /predict goes to ``default`` (the first model).
+    Bodies over ``max_body_bytes`` get 413 before any read."""
+    if isinstance(predictor, BatchedPredictor):
+        models, default, multi = {"default": predictor}, "default", False
+    else:
+        models = dict(predictor)
+        default, multi = default or next(iter(models)), True
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):
@@ -360,20 +422,30 @@ def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json({"status": "ok", "n_classes": predictor.config.n_classes,
-                            "arch": predictor.config.arch, "scale": predictor.scale,
-                            "kernels": predictor.kernels, "device": str(predictor.device),
-                            "amp": predictor.amp, "tta": predictor.tta,
-                            "tile": predictor.tile,
-                            "device_preprocess": predictor.device_preprocess})
+                if multi:
+                    self._json({"status": "ok", "default": default,
+                                "models": {n: _health(m) for n, m in models.items()}})
+                else:
+                    self._json({"status": "ok", **_health(models[default])})
             elif self.path == "/metrics":
-                self._json(predictor.metrics.snapshot())
+                if multi:
+                    self._json({n: m.metrics.snapshot() for n, m in models.items()})
+                else:
+                    self._json(models[default].metrics.snapshot())
             else:
                 self.send_error(404)
 
         def do_POST(self):
-            if self.path != "/predict":
+            if self.path == "/predict":
+                name = default
+            elif self.path.startswith("/predict/"):
+                name = self.path[len("/predict/"):]
+            else:
                 self.send_error(404)
+                return
+            predictor = models.get(name)
+            if predictor is None:
+                self.send_error(404, f"unknown model {name!r}")
                 return
             try:
                 length = int(self.headers.get("Content-Length", 0) or 0)
@@ -406,14 +478,77 @@ def make_handler(predictor: BatchedPredictor, max_body_bytes: int = 64 << 20):
     return Handler
 
 
+def parse_model_specs(model_args: list[str]) -> list[tuple[str, str]]:
+    """``--model`` specs -> (route name, path) pairs: ``name=path`` only when
+    the left half looks like a route name (no path separator, no checkpoint
+    extension) and the whole spec is not itself an existing file, so that
+    ``/runs/lr=1e-3/ckpt.npz`` is not split at its '='; else the file's stem
+    names it. Duplicate names exit."""
+    specs = []
+    for spec in model_args:
+        name_half, sep, path_half = spec.partition("=")
+        if (sep and path_half and os.sep not in name_half
+                and not name_half.endswith(MODEL_EXTENSIONS) and not Path(spec).exists()):
+            specs.append((name_half, path_half))
+        else:
+            specs.append((Path(spec).stem, spec))
+    if len({n for n, _ in specs}) != len(specs):
+        raise SystemExit(f"duplicate model names in {[n for n, _ in specs]}; "
+                         "disambiguate with name=path")
+    return specs
+
+
+def _parse_mask_values(spec: str | None):
+    """``--mask-values`` -> palette list (None when not given)."""
+    if not spec:
+        return None
+    return [int(v) for v in spec.split(",")]
+
+
+def _build_artifact(model_path: str, args, device: torch.device) -> BatchedPredictor:
+    """A predictor on a ``.pt2`` program (``export.py``), warmed at its static
+    shape with its metrics reset after."""
+    from tpu_unet_torch.export import load_artifact_meta, load_exported, program_shapes
+
+    if args.tile or args.kernels or args.tta or args.device_preprocess:
+        raise SystemExit("--tile/--kernels/--tta/--device-preprocess do not apply to .pt2 "
+                         "artifacts (the artifact is the compiled program); re-export or "
+                         "serve a checkpoint")
+    ep = load_exported(model_path, device)
+    batch, h, w, n_classes = program_shapes(ep)
+    if batch is not None and batch != args.max_batch:
+        raise SystemExit(f"artifact batch is pinned to {batch}; pass --max-batch {batch}")
+    # The sidecar carries what the program cannot: the palette and the config.
+    meta = load_artifact_meta(model_path)
+    mask_values = _parse_mask_values(args.mask_values) or meta.get("mask_values")
+    if "config" in meta:
+        config = UNetConfig(**meta["config"])
+    else:
+        config = UNetConfig(3, n_classes, bilinear=args.bilinear, arch=args.arch)
+    predictor = BatchedPredictor(
+        None, None, config, mask_values, device=device, scale=args.scale,
+        threshold=args.mask_threshold, amp=args.amp, max_batch=args.max_batch,
+        batch_window_ms=args.batch_window_ms, timeout_s=args.timeout_s, fwd=ep.module(),
+        static_hw=(h, w), fixed_batch=batch)
+    # A --tta export holds the ensemble inside the program: report it.
+    predictor.tta = bool(meta.get("tta", False))
+    predictor.warmup(h, w)
+    predictor.metrics = ServeMetrics()  # warmup must not skew the percentiles
+    logger.info("Loaded artifact %s (static %dx%d, batch %s, %d classes)", model_path, h, w,
+                batch or "symbolic", n_classes)
+    return predictor
+
+
 def build_predictor(model_path: str, args) -> BatchedPredictor:
-    """A predictor for a ``.npz`` checkpoint or a ``.pth`` state dict, warmed
-    up when asked."""
+    """A predictor for a ``.npz`` checkpoint, a ``.pth`` state dict or a
+    ``.pt2`` artifact, warmed up when asked (an artifact always)."""
     device = resolve_device(args.device)
+    if str(model_path).endswith(".pt2"):
+        return _build_artifact(model_path, args, device)
     config = UNetConfig(3, args.classes, bilinear=args.bilinear, arch=args.arch)
     params, state, config, mask_values = load_model(model_path, config, device)
     predictor = BatchedPredictor(
-        params, state, config, mask_values,
+        params, state, config, _parse_mask_values(args.mask_values) or mask_values,
         device=device, kernels=args.kernels, scale=args.scale, threshold=args.mask_threshold,
         amp=args.amp, max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
         timeout_s=args.timeout_s, tile=args.tile, halo=args.halo, tta=args.tta,
@@ -427,12 +562,17 @@ def build_predictor(model_path: str, args) -> BatchedPredictor:
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description="tpu-unet batched inference server (PyTorch port)")
-    p.add_argument("--model", "-m", required=True,
-                   help="The model to serve: a .npz checkpoint or a torch .pth state dict")
+    p.add_argument("--model", "-m", required=True, action="append",
+                   help="Model to serve: a .npz checkpoint, a torch .pth state dict or a .pt2 "
+                        "artifact, or name=path. Repeat to serve several: each answers POST "
+                        "/predict/<name> (bare /predict goes to the first)")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--scale", "-s", type=float, default=0.5)
     p.add_argument("--mask-threshold", "-t", type=float, default=0.5)
+    p.add_argument("--mask-values", type=str, default=None, metavar="V0,V1,...",
+                   help="Override the output palette (one pixel value per class) of every "
+                        "model, e.g. for an artifact without a sidecar")
     p.add_argument("--classes", "-c", type=int, default=1)
     p.add_argument("--bilinear", action="store_true")
     p.add_argument("--arch", choices=ARCHS, default="unet",
@@ -469,24 +609,39 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+def _predictors(served) -> list[BatchedPredictor]:
+    return list(served.values()) if isinstance(served, dict) else [served]
+
+
 @exit_on_refusal("tpu_unet_torch.serve")
-def make_server(argv=None) -> tuple[ThreadingHTTPServer, BatchedPredictor]:
-    """Parse the CLI, load the model and bind the server (not yet serving).
-    ``--port 0`` binds a free port: read it from ``server.server_address``."""
+def make_server(argv=None):
+    """Parse the CLI, load the models and bind the server (not yet serving).
+    Returns (server, predictor) for one ``--model``, (server, {name:
+    predictor}) for several. ``--port 0`` binds a free port: read it from
+    ``server.server_address``."""
     args = get_args(argv)
-    predictor = build_predictor(args.model, args)
-    handler = make_handler(predictor, max_body_bytes=args.max_body_mb << 20)
-    server = ThreadingHTTPServer((args.host, args.port), handler)
-    logger.info("Serving %s on %s:%d (kernels=%s, tile=%s, tta=%s, device_preprocess=%s, "
-                "device=%s, max_batch=%d)", args.model, args.host, server.server_address[1],
-                args.kernels, args.tile, args.tta, predictor.device_preprocess,
-                predictor.device, args.max_batch)
-    return server, predictor
+    specs = parse_model_specs(args.model)
+    predictors: dict[str, BatchedPredictor] = {}
+    try:
+        for name, path in specs:
+            predictors[name] = build_predictor(path, args)
+        served = predictors if len(predictors) > 1 else predictors[specs[0][0]]
+        handler = make_handler(served, default=specs[0][0],
+                               max_body_bytes=args.max_body_mb << 20)
+        server = ThreadingHTTPServer((args.host, args.port), handler)
+    except BaseException:
+        for pr in predictors.values():
+            pr.stop()
+        raise
+    logger.info("Serving %s on %s:%d (kernels=%s, tile=%s, tta=%s, device=%s, max_batch=%d)",
+                ", ".join(f"{n}={p}" for n, p in specs), args.host, server.server_address[1],
+                args.kernels, args.tile, args.tta, args.device, args.max_batch)
+    return server, served
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s: %(message)s")
-    server, predictor = make_server(argv)
+    server, served = make_server(argv)
 
     def _terminate(signum, frame):
         logger.info("SIGTERM received, shutting down")
@@ -500,7 +655,8 @@ def main(argv=None):
         pass
     finally:
         server.server_close()
-        predictor.stop()
+        for pr in _predictors(served):
+            pr.stop()
         logger.info("Server stopped")
 
 
