@@ -212,9 +212,11 @@ Phases, each of which exits non-zero on failure, each with its time:
    --data-parallel --spatial-parallel 2`` for one epoch on phase 6's pairs
    (the 1 x 2 grid's ranks joining their group), writing
    ``checkpoint_epoch1.npz``; (d) each step's peak device memory a rank
-   beside the one-process step's (each in a fresh process), and the conv
-   with the largest transient allocation in each (a cuDNN workspace can
-   outweigh the activations). No time: the ranks share the card.
+   below the one-process step's (each in a fresh process), and no rank's
+   largest conv transient allocation above the largest of the one-process
+   steps of its model (``ops/conv.py``'s cuDNN engine rule keeps the
+   workspaces from outweighing the activations). No time: the ranks share
+   the card.
 
 14. Tensor and pipeline parallelism (``parallel/tensor.py``,
    ``parallel/pipeline.py``) at full width, in at most ``TP_BUDGET_S``, on
@@ -235,7 +237,8 @@ Phases, each of which exits non-zero on failure, each with its time:
    one flipped sign's move (2·10·lr: RMSprop normalises each element, so
    only the gradients show a sharded gradient scaled or summed over the
    wrong ranks), the replicated leaves bitwise on every rank, params +
-   RMSprop MB and peak GiB a rank beside one process's; (b)
+   RMSprop MB a rank beside one process's, and 13d's memory rule, the
+   1 x 1 x 2 flagship fp32 ranks also below ``TP_PEAK_GIB``; (b)
    ``PipelineRunner`` with 2 stages (bilinear) and 4 (ConvT) on cuda:0,
    M = 4, 959x640 b4, fp32 and bf16 (deterministic algorithms), against
    ``make_train_step(accum_steps=4)`` by JAX's ``tests/test_pipeline.py``
@@ -312,6 +315,7 @@ from tpu_unet_torch import native
 from tpu_unet_torch.kernels import _build
 from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 from tpu_unet_torch.ops import full_fp32
+from tpu_unet_torch.ops.conv import cudnn_engine_rule
 from tpu_unet_torch.tools.profile_step import profile_step
 from tpu_unet_torch.utils.determinism import Deterministic
 
@@ -3844,6 +3848,30 @@ def _top(op) -> str:
     return f"{gib:.3f} GiB ({name} on {shapes})"
 
 
+def _rank_memory(case: str, ranks: list, tag: str, refs: dict) -> list[str]:
+    """Phases 13d and 14a's memory rule (``ops/conv.py``'s cuDNN engine rule):
+    each rank's peak below the one-process step's, and no conv transient of
+    a rank above the largest of the one-process steps of its model (either
+    dtype; ``refs`` by ``_sp_tag``). Returns the failures, each naming the
+    rank's largest transient."""
+    one = refs[tag]
+    model = tag.split()[0]
+    top = max((r["top_op"] for t, r in refs.items() if t.split()[0] == model),
+              key=lambda op: op[0])
+    failures = []
+    for rk in ranks:
+        rec = rk["grid"][tag]
+        if not rec["peak_gib"] < one["peak_gib"]:
+            failures.append(f"{case}: rank {rk['rank']}'s peak {rec['peak_gib']:.3f} GiB is not "
+                            f"below one process's {one['peak_gib']:.3f} GiB; its largest conv "
+                            f"transient {_top(rec['top_op'])}")
+        if not rec["top_op"][0] <= top[0]:
+            failures.append(f"{case}: rank {rk['rank']}'s largest conv transient "
+                            f"{_top(rec['top_op'])} is above the one-process {model} steps' "
+                            f"{_top(top)}")
+    return failures
+
+
 def phase_spatial(workdir: Path, train_dir: Path, card: str) -> dict:
     """Phase 13 (module docstring). Returns its numbers."""
     workdir.mkdir(parents=True, exist_ok=True)
@@ -3910,6 +3938,7 @@ def phase_spatial(workdir: Path, train_dir: Path, card: str) -> dict:
                                     f"step: {rec}")
                 if not same:
                     failures.append(f"13 {shape} {tag}: the ranks' params differ")
+                failures += _rank_memory(f"13 {shape} {tag}", ranks, tag, ref)
         cli = grids[f"{SP_GRIDS[0][0] // SP_GRIDS[0][1]}x{SP_GRIDS[0][1]}"][0].get("cli")
         if cli is None:
             failures.append("13c: no train CLI result")
@@ -3943,6 +3972,10 @@ PP_M = 4
 PP_REPS = 3
 PP_HOST_REPS = 2
 TP_BUDGET_S = 120.0
+# 14a's 1 x 1 x 2 flagship fp32 ranks stay below one process's peak before
+# the cuDNN engine rule ("final20": 17.501 GiB; the ranks had 38.818 and
+# 14.419).
+TP_PEAK_GIB = 17.501
 
 
 def _tp_tags(world: int) -> list[str]:
@@ -4395,6 +4428,11 @@ def phase_tensor_pipeline(workdir: Path, train_dir: Path, card: str) -> dict:
                     failures.append(f"14a {shape} {tag}: off the one-process step: {rec}")
                 if not same:
                     failures.append(f"14a {shape} {tag}: the replicated leaves differ")
+                failures += _rank_memory(f"14a {shape} {tag}", ranks, tag, ref)
+                if (shape, tag) == ("1x1x2", "unet fp32") and not max(peaks) < TP_PEAK_GIB:
+                    failures.append(f"14a {shape} {tag}: a rank's peak {max(peaks):.3f} GiB is "
+                                    f"not below {TP_PEAK_GIB} GiB, one process's before the "
+                                    "cuDNN engine rule")
         cli = grids["1x1x2"][0].get("cli")
         if cli is None:
             failures.append("14c: no tensor-parallel train CLI result")
@@ -4858,6 +4896,9 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     full_fp32()
+    # Before the first cuDNN conv of this process: phase 2 times library
+    # convs of its own (ops/conv.py).
+    cudnn_engine_rule()
     t_start = time.perf_counter()
 
     def phase_done(name: str, t0: float) -> None:

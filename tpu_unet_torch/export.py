@@ -125,10 +125,14 @@ def save_exported(ep: torch.export.ExportedProgram, path: str | Path,
 def load_exported(path: str | Path, device="cuda") -> torch.export.ExportedProgram:
     """The program of a ``.pt2`` on ``device``: its lifted constants, its
     state and any device argument in its graph moved there
-    (``torch.export.passes.move_to_device_pass``). Raises if a tensor of the
-    program stays elsewhere."""
+    (``torch.export.passes.move_to_device_pass``), its convs under
+    ``ops.conv.cudnn_engine_rule``. Raises if a tensor of the program stays
+    elsewhere."""
     from torch.export.passes import move_to_device_pass
 
+    from tpu_unet_torch.ops.conv import cudnn_engine_rule
+
+    cudnn_engine_rule()  # the program's convs are the port's library convs
     device = resolve_device(device)
     ep = move_to_device_pass(torch.export.load(str(path)), device)
     stray = sorted(name for name, t in (*ep.constants.items(), *ep.state_dict.items())

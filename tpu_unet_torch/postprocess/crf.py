@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_unet_torch.ops.conv import cudnn_engine_rule
+
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
     x = np.arange(-radius, radius + 1, dtype=np.float64)
@@ -25,6 +27,7 @@ def _gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
 def _blur(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Separable Gaussian blur over H, then W, of [N,H,W,C]: a depthwise
     conv with zero padding of the kernel's radius, channel by channel."""
+    cudnn_engine_rule()
     c = x.shape[-1]
     r = kernel.shape[0] // 2
     k = kernel.to(x.device, x.dtype)

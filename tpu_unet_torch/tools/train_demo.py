@@ -176,7 +176,7 @@ def run(preset: str = "full", data_dir: str | Path | None = None,
         epochs_override: int | None = None, arch: str = "unet",
         optimizer: str | None = None, lr_override: float | None = None,
         kernels: str | None = None, device: str = "cuda",
-        id_seed: int | None = None) -> dict:
+        id_seed: int | None = None, deterministic: bool = True) -> dict:
     """One demo run; returns the JAX package's result dict. ``data_dir``
     keeps the generated data (default: a temporary directory, removed
     after), and a second run of the preset there reuses it. ``kernels`` passes to ``train_model`` ("cuda": the hand-written
@@ -187,15 +187,18 @@ def run(preset: str = "full", data_dir: str | Path | None = None,
     floors' margins were set on that premise. The datasets' ids are sorted
     (``CarvanaDataset`` keeps ``os.listdir``'s order, which differs between
     filesystems, and with it the seeded split), or with ``id_seed`` put in
-    the order of that seed's permutation, another filesystem's stand-in."""
+    the order of that seed's permutation, another filesystem's stand-in.
+    ``deterministic=False`` leaves the algorithms to cuDNN's defaults
+    (``tools/route_gap.py`` measures their spread)."""
     from tpu_unet_torch.predict import resolve_device
 
     device = resolve_device(device)
     where = tempfile.TemporaryDirectory() if data_dir is None else contextlib.nullcontext(data_dir)
-    with where as tmp, Deterministic() as det:
+    algorithms = Deterministic() if deterministic else contextlib.nullcontext()
+    with where as tmp, algorithms as det:
         result = _run(preset, Path(tmp), device, device_data, ema_decay, augment, augment_mode,
                       epochs_override, arch, optimizer, lr_override, kernels, id_seed)
-    if det.reasons:
+    if det is not None and det.reasons:
         logger.warning("ops without a deterministic form ran: %s", det.reasons)
     return result
 
