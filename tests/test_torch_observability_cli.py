@@ -22,6 +22,8 @@ from tpu_unet_torch.tools import profile_step
 from tpu_unet_torch.utils.debug_nans import DebugNans
 
 FLAGS = ["--wandb", "--profile", "PROFILE", "--debug-nans"]
+SPANS = ("train.step", "train.forward", "train.loss", "train.backward", "train.clip",
+         "train.optimizer")
 
 
 @pytest.fixture(scope="module")
@@ -69,11 +71,14 @@ def test_train_cli_observability_flags(cli, tmp_path):
     val_logs = [d for d in logs if "validation Dice" in d]
     assert len(history["train_loss"]) == 4 and len(val_logs) == 2
     assert all(any(k.startswith("Gradients/") for k in v) for v in val_logs)
-    # --profile: one Chrome trace of the run, the CPU ops of its steps in it.
+    # --profile: one Chrome trace of the run, the CPU ops of its steps and
+    # the step's spans (tracing.py) in it.
     traces = list(trace_dir.glob("*.pt.trace.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" and "convolution" in e.get("name", "") for e in events)
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert all(spans.count(n) == len(history["train_loss"]) for n in SPANS), sorted(set(spans))
     # --debug-nans: the mode checked every op of the run, the backward's too.
     assert len(modes) == 1 and any("backward" in k for k in modes[0].checked)
     # None of the three moves the run.

@@ -74,7 +74,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpu_unet_torch import train_ema
+from tpu_unet_torch import tracing, train_ema
 from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta
 from tpu_unet_torch.data import DataLoader, prefetch_to_device, random_split_indices
 from tpu_unet_torch.data.augment import augment_batch
@@ -212,7 +212,14 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     coordinate, the same on each of its model ranks: every sum over the
     batch and the sharded gradients' mean go over the replica group (the
     replicated gradients' over the world: ``_pmean_model``), the clip's
-    norm counts each sharded leaf once, and each rank updates its shards."""
+    norm counts each sharded leaf once, and each rank updates its shards.
+
+    Under a ``torch.profiler`` session the step records spans
+    (``tracing.py``): ``train.step`` around the call, and inside it
+    ``train.forward``, ``train.loss`` and ``train.backward`` (once a
+    microbatch), ``train.grad_sync`` (with ``mesh``), ``train.clip`` and
+    ``train.optimizer`` (ZeRO's shard and gather included); and the counter
+    ``train.host_syncs``, the synchronising CUDA calls made inside the step."""
     model = getattr(mesh, "model_size", 1)
     if model > 1 and kernels == "cuda":
         raise ValueError("--kernels cuda data parallelism is 1-D (shard_map); "
@@ -232,16 +239,23 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     dims = model_specs(config, model)[0] if model > 1 else None
 
     def grads_and_loss(params, bn_state, images, masks):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        logits, new_bn = unet_apply(_unflatten(params, leaves), bn_state, images, config=config,
-                                    train=True, compute_dtype=compute_dtype, remat=remat,
-                                    kernels=kernels, group=group)
-        loss = compute_loss(logits, masks, config.n_classes, dice_weight=dice_weight,
-                            group=group)
-        grads = torch.autograd.grad(loss, leaves)
+        with tracing.span("train.forward"):
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            logits, new_bn = unet_apply(_unflatten(params, leaves), bn_state, images,
+                                        config=config, train=True, compute_dtype=compute_dtype,
+                                        remat=remat, kernels=kernels, group=group)
+        with tracing.span("train.loss"):
+            loss = compute_loss(logits, masks, config.n_classes, dice_weight=dice_weight,
+                                group=group)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), new_bn, list(grads)
 
     def step(params, bn_state, opt_state, images, masks, lr):
+        with tracing.span("train.step"), tracing.host_syncs("train.host_syncs"):
+            return step_body(params, bn_state, opt_state, images, masks, lr)
+
+    def step_body(params, bn_state, opt_state, images, masks, lr):
         n = images.shape[0]
         if group is not None and accum_steps > 1 and n % accum_steps:
             raise ValueError(f"accum_steps {accum_steps} must divide each rank's {n} rows "
@@ -261,17 +275,21 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
         clip = {}
         if model > 1:
             sharded = [d is not None for d in dims_in_order(params, dims)]
-            grads = _pmean_model(grads, sharded, mesh)
+            with tracing.span("train.grad_sync"):
+                grads = _pmean_model(grads, sharded, mesh)
             clip = {"sharded": sharded, "group": mesh.model_group}
         elif group is not None:
-            grads = pmean(grads, group)
-        grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip, **clip)
-        if opt_shardings is None:
-            new_params, new_opt = opt_update(grads, opt_state, params, lr)
-        else:
-            mine, new_opt = opt_update(opt_shardings.shard(grads), opt_state,
-                                       opt_shardings.shard(params), lr)
-            new_params = opt_shardings.gather(mine)
+            with tracing.span("train.grad_sync"):
+                grads = pmean(grads, group)
+        with tracing.span("train.clip"):
+            grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip, **clip)
+        with tracing.span("train.optimizer"):
+            if opt_shardings is None:
+                new_params, new_opt = opt_update(grads, opt_state, params, lr)
+            else:
+                mine, new_opt = opt_update(opt_shardings.shard(grads), opt_state,
+                                           opt_shardings.shard(params), lr)
+                new_params = opt_shardings.gather(mine)
         out = (new_params, new_bn, new_opt, loss, gnorm)
         return out + (grads,) if return_grads else out
 
