@@ -41,6 +41,14 @@ Phases, each of which exits non-zero on failure, each with its time:
    cores; then against its plain version in bf16 and in fp32 (3xTF32), each
    with bf16 and fp32 output; a second call must repeat the first bit for
    bit.
+   2d. The train step's clip and RMSprop update (``csrc/multi_tensor.cu``:
+   ``grad_sumsq``, ``scale_to_norm``, ``rmsprop_step``) on the full-width
+   U-Net's 64 leaves, params fp32 (every train cell's) and bf16, against
+   their plain versions: the squared sums and the norm within
+   ``UPDATE_NORM_RTOL``, the scaling and the update bit for bit, a second
+   call bit for bit the first; each call one launch count; the kernels'
+   device time (``torch.profiler``), one call's and the plain version's
+   time (CUDA events), and the bound (the bytes each moves at 3.35 TB/s).
 3. Build the full-width flagship U-Net (base 64, ConvTranspose decoder, one
    class, 31.0M parameters) from a seed, with a non-trivial BN state, save it
    as a checkpoint and start the port's HTTP server on it in this process
@@ -62,7 +70,9 @@ Phases, each of which exits non-zero on failure, each with its time:
    then time the 572x572 batch-16 step of both, in bf16 and in fp32, with
    their peak memory. Every ``"cuda"`` step must launch each train kernel as
    often as the network has convs for it, every plain step none; every
-   call of the three on the tensor cores, in bf16 and in fp32. Then a
+   call of the three on the tensor cores, in bf16 and in fp32; every step
+   the clip and update kernels once each, but the float64 reference step,
+   which takes their plain versions (``mt.plain_versions()``). Then a
    ``torch.profiler`` split of one 572x572 batch-16 ``kernels="cuda"`` step
    by kernel, in bf16 and in fp32.
 6. Train it through ``tpu_unet_torch.train_cli.main`` on 10 synthetic
@@ -111,8 +121,9 @@ Phases, each of which exits non-zero on failure, each with its time:
    its train-kernel launches.
 9. The four other model families at full width (base 64, one class,
    ConvTranspose decoder, t = 2 with per-step recurrent BN, seed 0; UNet++
-   upsamples and trains with deep supervision), which run no kernel of the
-   repo (none launches in this phase): for each of attention, unetpp, r2u
+   upsamples and trains with deep supervision), which run no conv or pool
+   kernel of the repo (none launches in this phase; the clip and update
+   kernels of phase 2d run in every train step): for each of attention, unetpp, r2u
    and r2attu one ``make_train_step`` step (``kernels=None``) at 959x640
    batch 4 in fp32 and bf16, its loss finite, the second of the timed steps
    (all from the same trees) equal to the first bit for bit or within
@@ -287,6 +298,7 @@ line before them is the per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import hashlib
@@ -313,6 +325,7 @@ from PIL import Image
 from tpu_unet_torch import kernels as K
 from tpu_unet_torch import native
 from tpu_unet_torch.kernels import _build
+from tpu_unet_torch.kernels import multi_tensor as mt
 from tpu_unet_torch.kernels.pooling import max_pool2x2_plain
 from tpu_unet_torch.ops import full_fp32
 from tpu_unet_torch.ops.conv import cudnn_engine_rule
@@ -378,6 +391,17 @@ TC_PER_STEP = {
     "bf16": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
     "fp32": {"conv3x3_fwd.tc": 18, "conv3x3_dx.tc": 17, "conv3x3_dw.tc": 18},
 }
+# The train step's clip and RMSprop update (kernels/multi_tensor.py) launch
+# on CUDA trees whatever the conv route: the squared sums, the scaling and
+# the update, once a step each (none inside mt.plain_versions(), which the
+# float64 reference steps enter).
+UPDATE_PER_STEP = {"grad_sumsq": 1, "scale_to_norm": 1, "rmsprop_step": 1}
+UPDATE_SOURCES = {name: ("tpu_unet_torch/csrc/multi_tensor.cu",
+                         "none: the JAX package leaves the clip and the update to XLA")
+                  for name in UPDATE_PER_STEP}
+# Phase 2d: the squared sums and the norm within this of the plain version's
+# (relative); the scaling and the update bit for bit.
+UPDATE_NORM_RTOL = 1e-6
 # Which implementation runs each kernel in each dtype.
 _TC = "tensor cores, mma.sync + TMA (tpu_unet_torch/csrc/tc_conv.cu)"
 _TF32X3 = ("tensor cores, 3xTF32 mma.sync m16n8k8 (hi/lo split, fp32 accuracy) + TMA "
@@ -398,12 +422,18 @@ IMPL = {
     "conv3x3_fwd": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dx": {"bf16": _TC, "fp32": _TF32X3},
     "conv3x3_dw": {"bf16": _TC, "fp32": _TF32X3},
+    **{name: {dt: "CUDA cores, one launch over a table of (leaf, chunk) blocks, 4-value "
+                  "vectors (tpu_unet_torch/csrc/multi_tensor.cu)" for dt in ("bf16", "fp32")}
+       for name in UPDATE_PER_STEP},
     "im2col_conv3x3": {"bf16": _TC, "fp32": _TF32X3},
 }
 
 
 def expected_launches(name: str, kernels, amp: bool, steps: int = 1) -> int:
-    """Launches of counter ``name`` in ``steps`` train steps."""
+    """Launches of counter ``name`` in ``steps`` RMSprop train steps on the
+    card (outside ``mt.plain_versions()``)."""
+    if name in UPDATE_PER_STEP:
+        return UPDATE_PER_STEP[name] * steps
     if kernels != "cuda":
         return 0
     tc = TC_PER_STEP["bf16" if amp else "fp32"]
@@ -671,6 +701,7 @@ LIBRARY_CALLS = {
     "conv3x3_dx": "torch.nn.grad.conv2d_input on dz, no cotangent built",
     "conv3x3_dw": "torch.nn.grad.conv2d_weight on x and dz, no prologue or cotangent",
     "im2col_conv3x3": "F.conv2d, scale folded, bias passed, no ReLU",
+    **{name: "none: the plain version is PyTorch's per-leaf ops" for name in UPDATE_PER_STEP},
 }
 
 
@@ -1055,6 +1086,108 @@ def phase_im2col() -> tuple[dict[str, int], dict]:
     return {k: runs["bf16"][k] + runs["fp32"][k] for k in one}, results
 
 
+def phase_update_kernels() -> dict[str, dict]:
+    """Phase 2d: the train step's clip and RMSprop update, each wrapper
+    against its plain version on the full-width U-Net's 64 leaves (params
+    from seed 0; gradients, square averages and momentum buffers drawn at
+    a step's scales), with params fp32 (every train cell's, the main case)
+    and bf16. The squared sums and the norm within ``UPDATE_NORM_RTOL`` of
+    the plain ones; the scaling (the norm above max_norm, so that the clip
+    engages) and the update bit for bit; a second call bit for bit the
+    first; each call one launch count. ``ms`` is the device time of the
+    kernels one call launches (``torch.profiler``), ``call_ms`` one call
+    between CUDA events (the wrapper's host work before its launch
+    included), ``plain_ms`` the plain version's call and ``plain_device_ms``
+    the device time of its launches; the bound is the bytes each moves at
+    ``HBM_BYTES_S``: the gradients read (``grad_sumsq``), read and written
+    (``scale_to_norm``), and params, gradients and both state tensors read,
+    params and state written (``rmsprop_step``)."""
+    from tpu_unet_torch.models import UNetConfig, init_unet
+    from tpu_unet_torch.models.unet import tree_leaves
+
+    params32, _ = init_unet(UNetConfig(**TRAIN_CONFIG), np.random.default_rng(0), device="cuda")
+    params32 = tree_leaves(params32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {name: {"max_abs_err": 0.0, "cases": []} for name in UPDATE_PER_STEP}
+    failures = []
+    lr = 1e-4
+
+    def bits(t):
+        return t.reshape(-1).view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def same(a, b):
+        return len(a) == len(b) and all(x.dtype == y.dtype and x.shape == y.shape
+                                        and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+    def device_sum(fn):
+        return sum(device_ms(fn).values())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        params = [p.to(dtype) for p in params32]
+        grads = [_randn(gen, p.shape, 1e-2).to(dtype) for p in params]
+        sq = [_randn(gen, p.shape, 1e-2).square() for p in params]
+        buf = [_randn(gen, p.shape, 1e-1) for p in params]
+        want_sq, want_total = mt.grad_sumsq_plain(grads)
+        max_norm = want_total.item() / 3
+        want_clip = mt.scale_to_norm_plain(grads, want_total, max_norm)
+        calls = {
+            "grad_sumsq": (lambda: mt.grad_sumsq(grads), lambda: mt.grad_sumsq_plain(grads),
+                           nbytes(*grads)),
+            "scale_to_norm": (lambda: mt.scale_to_norm(grads, want_total, max_norm),
+                              lambda: mt.scale_to_norm_plain(grads, want_total, max_norm),
+                              2 * nbytes(*grads)),
+            "rmsprop_step": (lambda: mt.rmsprop_step(params, want_clip, sq, buf, lr),
+                             lambda: mt.rmsprop_step_plain(params, want_clip, sq, buf, lr),
+                             2 * nbytes(*params, *sq, *buf) + nbytes(*want_clip)),
+        }
+        for name, (fn, plain, moved) in calls.items():
+            before = K.launch_counts()[name]
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            launched = K.launch_counts()[name] - before
+            want = plain()
+            if name == "grad_sumsq":
+                err = max(((got[0] - want[0]).abs() / want[0].abs()).max().item(),
+                          ((got[1] - want[1]).abs() / want[1].abs()).item())
+                ok = err <= UPDATE_NORM_RTOL
+                tol = f"{UPDATE_NORM_RTOL:g} relative"
+                repeat = same([*again], [*got])
+            else:
+                got, again, want = ((t,) if name == "scale_to_norm" else t
+                                    for t in (got, again, want))
+                ok = all(same(a, b) for a, b in zip(got, want))
+                err = 0.0 if ok else max((a.float() - b.float()).abs().max().item()
+                                         for g, w in zip(got, want) for a, b in zip(g, w))
+                tol = "bit for bit"
+                repeat = all(same(a, b) for a, b in zip(again, got))
+            ok = ok and repeat and launched == 2
+            del got, again, want
+            ms, call_ms = device_sum(fn), time_ms(fn)
+            plain_ms, plain_device_ms = time_ms(plain), device_sum(plain)
+            bound_ms = moved / HBM_BYTES_S * 1e3
+            case = {"case": "unet.64_leaves", "dtype": dt, "leaves": len(params),
+                    "values": sum(p.numel() for p in params), "impl": IMPL[name][dt],
+                    "max_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                    "plain_device_ms": plain_device_ms, "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved}
+            log(f"kernel {name} unet 64 leaves params {dt} [{case['impl']}]: max err {err:.3e} "
+                f"(tol {tol}, bitwise repeat {repeat}, {launched} launches in 2 calls) "
+                f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"plain_device_ms={plain_device_ms:.4f} bound_ms={bound_ms:.4g} "
+                f"({moved / 1e6:.1f} MB) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} {dt}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            results[name]["cases"].append(case)
+        del params, grads, sq, buf, want_sq, want_total, want_clip, calls
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"chip_smoke: the clip and update kernels disagree with their plain "
+                         f"versions: {failures}")
+    return results
+
+
 def _leaves(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     """{key path: tensor} of a nested dict / NamedTuple tree."""
     if isinstance(tree, dict):
@@ -1095,20 +1228,24 @@ def phase_train() -> tuple[dict[str, int], dict]:
     if n_params != TRAIN_PARAMS:
         failures.append(f"{n_params} parameters, expected {TRAIN_PARAMS}")
 
-    def run(step, kernels, amp, images, masks, trees=(params, state, opt)):
+    def run(step, kernels, amp, images, masks, trees=(params, state, opt), plain_update=False):
         """One step from the seed's trees; (outputs, device ms). Checks the
         step's launches: PER_STEP with kernels="cuda" (TC_PER_STEP of them
-        on the tensor cores in bf16), none without."""
+        on the tensor cores in bf16), none without; UPDATE_PER_STEP on
+        either route, none with ``plain_update`` (the step inside
+        ``mt.plain_versions()``)."""
         before = K.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = step(*trees, images, masks, 1e-4)
+        with mt.plain_versions() if plain_update else contextlib.nullcontext():
+            out = step(*trees, images, masks, 1e-4)
         end.record()
         end.synchronize()
         after = K.launch_counts()
         for name in after:
-            want = expected_launches(name, kernels, amp)
+            plain = plain_update and name in UPDATE_PER_STEP
+            want = 0 if plain else expected_launches(name, kernels, amp)
             if after[name] - before[name] != want:
                 failures.append(f"kernels={kernels}: {name} launched "
                                 f"{after[name] - before[name]} times in a step, expected {want}")
@@ -1126,7 +1263,7 @@ def phase_train() -> tuple[dict[str, int], dict]:
     images, masks = torch.from_numpy(imgs).cuda(), torch.from_numpy(msks).cuda()
     p64 = tree_map(lambda t: t.double(), params)
     ref, _ = run(make_train_step(config, return_grads=True), None, False, images.double(), masks,
-                 trees=(p64, state, rmsprop_init(p64)))
+                 trees=(p64, state, rmsprop_init(p64)), plain_update=True)
     g64 = _leaves(ref[5])
     log(f"train step {shape} float64 kernels=None: loss {ref[3].item():.6f} "
         f"grad norm {ref[4].item():.6f}")
@@ -2490,8 +2627,9 @@ def phase_families(workdir: Path, train_data: Path) -> dict:
     """Phase 9: the families' train steps; Attention U-Net's folded forward
     and ``serve --arch attention`` against ``predict --arch attention``; per-
     step R2U-Net through ``train_cli``, ``predict`` and ``evaluate``; its
-    tiled sweep at 2048² with the arch-aware halo. Runs no kernel of the
-    repo. Returns its numbers."""
+    tiled sweep at 2048² with the arch-aware halo. Runs no conv or pool
+    kernel of the repo (the clip and update kernels run in every train
+    step). Returns its numbers."""
     from tpu_unet_torch import evaluate, predict
     from tpu_unet_torch.checkpoint import load_checkpoint, read_checkpoint_meta, save_checkpoint
     from tpu_unet_torch.data import (
@@ -2607,8 +2745,10 @@ def phase_families(workdir: Path, train_data: Path) -> dict:
     dice = evaluate.main(["-m", str(ckpt), "--data-dir", str(val_dir), "-s", "0.5", "-b", "4",
                           "--amp", "--arch", "r2u", "--device", "cuda"])
     last = history["val_dice"][-1]
-    if any(launches.values()):
-        failures.append(f"train_cli --arch r2u launched kernels of the repo: {launches}")
+    wrong = {k: v for k, v in launches.items()
+             if v != expected_launches(k, None, True, stats["steps"])}
+    if wrong:  # no conv or pool kernel; the clip and update kernels once a step
+        failures.append(f"train_cli --arch r2u launched {wrong} in {stats['steps']} steps")
     log(f"train_cli --arch r2u: launches {json.dumps(launches)}, checkpoint recur_bn "
         f"{stored.get('recur_bn')!r}; predict --arch r2u masks {shapes}; evaluate --arch r2u on "
         f"the {len(val_idx)} validation images: Dice {dice:.6f} vs the run's last validation "
@@ -2653,8 +2793,8 @@ def phase_families(workdir: Path, train_data: Path) -> dict:
     del params, state, full, seen
 
     counts = K.launch_counts()
-    if any(counts.values()):
-        failures.append(f"phase 9 launched kernels of the repo: {counts}")
+    if any(v for k, v in counts.items() if k not in UPDATE_PER_STEP):
+        failures.append(f"phase 9 launched conv or pool kernels of the repo: {counts}")
     if failures:
         raise SystemExit(f"chip_smoke: phase 9 (families) failed: {failures}")
     return numbers
@@ -2985,8 +3125,9 @@ def _dp_rank(rank: int, rdzv: str, workdir: str, ckpt: str, data_dir: str) -> No
         g64 = None
         if rank == 0:  # the float64 full-batch step, the gradients' reference
             p64 = tree_map(lambda t: t.double(), params)
-            ref = make_train_step(config, return_grads=True)(
-                p64, state, rmsprop_init(p64), images.double(), masks, 1e-4)
+            with mt.plain_versions():  # float64, which the update kernels do not compute
+                ref = make_train_step(config, return_grads=True)(
+                    p64, state, rmsprop_init(p64), images.double(), masks, 1e-4)
             g64 = _leaves(ref[5])
             del p64, ref
             torch.cuda.empty_cache()
@@ -3704,8 +3845,9 @@ def _sp_step(step, trees, images, masks, lr=SP_LR) -> tuple[tuple, float, list]:
 
 def _float64_step(config, params, state, images, masks):
     """The one-process step in float64, its clipped gradients returned: the
-    trees and images as float64, and ``Tensor.float`` keeping float64
-    tensors (the logits and the loss cast to fp32 by name)."""
+    trees and images as float64, ``Tensor.float`` keeping float64 tensors
+    (the logits and the loss cast to fp32 by name), and the clip and update
+    in their plain versions (``mt.plain_versions()``)."""
     from unittest import mock
 
     from tpu_unet_torch.models.unet import tree_map
@@ -3714,7 +3856,8 @@ def _float64_step(config, params, state, images, masks):
 
     fp32 = torch.Tensor.float
     with mock.patch.object(torch.Tensor, "float",
-                           lambda t: t if t.dtype == torch.float64 else fp32(t)):
+                           lambda t: t if t.dtype == torch.float64 else fp32(t)), \
+            mt.plain_versions():
         p64, s64 = (tree_map(lambda t: t.double(), tree) for tree in (params, state))
         return make_train_step(config, return_grads=True)(
             p64, s64, rmsprop_init(p64), images.double(), masks, SP_LR)
@@ -4919,7 +5062,8 @@ def main(argv=None) -> int:
         f"{bool(native._load().tu_has_jpeg)}")
     phase_done("1 (build)", t0)
 
-    # Phase 2: kernels vs plain; 2b: train kernels; 2c: the im2col conv.
+    # Phase 2: kernels vs plain; 2b: train kernels; 2c: the im2col conv;
+    # 2d: the clip and update kernels.
     t0 = time.perf_counter()
     results = phase_kernels()
     phase_done("2 (serving kernels)", t0)
@@ -4929,6 +5073,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     im2col_counts, results["im2col_conv3x3"] = phase_im2col()
     phase_done("2c (im2col_conv3x3)", t0)
+    t0 = time.perf_counter()
+    results.update(phase_update_kernels())
+    phase_done("2d (clip and update kernels)", t0)
     workdir = ROOT / ".smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     try:
@@ -5037,8 +5184,11 @@ def main(argv=None) -> int:
         f"{json.dumps(cli_launches)}; im2col entry point {json.dumps(im2col_counts)}")
 
     report = []
-    for name in (*PER_FORWARD, *PER_STEP, "im2col_conv3x3"):
-        if name in PER_FORWARD:
+    for name in (*PER_FORWARD, *PER_STEP, "im2col_conv3x3", *UPDATE_PER_STEP):
+        if name in UPDATE_PER_STEP:
+            (src, replaces), counts = UPDATE_SOURCES[name], cli_launches
+            main_case = next(c for c in results[name]["cases"] if c["dtype"] == "fp32")
+        elif name in PER_FORWARD:
             (src, replaces), counts = SOURCES[name], launches
             main_case = results[name]["cases"][0]
         elif name in PER_STEP:

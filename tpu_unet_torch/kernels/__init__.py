@@ -2,7 +2,9 @@
 ``tpu_unet/kernels``, each with its plain PyTorch version beside it: the
 serving kernels (``fused_conv``, ``fused_double_conv``, ``pooling``), the
 train kernels (``train_conv``) and ``im2col_conv``, an entry point of its
-own that no model path calls (as in the JAX package).
+own that no model path calls (as in the JAX package); and
+``multi_tensor``, the train step's gradient clip and RMSprop update over
+every leaf in one launch, which replaces no TPU kernel.
 
 The sources are ``tpu_unet_torch/csrc/*.cu``; ``_build`` compiles them with
 ``nvcc`` at the first launch. Importing these modules builds nothing.
@@ -14,11 +16,13 @@ from tpu_unet_torch.kernels.fused_conv import (
 )
 from tpu_unet_torch.kernels.fused_double_conv import FUSED_DC_MAX_CHANNELS, fused_double_conv
 from tpu_unet_torch.kernels.im2col_conv import im2col_conv3x3
+from tpu_unet_torch.kernels.multi_tensor import grad_sumsq, rmsprop_step, scale_to_norm
 from tpu_unet_torch.kernels.pooling import max_pool2x2
 from tpu_unet_torch.kernels.train_conv import conv3x3_dw, conv3x3_dx, conv3x3_fwd
 
 # Every kernel wrapper, serving path, train path, then the stand-alone
-# im2col conv; each carries a ``launches`` count.
+# im2col conv, then the train step's clip and update; each carries a
+# ``launches`` count.
 WRAPPERS = (
     fused_conv3x3_scale_relu,
     fused_conv3x3_concat_scale_relu,
@@ -28,6 +32,9 @@ WRAPPERS = (
     conv3x3_dx,
     conv3x3_dw,
     im2col_conv3x3,
+    grad_sumsq,
+    scale_to_norm,
+    rmsprop_step,
 )
 
 
@@ -72,8 +79,11 @@ __all__ = [
     "fused_conv3x3_concat_scale_relu",
     "fused_conv3x3_scale_relu",
     "fused_double_conv",
+    "grad_sumsq",
     "im2col_conv3x3",
     "launch_counts",
     "max_pool2x2",
     "reset_launch_counts",
+    "rmsprop_step",
+    "scale_to_norm",
 ]

@@ -35,8 +35,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of every exported function: c_void_p for each pointer and the
-# stream, so ctypes never truncates them to 32 bits.
+# stream, so ctypes never truncates them to 32 bits; c_float for an fp32
+# constant, which ctypes rounds from the Python float as torch rounds a scalar.
 _SIGNATURES = {
     "tuk_max_pool2x2": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     "tuk_tc_fused_conv3x3": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -67,6 +69,9 @@ _SIGNATURES = {
                               ctypes.c_int),
     "tuk_tc_concat_conv3x3_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P], ctypes.c_int),
+    "tuk_mt_sumsq": ([_P, _P, _I, _I, _P, _P, _P, _P], ctypes.c_int),
+    "tuk_mt_scale": ([_P, _P, _I, _I, _P, _F, _F, _P], ctypes.c_int),
+    "tuk_mt_rmsprop": ([_P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P], ctypes.c_int),
     "tuk_error_string": ([_I], ctypes.c_char_p),
 }
 

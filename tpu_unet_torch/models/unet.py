@@ -187,6 +187,41 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_like(like, tree) -> list:
+    """The tensors of ``tree`` in ``like``'s order (dict keys looked up by
+    ``like``'s, as ``tree_map`` looks them up)."""
+    out: list = []
+    _collect_like(like, tree, out)
+    return out
+
+
+def _collect_like(like, tree, out: list) -> None:
+    # module-level, not a closure: a recursive closure is a reference cycle,
+    # which would hold the tensors it saw until the cyclic GC ran
+    if isinstance(like, dict):
+        for k, v in like.items():
+            _collect_like(v, tree[k], out)
+    elif isinstance(like, tuple):
+        for v, t in zip(like, tree):
+            _collect_like(v, t, out)
+    else:
+        out.append(tree)
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` in ``tree_leaves``'
+    order."""
+    return _rebuild(like, iter(leaves))
+
+
+def _rebuild(like, it):
+    if isinstance(like, dict):
+        return {k: _rebuild(v, it) for k, v in like.items()}
+    if isinstance(like, tuple):
+        return type(like)(*(_rebuild(v, it) for v in like))
+    return next(it)
+
+
 def param_count(params: Params) -> int:
     return sum(param_count(v) if isinstance(v, dict) else v.numel() for v in params.values())
 

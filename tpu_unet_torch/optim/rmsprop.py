@@ -11,6 +11,12 @@ alpha 0.99 and eps 1e-8, in torch's update order:
 
 The learning rate is an argument of the update, not state. The state is
 fp32 whatever the params' dtype.
+
+Both run over the leaves of the tree at once (``kernels/multi_tensor.py``):
+on CUDA trees the clip is three launches (the squared sums, their
+fixed-order total, the scaling) and the update one; CPU trees, and any
+inside ``multi_tensor.plain_versions()``, take their plain versions, the
+per-leaf PyTorch ops.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
-from tpu_unet_torch.models.unet import tree_leaves, tree_map
+from tpu_unet_torch.kernels import multi_tensor
+from tpu_unet_torch.models.unet import tree_leaves, tree_leaves_like, tree_map, tree_unflatten
 
 
 class RMSpropState(NamedTuple):
@@ -40,18 +47,11 @@ def rmsprop_update(grads: Any, state: RMSpropState, params: Any, lr, *, alpha: f
                    momentum: float = 0.999) -> tuple[Any, RMSpropState]:
     """One RMSprop step. Returns (new_params, new_state); nothing is updated
     in place."""
-
-    def leaf(p, g, sq, buf):
-        g = g.float()
-        pf = p.float()
-        if weight_decay != 0:
-            g = g + weight_decay * pf
-        sq = alpha * sq + (1 - alpha) * (g * g)
-        buf = momentum * buf + g / (torch.sqrt(sq) + eps)
-        return (pf - lr * buf).to(p.dtype), sq, buf
-
-    new = tree_map(leaf, params, grads, state.square_avg, state.momentum_buf)
-    return pick(new, 0), RMSpropState(pick(new, 1), pick(new, 2))
+    new = multi_tensor.rmsprop_step(
+        *(tree_leaves_like(params, t) for t in (params, grads, *state)), lr, alpha=alpha,
+        eps=eps, weight_decay=weight_decay, momentum=momentum)
+    p, sq, buf = (tree_unflatten(params, leaves) for leaves in new)
+    return p, RMSpropState(sq, buf)
 
 
 def pick(tree, i):
@@ -71,21 +71,18 @@ def clip_grad_norm(grads: Any, max_norm: float, *, sharded: list[bool] | None = 
     group: the squared sums of the sharded leaves are all-reduced over it
     and the replicated leaves' added once, so every rank holds the norm of
     the full gradient."""
-    leaves = tree_leaves(grads)
-    if group is None:
-        total = torch.sqrt(sum((g.float() * g.float()).sum() for g in leaves))
-    else:
-        sq = [(g.float() * g.float()).sum() for g in leaves]
+    leaves = multi_tensor.contiguous_leaves(tree_leaves(grads))  # copied once, for both
+    sq, total = multi_tensor.grad_sumsq(leaves)
+    if group is not None:
         zero = leaves[0].new_zeros((), dtype=torch.float32)
         mine = sum((q for q, f in zip(sq, sharded) if f), zero).reshape(1)
         dist.all_reduce(mine, group=group)
         total = torch.sqrt(sum((q for q, f in zip(sq, sharded) if not f), zero) + mine[0])
-    return clip_to_norm(grads, total, max_norm), total
+    return tree_unflatten(grads, multi_tensor.scale_to_norm(leaves, total, max_norm)), total
 
 
 def clip_to_norm(grads: Any, total: torch.Tensor, max_norm: float) -> Any:
     """``grads`` scaled by coef = max_norm / (total + 1e-6) where that is
     below 1, ``total`` their global norm (``clip_grad_norm``'s rule, shared
     with the pipeline, which sums the norm over its stages)."""
-    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
-    return tree_map(lambda g: (g.float() * coef).to(g.dtype), grads)
+    return tree_unflatten(grads, multi_tensor.scale_to_norm(tree_leaves(grads), total, max_norm))

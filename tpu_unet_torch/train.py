@@ -88,6 +88,7 @@ from tpu_unet_torch.models.unet import (
     init_unet,
     tree_leaves,
     tree_map,
+    tree_unflatten,
     unet_apply,
 )
 from tpu_unet_torch.optim import clip_grad_norm, get_optimizer, get_scheduler
@@ -152,11 +153,6 @@ def compute_loss(logits: torch.Tensor, masks: torch.Tensor, n_classes: int,
     if group is not None:
         ce = psum(ce, group) / group_size(group)
     return ce if dl is None else ce + dice_weight * dl
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = False,
@@ -241,7 +237,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
     def grads_and_loss(params, bn_state, images, masks):
         with tracing.span("train.forward"):
             leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-            logits, new_bn = unet_apply(_unflatten(params, leaves), bn_state, images,
+            logits, new_bn = unet_apply(tree_unflatten(params, leaves), bn_state, images,
                                         config=config, train=True, compute_dtype=compute_dtype,
                                         remat=remat, kernels=kernels, group=group)
         with tracing.span("train.loss"):
@@ -282,7 +278,7 @@ def make_train_step(config: UNetConfig, *, amp: bool = False, remat: bool = Fals
             with tracing.span("train.grad_sync"):
                 grads = pmean(grads, group)
         with tracing.span("train.clip"):
-            grads, gnorm = clip_grad_norm(_unflatten(params, grads), grad_clip, **clip)
+            grads, gnorm = clip_grad_norm(tree_unflatten(params, grads), grad_clip, **clip)
         with tracing.span("train.optimizer"):
             if opt_shardings is None:
                 new_params, new_opt = opt_update(grads, opt_state, params, lr)

@@ -38,7 +38,7 @@ import torch
 
 import torch.distributed as dist
 
-from tpu_unet_torch.models.unet import tree_leaves, unet_apply
+from tpu_unet_torch.models.unet import tree_leaves, tree_unflatten, unet_apply
 from tpu_unet_torch.parallel.mesh import pmean, world_of
 
 logger = logging.getLogger(__name__)
@@ -136,10 +136,10 @@ class WandbValidationPanel:
         """(weights, gradients) as [(key, subsampled leaf)], the gradients
         of the loss at ``params`` on this batch (library convs, the new BN
         state dropped), and the whole (params, BN state)."""
-        from tpu_unet_torch.train import _unflatten, compute_loss  # train.py imports this module
+        from tpu_unet_torch.train import compute_loss  # train.py imports this module
 
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        logits, _ = unet_apply(_unflatten(params, leaves), bn_state, images, config=self.config,
+        logits, _ = unet_apply(tree_unflatten(params, leaves), bn_state, images, config=self.config,
                                train=True, compute_dtype=self.compute_dtype, remat=self.remat,
                                group=self.group)
         loss = compute_loss(logits, masks, self.config.n_classes, dice_weight=self.dice_weight,
@@ -148,7 +148,7 @@ class WandbValidationPanel:
         if self.group is not None:
             grads = pmean(list(grads), world_of(self.group))
         if self.full is not None:
-            params, bn_state, tree = self.full(params, bn_state, _unflatten(params, grads))
+            params, bn_state, tree = self.full(params, bn_state, tree_unflatten(params, grads))
             grads = tree_leaves(tree)
         keyed = _keyed_leaves(params)
         return ([(k, _subsample_leaf(p)) for k, p in keyed],
