@@ -14,6 +14,11 @@ order, as one ``nn.BatchNorm2d`` called t+1 times. ``{"bn0": .., "bnT": ..}``
 (``recur_bn="per_step"``, the default) gives application i its own running
 statistics (Cooijmans et al., arXiv:1603.09025), with the weights, γ and β
 shared either way.
+
+Under a ``torch.profiler`` session (``tracing.py``) each block records a
+``model.rrcnn`` span (projection, both units and the residual add) and each
+unit adds its t+1 applications to the counter
+``model.recurrent_applications``; off, both are a flag read.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from tpu_unet_torch import tracing
 from tpu_unet_torch.models.unet import (
     ENCODER,
     Params,
@@ -81,6 +87,7 @@ def _rec_unit_apply(params, state, x, *, t: int, train: bool, group=None, axis=N
                                  group=group)
         return torch.relu(h), bn_state
 
+    tracing.count("model.recurrent_applications", t + 1)
     if layer == "column":
         x = copy_to_model(x, axis)
 
@@ -117,13 +124,15 @@ def _rrcnn_apply(params, state, x, *, t: int, train: bool, group=None):
     a block sharded over a model axis runs rec1 as its column layer and rec2
     as its row layer (``_rec_unit_apply``)."""
     axis = model_axis_of(params, group)
-    x = conv2d(x, params["proj"]["w"], stride=1, padding=0, group=group)
-    x = (x.float() + params["proj"]["b"].float()).to(x.dtype)
-    h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train, group=group,
-                            axis=axis, layer=None if axis is None else "column")
-    h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train, group=group,
-                            axis=axis, layer=None if axis is None else "row")
-    return x + h, {"rec1": s1, "rec2": s2}
+    with tracing.span("model.rrcnn"):
+        x = conv2d(x, params["proj"]["w"], stride=1, padding=0, group=group)
+        x = (x.float() + params["proj"]["b"].float()).to(x.dtype)
+        h, s1 = _rec_unit_apply(params["rec1"], state["rec1"], x, t=t, train=train,
+                                group=group, axis=axis,
+                                layer=None if axis is None else "column")
+        h, s2 = _rec_unit_apply(params["rec2"], state["rec2"], h, t=t, train=train,
+                                group=group, axis=axis, layer=None if axis is None else "row")
+        return x + h, {"rec1": s1, "rec2": s2}
 
 
 def init_r2u_unet(config: UNetConfig, rng: np.random.Generator, device="cpu", *,
